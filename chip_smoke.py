@@ -1,0 +1,439 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py            # from the root of a checkout
+
+Phases, each printed on its own line; any failure raises and the exit
+code is non-zero:
+
+1. device  -- the card's name and power limit, as ``nvidia-smi`` prints them;
+2. build   -- both CUDA kernels built from ``src/repro_torch/kernels/csrc``;
+3. kernels -- each kernel against its plain PyTorch version on the card at
+   the serving shapes, in float32 (atol = rtol = 2e-5) and bfloat16
+   (atol = rtol = 2e-2), then timed with CUDA events (median of 60
+   launches) beside the plain version and one PyTorch call as yardstick;
+4. parity  -- full-width smollm-135m in float32: prefill + 4 decode steps
+   through the kernel routes match the plain routes (logits atol 1e-3,
+   identical greedy ids);
+5. serve   -- ``run_token_scenario("llm-chat", arch="smollm-135m", ...)`` in
+   bfloat16, the port's main path, with the kernels' launch counts reset
+   just before and read just after.
+
+Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+line.  Without a CUDA device, or outside a checkout, it prints no result
+and exits non-zero.
+
+    python3 chip_smoke.py --profile  # adds phase 6 before the last lines
+
+6. profile -- one prefill and ten decode steps of bf16 smollm-135m at the
+   serving shape (batch 4, prompt 256) under ``torch.profiler``: host wall
+   per step, device busy time, kernel count and the kernels that take the
+   most device time, also written to ``chiprun_out/profile.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+N_TIMED = 60
+
+PREFILL = dict(H=9, KV=3, D=64)           # smollm-135m attention widths
+DECODE = dict(B=4, S=321, KV=3, G=3, D=64, lengths=(0, 1, 160, 321))
+SERVE = dict(requests=48, prompt_len=256, max_decode=64, seed=0)
+
+
+def say(phase: str, **fields) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
+          flush=True)
+
+
+def median_ms(fn) -> float:
+    """Median device time of one call, from CUDA events around each of
+    ``N_TIMED`` calls, after at least 50 ms of warm-up calls (the card
+    raises its clocks under load)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 0.05:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(N_TIMED)]
+    for start, end in ev:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in ev]))
+
+
+def check_close(name: str, out: torch.Tensor, ref: torch.Tensor,
+                dtype) -> float:
+    """Max |out - ref|; raises unless |out - ref| <= tol + tol * |ref|."""
+    torch.cuda.synchronize()
+    o, r = out.float(), ref.float()
+    if not torch.isfinite(o).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    tol = TOL[dtype]
+    bad = (o - r).abs() > tol + tol * r.abs()
+    err = float((o - r).abs().max())
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} elements off, "
+                             f"max abs err {err} (tol {tol})")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+def prefill_bound(b, s, h, kv, d, window, dtype):
+    """Least time for one causal (sliding-window) prefill call: q, k, v
+    read once and out written once, against the QK^T and PV products over
+    the (query, key) pairs the mask keeps."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    nbytes = elt * (2 * b * s * h * d + 2 * b * s * kv * d)
+    pairs = sum(min(p + 1, window) for p in range(s))
+    flops = 4.0 * b * h * d * pairs
+    return nbytes, flops
+
+
+def decode_bound(b, s, kv, g, d, lengths, dtype):
+    """Least time for one decode call on this data: a length L > 0 needs
+    L cache rows of K and V; a length of 0 gives the mean of all S rows
+    of V (no K)."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    row = kv * d * elt
+    nbytes = 2 * b * kv * g * d * elt + 4 * b
+    flops = 0.0
+    for n in lengths:
+        nbytes += 2 * n * row if n > 0 else s * row
+        flops += 4.0 * kv * g * d * n if n > 0 else 1.0 * kv * g * d * s
+    return nbytes, flops
+
+
+def bound_ms(nbytes, flops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def kernel_phase(dev):
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.swa_prefill import ops as pre
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    h, kv, d = PREFILL["H"], PREFILL["KV"], PREFILL["D"]
+    rows = {}
+
+    # -- swa_prefill: B in {1, 4}, S = 256 full causal; S = 200, window 64
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, window in ((1, 256, 256), (4, 256, 256), (4, 200, 64)):
+            q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+            k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+            v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+            out = pre.swa_prefill_attention(q, k, v, window=window)
+            ref = pre.swa_prefill_plain(q, k, v, window=window)
+            err = check_close(f"swa_prefill B={b} S={s} W={window} {dtype}",
+                              out, ref, dtype)
+            worst = max(worst, err)
+            say("kernels", kernel="swa_prefill", dtype=str(dtype)[6:], B=b,
+                S=s, window=window, max_abs_err=err)
+    # timed at the serving shape: bf16, B = 4, S = 256, full causal
+    b, s, dtype = 4, 256, torch.bfloat16
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    ms = median_ms(lambda: pre.swa_prefill_attention(q, k, v, window=s))
+    plain_ms = median_ms(lambda: pre.swa_prefill_plain(q, k, v, window=s))
+    lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    bms, by = bound_ms(*prefill_bound(b, s, h, kv, d, s, dtype), dtype)
+    rows["swa_prefill"] = {
+        "name": "swa_prefill", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/swa_prefill.cu",
+        "replaces": "src/repro/kernels/swa_prefill/swa_prefill.py:75",
+        "launches": None, "max_abs_err": worst, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+        "library_ms": lib_ms,
+        "timed": f"bf16 B={b} S={s} H={h} KV={kv} D={d} full causal"}
+
+    # -- decode_attention: B = 4, S = 321, lengths {0, 1, 160, 321}
+    b, s, g = DECODE["B"], DECODE["S"], DECODE["G"]
+    lengths = torch.tensor(DECODE["lengths"], dtype=torch.int32, device=dev)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(b, kv, g, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+        out = dec.decode_attention(q, k, v, lengths)
+        ref = dec.decode_attention_plain(q, k, v, lengths)
+        err = check_close(f"decode_attention {dtype}", out, ref, dtype)
+        worst = max(worst, err)
+        say("kernels", kernel="decode_attention", dtype=str(dtype)[6:], B=b,
+            S=s, lengths=list(DECODE["lengths"]), max_abs_err=err)
+    # timed on the bf16 inputs just checked; the yardstick is one SDPA
+    # call with the same finite -1e30 additive mask
+    qh = q.reshape(b, kv * g, 1, d)
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    valid = torch.arange(s, device=dev)[None, :] < lengths[:, None].long()
+    mask = torch.zeros(b, 1, 1, s, device=dev, dtype=dtype).masked_fill(
+        ~valid[:, None, None, :], -1e30)
+    ms = median_ms(lambda: dec.decode_attention(q, k, v, lengths))
+    plain_ms = median_ms(lambda: dec.decode_attention_plain(q, k, v, lengths))
+    lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+        qh, kt, vt, attn_mask=mask, enable_gqa=True))
+    bms, by = bound_ms(*decode_bound(b, s, kv, g, d, DECODE["lengths"],
+                                     dtype), dtype)
+    rows["decode_attention"] = {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/decode_attention.py:68",
+        "launches": None, "max_abs_err": worst, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+        "library_ms": lib_ms,
+        "timed": f"bf16 B={b} S={s} KV={kv} G={g} D={d} "
+                 f"lengths={list(DECODE['lengths'])}"}
+    for r in rows.values():
+        say("kernels", kernel=r["name"], ms=r["ms"], plain_ms=r["plain_ms"],
+            library_ms=r["library_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"])
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# model parity and serving
+# ---------------------------------------------------------------------------
+
+def parity_phase(dev) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("smollm-135m"), dtype="float32",
+                              param_dtype="float32")
+    kcfg = dataclasses.replace(cfg, use_pallas_prefill=True,
+                               use_pallas_decode=True)
+    plain, kern = build_model(cfg, device=dev), build_model(kcfg, device=dev)
+    params = kern.init(kern.generator(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, s, steps = 2, 256, 4
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev, dtype=torch.int32)
+    vocab = cfg.vocab_size
+    with torch.inference_mode():
+        lk, ck = kern.prefill(params, {"tokens": tokens}, cache_len=s + steps + 1)
+        lp, cp = plain.prefill(params, {"tokens": tokens}, cache_len=s + steps + 1)
+        worst = 0.0
+        for step in range(steps + 1):
+            err = float((lk - lp).abs().max())
+            ids_k = lk[:, :vocab].argmax(-1)
+            ids_p = lp[:, :vocab].argmax(-1)
+            if not (torch.isfinite(lk).all() and err <= 1e-3
+                    and torch.equal(ids_k, ids_p)):
+                raise AssertionError(f"parity step {step}: max |logit diff| "
+                                     f"{err}, ids {ids_k.tolist()} vs "
+                                     f"{ids_p.tolist()}")
+            worst = max(worst, err)
+            if step == steps:
+                break
+            tok = ids_k.to(torch.int32)[:, None]
+            lk, ck = kern.decode_step(params, ck, tok)
+            lp, cp = plain.decode_step(params, cp, tok)
+    say("parity", arch=cfg.name, dtype="float32", batch=b, prompt=s,
+        decode_steps=steps, max_abs_logit_diff=worst, greedy_ids="identical")
+
+
+def serve_phase(dev):
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.swa_prefill import ops as pre
+    from repro_torch.configs import get_config
+    from repro_torch.serving.token_backend import run_token_scenario
+
+    vocab = get_config("smollm-135m").vocab_size
+    pre.launches = 0
+    dec.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    report, stats = run_token_scenario("llm-chat", arch="smollm-135m",
+                                       device=dev, **SERVE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"swa_prefill": pre.launches,
+                "decode_attention": dec.launches}
+    gen = stats["generated"]
+    ids = np.concatenate([np.asarray(v) for v in gen.values()])
+    checks = {
+        "n_requests > 0": report.n_requests > 0,
+        "tokens_executed == tokens_served > 0":
+            stats["tokens_executed"] == report.tokens_served > 0,
+        "ttft_p99 finite": math.isfinite(report.ttft_p99),
+        "every request generated": len(gen) == report.n_requests,
+        "ids in vocab": bool(((ids >= 0) & (ids < vocab)).all()),
+        "swa_prefill launched": launches["swa_prefill"] > 0,
+        "decode_attention launched": launches["decode_attention"] > 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"serve checks failed: {failed}")
+    say("serve", arch=stats["arch"], dtype="bfloat16", **SERVE,
+        n_requests=report.n_requests, tokens_served=report.tokens_served,
+        tokens_per_s=report.tokens_per_s, ttft_p50=report.ttft_p50,
+        ttft_p99=report.ttft_p99, tbt_violation_rate=report.tbt_violation_rate,
+        violation_rate=report.violation_rate, p99=report.p99,
+        dispatches=len(report.buckets), run_wall_s=stats["run_wall_s"],
+        total_wall_s=wall, cost_r2_prefill=stats["cost_r2"][0],
+        cost_r2_decode=stats["cost_r2"][1],
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    say("serve", launches=json.dumps(launches))
+    return launches
+
+
+def profile_phase(dev) -> None:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("smollm-135m"),
+                              use_pallas_prefill=True, use_pallas_decode=True)
+    model = build_model(cfg, device=dev)
+    params = model.init(model.generator(0))
+    b, s, steps = 4, SERVE["prompt_len"], 10
+    cache_len = s + SERVE["max_decode"] + 1
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev, dtype=torch.int32)
+
+    def prefill():
+        logits, cache = model.prefill(params, {"tokens": tokens},
+                                      cache_len=cache_len)
+        return logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32), cache
+
+    def decode(tok, cache):
+        logits, cache = model.decode_step(params, cache, tok[:, None])
+        # the serving backend reads every step's ids on the host
+        return logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32).cpu(), cache
+
+    def run():
+        """Host seconds of the decode steps after one prefill."""
+        tok, cache = prefill()
+        tok = tok.cpu()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok, cache = decode(tok.to(dev), cache)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    with torch.inference_mode():
+        run()                                   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        prefill_wall = time.perf_counter() - t0
+        decode_wall = run()
+        unprofiled = prefill_wall + decode_wall
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            window = time.perf_counter() - t0
+
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0)
+        if e.device_type == DeviceType.CUDA and t > 0:
+            rows.append((t, e.count, e.key))
+    rows.sort(reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    n_kernels = sum(r[1] for r in rows)
+    out = {"window": f"1 prefill + {steps} decode steps, bf16 smollm-135m, "
+                     f"batch {b}, prompt {s}, cache {cache_len}",
+           "prefill_wall_ms": prefill_wall * 1e3,
+           "decode_step_wall_ms": decode_wall / steps * 1e3,
+           "device_busy_ms": busy_us / 1e3,
+           # the profiler slows the host, so the idle share is taken
+           # against the same work's wall time without it
+           "device_idle_share": (1.0 - busy_us / 1e6 / unprofiled
+                                 if busy_us else None),
+           "profiled_window_wall_ms": window * 1e3,
+           "kernel_launches": n_kernels,
+           "top_kernels": [{"kernel": k[:120], "device_ms": t / 1e3,
+                            "count": n} for t, n, k in rows[:12]]}
+    say("profile", **{k: v for k, v in out.items() if k != "top_kernels"})
+    for r in out["top_kernels"]:
+        say("profile", **r)
+    dest = ROOT / "chiprun_out"
+    dest.mkdir(exist_ok=True)
+    (dest / "profile.json").write_text(json.dumps(out, indent=1))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile the serving shape (phase 6)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); this script runs on an NVIDIA card", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: {ROOT} is not a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    say("device", torch=torch.__version__, cuda=torch.version.cuda,
+        name=json.dumps(torch.cuda.get_device_name(0)))
+
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    libs = build.build()
+    say("build", seconds=time.perf_counter() - t0,
+        libraries=json.dumps({k: str(v.relative_to(ROOT)) for k, v in libs.items()}))
+
+    rows = kernel_phase(dev)
+    parity_phase(dev)
+    launches = serve_phase(dev)
+    for name, n in launches.items():
+        rows[name]["launches"] = n
+    if args.profile:
+        profile_phase(dev)
+    print(json.dumps({"kernels": list(rows.values())}), flush=True)
+    say("done", seconds=time.perf_counter() - t_start)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,183 @@
+"""Model configuration dataclass.
+
+Copy of ``repro.configs.base.ModelConfig`` with the same field names and
+defaults, so a config maps one to one between the packages, cut to the
+fields' declaration, ``padded_vocab`` and ``reduced()``.  The port's
+models run only what they implement (``models.api.build_model`` refuses
+the rest).
+
+``use_pallas_prefill`` / ``use_pallas_decode`` keep the reference's
+names; here they route prefill attention through the Hopper
+``swa_prefill`` kernel and decode attention through the Hopper
+``decode_attention`` kernel (``repro_torch.kernels``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Tuple
+
+# Block kinds: each layer is "<mixer>+<ffn>".
+#   mixers: attn | swa | mla | mamba2 | rwkv6
+#   ffns:   mlp  | moe | rwkv_cm | none
+MIXERS = ("attn", "swa", "mla", "mamba2", "rwkv6")
+FFNS = ("mlp", "moe", "rwkv_cm", "none")
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    arch_type: str  # dense | moe | ssm | hybrid | audio | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+
+    # --- layer stack ------------------------------------------------------
+    # per-layer block kind; if empty, derived as ("attn+mlp",) * num_layers
+    blocks: Tuple[str, ...] = ()
+
+    # --- attention --------------------------------------------------------
+    window_size: int = 0               # >0 => sliding-window attention for "swa"
+    rope_theta: float = 10000.0
+    rope_kind: str = "standard"        # standard | mrope | none | learned
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
+    qk_norm: bool = False
+    logit_softcap: float = 0.0
+
+    # --- MLA (DeepSeek-style multi-head latent attention) ------------------
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+
+    # --- MLP ----------------------------------------------------------------
+    mlp_kind: str = "swiglu"           # swiglu | geglu | gelu
+    # --- MoE ----------------------------------------------------------------
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0                  # expert inner dim (d_ff used for dense layers)
+    first_k_dense: int = 0             # leading dense layers (DeepSeek)
+    moe_capacity_factor: float = 1.25
+    moe_router_kind: str = "softmax"   # softmax | sigmoid (DeepSeek-V3)
+    moe_aux_loss_coef: float = 0.001
+    mtp_depth: int = 0                 # multi-token-prediction extra depth (DeepSeek)
+
+    # --- SSM (Mamba2) -------------------------------------------------------
+    ssm_state_dim: int = 0
+    ssm_head_dim: int = 64
+    ssm_conv_width: int = 4
+    ssm_expand: int = 2
+    shared_attn_every: int = 0         # zamba2: shared attn block every k layers
+    shared_attn_window: int = 0        # window for the shared attn block when serving
+
+    # --- enc-dec (whisper) ---------------------------------------------------
+    is_encoder_decoder: bool = False
+    encoder_layers: int = 0
+    encoder_seq_len: int = 0           # frames after the (stubbed) conv frontend
+
+    # --- vlm -----------------------------------------------------------------
+    num_patch_tokens: int = 0          # prefix patch embeddings from stub encoder
+
+    # --- performance knobs ----------------------------------------------------
+    attn_batch_parallel: bool = False  # reference only: sharded attention
+    moe_partial_ep: bool = False       # reference only: expert-parallel serving
+    use_pallas_decode: bool = False    # decode attention via the Hopper
+                                       # decode_attention kernel
+    use_pallas_prefill: bool = False   # prefill attention via the Hopper
+                                       # swa_prefill kernel (full causal ==
+                                       # window >= S; serving path only)
+    rwkv_chunked: bool = False         # reference only: chunked WKV6
+    # --- numerics ------------------------------------------------------------
+    scale_embed: bool = False          # gemma: multiply embeddings by sqrt(d)
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = True
+    dtype: str = "bfloat16"            # activation/compute dtype
+    param_dtype: str = "bfloat16"
+    remat: bool = True                 # reference only (training)
+    scan_layers: bool = True           # reference only (the port loops)
+
+    # citation for the config (paper/model card)
+    source: str = ""
+
+    # ------------------------------------------------------------------
+    def __post_init__(self):
+        if not self.blocks:
+            object.__setattr__(self, "blocks", self.default_blocks())
+        assert len(self.blocks) == self.num_layers, (
+            f"{self.name}: blocks length {len(self.blocks)} != L={self.num_layers}")
+        for b in self.blocks:
+            mixer, ffn = b.split("+")
+            assert mixer in MIXERS and ffn in FFNS, f"bad block kind {b}"
+
+    def default_blocks(self) -> Tuple[str, ...]:
+        return ("attn+mlp",) * self.num_layers
+
+    # --- derived ------------------------------------------------------------
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 128 (the reference's sharding
+        granule; kept so the embedding tables have the same shape)."""
+        return int(math.ceil(self.vocab_size / 128) * 128)
+
+    @property
+    def uses_moe(self) -> bool:
+        return any(b.endswith("+moe") for b in self.blocks)
+
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test variant: <=2 layers, d_model<=256, <=4 experts."""
+        d = min(self.d_model, 256)
+        heads = max(2, min(self.num_heads, 4))
+        head_dim = max(16, min(self.head_dim, 64))
+        kv = max(1, min(self.num_kv_heads, heads))
+        while heads % kv:
+            kv -= 1
+        nl = min(self.num_layers, 2)
+        blocks = self.blocks[:1] + self.blocks[-1:] if nl == 2 else self.blocks[:nl]
+        changes = dict(
+            name=self.name + "-reduced",
+            num_layers=nl,
+            blocks=blocks,
+            d_model=d,
+            num_heads=heads,
+            num_kv_heads=kv,
+            head_dim=head_dim,
+            d_ff=min(self.d_ff, 512),
+            vocab_size=min(self.vocab_size, 1024),
+            encoder_layers=min(self.encoder_layers, 2),
+            encoder_seq_len=min(self.encoder_seq_len, 32) if self.encoder_seq_len else 0,
+            num_patch_tokens=min(self.num_patch_tokens, 8) if self.num_patch_tokens else 0,
+            window_size=min(self.window_size, 16) if self.window_size else 0,
+            shared_attn_every=1 if self.shared_attn_every else 0,
+            shared_attn_window=min(self.shared_attn_window, 16) if self.shared_attn_window else 0,
+            ssm_state_dim=min(self.ssm_state_dim, 16) if self.ssm_state_dim else 0,
+            ssm_head_dim=32 if self.ssm_state_dim else self.ssm_head_dim,
+            dtype="float32",
+            param_dtype="float32",
+            remat=False,
+            scan_layers=True,
+        )
+        if self.uses_moe:
+            changes.update(
+                num_experts=min(self.num_experts, 4),
+                num_experts_per_tok=min(self.num_experts_per_tok, 2),
+                moe_d_ff=min(self.moe_d_ff, 128),
+                first_k_dense=min(self.first_k_dense, 1),
+                mtp_depth=min(self.mtp_depth, 1),
+                moe_capacity_factor=float(min(self.num_experts, 4)),
+            )
+        if self.rope_kind == "mrope":
+            half = head_dim // 2
+            a = half // 4
+            b = (half - a) // 2
+            changes["mrope_sections"] = (a, b, half - a - b)
+        if self.q_lora_rank:
+            changes.update(q_lora_rank=64, kv_lora_rank=32, qk_nope_dim=32,
+                           qk_rope_dim=16, v_head_dim=32)
+        return dataclasses.replace(self, **changes)

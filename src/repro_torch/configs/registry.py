@@ -1,0 +1,32 @@
+"""Architecture registry: ``--arch <id>`` resolution for the ported models.
+
+Copy of ``repro.configs.registry.get_config`` (with ``-reduced``
+resolution) over the architectures the port runs so far; the other ids
+of the reference stay to be ported (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+# arch id -> module name
+_MODULES = {
+    "smollm-135m": "smollm_135m",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch_id: str, reduced: bool = False) -> ModelConfig:
+    if arch_id.endswith("-reduced"):
+        arch_id, reduced = arch_id[: -len("-reduced")], True
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    cfg: ModelConfig = mod.CONFIG
+    return cfg.reduced() if reduced else cfg
+
+
+def list_archs() -> list[str]:
+    return list(ARCH_IDS)

@@ -1,0 +1,126 @@
+"""Token-level cost model behind the token solver.
+
+Copy of ``repro.core.cost_model`` cut to ``TokenCostModel`` (evaluation, fit, and the synthetic ``smollm_like``
+calibration the token scenarios carry).  The float expressions are the
+reference's term for term: the solver's decisions depend on them.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterable
+
+import numpy as np
+
+
+@dataclass(frozen=True)
+class TokenCostModel:
+    """Affine token-level cost surface with Amdahl scaling in ``c``.
+
+        prefill:  l_p(T, c) = γ_p·T/c + δ_p·T + ε/c + η
+        decode:   l_d(S, c) = γ_d·S/c + δ_d·S + ε/c + η
+        step:     l(c, (T, S)) = (γ_p·T + γ_d·S + ε)/c + δ_p·T + δ_d·S + η
+
+    T = prefill tokens, S = concurrent decode slots.  γ are the
+    parallelizable per-token/per-slot costs, δ the serial ones (the
+    GrandSLAm-style linear relation per token instead of per request),
+    ε/η the per-step dispatch overheads.  ``mean_prompt`` /
+    ``mean_decode`` describe the workload's average request shape and
+    back the fixed-work quack surface (``latency``/``throughput``/
+    ``batch_latency``): the full-service latency of b mean-shaped
+    requests — prefill of ``b·mean_prompt`` tokens plus ``mean_decode``
+    decode steps at concurrency b.
+    """
+    gamma_p: float          # parallel cost per prefill token (s·cores)
+    delta_p: float          # serial cost per prefill token (s)
+    gamma_d: float          # parallel cost per decode slot-step (s·cores)
+    delta_d: float          # serial cost per decode slot-step (s)
+    eps: float              # parallel per-step overhead (s·cores)
+    eta: float              # serial per-step overhead (s)
+    mean_prompt: float = 64.0
+    mean_decode: float = 16.0
+    r2_prefill: float = float("nan")
+    r2_decode: float = float("nan")
+
+    # -- token-level surface ----------------------------------------------
+    def prefill_latency(self, c, tokens):
+        """Latency of prefilling ``tokens`` prompt tokens at allocation c."""
+        t = np.asarray(tokens, np.float64)
+        c = np.asarray(c, np.float64)
+        return (self.gamma_p * t + self.eps) / c + self.delta_p * t + self.eta
+
+    def decode_latency(self, c, slots):
+        """Latency of one decode step over ``slots`` running sequences."""
+        s = np.asarray(slots, np.float64)
+        c = np.asarray(c, np.float64)
+        return (self.gamma_d * s + self.eps) / c + self.delta_d * s + self.eta
+
+    # -- fixed-work quack surface (lets baselines plan on token work) -----
+    def batch_latency(self, b, c):
+        """Full-service latency of b mean-shaped requests: one prefill
+        burst of ``b·mean_prompt`` tokens + ``mean_decode`` decode steps
+        at concurrency b."""
+        b = np.asarray(b, np.float64)
+        return (self.prefill_latency(c, b * self.mean_prompt)
+                + self.mean_decode * self.decode_latency(c, b))
+
+    def latency(self, b, c):
+        """PerfModel-compatible alias of :meth:`batch_latency`."""
+        return self.batch_latency(b, c)
+
+    def throughput(self, b, c):
+        """Requests/second at full concurrency b (full-service view)."""
+        return (np.asarray(b, np.float64)
+                / np.maximum(self.batch_latency(b, c), 1e-12))
+
+    # ------------------------------------------------------------------ fit
+    @staticmethod
+    def _fit_axis(samples: np.ndarray):
+        """Least-squares fit of (x/c, x, 1/c, 1) -> latency.
+        samples: rows of (x, c, latency)."""
+        x, c, y = samples.T
+        X = np.stack([x / c, x, 1.0 / c, np.ones_like(x)], axis=-1)
+        coef, *_ = np.linalg.lstsq(X, y, rcond=None)
+        pred = X @ coef
+        ss_res = float(np.sum((y - pred) ** 2))
+        ss_tot = float(np.sum((y - y.mean()) ** 2))
+        return coef, 1.0 - ss_res / max(ss_tot, 1e-12)
+
+    @classmethod
+    def fit(cls, prefill_samples: Iterable[tuple[float, float, float]],
+            decode_samples: Iterable[tuple[float, float, float]],
+            mean_prompt: float = 64.0,
+            mean_decode: float = 16.0) -> "TokenCostModel":
+        """Fit from profiled samples.
+
+        ``prefill_samples``: rows of (prompt_tokens, c, latency_s);
+        ``decode_samples``: rows of (decode_slots, c, latency_s) — e.g.
+        from timing the (c, b) prefill/decode step functions
+        (``repro_torch.serving.token_backend.calibrate_token_fns``).  The two
+        fits share no parameters; ε/η are averaged across the axes so the
+        shared per-step overhead stays one number.
+        """
+        ps = np.asarray(list(prefill_samples), np.float64)
+        ds = np.asarray(list(decode_samples), np.float64)
+        assert ps.ndim == 2 and ps.shape[1] == 3 and len(ps) >= 4, \
+            "need >=4 (tokens, c, latency) prefill samples"
+        assert ds.ndim == 2 and ds.shape[1] == 3 and len(ds) >= 4, \
+            "need >=4 (slots, c, latency) decode samples"
+        (gp, dp, ep, hp), r2p = cls._fit_axis(ps)
+        (gd, dd, ed, hd), r2d = cls._fit_axis(ds)
+        return cls(gamma_p=float(max(gp, 0.0)), delta_p=float(max(dp, 0.0)),
+                   gamma_d=float(max(gd, 0.0)), delta_d=float(max(dd, 0.0)),
+                   eps=float(max((ep + ed) / 2.0, 0.0)),
+                   eta=float(max((hp + hd) / 2.0, 0.0)),
+                   mean_prompt=mean_prompt, mean_decode=mean_decode,
+                   r2_prefill=r2p, r2_decode=r2d)
+
+    @classmethod
+    def smollm_like(cls, mean_prompt: float = 64.0,
+                    mean_decode: float = 24.0) -> "TokenCostModel":
+        """The reference's synthetic SmolLM-135M-class coefficients (not a
+        measurement of this package): the cost model the token scenarios
+        carry in their meta."""
+        return cls(gamma_p=2.0e-4, delta_p=2.0e-6,
+                   gamma_d=2.5e-3, delta_d=5.0e-5,
+                   eps=1.0e-2, eta=2.0e-3,
+                   mean_prompt=mean_prompt, mean_decode=mean_decode)

@@ -1,0 +1,83 @@
+"""Build the hand-written CUDA kernels and load them with ``ctypes``.
+
+Each source under ``kernels/csrc`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into its own shared library with a plain C interface; all
+``nvcc`` processes start together.  The libraries go to
+``build/repro_torch_kernels/`` at the root of the checkout (listed in
+``.gitignore``), named by a hash of the sources and flags, so a changed
+source is rebuilt and an unchanged one is loaded as it is.  Nothing is
+built or loaded at import: the first launch (or ``build()``) does it.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+SOURCES = ("swa_prefill", "decode_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit on a machine with an NVIDIA card")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Compile every named kernel source that is not built yet, with one
+    ``nvcc`` process per source, all running at once.  Returns the
+    library path of each name; raises with the compiler's output when a
+    build fails."""
+    targets = {n: _target(n) for n in names}
+    todo = {n: t for n, t in targets.items() if not t.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        for n, t in todo.items():
+            tmp = t.with_name(f"{t.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT,
+                                              text=True))
+        failed = []
+        for n, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{n}:\n{log}")
+                continue
+            os.replace(tmp, todo[n])
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return targets
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel source (built on first use)."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([name])[name]))
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,3 @@
+from repro_torch.models.api import Model, build_model, params_from_jax
+
+__all__ = ["Model", "build_model", "params_from_jax"]

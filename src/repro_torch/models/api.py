@@ -1,0 +1,198 @@
+"""Public model API: ``build_model(cfg) -> Model`` with init/prefill/decode.
+
+Counterpart of the dense part of ``repro.models.api``.  Parameters are
+plain dicts of tensors: ``{"embed", "final_norm", "layers": [per-layer
+dict, ...]}`` — the reference's stacked ``params["groups"][0]`` with its
+leading layer axis unstacked into a list (a Python loop over layers
+takes the place of ``lax.scan``).  The decode cache is ``{"k", "v",
+"index"}`` with K/V of shape (L, B, cache_len, KV, D), the reference's
+``cache["groups"][0]["kv"]``; prefill and decode update it in place.
+
+Every entry point runs on ``cuda`` unless the caller names another
+device; with no CUDA device and no explicit ``device="cpu"`` it raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import transformer as tfm
+from repro_torch.models.common import (dense_init, embed_init, linear,
+                                       rms_norm, to_dtype)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller
+    names another.  Never falls back to the CPU quietly."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: this package runs on an NVIDIA GPU "
+            "(torch.cuda.is_available() is False); pass device='cpu' to "
+            "run its plain PyTorch path on the CPU")
+    return dev
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    unsupported = sorted(set(cfg.blocks) - {"attn+mlp"})
+    if (unsupported or cfg.rope_kind != "standard" or cfg.logit_softcap
+            or cfg.is_encoder_decoder or cfg.num_patch_tokens
+            or cfg.shared_attn_every or cfg.mtp_depth
+            or cfg.mlp_kind != "swiglu"):
+        raise NotImplementedError(
+            f"{cfg.name}: only dense attn+mlp decoders with standard RoPE "
+            "and SwiGLU are ported yet")
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def init_params(gen: torch.Generator, cfg: ModelConfig):
+    """Random parameters drawn from ``gen`` on its device."""
+    dtype = to_dtype(cfg.param_dtype)
+    dev = gen.device
+    p = {"embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dtype),
+         "final_norm": torch.zeros(cfg.d_model, dtype=dtype, device=dev)}
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab), dtype)
+    p["layers"] = [tfm.init_block(gen, cfg, dtype, dev)
+                   for _ in range(cfg.num_layers)]
+    return p
+
+
+def params_from_jax(tree, cfg: ModelConfig, device=None):
+    """The reference's ``Model.init`` pytree, already converted to numpy
+    arrays by the caller, as this package's parameters on ``device``.
+    The leading layer axis of ``tree["groups"][0]`` is unstacked into
+    ``params["layers"]``; every weight keeps its (in, out) layout."""
+    dev = resolve_device(device)
+    dtype = to_dtype(cfg.param_dtype)
+
+    def conv(a):
+        # bf16 numpy arrays (ml_dtypes) widen to f32 exactly first; the
+        # copy also makes arrays that came from JAX (read-only) writable
+        a = np.asarray(a)
+        if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        return torch.from_numpy(np.array(a, copy=True)).to(dev, dtype)
+
+    groups = tree["groups"]
+    if len(groups) != 1:
+        raise NotImplementedError("only single-group (homogeneous) stacks "
+                                  "are ported yet")
+    stacked = groups[0]
+
+    def layer(tr, i):
+        return {k: layer(v, i) if isinstance(v, dict) else conv(v[i])
+                for k, v in tr.items()}
+
+    p = {"embed": conv(tree["embed"]), "final_norm": conv(tree["final_norm"]),
+         "layers": [layer(stacked, i) for i in range(cfg.num_layers)]}
+    if not cfg.tie_embeddings:
+        p["head"] = conv(tree["head"])
+    return p
+
+
+# ---------------------------------------------------------------------------
+# embedding / head / cache
+# ---------------------------------------------------------------------------
+
+def _embed(params, cfg: ModelConfig, tokens):
+    x = params["embed"][tokens]
+    if cfg.scale_embed:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def _head(params, cfg: ModelConfig, x):
+    if cfg.tie_embeddings:
+        return linear(x, params["embed"].T)
+    return linear(x, params["head"])
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
+    cache = attn_mod.init_attention_cache(cfg, batch, cache_len,
+                                          to_dtype(cfg.dtype), device,
+                                          layers=cfg.num_layers)
+    cache["index"] = 0
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# steps
+# ---------------------------------------------------------------------------
+
+def prefill(params, batch: dict, cfg: ModelConfig,
+            cache_len: Optional[int] = None):
+    """Process the whole prompt; returns ``(last_logits (B, V), cache)``.
+    ``batch["tokens"]``: (B, S) integer token ids on the model's device."""
+    tokens = batch["tokens"].long()
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, cache_len or s, tokens.device)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x = _embed(params, cfg, tokens)
+    for i, p in enumerate(params["layers"]):
+        x = tfm.block_prefill(p, x, positions, cfg,
+                              {"k": cache["k"][i], "v": cache["v"][i]})
+    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    logits = _head(params, cfg, x)
+    cache["index"] = s
+    return logits[:, 0], cache
+
+
+def decode_step(params, cache: dict, token, cfg: ModelConfig):
+    """One serve step: one new token per sequence against the cache.
+
+    token: (B, 1) integer ids.  Returns ``(logits (B, V), new_cache)``;
+    ``new_cache`` shares the K/V tensors of ``cache``, which this step
+    updates in place, and its ``index`` is one further."""
+    index = cache["index"]
+    token = token.long()
+    b = token.shape[0]
+    positions = torch.full((b, 1), index, dtype=torch.long,
+                           device=token.device)
+    x = _embed(params, cfg, token)
+    for i, p in enumerate(params["layers"]):
+        x = tfm.block_decode(p, x, {"k": cache["k"][i], "v": cache["v"][i]},
+                             index, positions, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _head(params, cfg, x)
+    return logits[:, 0], {"k": cache["k"], "v": cache["v"],
+                          "index": index + 1}
+
+
+# ---------------------------------------------------------------------------
+# Model namespace
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+
+    def init(self, gen: torch.Generator):
+        return init_params(gen, self.cfg)
+
+    def generator(self, seed: int) -> torch.Generator:
+        """A seeded generator on the model's device, for ``init``."""
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def prefill(self, params, batch, cache_len=None):
+        return prefill(params, batch, self.cfg, cache_len)
+
+    def decode_step(self, params, cache, token):
+        return decode_step(params, cache, token, self.cfg)
+
+    def init_cache(self, batch: int, cache_len: int):
+        return init_cache(self.cfg, batch, cache_len, self.device)
+
+
+def build_model(cfg: ModelConfig, device=None) -> Model:
+    _check_supported(cfg)
+    return Model(cfg=cfg, device=resolve_device(device))

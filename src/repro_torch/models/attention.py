@@ -1,0 +1,87 @@
+"""GQA attention: init, RoPE, single-token decode against a KV cache.
+
+Counterpart of the GQA part of ``repro.models.attention`` (MLA, M-RoPE,
+sliding-window decode and the blocked prefill attention are still to be
+ported).  ``attention_decode`` routes through the Hopper
+``decode_attention`` kernel when ``cfg.use_pallas_decode`` is set and
+the guard of the reference holds (full attention, no softcap,
+``d % 8 == 0``); otherwise it computes the reference's dense masked
+softmax.  The KV cache is updated in place: the new token's K/V are
+written into its slot of the given cache tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.models.common import apply_rope, dense_init, linear
+
+NEG_INF = -1e30
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype):
+    h, kv, d, dm = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    return {
+        "wq": dense_init(gen, (dm, h * d), dtype),
+        "wk": dense_init(gen, (dm, kv * d), dtype),
+        "wv": dense_init(gen, (dm, kv * d), dtype),
+        "wo": dense_init(gen, (h * d, dm), dtype, fan_in=h * d),
+    }
+
+
+def _rope_qk(q, k, positions, cfg: ModelConfig):
+    if cfg.rope_kind != "standard":
+        raise NotImplementedError(f"rope kind {cfg.rope_kind!r} is not "
+                                  "ported yet")
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
+def attention_decode(params, x: torch.Tensor, cache: dict, cache_index: int,
+                     positions: torch.Tensor, cfg: ModelConfig, *,
+                     window: int = 0):
+    """Single-token decode.  x: (B, 1, d_model); cache: {"k", "v"} of
+    (B, S, KV, D), keys cached post-RoPE; ``cache_index`` is the slot of
+    this token.  Writes the token's K/V into the cache in place and
+    returns ``(y, cache)``."""
+    if window > 0:
+        raise NotImplementedError("the sliding-window ring buffer is not "
+                                  "ported yet")
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    b = x.shape[0]
+    q = linear(x, params["wq"]).reshape(b, 1, h, d)
+    k = linear(x, params["wk"]).reshape(b, 1, kvh, d)
+    v = linear(x, params["wv"]).reshape(b, 1, kvh, d)
+    q, k = _rope_qk(q, k, positions, cfg)
+
+    ck, cv = cache["k"], cache["v"]
+    s_cache = ck.shape[1]
+    ck[:, cache_index] = k[:, 0].to(ck.dtype)
+    cv[:, cache_index] = v[:, 0].to(cv.dtype)
+
+    g = h // kvh
+    if (cfg.use_pallas_decode and window == 0 and cfg.logit_softcap == 0
+            and d % 8 == 0):
+        # Hopper flash-decode kernel: contiguous cache [0..index]
+        lengths = torch.full((b,), cache_index + 1, dtype=torch.int32,
+                             device=x.device)
+        out = decode_attention(q.reshape(b, kvh, g, d), ck, cv, lengths)
+        out = out.reshape(b, 1, h * d).to(x.dtype)
+        return linear(out, params["wo"]), cache
+    valid = torch.arange(s_cache, device=x.device) <= cache_index
+    qf = (q.reshape(b, kvh, g, d) * (d ** -0.5)).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", qf, ck.float())
+    scores = scores.masked_fill(~valid[None, None, None, :], NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, cv.float())
+    out = out.reshape(b, 1, h * d).to(x.dtype)
+    return linear(out, params["wo"]), cache
+
+
+def init_attention_cache(cfg: ModelConfig, batch: int, seq: int, dtype,
+                         device, *, layers: int = 1):
+    """Zeroed K/V cache of ``layers`` stacked (B, seq, KV, D) buffers."""
+    shape = (layers, batch, seq, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,0 +1,325 @@
+"""Real-kernel autoregressive serving on the card: ``TokenTorchBackend``.
+
+Counterpart of ``repro.serving.token_backend`` (``TokenJaxBackend``).  A
+dispatched gang runs phase-aware:
+
+* prefill runs the model's prompt pass with attention through the
+  Hopper ``swa_prefill`` kernel (``cfg.use_pallas_prefill``; full causal
+  attention is the window = S case), producing every request's first
+  token *and* the gang KV cache;
+* each decode step runs the single-token pass with attention through
+  the Hopper ``decode_attention`` kernel (``cfg.use_pallas_decode``),
+  one token per running slot.
+
+The gang cache's batch axis is the KV-cache slot pool: requests leave
+between decode steps by masking (their slots keep stepping as padding)
+and the gang ends when the longest stream finishes.  The two step
+tables are keyed by ``(c, b)`` like the reference's executable tables;
+on one device every ``c`` shares the same computation, so vertical
+scaling changes scheduling only.  ``calibrate_token_fns`` times both
+tables, waiting for the device before reading the clock, and fits the
+``TokenCostModel`` the solver plans on.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.cost_model import TokenCostModel
+from repro_torch.core.scaler import TokenSpongeScaler
+from repro_torch.core.slo import Request
+from repro_torch.core.vertical import TimedExecutor, device_sync
+from repro_torch.models import build_model
+from repro_torch.models.api import resolve_device
+from repro_torch.serving.api import ScenarioRunner, _PooledBackend
+from repro_torch.serving.scenarios import build_scenario
+
+
+def _host(x) -> np.ndarray:
+    """Token ids as a host numpy array."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def build_token_step_fns(model, params, c_set: Sequence[int],
+                         b_set: Sequence[int], prompt_len: int,
+                         max_decode: int = 8):
+    """Two step tables for phase-aware LLM serving.
+
+    ``prefill_fns[(c, b)](tokens)`` maps (b, prompt_len) int32 prompts to
+    ``(first_token (b,), gang_cache)``; ``decode_fns[(c, b)](cache, tok)``
+    advances every slot one token.  The cache holds
+    ``prompt_len + max_decode + 1`` positions per slot.  Every c shares
+    one function per b (see the module docstring).
+    """
+    cache_len = prompt_len + max_decode + 1
+    vocab = model.cfg.vocab_size
+    device = model.device
+
+    def make_prefill(b):
+        @torch.inference_mode()
+        def fn(tokens):
+            tokens = torch.as_tensor(tokens, device=device)
+            logits, cache = model.prefill(params, {"tokens": tokens},
+                                          cache_len=cache_len)
+            first = torch.argmax(logits[:, :vocab], dim=-1).to(torch.int32)
+            return first, cache
+        return fn
+
+    def make_decode(b):
+        @torch.inference_mode()
+        def fn(cache, tok):
+            tok = torch.as_tensor(tok, device=device)
+            lg, cache = model.decode_step(params, cache, tok[:, None])
+            nxt = torch.argmax(lg[:, :vocab], dim=-1).to(torch.int32)
+            return nxt, cache
+        return fn
+
+    prefill_fns, decode_fns = {}, {}
+    for b in b_set:
+        pf, df = make_prefill(b), make_decode(b)
+        for c in c_set:
+            prefill_fns[(c, b)] = pf
+            decode_fns[(c, b)] = df
+    return prefill_fns, decode_fns
+
+
+def pad_prompts(payloads: List[np.ndarray], b: int,
+                prompt_len: int) -> np.ndarray:
+    """Stack prompt-token payloads into the (b, prompt_len) bucket:
+    each prompt is right-padded (zeros) or truncated to ``prompt_len``,
+    the batch axis padded by repeating the last entry."""
+    rows = []
+    for p in payloads:
+        p = np.zeros(prompt_len, np.int32) if p is None \
+            else np.asarray(p, np.int32).ravel()[:prompt_len]
+        if p.size < prompt_len:
+            p = np.pad(p, (0, prompt_len - p.size))
+        rows.append(p)
+    rows += [rows[-1]] * (b - len(rows))
+    return np.stack(rows)
+
+
+def warmup_token_fns(prefill_fns: Dict, decode_fns: Dict,
+                     prompt_len: int) -> None:
+    """Run every distinct (c, b) entry of both tables once before serving
+    (builds the kernels and warms the allocator).  Entries sharing one
+    function are run once, not once per c."""
+    seen: set[int] = set()
+    for (c, b), pf in prefill_fns.items():
+        if id(pf) in seen:
+            continue
+        seen.add(id(pf))
+        tokens = np.ones((b, prompt_len), np.int32)
+        first, cache = pf(tokens)
+        decode_fns[(c, b)](cache, first)
+    device_sync()
+
+
+def calibrate_token_fns(prefill_fns: Dict, decode_fns: Dict,
+                        prompt_len: int, mean_prompt: float = 0.0,
+                        mean_decode: float = 4.0) -> TokenCostModel:
+    """Time both tables once per (c, b) and fit the token cost model.
+
+    Prefill samples are (b·prompt_len tokens, c, wall); decode samples
+    are (b slots, c, wall).  Each wall time ends when the device has
+    finished (run :func:`warmup_token_fns` first).
+    """
+    pre_samples, dec_samples = [], []
+    for (c, b), pf in prefill_fns.items():
+        tokens = np.ones((b, prompt_len), np.int32)
+        device_sync()
+        t0 = time.perf_counter()
+        first, cache = pf(tokens)
+        device_sync()
+        pre_samples.append((float(b * prompt_len), float(c),
+                            time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        decode_fns[(c, b)](cache, first)
+        device_sync()
+        dec_samples.append((float(b), float(c), time.perf_counter() - t0))
+    return TokenCostModel.fit(
+        pre_samples, dec_samples,
+        mean_prompt=mean_prompt or float(prompt_len),
+        mean_decode=mean_decode)
+
+
+class TokenTorchBackend(_PooledBackend):
+    """Continuous-batching execution over the Hopper-kernel step tables.
+
+    See the module docstring for the execution model (phase-aware gangs
+    over a KV-cache slot pool).  ``clock="measured"`` advances virtual
+    time by the wall latency of each phase (device work included),
+    ``"modeled"`` by the calibrated :class:`TokenCostModel` (the kernels
+    still run and produce real tokens).  Per-request lifecycle
+    (``first_token`` / ``finish`` / ``tbt_violations``) is written here;
+    generated token ids are collected in ``generated[request.id]``.
+    """
+
+    name = "token-torch"
+
+    def __init__(self, prefill_fns: Dict[tuple[int, int], Callable],
+                 decode_fns: Dict[tuple[int, int], Callable],
+                 cost: TokenCostModel, prompt_len: int,
+                 max_decode: int = 8, clock: str = "measured",
+                 c0: Optional[int] = None, resize_penalty: float = 0.0):
+        if clock not in ("measured", "modeled"):
+            raise ValueError(f"clock must be 'measured' or 'modeled', "
+                             f"got {clock!r}")
+        self.pre_table = TimedExecutor(prefill_fns)
+        self.dec_table = TimedExecutor(decode_fns)
+        self.cost = cost
+        self.prompt_len = prompt_len
+        self.max_decode = max_decode
+        self.clock = clock
+        self.generated: Dict[int, List[int]] = {}
+        self.tokens_served = 0
+        self._payloads: Dict[int, Any] = {}
+        c_set = sorted({c for c, _ in prefill_fns})
+        b_set = sorted({b for _, b in prefill_fns})
+        super().__init__(cost, c_set, b_set, c0=c0 or max(c_set),
+                         resize_penalty=resize_penalty)
+
+    def on_submit(self, req: Request, payload: Any) -> None:
+        self._payloads[req.id] = payload
+
+    def execute(self, batch: List[Request], c: int, b: int,
+                now: float) -> float:
+        tokens = pad_prompts([self._payloads.pop(r.id, None)
+                              for r in batch], b, self.prompt_len)
+        first, cache = self.pre_table(c, b, tokens)
+        first = _host(first)
+        dt = self.pre_table.calls[-1][3]
+        if self.clock == "modeled":
+            total_prompt = sum(r.prompt_tokens for r in batch)
+            dt = float(self.cost.prefill_latency(c, total_prompt))
+        t = now + dt
+        remaining = np.zeros(b, np.int64)
+        for i, r in enumerate(batch):
+            r.first_token = t
+            self.generated[r.id] = [int(first[i])]
+            self.tokens_served += 1
+            remaining[i] = min(r.decode_tokens, self.max_decode)
+            if remaining[i] == 0:
+                r.finish = t
+        tok = first
+        while (remaining > 0).any():
+            nxt, cache = self.dec_table(c, b, cache, tok)
+            nxt = _host(nxt)
+            dt = self.dec_table.calls[-1][3]
+            if self.clock == "modeled":
+                dt = float(self.cost.decode_latency(
+                    c, int((remaining > 0).sum())))
+            t += dt
+            for i, r in enumerate(batch):
+                if remaining[i] <= 0:
+                    continue            # slot already left the pool
+                if dt > r.tbt_slo + 1e-12:
+                    r.tbt_violations += 1
+                self.generated[r.id].append(int(nxt[i]))
+                self.tokens_served += 1
+                remaining[i] -= 1
+                if remaining[i] == 0:
+                    r.finish = t
+            tok = nxt
+        return t
+
+
+def make_token_live_server(arch: str = "smollm-135m-reduced", *,
+                           c_set: Sequence[int] = (1, 2, 4),
+                           b_set: Sequence[int] = (1, 2, 4),
+                           prompt_len: int = 16, max_decode: int = 8,
+                           clock: str = "measured", tick: float = 0.5,
+                           prior_rps: float = 0.0,
+                           cost: Optional[TokenCostModel] = None,
+                           params: Optional[dict] = None, seed: int = 0,
+                           device=None):
+    """Build the full real-kernel token serving stack.
+
+    Resolves ``arch`` through ``configs.registry`` with both Hopper
+    kernel routes on, builds the model on ``device`` (``cuda`` unless
+    named) with ``params`` (e.g. from ``params_from_jax``) or random
+    weights drawn from ``seed``, builds and warms the two (c, b) step
+    tables, calibrates a :class:`TokenCostModel` from them unless
+    ``cost`` is given, and wires a ``TokenSpongeScaler`` +
+    :class:`TokenTorchBackend` behind the ``ScenarioRunner``.  Returns
+    ``(runner, backend, cfg, cost)``.
+    """
+    cfg = dataclasses.replace(get_config(arch), use_pallas_prefill=True,
+                              use_pallas_decode=True)
+    model = build_model(cfg, device=device)
+    if params is None:
+        params = model.init(model.generator(seed))
+    prefill_fns, decode_fns = build_token_step_fns(
+        model, params, c_set, b_set, prompt_len, max_decode=max_decode)
+    warmup_token_fns(prefill_fns, decode_fns, prompt_len)
+    if cost is None:
+        cost = calibrate_token_fns(prefill_fns, decode_fns, prompt_len,
+                                   mean_decode=max_decode / 2.0)
+    scaler = TokenSpongeScaler(cost, c_set=tuple(c_set),
+                               b_set=tuple(b_set),
+                               adaptation_interval=tick)
+    backend = TokenTorchBackend(prefill_fns, decode_fns, cost, prompt_len,
+                                max_decode=max_decode, clock=clock)
+    runner = ScenarioRunner(scaler, backend, tick=tick)
+    runner.monitor.rate.prior_rps = prior_rps
+    return runner, backend, cfg, cost
+
+
+def scenario_arrivals(batch, requests: int, seed: int, prompt_len: int,
+                      max_decode: int, vocab_size: int):
+    """``(Request, prompt)`` pairs for the first ``requests`` arrivals of
+    a token workload: prompts truncated to the ``prompt_len`` bucket,
+    decode streams clipped to ``max_decode``, prompt ids drawn from
+    ``seed`` (the reference's ``run_token_jax_scenario`` draws them the
+    same way)."""
+    rng = np.random.default_rng(seed)
+    arrivals = []
+    for r in batch.head(requests).to_requests():
+        r = Request.make(arrival=r.arrival, comm_latency=r.comm_latency,
+                         slo=r.slo, size_kb=r.size_kb,
+                         prompt_tokens=min(r.prompt_tokens, prompt_len),
+                         decode_tokens=min(r.decode_tokens, max_decode),
+                         tbt_slo=r.tbt_slo)
+        prompt = rng.integers(0, vocab_size,
+                              r.prompt_tokens).astype(np.int32)
+        arrivals.append((r, prompt))
+    return arrivals
+
+
+def run_token_scenario(name: str, *, requests: int = 24, seed: int = 0,
+                       arch: str = "smollm-135m-reduced",
+                       prompt_len: int = 16, max_decode: int = 8,
+                       clock: str = "measured", rps: Optional[float] = None,
+                       device=None):
+    """Serve a slice of a registered token scenario on the real kernels.
+
+    Materializes ``requests`` arrivals from the scenario's workload,
+    serves them through :func:`make_token_live_server` on ``device``
+    (``cuda`` unless named) and returns ``(RunReport, stats)``.
+    """
+    dev = resolve_device(device)
+    batch, meta = build_scenario(name, requests=requests, seed=seed,
+                                 rps=rps)
+    if not meta.get("token"):
+        raise ValueError(f"{name!r} is not a token scenario")
+    runner, backend, cfg, cost = make_token_live_server(
+        arch, prompt_len=prompt_len, max_decode=max_decode, clock=clock,
+        prior_rps=meta["expected_rps"], tick=meta.get("tick", 0.5),
+        device=dev)
+    arrivals = scenario_arrivals(batch, requests, seed, prompt_len,
+                                 max_decode, cfg.vocab_size)
+    t0 = time.perf_counter()
+    report = runner.run(arrivals)
+    stats = {"engine": "token-torch", "arch": cfg.name,
+             "device": str(dev),
+             "events": runner.events_processed,
+             "run_wall_s": time.perf_counter() - t0,
+             "tokens_executed": backend.tokens_served,
+             "generated": backend.generated,
+             "cost_r2": (cost.r2_prefill, cost.r2_decode), "meta": meta}
+    return report, stats

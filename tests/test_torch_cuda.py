@@ -1,0 +1,78 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA card and skip without one.  They import
+neither JAX nor the JAX package, so they also run where only PyTorch is
+installed; from the root of a checkout:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest`` skips ``tests/conftest.py``, which imports JAX.)
+Tolerances are the repo's: f32 2e-5, bf16 2e-2 (absolute and relative).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.decode_attention import ops as dec
+from repro_torch.kernels.swa_prefill import ops as pre
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def tol(name):
+    return dict(atol=2e-2, rtol=2e-2) if name == "bfloat16" \
+        else dict(atol=2e-5, rtol=2e-5)
+
+
+def as_np(x):
+    return x.float().cpu().numpy()
+
+
+# --------------------------------------------------------------------------
+# on the card: each kernel against its plain version
+# --------------------------------------------------------------------------
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kv,d,w", [(1, 256, 9, 3, 64, 256),
+                                          (4, 200, 9, 3, 64, 64),
+                                          (2, 77, 4, 1, 128, 1000)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_swa_prefill_kernel_matches_plain_on_card(b, s, h, kv, d, w, dtype,
+                                                  cuda_device):
+    tdt = DTYPES[dtype]
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn(b, s, h, d, generator=g, device=cuda_device).to(tdt)
+    k = torch.randn(b, s, kv, d, generator=g, device=cuda_device).to(tdt)
+    v = torch.randn(b, s, kv, d, generator=g, device=cuda_device).to(tdt)
+    before = pre.launches
+    out = pre.swa_prefill_attention(q, k, v, window=w)
+    torch.cuda.synchronize()
+    assert pre.launches == before + 1
+    ref = pre.swa_prefill_plain(q, k, v, window=w)
+    np.testing.assert_allclose(as_np(out), as_np(ref), **tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,kv,g,d,s,lens", [(4, 3, 3, 64, 321, [0, 1, 160, 321]),
+                                             (2, 2, 8, 128, 77, [5, 77])])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_kernel_matches_plain_on_card(b, kv, g, d, s, lens,
+                                                       dtype, cuda_device):
+    tdt = DTYPES[dtype]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn(b, kv, g, d, generator=gen, device=cuda_device).to(tdt)
+    k = torch.randn(b, s, kv, d, generator=gen, device=cuda_device).to(tdt)
+    v = torch.randn(b, s, kv, d, generator=gen, device=cuda_device).to(tdt)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = dec.launches
+    out = dec.decode_attention(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert dec.launches == before + 1
+    ref = dec.decode_attention_plain(q, k, v, ln)
+    np.testing.assert_allclose(as_np(out), as_np(ref), **tol(dtype))
