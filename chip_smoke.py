@@ -7,17 +7,28 @@ Phases, each printed on its own line; any failure raises and the exit
 code is non-zero:
 
 1. device  -- the card's name and power limit, as ``nvidia-smi`` prints them;
-2. build   -- both CUDA kernels built from ``src/repro_torch/kernels/csrc``;
+2. build   -- the three CUDA kernels built from
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all at once);
 3. kernels -- each kernel against its plain PyTorch version on the card at
    the serving shapes, in float32 (atol = rtol = 2e-5) and bfloat16
    (atol = rtol = 2e-2), then timed with CUDA events (median of 60
-   launches) beside the plain version and one PyTorch call as yardstick;
-4. parity  -- full-width smollm-135m in float32: prefill + 4 decode steps
-   through the kernel routes match the plain routes (logits atol 1e-3,
-   identical greedy ids);
-5. serve   -- ``run_token_scenario("llm-chat", arch="smollm-135m", ...)`` in
-   bfloat16, the port's main path, with the kernels' launch counts reset
-   just before and read just after.
+   launches, each queued behind a short device sleep so that the events
+   time the device and not the host) beside the plain version and, where
+   one exists, one PyTorch call as yardstick.  ``rwkv6_scan`` is checked
+   at the prefill shape (B 4, T 256, H 32, D 64), at decode (T 1), at
+   ragged T (77, 300) and at D 16 and 32, with bf16 r/k/v beside an f32
+   decay, and for state continuation ([0:T] against [0:T/2] then
+   [T/2:T], atol 1e-5 in f32);
+4. parity  -- full-width smollm-135m, then full-width rwkv6-1.6b, in
+   float32: prefill (batch 2, prompt 256) + 4 decode steps through the
+   kernel routes match the plain routes (logits atol 1e-3, identical
+   greedy ids);
+5. serve   -- ``run_token_scenario("llm-chat", arch=..., ...)`` in bfloat16
+   on smollm-135m, then on rwkv6-1.6b: the port's two main paths, each
+   with every kernel's launch count reset just before and read just
+   after.  The smollm path must launch both attention kernels and not
+   ``rwkv6_scan``; the rwkv6 path must launch ``rwkv6_scan`` (a multiple
+   of its 24 layers) and neither attention kernel.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Without a CUDA device, or outside a checkout, it prints no result
@@ -25,10 +36,11 @@ and exits non-zero.
 
     python3 chip_smoke.py --profile  # adds phase 6 before the last lines
 
-6. profile -- one prefill and ten decode steps of bf16 smollm-135m at the
-   serving shape (batch 4, prompt 256) under ``torch.profiler``: host wall
-   per step, device busy time, kernel count and the kernels that take the
-   most device time, also written to ``chiprun_out/profile.json``.
+6. profile -- for each of the two models, one prefill and ten decode
+   steps in bf16 at the serving shape (batch 4, prompt 256) under
+   ``torch.profiler``: host wall per step, device busy time, kernel count
+   and the kernels that take the most device time, also written as
+   ``profile-<arch>.json`` into the run's output directory.
 """
 from __future__ import annotations
 
@@ -51,10 +63,13 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 N_TIMED = 60
+SLEEP_CYCLES = 1_000_000                  # ~0.5 ms at the H100's clocks
 
 PREFILL = dict(H=9, KV=3, D=64)           # smollm-135m attention widths
 DECODE = dict(B=4, S=321, KV=3, G=3, D=64, lengths=(0, 1, 160, 321))
+WKV = dict(B=4, T=256, H=32, D=64)        # rwkv6-1.6b prefill at the serve
 SERVE = dict(requests=48, prompt_len=256, max_decode=64, seed=0)
+ARCHS = ("smollm-135m", "rwkv6-1.6b")
 
 
 def say(phase: str, **fields) -> None:
@@ -65,7 +80,12 @@ def say(phase: str, **fields) -> None:
 def median_ms(fn) -> float:
     """Median device time of one call, from CUDA events around each of
     ``N_TIMED`` calls, after at least 50 ms of warm-up calls (the card
-    raises its clocks under load)."""
+    raises its clocks under load).  Each timed call is queued behind a
+    device sleep of ``SLEEP_CYCLES`` (about half a millisecond), so the
+    card does not wait for the host to enqueue it and the events time its
+    device work, not the wrapper's host overhead; a call whose launches
+    take the host longer than that to enqueue (the plain versions) is
+    still timed as the host feeds it."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < 0.05:
@@ -75,10 +95,11 @@ def median_ms(fn) -> float:
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(N_TIMED)]
     for start, end in ev:
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in ev]))
 
 
@@ -125,6 +146,17 @@ def decode_bound(b, s, kv, g, d, lengths, dtype):
         nbytes += 2 * n * row if n > 0 else s * row
         flops += 4.0 * kv * g * d * n if n > 0 else 1.0 * kv * g * d * s
     return nbytes, flops
+
+
+def wkv_bound(b, t, h, d, dtype):
+    """Least time for one WKV6 call: r/k/v read and y written in their
+    type, w read in f32, u read and the (D, D) state read and written in
+    f32, against the recurrence's 4 D^2 f32 operations per step and head
+    (y_j = sum_i r_i S_ij + v_j sum_i r_i u_i k_i, S <- w S + k v^T)."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    n = b * t * h * d
+    nbytes = 4 * elt * n + 4 * n + 4 * h * d + 2 * 4 * b * h * d * d
+    return nbytes, 4.0 * d * d * b * h * t
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -213,6 +245,7 @@ def kernel_phase(dev):
         "library_ms": lib_ms,
         "timed": f"bf16 B={b} S={s} KV={kv} G={g} D={d} "
                  f"lengths={list(DECODE['lengths'])}"}
+    rows["rwkv6_scan"] = wkv_kernel_phase(dev, gen)
     for r in rows.values():
         say("kernels", kernel=r["name"], ms=r["ms"], plain_ms=r["plain_ms"],
             library_ms=r["library_ms"], bound_ms=r["bound_ms"],
@@ -220,15 +253,87 @@ def kernel_phase(dev):
     return rows
 
 
+def wkv_inputs(gen, dev, b, t, h, d, dtype):
+    """r, k, v in ``dtype``; the decay w in f32 within [0.8, 0.999), as
+    the reference's kernel tests draw it; u and s0 in f32."""
+    r, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev).mul(0.5)
+               .to(dtype) for _ in range(3))
+    w = torch.rand(b, t, h, d, generator=gen, device=dev) * 0.199 + 0.8
+    u = torch.randn(h, d, generator=gen, device=dev) * 0.5
+    s0 = torch.randn(b, h, d, d, generator=gen, device=dev) * 0.1
+    return r, k, v, w, u, s0
+
+
+def wkv_kernel_phase(dev, gen):
+    from repro_torch.kernels.rwkv6_scan import ops as wkv
+
+    b, t, h, d = WKV["B"], WKV["T"], WKV["H"], WKV["D"]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for cb, ct, ch, cd in ((b, t, h, d), (b, 1, h, d), (2, 77, 3, 64),
+                               (1, 300, 2, 64), (2, 77, 3, 32),
+                               (1, 300, 2, 16)):
+            r, k, v, w, u, s0 = wkv_inputs(gen, dev, cb, ct, ch, cd, dtype)
+            y, s = wkv.rwkv6_scan(r, k, v, w, u, s0)
+            y_ref, s_ref = wkv.rwkv6_scan_plain(r, k, v, w, u, s0)
+            name = f"rwkv6_scan B={cb} T={ct} H={ch} D={cd} {dtype}"
+            err = max(check_close(name + " y", y, y_ref, dtype),
+                      check_close(name + " s_final", s, s_ref, dtype))
+            worst = max(worst, err)
+            say("kernels", kernel="rwkv6_scan", dtype=str(dtype)[6:], B=cb,
+                T=ct, H=ch, D=cd, max_abs_err=err)
+    # state continuation in f32, the second half updating its state in place
+    r, k, v, w, u, s0 = wkv_inputs(gen, dev, b, t, h, d, torch.float32)
+    y_full, s_full = wkv.rwkv6_scan(r, k, v, w, u, s0)
+    m = t // 2
+    y1, s1 = wkv.rwkv6_scan(r[:, :m].contiguous(), k[:, :m].contiguous(),
+                            v[:, :m].contiguous(), w[:, :m].contiguous(),
+                            u, s0)
+    y2, s2 = wkv.rwkv6_scan(r[:, m:].contiguous(), k[:, m:].contiguous(),
+                            v[:, m:].contiguous(), w[:, m:].contiguous(),
+                            u, s1, s_out=s1)
+    torch.cuda.synchronize()
+    cont = max(float((torch.cat([y1, y2], 1) - y_full).abs().max()),
+               float((s2 - s_full).abs().max()))
+    if not (s2 is s1 and cont <= 1e-5):
+        raise AssertionError(f"rwkv6_scan state continuation: max abs "
+                             f"diff {cont} (atol 1e-5)")
+    say("kernels", kernel="rwkv6_scan", check="state continuation f32",
+        T=t, split=m, max_abs_err=cont)
+    # timed at the serving shapes: bf16 r/k/v, f32 w; prefill T = 256 and
+    # a decode step (T = 1) updating its state in place, as the model runs
+    dtype = torch.bfloat16
+    r, k, v, w, u, s0 = wkv_inputs(gen, dev, b, t, h, d, dtype)
+    ms = median_ms(lambda: wkv.rwkv6_scan(r, k, v, w, u, s0))
+    plain_ms = median_ms(lambda: wkv.rwkv6_scan_plain(r, k, v, w, u, s0))
+    bms, by = bound_ms(*wkv_bound(b, t, h, d, dtype), torch.float32)
+    one = [a[:, :1].contiguous() for a in (r, k, v, w)]
+    state = s0.clone()
+    dec_ms = median_ms(lambda: wkv.rwkv6_scan(*one, u, state, s_out=state))
+    dec_bms, dec_by = bound_ms(*wkv_bound(b, 1, h, d, dtype), torch.float32)
+    say("kernels", kernel="rwkv6_scan", decode_ms=dec_ms,
+        decode_bound_ms=dec_bms, decode_bound_by=dec_by)
+    return {"name": "rwkv6_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+            "replaces": "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:53",
+            "launches": None, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            # no single PyTorch call computes the WKV6 recurrence
+            "library_ms": None,
+            "timed": f"bf16 r/k/v, f32 w, B={b} T={t} H={h} D={d}",
+            "decode_ms": dec_ms, "decode_bound_ms": dec_bms,
+            "decode_bound_by": dec_by}
+
+
 # ---------------------------------------------------------------------------
 # model parity and serving
 # ---------------------------------------------------------------------------
 
-def parity_phase(dev) -> None:
+def parity_phase(dev, arch: str) -> None:
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_config("smollm-135m"), dtype="float32",
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
                               param_dtype="float32")
     kcfg = dataclasses.replace(cfg, use_pallas_prefill=True,
                                use_pallas_decode=True)
@@ -262,23 +367,39 @@ def parity_phase(dev) -> None:
         decode_steps=steps, max_abs_logit_diff=worst, greedy_ids="identical")
 
 
-def serve_phase(dev):
+def serve_phase(dev, arch: str):
     from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.rwkv6_scan import ops as wkv
     from repro_torch.kernels.swa_prefill import ops as pre
     from repro_torch.configs import get_config
     from repro_torch.serving.token_backend import run_token_scenario
 
-    vocab = get_config("smollm-135m").vocab_size
+    cfg = get_config(arch)
+    vocab = cfg.vocab_size
     pre.launches = 0
     dec.launches = 0
+    wkv.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    report, stats = run_token_scenario("llm-chat", arch="smollm-135m",
-                                       device=dev, **SERVE)
+    report, stats = run_token_scenario("llm-chat", arch=arch, device=dev,
+                                       **SERVE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"swa_prefill": pre.launches,
-                "decode_attention": dec.launches}
+                "decode_attention": dec.launches,
+                "rwkv6_scan": wkv.launches}
+    if cfg.blocks[0] == "rwkv6+rwkv_cm":
+        kernel_checks = {
+            "rwkv6_scan launched, a multiple of the layers":
+                launches["rwkv6_scan"] > 0
+                and launches["rwkv6_scan"] % cfg.num_layers == 0,
+            "no attention kernel launched":
+                launches["swa_prefill"] == launches["decode_attention"] == 0}
+    else:
+        kernel_checks = {
+            "swa_prefill launched": launches["swa_prefill"] > 0,
+            "decode_attention launched": launches["decode_attention"] > 0,
+            "rwkv6_scan not launched": launches["rwkv6_scan"] == 0}
     gen = stats["generated"]
     ids = np.concatenate([np.asarray(v) for v in gen.values()])
     checks = {
@@ -288,12 +409,12 @@ def serve_phase(dev):
         "ttft_p99 finite": math.isfinite(report.ttft_p99),
         "every request generated": len(gen) == report.n_requests,
         "ids in vocab": bool(((ids >= 0) & (ids < vocab)).all()),
-        "swa_prefill launched": launches["swa_prefill"] > 0,
-        "decode_attention launched": launches["decode_attention"] > 0,
+        **kernel_checks,
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"serve checks failed: {failed}")
+        raise AssertionError(f"{arch} serve checks failed: {failed} "
+                             f"(launches {launches})")
     say("serve", arch=stats["arch"], dtype="bfloat16", **SERVE,
         n_requests=report.n_requests, tokens_served=report.tokens_served,
         tokens_per_s=report.tokens_per_s, ttft_p50=report.ttft_p50,
@@ -307,14 +428,14 @@ def serve_phase(dev):
     return launches
 
 
-def profile_phase(dev) -> None:
+def profile_phase(dev, arch: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_config("smollm-135m"),
+    cfg = dataclasses.replace(get_config(arch),
                               use_pallas_prefill=True, use_pallas_decode=True)
     model = build_model(cfg, device=dev)
     params = model.init(model.generator(0))
@@ -367,7 +488,7 @@ def profile_phase(dev) -> None:
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
     n_kernels = sum(r[1] for r in rows)
-    out = {"window": f"1 prefill + {steps} decode steps, bf16 smollm-135m, "
+    out = {"window": f"1 prefill + {steps} decode steps, bf16 {arch}, "
                      f"batch {b}, prompt {s}, cache {cache_len}",
            "prefill_wall_ms": prefill_wall * 1e3,
            "decode_step_wall_ms": decode_wall / steps * 1e3,
@@ -385,7 +506,7 @@ def profile_phase(dev) -> None:
         say("profile", **r)
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)
-    (dest / "profile.json").write_text(json.dumps(out, indent=1))
+    (dest / f"profile-{arch}.json").write_text(json.dumps(out, indent=1))
 
 
 def main() -> int:
@@ -421,12 +542,20 @@ def main() -> int:
         libraries=json.dumps({k: str(v.relative_to(ROOT)) for k, v in libs.items()}))
 
     rows = kernel_phase(dev)
-    parity_phase(dev)
-    launches = serve_phase(dev)
-    for name, n in launches.items():
-        rows[name]["launches"] = n
+    for row in rows.values():
+        row["launches"] = 0
+    for arch in ARCHS:
+        parity_phase(dev, arch)
+        torch.cuda.empty_cache()          # the f32 weights are freed here
+        # each main path's counts are reset before it and read after it;
+        # a kernel's row adds up the paths (the other path must give 0)
+        for name, n in serve_phase(dev, arch).items():
+            rows[name]["launches"] += n
+        torch.cuda.empty_cache()
     if args.profile:
-        profile_phase(dev)
+        for arch in ARCHS:
+            profile_phase(dev, arch)
+            torch.cuda.empty_cache()
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     say("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

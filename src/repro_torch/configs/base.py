@@ -2,14 +2,17 @@
 
 Copy of ``repro.configs.base.ModelConfig`` with the same field names and
 defaults, so a config maps one to one between the packages, cut to the
-fields' declaration, ``padded_vocab`` and ``reduced()``.  The port's
-models run only what they implement (``models.api.build_model`` refuses
-the rest).
+fields' declaration, ``padded_vocab``, ``rwkv_num_heads`` and
+``reduced()``.  The port's models run only what they implement
+(``models.api.build_model`` refuses the rest).
 
 ``use_pallas_prefill`` / ``use_pallas_decode`` keep the reference's
-names; here they route prefill attention through the Hopper
-``swa_prefill`` kernel and decode attention through the Hopper
-``decode_attention`` kernel (``repro_torch.kernels``).
+names with a wider meaning: they route the prefill pass and the decode
+step through the port's Hopper kernels (``repro_torch.kernels``),
+whatever the mixer.  For attention that is ``swa_prefill`` and
+``decode_attention``; for RWKV-6 it is the WKV6 recurrence on the
+``rwkv6_scan`` kernel, which the reference never routes to its Pallas
+kernel.
 """
 from __future__ import annotations
 
@@ -88,11 +91,13 @@ class ModelConfig:
     # --- performance knobs ----------------------------------------------------
     attn_batch_parallel: bool = False  # reference only: sharded attention
     moe_partial_ep: bool = False       # reference only: expert-parallel serving
-    use_pallas_decode: bool = False    # decode attention via the Hopper
-                                       # decode_attention kernel
-    use_pallas_prefill: bool = False   # prefill attention via the Hopper
-                                       # swa_prefill kernel (full causal ==
-                                       # window >= S; serving path only)
+    use_pallas_decode: bool = False    # decode step's kernel: attention via
+                                       # the Hopper decode_attention kernel,
+                                       # RWKV-6 WKV6 via rwkv6_scan (T = 1)
+    use_pallas_prefill: bool = False   # prefill pass's kernel: attention via
+                                       # swa_prefill (full causal == window
+                                       # >= S), RWKV-6 WKV6 via rwkv6_scan
+                                       # (T = prompt); serving path only
     rwkv_chunked: bool = False         # reference only: chunked WKV6
     # --- numerics ------------------------------------------------------------
     scale_embed: bool = False          # gemma: multiply embeddings by sqrt(d)
@@ -125,6 +130,10 @@ class ModelConfig:
         """Vocab padded to a multiple of 128 (the reference's sharding
         granule; kept so the embedding tables have the same shape)."""
         return int(math.ceil(self.vocab_size / 128) * 128)
+
+    @property
+    def rwkv_num_heads(self) -> int:
+        return self.d_model // 64
 
     @property
     def uses_moe(self) -> bool:

@@ -13,6 +13,7 @@ from repro_torch.configs.base import ModelConfig
 # arch id -> module name
 _MODULES = {
     "smollm-135m": "smollm_135m",
+    "rwkv6-1.6b": "rwkv6_1p6b",
 }
 
 ARCH_IDS = tuple(_MODULES)

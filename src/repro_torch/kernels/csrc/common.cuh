@@ -1,4 +1,4 @@
-// Helpers shared by the attention kernels: element conversion and warp
+// Helpers shared by the kernels: element conversion, 16-byte loads and warp
 // reductions.  Every kernel computes in f32 whatever its storage type.
 #pragma once
 

@@ -7,6 +7,9 @@ names; the other modes of the reference launcher are still to be ported
 
     PYTHONPATH=src python -m repro_torch.launch.serve --scenario llm-chat \\
         --arch smollm-135m --requests 48 --prompt-len 256 --gen-tokens 64
+
+``--arch`` takes any id of ``repro_torch.configs.registry`` (``smollm-135m``,
+``rwkv6-1.6b``, and their ``-reduced`` cuts).
 """
 from __future__ import annotations
 
@@ -54,7 +57,9 @@ def main(argv=None):
                     help="the real-kernel TokenTorchBackend")
     ap.add_argument("--requests", type=int, default=None,
                     help="size the run by request count (default 24)")
-    ap.add_argument("--arch", default="smollm-135m-reduced")
+    ap.add_argument("--arch", default="smollm-135m-reduced",
+                    help="a registered arch id (smollm-135m, rwkv6-1.6b, "
+                         "or either with -reduced)")
     ap.add_argument("--policy", default="sponge")
     ap.add_argument("--rps", type=float, default=None)
     ap.add_argument("--duration", type=float, default=None)

@@ -1,12 +1,17 @@
 """Public model API: ``build_model(cfg) -> Model`` with init/prefill/decode.
 
-Counterpart of the dense part of ``repro.models.api``.  Parameters are
-plain dicts of tensors: ``{"embed", "final_norm", "layers": [per-layer
-dict, ...]}`` — the reference's stacked ``params["groups"][0]`` with its
-leading layer axis unstacked into a list (a Python loop over layers
-takes the place of ``lax.scan``).  The decode cache is ``{"k", "v",
-"index"}`` with K/V of shape (L, B, cache_len, KV, D), the reference's
-``cache["groups"][0]["kv"]``; prefill and decode update it in place.
+Counterpart of the dense and RWKV-6 parts of ``repro.models.api``, for
+homogeneous stacks (``attn+mlp`` with standard RoPE, or ``rwkv6+rwkv_cm``
+with no positions).  Parameters are plain dicts of tensors: ``{"embed",
+"final_norm", ["head",] "layers": [per-layer dict, ...]}`` — the
+reference's stacked ``params["groups"][0]`` with its leading layer axis
+unstacked into a list (a Python loop over layers takes the place of
+``lax.scan``).  The decode cache is the reference's
+``cache["groups"][0]`` with its leading layer axis, plus ``"index"``:
+``{"k", "v"}`` of shape (L, B, cache_len, KV, D) for attention, or
+``{"tmix": {"shift", "wkv"}, "cmix": {"shift"}}`` for RWKV-6 (shifts
+(L, B, d) in the compute dtype, WKV state (L, B, H, D, D) in f32).
+Prefill fills it and decode updates it in place.
 
 Every entry point runs on ``cuda`` unless the caller names another
 device; with no CUDA device and no explicit ``device="cpu"`` it raises.
@@ -21,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rwkv6 as rk
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (dense_init, embed_init, linear,
                                        rms_norm, to_dtype)
@@ -38,15 +44,22 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _is_rwkv(cfg: ModelConfig) -> bool:
+    return cfg.blocks[0] == "rwkv6+rwkv_cm"
+
+
 def _check_supported(cfg: ModelConfig) -> None:
-    unsupported = sorted(set(cfg.blocks) - {"attn+mlp"})
-    if (unsupported or cfg.rope_kind != "standard" or cfg.logit_softcap
-            or cfg.is_encoder_decoder or cfg.num_patch_tokens
-            or cfg.shared_attn_every or cfg.mtp_depth
-            or cfg.mlp_kind != "swiglu"):
+    kinds = set(cfg.blocks)
+    dense = (kinds == {"attn+mlp"} and cfg.rope_kind == "standard"
+             and cfg.mlp_kind == "swiglu")
+    rwkv = kinds == {"rwkv6+rwkv_cm"} and cfg.rope_kind == "none"
+    if (not (dense or rwkv) or cfg.logit_softcap or cfg.is_encoder_decoder
+            or cfg.num_patch_tokens or cfg.shared_attn_every
+            or cfg.mtp_depth):
         raise NotImplementedError(
-            f"{cfg.name}: only dense attn+mlp decoders with standard RoPE "
-            "and SwiGLU are ported yet")
+            f"{cfg.name}: only homogeneous stacks of dense attn+mlp blocks "
+            "(standard RoPE, SwiGLU) or rwkv6+rwkv_cm blocks (no RoPE) are "
+            "ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -54,15 +67,18 @@ def _check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def init_params(gen: torch.Generator, cfg: ModelConfig):
-    """Random parameters drawn from ``gen`` on its device."""
+    """Random parameters drawn from ``gen`` on its device, each leaf in
+    the reference's dtype: ``cfg.param_dtype`` except the leaves the
+    reference keeps in f32 (RWKV-6's decay base, bonus and group-norm
+    affine)."""
     dtype = to_dtype(cfg.param_dtype)
     dev = gen.device
     p = {"embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dtype),
          "final_norm": torch.zeros(cfg.d_model, dtype=dtype, device=dev)}
     if not cfg.tie_embeddings:
         p["head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab), dtype)
-    p["layers"] = [tfm.init_block(gen, cfg, dtype, dev)
-                   for _ in range(cfg.num_layers)]
+    p["layers"] = [tfm.init_block(gen, cfg, kind, dtype, dev)
+                   for kind in cfg.blocks]
     return p
 
 
@@ -70,17 +86,20 @@ def params_from_jax(tree, cfg: ModelConfig, device=None):
     """The reference's ``Model.init`` pytree, already converted to numpy
     arrays by the caller, as this package's parameters on ``device``.
     The leading layer axis of ``tree["groups"][0]`` is unstacked into
-    ``params["layers"]``; every weight keeps its (in, out) layout."""
+    ``params["layers"]``; every weight keeps its (in, out) layout.  A
+    leaf that is f32 in the tree stays f32 (the reference keeps some in
+    f32 at every param dtype); the others go to ``cfg.param_dtype``."""
     dev = resolve_device(device)
     dtype = to_dtype(cfg.param_dtype)
 
     def conv(a):
+        a = np.asarray(a)
+        target = torch.float32 if a.dtype == np.float32 else dtype
         # bf16 numpy arrays (ml_dtypes) widen to f32 exactly first; the
         # copy also makes arrays that came from JAX (read-only) writable
-        a = np.asarray(a)
         if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
             a = a.astype(np.float32)
-        return torch.from_numpy(np.array(a, copy=True)).to(dev, dtype)
+        return torch.from_numpy(np.array(a, copy=True)).to(dev, target)
 
     groups = tree["groups"]
     if len(groups) != 1:
@@ -117,11 +136,23 @@ def _head(params, cfg: ModelConfig, x):
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
-    cache = attn_mod.init_attention_cache(cfg, batch, cache_len,
-                                          to_dtype(cfg.dtype), device,
-                                          layers=cfg.num_layers)
+    """A zero decode cache; an RWKV-6 state does not depend on
+    ``cache_len``."""
+    if _is_rwkv(cfg):
+        cache = rk.init_rwkv6_state(cfg, batch, to_dtype(cfg.dtype), device,
+                                    layers=cfg.num_layers)
+    else:
+        cache = attn_mod.init_attention_cache(cfg, batch, cache_len,
+                                              to_dtype(cfg.dtype), device,
+                                              layers=cfg.num_layers)
     cache["index"] = 0
     return cache
+
+
+def _layer_cache(cache: dict, i: int) -> dict:
+    """Layer ``i``'s views into the decode cache (no copy)."""
+    return {k: _layer_cache(v, i) if isinstance(v, dict) else v[i]
+            for k, v in cache.items() if k != "index"}
 
 
 # ---------------------------------------------------------------------------
@@ -135,11 +166,11 @@ def prefill(params, batch: dict, cfg: ModelConfig,
     tokens = batch["tokens"].long()
     b, s = tokens.shape
     cache = init_cache(cfg, b, cache_len or s, tokens.device)
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    positions = (None if _is_rwkv(cfg) else
+                 torch.arange(s, device=tokens.device).expand(b, s))
     x = _embed(params, cfg, tokens)
     for i, p in enumerate(params["layers"]):
-        x = tfm.block_prefill(p, x, positions, cfg,
-                              {"k": cache["k"][i], "v": cache["v"][i]})
+        x = tfm.block_prefill(p, x, positions, cfg, _layer_cache(cache, i))
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = _head(params, cfg, x)
     cache["index"] = s
@@ -150,21 +181,24 @@ def decode_step(params, cache: dict, token, cfg: ModelConfig):
     """One serve step: one new token per sequence against the cache.
 
     token: (B, 1) integer ids.  Returns ``(logits (B, V), new_cache)``;
-    ``new_cache`` shares the K/V tensors of ``cache``, which this step
-    updates in place, and its ``index`` is one further."""
+    ``new_cache`` shares the tensors of ``cache`` (K/V or recurrent
+    state), which this step updates in place, and its ``index`` is one
+    further."""
     index = cache["index"]
     token = token.long()
     b = token.shape[0]
-    positions = torch.full((b, 1), index, dtype=torch.long,
-                           device=token.device)
+    positions = (None if _is_rwkv(cfg) else
+                 torch.full((b, 1), index, dtype=torch.long,
+                            device=token.device))
     x = _embed(params, cfg, token)
     for i, p in enumerate(params["layers"]):
-        x = tfm.block_decode(p, x, {"k": cache["k"][i], "v": cache["v"][i]},
-                             index, positions, cfg)
+        x = tfm.block_decode(p, x, _layer_cache(cache, i), index, positions,
+                             cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _head(params, cfg, x)
-    return logits[:, 0], {"k": cache["k"], "v": cache["v"],
-                          "index": index + 1}
+    new_cache = {k: v for k, v in cache.items() if k != "index"}
+    new_cache["index"] = index + 1
+    return logits[:, 0], new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,170 @@
+"""RWKV-6 "Finch": attention-free time mix with data-dependent decay.
+
+Counterpart of ``repro.models.rwkv6`` (its serving parts).  Time-mix
+(WKV6) recurrence per head, with a state S in R^{D x D}:
+
+    y_t = r_t^T (S_{t-1} + u  k_t v_t^T)
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T
+
+The reference runs the recurrence as a ``lax.scan`` (``wkv6_scan``);
+here ``wkv6_scan`` routes it through the Hopper ``rwkv6_scan`` kernel
+when asked (the block functions ask with ``cfg.use_pallas_prefill`` for
+the prefill pass and ``cfg.use_pallas_decode`` for a decode step) and
+through the kernel's plain version otherwise.  The decay ``w`` stays f32
+from the LoRA to the kernel: rounded to bf16, ``1 - w`` near the init
+value 0.9975 would be off by more than half.
+
+When given ``out`` (a layer's views into the decode cache), the time and
+channel mix write their new state there in place; the WKV state is
+updated by the kernel itself (its output aliases its input state).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan, rwkv6_scan_plain
+from repro_torch.models.common import dense_init, linear
+
+LORA_R = 64
+DECAY_LORA_R = 128
+
+
+def init_rwkv6_tmix(gen: torch.Generator, cfg: ModelConfig, dtype):
+    d = cfg.d_model
+    h = cfg.rwkv_num_heads
+    hd = d // h
+    dev, f32 = gen.device, torch.float32
+    return {
+        "mu_x": torch.zeros(d, dtype=dtype, device=dev),
+        "mu": torch.zeros(5, d, dtype=dtype, device=dev),     # r,k,v,w,g
+        "lora_a": dense_init(gen, (d, 5 * LORA_R), dtype),
+        "lora_b": dense_init(gen, (5, LORA_R, d), dtype, fan_in=LORA_R),
+        "w_r": dense_init(gen, (d, d), dtype),
+        "w_k": dense_init(gen, (d, d), dtype),
+        "w_v": dense_init(gen, (d, d), dtype),
+        "w_g": dense_init(gen, (d, d), dtype),
+        "w_o": dense_init(gen, (d, d), dtype),
+        "decay_a": dense_init(gen, (d, DECAY_LORA_R), dtype),
+        "decay_b": dense_init(gen, (DECAY_LORA_R, d), dtype,
+                              fan_in=DECAY_LORA_R),
+        "decay_base": torch.full((d,), -6.0, dtype=f32, device=dev),
+        "bonus_u": dense_init(gen, (h, hd), f32, fan_in=hd),
+        "ln_scale": torch.ones(d, dtype=f32, device=dev),
+        "ln_bias": torch.zeros(d, dtype=f32, device=dev),
+    }
+
+
+def init_rwkv6_cmix(gen: torch.Generator, cfg: ModelConfig, dtype):
+    d = cfg.d_model
+    return {
+        "mu_k": torch.zeros(d, dtype=dtype, device=gen.device),
+        "mu_r": torch.zeros(d, dtype=dtype, device=gen.device),
+        "w_k": dense_init(gen, (d, cfg.d_ff), dtype),
+        "w_v": dense_init(gen, (cfg.d_ff, d), dtype, fan_in=cfg.d_ff),
+        "w_r": dense_init(gen, (d, d), dtype),
+    }
+
+
+def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]):
+    """prev token's x; x: (B,S,d); prev: (B,d) carried state or None."""
+    if prev is None:
+        prev = torch.zeros_like(x[:, 0])
+    shifted = torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
+    return shifted, x[:, -1, :]
+
+
+def wkv6_scan(r, k, v, w, u, s0=None, *, kernel: bool = False, out=None):
+    """WKV6 recurrence.  r,k,v: (B,S,H,D); w: (B,S,H,D) f32 decay in
+    (0,1); u: (H,D) f32 bonus.  Returns (y (B,S,H,D), s_final (B,H,D,D)).
+    ``kernel`` runs the ``rwkv6_scan`` kernel, else its plain version;
+    ``out`` receives s_final (it may be ``s0``)."""
+    scan = rwkv6_scan if kernel else rwkv6_scan_plain
+    return scan(r, k, v, w, u, s0, s_out=out)
+
+
+def _keep(out: Optional[dict], name: str, value: torch.Tensor):
+    """``value`` written into ``out[name]`` in place, or ``value``."""
+    if out is None:
+        return value
+    return out[name].copy_(value)
+
+
+def rwkv6_tmix_fwd(params, x: torch.Tensor, cfg: ModelConfig,
+                   state: Optional[dict] = None, *, kernel: bool = False,
+                   out: Optional[dict] = None):
+    """Time mix.  x: (B,S,d).  state: {"shift": (B,d), "wkv": (B,H,D,D)}
+    or None (zeros).  Returns ``(y, new_state)``; with ``out`` the new
+    state is written into its tensors (which may be ``state``'s)."""
+    b, s, d = x.shape
+    h = cfg.rwkv_num_heads
+    hd = d // h
+    prev = state["shift"] if state else None
+    xprev, shift_out = _token_shift(x, prev)
+    sx = xprev - x
+    xxx = x + sx * params["mu_x"]
+    lora = torch.tanh(linear(xxx, params["lora_a"]))
+    lora = lora.reshape(b, s, 5, LORA_R)
+    mix = params["mu"] + torch.einsum(
+        "bsfr,frd->bsfd", lora.float(),
+        params["lora_b"].float()).to(x.dtype)
+    xr, xk, xv, xw, xg = [x + sx * mix[:, :, i] for i in range(5)]
+
+    r = linear(xr, params["w_r"]).reshape(b, s, h, hd)
+    k = linear(xk, params["w_k"]).reshape(b, s, h, hd)
+    v = linear(xv, params["w_v"]).reshape(b, s, h, hd)
+    g = F.silu(linear(xg, params["w_g"]))
+    dlora = linear(torch.tanh(linear(xw, params["decay_a"])),
+                   params["decay_b"])
+    w = torch.exp(-torch.exp(params["decay_base"] + dlora.float()))
+    w = w.reshape(b, s, h, hd)                       # f32, in (0, 1)
+
+    wkv0 = state["wkv"] if state else None
+    y, wkv = wkv6_scan(r, k, v, w, params["bonus_u"], wkv0, kernel=kernel,
+                       out=None if out is None else out["wkv"])
+    # per-head group norm (population variance, as jnp.var)
+    yh = y.float().reshape(b, s, h, hd)
+    mu = yh.mean(-1, keepdim=True)
+    var = yh.var(-1, keepdim=True, correction=0)
+    yh = (yh - mu) * torch.rsqrt(var + 64e-5)
+    y = (yh.reshape(b, s, d) * params["ln_scale"]
+         + params["ln_bias"]).to(x.dtype)
+    y = linear(y * g, params["w_o"])
+    return y, {"shift": _keep(out, "shift", shift_out), "wkv": wkv}
+
+
+def rwkv6_cmix_fwd(params, x: torch.Tensor, cfg: ModelConfig,
+                   state: Optional[dict] = None, *,
+                   out: Optional[dict] = None):
+    """Channel mix.  state: {"shift": (B,d)} or None; ``out`` as in
+    :func:`rwkv6_tmix_fwd`."""
+    prev = state["shift"] if state else None
+    xprev, shift_out = _token_shift(x, prev)
+    sx = xprev - x
+    xk = x + sx * params["mu_k"]
+    xr = x + sx * params["mu_r"]
+    k = torch.square(torch.relu(linear(xk, params["w_k"])))
+    kv = linear(k, params["w_v"])
+    y = torch.sigmoid(linear(xr, params["w_r"])) * kv
+    return y, {"shift": _keep(out, "shift", shift_out)}
+
+
+def init_rwkv6_state(cfg: ModelConfig, batch: int, dtype, device,
+                     layers: int):
+    """Zero decode state of ``layers`` layers, each axis led by the layer:
+    the reference's per-layer ``init_rwkv6_state`` stacked."""
+    d = cfg.d_model
+    h = cfg.rwkv_num_heads
+    hd = d // h
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(layers, *shape, dtype=dt, device=device)
+
+    return {
+        "tmix": {"shift": zeros(batch, d),
+                 "wkv": zeros(batch, h, hd, hd, dt=torch.float32)},
+        "cmix": {"shift": zeros(batch, d)},
+    }

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.decode_attention import ops as dec
+from repro_torch.kernels.rwkv6_scan import ops as wkv
 from repro_torch.kernels.swa_prefill import ops as pre
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -76,3 +77,33 @@ def test_decode_attention_kernel_matches_plain_on_card(b, kv, g, d, s, lens,
     assert dec.launches == before + 1
     ref = dec.decode_attention_plain(q, k, v, ln)
     np.testing.assert_allclose(as_np(out), as_np(ref), **tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,d", [(4, 256, 32, 64), (4, 1, 32, 64),
+                                     (2, 77, 3, 32), (1, 300, 2, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_scan_kernel_matches_plain_on_card(b, t, h, d, dtype,
+                                                 cuda_device):
+    """r/k/v in ``dtype``, the decay w in f32 (as the model feeds it);
+    y and the final state against the plain version, then the same call
+    with the state updated in place."""
+    tdt = DTYPES[dtype]
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    r, k, v = (torch.randn(b, t, h, d, generator=g, device=cuda_device)
+               .mul(0.5).to(tdt) for _ in range(3))
+    w = torch.rand(b, t, h, d, generator=g, device=cuda_device) * 0.199 + 0.8
+    u = torch.randn(h, d, generator=g, device=cuda_device) * 0.5
+    s0 = torch.randn(b, h, d, d, generator=g, device=cuda_device) * 0.1
+    before = wkv.launches
+    y, s = wkv.rwkv6_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wkv.launches == before + 1
+    y_ref, s_ref = wkv.rwkv6_scan_plain(r, k, v, w, u, s0)
+    np.testing.assert_allclose(as_np(y), as_np(y_ref), **tol(dtype))
+    np.testing.assert_allclose(as_np(s), as_np(s_ref), **tol(dtype))
+    state = s0.clone()
+    y2, s2 = wkv.rwkv6_scan(r, k, v, w, u, state, s_out=state)
+    torch.cuda.synchronize()
+    assert s2 is state
+    assert torch.equal(y2, y) and torch.equal(state, s)

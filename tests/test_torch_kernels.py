@@ -210,8 +210,8 @@ def test_build_targets_name_each_source_by_content():
     of its source, the shared header and the flags, under the ignored
     build directory; nothing is built at import."""
     targets = {n: build._target(n) for n in build.SOURCES}
-    assert set(targets) == {"swa_prefill", "decode_attention"}
-    assert len({t.name for t in targets.values()}) == 2
+    assert set(targets) == {"swa_prefill", "decode_attention", "rwkv6_scan"}
+    assert len({t.name for t in targets.values()}) == 3
     for name, t in targets.items():
         assert t.parent == build.BUILD_DIR
         assert t.name.startswith(f"lib{name}-") and t.suffix == ".so"

@@ -52,7 +52,8 @@ def t(a):
 # --------------------------------------------------------------------------
 # configs
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ["smollm-135m", "smollm-135m-reduced"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "smollm-135m-reduced",
+                                  "rwkv6-1.6b", "rwkv6-1.6b-reduced"])
 def test_config_maps_field_for_field(arch):
     ref, port = jax_config(arch), get_config(arch)
     names = [f.name for f in dataclasses.fields(port)]
@@ -236,8 +237,15 @@ def test_build_model_without_a_card_raises(monkeypatch):
 
 def test_unported_configs_are_refused():
     cfg = get_config(ARCH)
-    for change in (dict(blocks=("swa+mlp",) * cfg.num_layers, window_size=8),
+    n = cfg.num_layers
+    for change in (dict(blocks=("swa+mlp",) * n, window_size=8),
                    dict(rope_kind="mrope"), dict(logit_softcap=30.0),
-                   dict(mlp_kind="gelu")):
+                   dict(mlp_kind="gelu"),
+                   dict(blocks=("mamba2+none",) * n, rope_kind="none"),
+                   dict(blocks=("rwkv6+mlp",) * n, rope_kind="none"),
+                   dict(blocks=("attn+mlp", "rwkv6+rwkv_cm")),
+                   dict(blocks=("rwkv6+rwkv_cm",) * n),   # with RoPE
+                   dict(blocks=("rwkv6+rwkv_cm",) * n, rope_kind="none",
+                        logit_softcap=30.0)):
         with pytest.raises(NotImplementedError):
             build_model(dataclasses.replace(cfg, **change), device="cpu")

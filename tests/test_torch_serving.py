@@ -191,15 +191,16 @@ def _jax_arrivals(batch, vocab_size):
     return out
 
 
-@pytest.fixture(scope="module")
-def slice_runs():
+@pytest.fixture(scope="module", params=[ARCH, "rwkv6-1.6b-reduced"])
+def slice_runs(request):
+    arch = request.param
     n, seed = SLICE["requests"], SLICE["seed"]
     pl, md = SLICE["prompt_len"], SLICE["max_decode"]
     # reference: its own stack, kernel routes on (Pallas in interpret mode)
     jbatch, jmeta = jax_scenarios.build_scenario("llm-chat", requests=n,
                                                  seed=seed)
     jrunner, jbackend, jcfg, _ = jax_tb.make_token_live_server(
-        ARCH, prompt_len=pl, max_decode=md, clock="modeled",
+        arch, prompt_len=pl, max_decode=md, clock="modeled",
         prior_rps=jmeta["expected_rps"], tick=jmeta["tick"],
         cost=jmeta["cost"])
     jarr = _jax_arrivals(jbatch, jcfg.vocab_size)
@@ -207,10 +208,10 @@ def slice_runs():
     # the port, on the same weights (make_token_live_server inits key(0))
     tree = jax.tree.map(np.asarray,
                         jax_build(jcfg).init(jax.random.key(0)))
-    params = params_from_jax(tree, get_config(ARCH), device="cpu")
+    params = params_from_jax(tree, get_config(arch), device="cpu")
     batch, meta = scenarios.build_scenario("llm-chat", requests=n, seed=seed)
     runner, backend, cfg, _ = tb.make_token_live_server(
-        ARCH, prompt_len=pl, max_decode=md, clock="modeled",
+        arch, prompt_len=pl, max_decode=md, clock="modeled",
         prior_rps=meta["expected_rps"], tick=meta["tick"], cost=meta["cost"],
         params=params, device="cpu")
     arr = tb.scenario_arrivals(batch, n, seed, pl, md, cfg.vocab_size)
@@ -262,10 +263,12 @@ def test_run_token_scenario_on_cpu():
     assert len(stats["generated"]) == rep.n_requests
 
 
-def test_launcher_token_branch_on_cpu(capsys):
+@pytest.mark.parametrize("arch", [ARCH, "rwkv6-1.6b-reduced"])
+def test_launcher_token_branch_on_cpu(arch, capsys):
     out = launcher.main(["--scenario", "llm-chat", "--device", "cpu",
-                         "--requests", "4", "--prompt-len", "8",
-                         "--gen-tokens", "2", "--seed", "2"])
+                         "--arch", arch, "--requests", "4",
+                         "--prompt-len", "8", "--gen-tokens", "2",
+                         "--seed", "2"])
     assert out["engine"] == "token-torch" and out["n"] > 0
     assert out["tokens_served"] > 0 and '"ttft_p99"' in capsys.readouterr().out
     with pytest.raises(SystemExit):
