@@ -7,28 +7,36 @@ Phases, each printed on its own line; any failure raises and the exit
 code is non-zero:
 
 1. device  -- the card's name and power limit, as ``nvidia-smi`` prints them;
-2. build   -- the three CUDA kernels built from
+2. build   -- the four CUDA kernels built from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all at once);
 3. kernels -- each kernel against its plain PyTorch version on the card at
    the serving shapes, in float32 (atol = rtol = 2e-5) and bfloat16
    (atol = rtol = 2e-2), then timed with CUDA events (median of 60
    launches, each queued behind a short device sleep so that the events
    time the device and not the host) beside the plain version and, where
-   one exists, one PyTorch call as yardstick.  ``rwkv6_scan`` is checked
-   at the prefill shape (B 4, T 256, H 32, D 64), at decode (T 1), at
-   ragged T (77, 300) and at D 16 and 32, with bf16 r/k/v beside an f32
-   decay, and for state continuation ([0:T] against [0:T/2] then
-   [T/2:T], atol 1e-5 in f32);
-4. parity  -- full-width smollm-135m, then full-width rwkv6-1.6b, in
+   one exists, one PyTorch call as yardstick.  Both attention kernels are
+   checked and timed at head_dim 64 (smollm-135m) and 80 (zamba2-2.7b's
+   shared block, decode lengths up to the ring buffer's wrap).
+   ``rwkv6_scan`` is checked at the prefill shape (B 4, T 256, H 32,
+   D 64), at decode (T 1), at ragged T (77, 300) and at D 16 and 32, with
+   bf16 r/k/v beside an f32 decay, and for state continuation ([0:T]
+   against [0:T/2] then [T/2:T], atol 1e-5 in f32).  ``ssd_scan`` is
+   checked at the prefill shape (B 4, T 256, H 80, P 64, N 64), at decode
+   (T 1, y in f32), at ragged T (77, 300) and smaller P and N, and for
+   state continuation and the in-place decode state;
+4. parity  -- full-width smollm-135m, rwkv6-1.6b and zamba2-2.7b, in
    float32: prefill (batch 2, prompt 256) + 4 decode steps through the
    kernel routes match the plain routes (logits atol 1e-3, identical
    greedy ids);
 5. serve   -- ``run_token_scenario("llm-chat", arch=..., ...)`` in bfloat16
-   on smollm-135m, then on rwkv6-1.6b: the port's two main paths, each
-   with every kernel's launch count reset just before and read just
-   after.  The smollm path must launch both attention kernels and not
-   ``rwkv6_scan``; the rwkv6 path must launch ``rwkv6_scan`` (a multiple
-   of its 24 layers) and neither attention kernel.
+   on smollm-135m, rwkv6-1.6b and zamba2-2.7b: the port's three main
+   paths, each with every kernel's launch count reset just before and
+   read just after.  The smollm path must launch both attention kernels
+   and neither scan; the rwkv6 path must launch ``rwkv6_scan`` (a
+   multiple of its 24 layers) and no other kernel; the zamba2 path must
+   launch ``ssd_scan`` (a multiple of its 54 layers) and both attention
+   kernels (each a multiple of the shared block's 9 applications), and
+   not ``rwkv6_scan``.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Without a CUDA device, or outside a checkout, it prints no result
@@ -36,7 +44,7 @@ and exits non-zero.
 
     python3 chip_smoke.py --profile  # adds phase 6 before the last lines
 
-6. profile -- for each of the two models, one prefill and ten decode
+6. profile -- for each of the three models, one prefill and ten decode
    steps in bf16 at the serving shape (batch 4, prompt 256) under
    ``torch.profiler``: host wall per step, device busy time, kernel count
    and the kernels that take the most device time, also written as
@@ -67,9 +75,14 @@ SLEEP_CYCLES = 1_000_000                  # ~0.5 ms at the H100's clocks
 
 PREFILL = dict(H=9, KV=3, D=64)           # smollm-135m attention widths
 DECODE = dict(B=4, S=321, KV=3, G=3, D=64, lengths=(0, 1, 160, 321))
+# zamba2-2.7b's shared block: 32 heads of 80, window 4096 over a 321-slot
+# ring buffer (lengths = min(index + 1, 321): 321 from the wrap on)
+PREFILL80 = dict(H=32, KV=32, D=80, window=4096)
+DECODE80 = dict(B=4, S=321, KV=32, G=1, D=80, lengths=(1, 160, 320, 321))
 WKV = dict(B=4, T=256, H=32, D=64)        # rwkv6-1.6b prefill at the serve
+SSD = dict(B=4, T=256, H=80, P=64, N=64)  # zamba2-2.7b prefill at the serve
 SERVE = dict(requests=48, prompt_len=256, max_decode=64, seed=0)
-ARCHS = ("smollm-135m", "rwkv6-1.6b")
+ARCHS = ("smollm-135m", "rwkv6-1.6b", "zamba2-2.7b")
 
 
 def say(phase: str, **fields) -> None:
@@ -159,6 +172,20 @@ def wkv_bound(b, t, h, d, dtype):
     return nbytes, 4.0 * d * d * b * h * t
 
 
+def ssd_bound(b, t, h, p, n, dtype, y_dtype):
+    """Least time for one SSD call: x, B, C read in their type and y
+    written in its own, dt read in f32, a_log read and the (P, N) state
+    read and written in f32, against the recurrence's 4 P N f32
+    operations per step and head (h <- a h + (dt x) B^T and y = h C, two
+    multiply-adds per state entry)."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    elt_y = torch.tensor([], dtype=y_dtype).element_size()
+    n_x = b * t * h * p
+    nbytes = ((elt + elt_y) * n_x + 4 * b * t * h + 4 * h
+              + 2 * elt * b * t * n + 2 * 4 * b * h * p * n)
+    return nbytes, 4.0 * p * n * b * h * t
+
+
 def bound_ms(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -245,12 +272,95 @@ def kernel_phase(dev):
         "library_ms": lib_ms,
         "timed": f"bf16 B={b} S={s} KV={kv} G={g} D={d} "
                  f"lengths={list(DECODE['lengths'])}"}
+    attn80_phase(dev, gen, rows)
     rows["rwkv6_scan"] = wkv_kernel_phase(dev, gen)
+    rows["ssd_scan"] = ssd_kernel_phase(dev, gen)
     for r in rows.values():
         say("kernels", kernel=r["name"], ms=r["ms"], plain_ms=r["plain_ms"],
             library_ms=r["library_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"])
     return rows
+
+
+def attn80_phase(dev, gen, rows) -> None:
+    """Both attention kernels at zamba2-2.7b's shared-block widths (head
+    dim 80, 32 query and 32 KV heads): checked against their plain
+    versions, including a decode over a wrapped ring buffer, and timed
+    in bf16 beside the plain version and SDPA.  The times go into the
+    kernels' rows under ``d80_*`` keys."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.swa_prefill import ops as pre
+    import torch.nn.functional as F
+
+    h, kv, d, win = (PREFILL80[k] for k in ("H", "KV", "D", "window"))
+    worst = rows["swa_prefill"]["max_abs_err"]
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, window in ((4, 256, win), (2, 77, 16)):
+            q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+            k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+            v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+            err = check_close(f"swa_prefill D=80 B={b} S={s} W={window} "
+                              f"{dtype}",
+                              pre.swa_prefill_attention(q, k, v, window=window),
+                              pre.swa_prefill_plain(q, k, v, window=window),
+                              dtype)
+            worst = max(worst, err)
+            say("kernels", kernel="swa_prefill", dtype=str(dtype)[6:], B=b,
+                S=s, H=h, KV=kv, D=d, window=window, max_abs_err=err)
+    b, s, dtype = 4, 256, torch.bfloat16
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    bms, by = bound_ms(*prefill_bound(b, s, h, kv, d, win, dtype), dtype)
+    rows["swa_prefill"].update(
+        max_abs_err=worst,
+        d80_ms=median_ms(lambda: pre.swa_prefill_attention(q, k, v,
+                                                           window=win)),
+        d80_plain_ms=median_ms(lambda: pre.swa_prefill_plain(q, k, v,
+                                                             window=win)),
+        d80_library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        d80_bound_ms=bms, d80_bound_by=by,
+        d80_timed=f"bf16 B={b} S={s} H={h} KV={kv} D={d} window={win}")
+
+    b, s, g = DECODE80["B"], DECODE80["S"], DECODE80["G"]
+    lengths = torch.tensor(DECODE80["lengths"], dtype=torch.int32, device=dev)
+    worst = rows["decode_attention"]["max_abs_err"]
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(b, kv, g, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+        err = check_close(f"decode_attention D=80 {dtype}",
+                          dec.decode_attention(q, k, v, lengths),
+                          dec.decode_attention_plain(q, k, v, lengths), dtype)
+        worst = max(worst, err)
+        say("kernels", kernel="decode_attention", dtype=str(dtype)[6:], B=b,
+            S=s, KV=kv, G=g, D=d, lengths=list(DECODE80["lengths"]),
+            max_abs_err=err)
+    qh = q.reshape(b, kv * g, 1, d)
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    valid = torch.arange(s, device=dev)[None, :] < lengths[:, None].long()
+    mask = torch.zeros(b, 1, 1, s, device=dev, dtype=dtype).masked_fill(
+        ~valid[:, None, None, :], -1e30)
+    bms, by = bound_ms(*decode_bound(b, s, kv, g, d, DECODE80["lengths"],
+                                     dtype), dtype)
+    rows["decode_attention"].update(
+        max_abs_err=worst,
+        d80_ms=median_ms(lambda: dec.decode_attention(q, k, v, lengths)),
+        d80_plain_ms=median_ms(lambda: dec.decode_attention_plain(q, k, v,
+                                                                  lengths)),
+        d80_library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+            qh, kt, vt, attn_mask=mask)),
+        d80_bound_ms=bms, d80_bound_by=by,
+        d80_timed=f"bf16 B={b} S={s} KV={kv} G={g} D={d} "
+                  f"lengths={list(DECODE80['lengths'])}")
+    for name in ("swa_prefill", "decode_attention"):
+        r = rows[name]
+        say("kernels", kernel=name, d80_ms=r["d80_ms"],
+            d80_plain_ms=r["d80_plain_ms"],
+            d80_library_ms=r["d80_library_ms"],
+            d80_bound_ms=r["d80_bound_ms"], d80_bound_by=r["d80_bound_by"])
 
 
 def wkv_inputs(gen, dev, b, t, h, d, dtype):
@@ -325,6 +435,92 @@ def wkv_kernel_phase(dev, gen):
             "decode_bound_by": dec_by}
 
 
+def ssd_inputs(gen, dev, b, t, h, p, n, dtype):
+    """x, B, C in ``dtype``; dt after a softplus and a_log scaled 0.3, as
+    the reference's kernel tests draw them; h0 in f32."""
+    import torch.nn.functional as F
+
+    x = torch.randn(b, t, h, p, generator=gen, device=dev).to(dtype)
+    dt = F.softplus(torch.randn(b, t, h, generator=gen, device=dev))
+    a_log = torch.randn(h, generator=gen, device=dev) * 0.3
+    bm, cm = (torch.randn(b, t, n, generator=gen, device=dev).to(dtype)
+              for _ in range(2))
+    h0 = torch.randn(b, h, p, n, generator=gen, device=dev) * 0.1
+    return x, dt, a_log, bm, cm, h0
+
+
+def ssd_kernel_phase(dev, gen):
+    from repro_torch.kernels.ssd_scan import ops as ssd
+
+    b, t, h, p, n = (SSD[k] for k in ("B", "T", "H", "P", "N"))
+    worst = 0.0
+    for dtype, y_dtype in ((torch.float32, torch.float32),
+                           (torch.bfloat16, torch.bfloat16),
+                           (torch.bfloat16, torch.float32)):
+        for cb, ct, ch, cp, cn in ((b, t, h, p, n), (b, 1, h, p, n),
+                                   (2, 77, 3, 64, 64), (1, 300, 2, 64, 64),
+                                   (2, 77, 3, 32, 16), (1, 300, 2, 32, 64)):
+            args = ssd_inputs(gen, dev, cb, ct, ch, cp, cn, dtype)
+            y, hf = ssd.ssd_scan(*args, y_dtype=y_dtype)
+            y_ref, h_ref = ssd.ssd_scan_plain(*args, y_dtype=y_dtype)
+            name = (f"ssd_scan B={cb} T={ct} H={ch} P={cp} N={cn} {dtype} "
+                    f"y {y_dtype}")
+            err = max(check_close(name + " y", y, y_ref, y_dtype),
+                      check_close(name + " h_final", hf, h_ref,
+                                  torch.float32))
+            worst = max(worst, err)
+            say("kernels", kernel="ssd_scan", dtype=str(dtype)[6:],
+                y_dtype=str(y_dtype)[6:], B=cb, T=ct, H=ch, P=cp, N=cn,
+                max_abs_err=err)
+    # state continuation in f32: [0:T] against [0:T/2] then [T/2:T] with
+    # the second half updating its state in place, and a decode step
+    # (T = 1, y in f32) updating its state in place
+    x, dt, a_log, bm, cm, h0 = ssd_inputs(gen, dev, b, t, h, p, n,
+                                          torch.float32)
+    y_full, h_full = ssd.ssd_scan(x, dt, a_log, bm, cm, h0)
+    m = t // 2
+    y1, h1 = ssd.ssd_scan(*(a[:, :m].contiguous() for a in (x, dt)), a_log,
+                          *(a[:, :m].contiguous() for a in (bm, cm)), h0)
+    y2, h2 = ssd.ssd_scan(*(a[:, m:].contiguous() for a in (x, dt)), a_log,
+                          *(a[:, m:].contiguous() for a in (bm, cm)), h1,
+                          h_out=h1)
+    torch.cuda.synchronize()
+    cont = max(float((torch.cat([y1, y2], 1) - y_full).abs().max()),
+               float((h2 - h_full).abs().max()))
+    if not (h2 is h1 and cont <= 1e-5):
+        raise AssertionError(f"ssd_scan state continuation: max abs diff "
+                             f"{cont} (atol 1e-5)")
+    say("kernels", kernel="ssd_scan", check="state continuation f32", T=t,
+        split=m, max_abs_err=cont)
+    # timed at the serving shapes: bf16 x/B/C, f32 dt; prefill T = 256 (y
+    # in bf16) and a decode step (T = 1, y in f32) updating its state in
+    # place, as the model runs them
+    dtype = torch.bfloat16
+    x, dt, a_log, bm, cm, h0 = ssd_inputs(gen, dev, b, t, h, p, n, dtype)
+    ms = median_ms(lambda: ssd.ssd_scan(x, dt, a_log, bm, cm, h0))
+    plain_ms = median_ms(lambda: ssd.ssd_scan_plain(x, dt, a_log, bm, cm, h0))
+    bms, by = bound_ms(*ssd_bound(b, t, h, p, n, dtype, dtype), torch.float32)
+    one = [a[:, :1].contiguous() for a in (x, dt, bm, cm)]
+    state = h0.clone()
+    dec_ms = median_ms(lambda: ssd.ssd_scan(one[0], one[1], a_log, one[2],
+                                            one[3], state, h_out=state,
+                                            y_dtype=torch.float32))
+    dec_bms, dec_by = bound_ms(*ssd_bound(b, 1, h, p, n, dtype,
+                                          torch.float32), torch.float32)
+    say("kernels", kernel="ssd_scan", decode_ms=dec_ms,
+        decode_bound_ms=dec_bms, decode_bound_by=dec_by)
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:75",
+            "launches": None, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            # no single PyTorch call computes the SSD recurrence
+            "library_ms": None,
+            "timed": f"bf16 x/B/C/y, f32 dt, B={b} T={t} H={h} P={p} N={n}",
+            "decode_ms": dec_ms, "decode_bound_ms": dec_bms,
+            "decode_bound_by": dec_by}
+
+
 # ---------------------------------------------------------------------------
 # model parity and serving
 # ---------------------------------------------------------------------------
@@ -370,6 +566,7 @@ def parity_phase(dev, arch: str) -> None:
 def serve_phase(dev, arch: str):
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.rwkv6_scan import ops as wkv
+    from repro_torch.kernels.ssd_scan import ops as ssd
     from repro_torch.kernels.swa_prefill import ops as pre
     from repro_torch.configs import get_config
     from repro_torch.serving.token_backend import run_token_scenario
@@ -379,6 +576,7 @@ def serve_phase(dev, arch: str):
     pre.launches = 0
     dec.launches = 0
     wkv.launches = 0
+    ssd.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     report, stats = run_token_scenario("llm-chat", arch=arch, device=dev,
@@ -387,19 +585,35 @@ def serve_phase(dev, arch: str):
     wall = time.perf_counter() - t0
     launches = {"swa_prefill": pre.launches,
                 "decode_attention": dec.launches,
-                "rwkv6_scan": wkv.launches}
+                "rwkv6_scan": wkv.launches,
+                "ssd_scan": ssd.launches}
     if cfg.blocks[0] == "rwkv6+rwkv_cm":
         kernel_checks = {
             "rwkv6_scan launched, a multiple of the layers":
                 launches["rwkv6_scan"] > 0
                 and launches["rwkv6_scan"] % cfg.num_layers == 0,
             "no attention kernel launched":
-                launches["swa_prefill"] == launches["decode_attention"] == 0}
+                launches["swa_prefill"] == launches["decode_attention"] == 0,
+            "ssd_scan not launched": launches["ssd_scan"] == 0}
+    elif cfg.blocks[0] == "mamba2+none":
+        apps = -(-cfg.num_layers // cfg.shared_attn_every)
+        kernel_checks = {
+            "ssd_scan launched, a multiple of the layers":
+                launches["ssd_scan"] > 0
+                and launches["ssd_scan"] % cfg.num_layers == 0,
+            "swa_prefill launched, a multiple of the shared applications":
+                launches["swa_prefill"] > 0
+                and launches["swa_prefill"] % apps == 0,
+            "decode_attention launched, a multiple of the shared "
+            "applications": launches["decode_attention"] > 0
+                and launches["decode_attention"] % apps == 0,
+            "rwkv6_scan not launched": launches["rwkv6_scan"] == 0}
     else:
         kernel_checks = {
             "swa_prefill launched": launches["swa_prefill"] > 0,
             "decode_attention launched": launches["decode_attention"] > 0,
-            "rwkv6_scan not launched": launches["rwkv6_scan"] == 0}
+            "rwkv6_scan not launched": launches["rwkv6_scan"] == 0,
+            "ssd_scan not launched": launches["ssd_scan"] == 0}
     gen = stats["generated"]
     ids = np.concatenate([np.asarray(v) for v in gen.values()])
     checks = {

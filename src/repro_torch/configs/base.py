@@ -2,8 +2,8 @@
 
 Copy of ``repro.configs.base.ModelConfig`` with the same field names and
 defaults, so a config maps one to one between the packages, cut to the
-fields' declaration, ``padded_vocab``, ``rwkv_num_heads`` and
-``reduced()``.  The port's models run only what they implement
+fields' declaration, ``padded_vocab``, ``d_inner``, ``ssm_num_heads``,
+``rwkv_num_heads`` and ``reduced()``.  The port's models run only what they implement
 (``models.api.build_model`` refuses the rest).
 
 ``use_pallas_prefill`` / ``use_pallas_decode`` keep the reference's
@@ -11,8 +11,9 @@ names with a wider meaning: they route the prefill pass and the decode
 step through the port's Hopper kernels (``repro_torch.kernels``),
 whatever the mixer.  For attention that is ``swa_prefill`` and
 ``decode_attention``; for RWKV-6 it is the WKV6 recurrence on the
-``rwkv6_scan`` kernel, which the reference never routes to its Pallas
-kernel.
+``rwkv6_scan`` kernel and for Mamba2 the SSD recurrence on the
+``ssd_scan`` kernel, which the reference never routes to its Pallas
+kernels.
 """
 from __future__ import annotations
 
@@ -93,11 +94,13 @@ class ModelConfig:
     moe_partial_ep: bool = False       # reference only: expert-parallel serving
     use_pallas_decode: bool = False    # decode step's kernel: attention via
                                        # the Hopper decode_attention kernel,
-                                       # RWKV-6 WKV6 via rwkv6_scan (T = 1)
+                                       # RWKV-6 WKV6 via rwkv6_scan, Mamba2
+                                       # SSD via ssd_scan (T = 1)
     use_pallas_prefill: bool = False   # prefill pass's kernel: attention via
                                        # swa_prefill (full causal == window
-                                       # >= S), RWKV-6 WKV6 via rwkv6_scan
-                                       # (T = prompt); serving path only
+                                       # >= S), RWKV-6 WKV6 via rwkv6_scan,
+                                       # Mamba2 SSD via ssd_scan (T =
+                                       # prompt); serving path only
     rwkv_chunked: bool = False         # reference only: chunked WKV6
     # --- numerics ------------------------------------------------------------
     scale_embed: bool = False          # gemma: multiply embeddings by sqrt(d)
@@ -130,6 +133,14 @@ class ModelConfig:
         """Vocab padded to a multiple of 128 (the reference's sharding
         granule; kept so the embedding tables have the same shape)."""
         return int(math.ceil(self.vocab_size / 128) * 128)
+
+    @property
+    def d_inner(self) -> int:  # mamba2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_num_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
 
     @property
     def rwkv_num_heads(self) -> int:

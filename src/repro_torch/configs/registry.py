@@ -14,6 +14,7 @@ from repro_torch.configs.base import ModelConfig
 _MODULES = {
     "smollm-135m": "smollm_135m",
     "rwkv6-1.6b": "rwkv6_1p6b",
+    "zamba2-2.7b": "zamba2_2p7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -14,8 +14,10 @@
 // shared memory.  Its 4 warps stride over S in chunks of 32 cache rows: a lane
 // scores its own row against all G queries (16-byte vector loads), the warp
 // updates each query's online softmax (m, l) in f32 with warp reductions and
-// accumulates P.V with each lane owning D / 32 output columns.  The warps'
-// partial (m, l, acc) are then combined in shared memory.
+// accumulates P.V with each lane owning ceil(D / 32) output columns; a column
+// past D (lanes 16-31 of the third group at D = 80) is never read, accumulated
+// or stored.  The warps' partial (m, l, acc) are then combined in shared
+// memory.  D in {16, 32, 64, 80, 128}.
 //
 // What bounds it on the H100: the bytes of K and V read (every query of a KV
 // head shares one pass over its cache rows, so arithmetic intensity is about
@@ -177,6 +179,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
     case 16: return launch<T, 16>(q, k, v, lengths, out, B, S, KV, G, stream);
     case 32: return launch<T, 32>(q, k, v, lengths, out, B, S, KV, G, stream);
     case 64: return launch<T, 64>(q, k, v, lengths, out, B, S, KV, G, stream);
+    case 80: return launch<T, 80>(q, k, v, lengths, out, B, S, KV, G, stream);
     case 128: return launch<T, 128>(q, k, v, lengths, out, B, S, KV, G, stream);
     default: return cudaErrorInvalidValue;
   }

@@ -16,8 +16,11 @@
 // memory as f32 (K rows padded to D + 1 floats so that lane-per-key reads hit
 // distinct banks).  For each of its rows a warp scores two keys per lane,
 // updates (m, l) with warp reductions, and accumulates P.V with each lane
-// owning D / 32 output columns.  Rows and keys past S are masked, so any S
-// works.
+// owning ceil(D / 32) output columns; a column past D (lanes 16-31 of the
+// third group at D = 80) is never read, accumulated or stored.  Rows and keys
+// past S are masked, so any S works.  D in {16, 32, 64, 80, 128}: D = 80 needs
+// 63,744 bytes of shared memory, above the 48 KB default, which launch() opts
+// in to.
 //
 // What bounds it on the H100: at the serving shape (S = 256, D = 64) the
 // bytes to move and the operations to do are both small (chip_smoke.py
@@ -202,6 +205,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, i
     case 16: return launch<T, 16>(q, k, v, out, B, S, H, KV, window, stream);
     case 32: return launch<T, 32>(q, k, v, out, B, S, H, KV, window, stream);
     case 64: return launch<T, 64>(q, k, v, out, B, S, H, KV, window, stream);
+    case 80: return launch<T, 80>(q, k, v, out, B, S, H, KV, window, stream);
     case 128: return launch<T, 128>(q, k, v, out, B, S, H, KV, window, stream);
     default: return cudaErrorInvalidValue;
   }

@@ -31,7 +31,7 @@ from repro_torch.kernels import build
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 80, 128)
 _MAX_G = 8
 _fn = None
 

@@ -9,7 +9,7 @@ names; the other modes of the reference launcher are still to be ported
         --arch smollm-135m --requests 48 --prompt-len 256 --gen-tokens 64
 
 ``--arch`` takes any id of ``repro_torch.configs.registry`` (``smollm-135m``,
-``rwkv6-1.6b``, and their ``-reduced`` cuts).
+``rwkv6-1.6b``, ``zamba2-2.7b``, and their ``-reduced`` cuts).
 """
 from __future__ import annotations
 
@@ -59,7 +59,7 @@ def main(argv=None):
                     help="size the run by request count (default 24)")
     ap.add_argument("--arch", default="smollm-135m-reduced",
                     help="a registered arch id (smollm-135m, rwkv6-1.6b, "
-                         "or either with -reduced)")
+                         "zamba2-2.7b, or any of them with -reduced)")
     ap.add_argument("--policy", default="sponge")
     ap.add_argument("--rps", type=float, default=None)
     ap.add_argument("--duration", type=float, default=None)

@@ -1,17 +1,23 @@
 """Public model API: ``build_model(cfg) -> Model`` with init/prefill/decode.
 
-Counterpart of the dense and RWKV-6 parts of ``repro.models.api``, for
-homogeneous stacks (``attn+mlp`` with standard RoPE, or ``rwkv6+rwkv_cm``
-with no positions).  Parameters are plain dicts of tensors: ``{"embed",
-"final_norm", ["head",] "layers": [per-layer dict, ...]}`` — the
-reference's stacked ``params["groups"][0]`` with its leading layer axis
-unstacked into a list (a Python loop over layers takes the place of
-``lax.scan``).  The decode cache is the reference's
-``cache["groups"][0]`` with its leading layer axis, plus ``"index"``:
-``{"k", "v"}`` of shape (L, B, cache_len, KV, D) for attention, or
-``{"tmix": {"shift", "wkv"}, "cmix": {"shift"}}`` for RWKV-6 (shifts
-(L, B, d) in the compute dtype, WKV state (L, B, H, D, D) in f32).
-Prefill fills it and decode updates it in place.
+Counterpart of the dense, RWKV-6 and Mamba2 / zamba2 parts of
+``repro.models.api``, for homogeneous stacks (``attn+mlp`` with standard
+RoPE, ``rwkv6+rwkv_cm`` with no positions, or ``mamba2+none``, with or
+without zamba2's shared attention block).  Parameters are plain dicts of
+tensors: ``{"embed", "final_norm", ["head",] "layers": [per-layer dict,
+...], ["shared_attn"]}`` — the reference's stacked
+``params["groups"][0]`` with its leading layer axis unstacked into a
+list (a Python loop over layers takes the place of ``lax.scan``).  The
+decode cache is the reference's ``cache["groups"][0]`` with its leading
+layer axis, plus ``"index"``: ``{"k", "v"}`` of shape (L, B, cache_len,
+KV, D) for attention; ``{"tmix": {"shift", "wkv"}, "cmix": {"shift"}}``
+for RWKV-6 (shifts (L, B, d) in the compute dtype, WKV state (L, B, H,
+D, D) in f32); ``{"ssm": {"conv_x", "conv_bc", "h"}}`` for Mamba2 (conv
+windows (L, B, W-1, C) in the compute dtype, SSD state (L, B, H, P, N)
+in f32), with zamba2's ``"shared": {"k", "v"}`` of shape (apps, B,
+min(cache_len, window), KV, D), one ring buffer per application of the
+shared block (the reference's ``cache["shared"]``).  Prefill fills it
+and decode updates it in place.
 
 Every entry point runs on ``cuda`` unless the caller names another
 device; with no CUDA device and no explicit ``device="cpu"`` it raises.
@@ -26,6 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba2 as m2
 from repro_torch.models import rwkv6 as rk
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (dense_init, embed_init, linear,
@@ -48,18 +55,33 @@ def _is_rwkv(cfg: ModelConfig) -> bool:
     return cfg.blocks[0] == "rwkv6+rwkv_cm"
 
 
+def _is_mamba(cfg: ModelConfig) -> bool:
+    return cfg.blocks[0] == "mamba2+none"
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     kinds = set(cfg.blocks)
-    dense = (kinds == {"attn+mlp"} and cfg.rope_kind == "standard"
-             and cfg.mlp_kind == "swiglu")
-    rwkv = kinds == {"rwkv6+rwkv_cm"} and cfg.rope_kind == "none"
-    if (not (dense or rwkv) or cfg.logit_softcap or cfg.is_encoder_decoder
-            or cfg.num_patch_tokens or cfg.shared_attn_every
+    attention = cfg.rope_kind == "standard" and cfg.mlp_kind == "swiglu"
+    dense = kinds == {"attn+mlp"} and attention and not cfg.shared_attn_every
+    rwkv = (kinds == {"rwkv6+rwkv_cm"} and cfg.rope_kind == "none"
+            and not cfg.shared_attn_every)
+    mamba = kinds == {"mamba2+none"} and (attention
+                                          or not cfg.shared_attn_every)
+    if (not (dense or rwkv or mamba) or cfg.logit_softcap
+            or cfg.is_encoder_decoder or cfg.num_patch_tokens
             or cfg.mtp_depth):
         raise NotImplementedError(
             f"{cfg.name}: only homogeneous stacks of dense attn+mlp blocks "
-            "(standard RoPE, SwiGLU) or rwkv6+rwkv_cm blocks (no RoPE) are "
-            "ported yet")
+            "(standard RoPE, SwiGLU), rwkv6+rwkv_cm blocks (no RoPE) or "
+            "mamba2+none blocks (a shared attention block with standard "
+            "RoPE and SwiGLU) are ported yet")
+
+
+def _shared_apps(cfg: ModelConfig) -> int:
+    """Applications of the shared attention block (one before every
+    ``shared_attn_every``-th layer)."""
+    every = cfg.shared_attn_every
+    return (cfg.num_layers + every - 1) // every
 
 
 # ---------------------------------------------------------------------------
@@ -79,6 +101,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
         p["head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab), dtype)
     p["layers"] = [tfm.init_block(gen, cfg, kind, dtype, dev)
                    for kind in cfg.blocks]
+    if cfg.shared_attn_every:
+        p["shared_attn"] = tfm.init_shared_attn(gen, cfg, dtype, dev)
     return p
 
 
@@ -86,9 +110,11 @@ def params_from_jax(tree, cfg: ModelConfig, device=None):
     """The reference's ``Model.init`` pytree, already converted to numpy
     arrays by the caller, as this package's parameters on ``device``.
     The leading layer axis of ``tree["groups"][0]`` is unstacked into
-    ``params["layers"]``; every weight keeps its (in, out) layout.  A
-    leaf that is f32 in the tree stays f32 (the reference keeps some in
-    f32 at every param dtype); the others go to ``cfg.param_dtype``."""
+    ``params["layers"]``; ``tree["shared_attn"]`` (one weight set, no
+    layer axis) is taken as it is; every weight keeps its (in, out)
+    layout.  A leaf that is f32 in the tree stays f32 (the reference
+    keeps some in f32 at every param dtype); the others go to
+    ``cfg.param_dtype``."""
     dev = resolve_device(device)
     dtype = to_dtype(cfg.param_dtype)
 
@@ -107,14 +133,17 @@ def params_from_jax(tree, cfg: ModelConfig, device=None):
                                   "are ported yet")
     stacked = groups[0]
 
-    def layer(tr, i):
-        return {k: layer(v, i) if isinstance(v, dict) else conv(v[i])
+    def each(tr, fn):
+        return {k: each(v, fn) if isinstance(v, dict) else fn(v)
                 for k, v in tr.items()}
 
     p = {"embed": conv(tree["embed"]), "final_norm": conv(tree["final_norm"]),
-         "layers": [layer(stacked, i) for i in range(cfg.num_layers)]}
+         "layers": [each(stacked, lambda a, i=i: conv(a[i]))
+                    for i in range(cfg.num_layers)]}
     if not cfg.tie_embeddings:
         p["head"] = conv(tree["head"])
+    if cfg.shared_attn_every:
+        p["shared_attn"] = each(tree["shared_attn"], conv)
     return p
 
 
@@ -136,23 +165,36 @@ def _head(params, cfg: ModelConfig, x):
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
-    """A zero decode cache; an RWKV-6 state does not depend on
-    ``cache_len``."""
+    """A zero decode cache; an RWKV-6 or Mamba2 state does not depend on
+    ``cache_len`` (the shared block's ring buffers do)."""
+    dtype = to_dtype(cfg.dtype)
     if _is_rwkv(cfg):
-        cache = rk.init_rwkv6_state(cfg, batch, to_dtype(cfg.dtype), device,
+        cache = rk.init_rwkv6_state(cfg, batch, dtype, device,
                                     layers=cfg.num_layers)
+    elif _is_mamba(cfg):
+        cache = {"ssm": m2.init_mamba2_state(cfg, batch, dtype, device,
+                                             layers=cfg.num_layers)}
     else:
-        cache = attn_mod.init_attention_cache(cfg, batch, cache_len,
-                                              to_dtype(cfg.dtype), device,
-                                              layers=cfg.num_layers)
+        cache = attn_mod.init_attention_cache(cfg, batch, cache_len, dtype,
+                                              device, layers=cfg.num_layers)
+    if cfg.shared_attn_every:
+        cache["shared"] = attn_mod.init_attention_cache(
+            cfg, batch, cache_len, dtype, device, layers=_shared_apps(cfg),
+            window=cfg.shared_attn_window or cache_len)
     cache["index"] = 0
     return cache
 
 
 def _layer_cache(cache: dict, i: int) -> dict:
-    """Layer ``i``'s views into the decode cache (no copy)."""
+    """Layer ``i``'s views into the decode cache (no copy), without the
+    shared block's ring buffers."""
     return {k: _layer_cache(v, i) if isinstance(v, dict) else v[i]
-            for k, v in cache.items() if k != "index"}
+            for k, v in cache.items() if k not in ("index", "shared")}
+
+
+def _shared_cache(cache: dict, app: int) -> dict:
+    """Application ``app``'s views into the shared block's ring buffers."""
+    return {k: v[app] for k, v in cache["shared"].items()}
 
 
 # ---------------------------------------------------------------------------
@@ -169,7 +211,11 @@ def prefill(params, batch: dict, cfg: ModelConfig,
     positions = (None if _is_rwkv(cfg) else
                  torch.arange(s, device=tokens.device).expand(b, s))
     x = _embed(params, cfg, tokens)
+    shared, every = params.get("shared_attn"), cfg.shared_attn_every
     for i, p in enumerate(params["layers"]):
+        if shared is not None and i % every == 0:
+            x = tfm.shared_attn_prefill(shared, x, positions, cfg,
+                                        _shared_cache(cache, i // every))
         x = tfm.block_prefill(p, x, positions, cfg, _layer_cache(cache, i))
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = _head(params, cfg, x)
@@ -181,9 +227,9 @@ def decode_step(params, cache: dict, token, cfg: ModelConfig):
     """One serve step: one new token per sequence against the cache.
 
     token: (B, 1) integer ids.  Returns ``(logits (B, V), new_cache)``;
-    ``new_cache`` shares the tensors of ``cache`` (K/V or recurrent
-    state), which this step updates in place, and its ``index`` is one
-    further."""
+    ``new_cache`` shares the tensors of ``cache`` (K/V, recurrent state
+    or ring buffers), which this step updates in place, and its
+    ``index`` is one further."""
     index = cache["index"]
     token = token.long()
     b = token.shape[0]
@@ -191,7 +237,12 @@ def decode_step(params, cache: dict, token, cfg: ModelConfig):
                  torch.full((b, 1), index, dtype=torch.long,
                             device=token.device))
     x = _embed(params, cfg, token)
+    shared, every = params.get("shared_attn"), cfg.shared_attn_every
     for i, p in enumerate(params["layers"]):
+        if shared is not None and i % every == 0:
+            x = tfm.shared_attn_decode(shared, x,
+                                       _shared_cache(cache, i // every),
+                                       index, positions, cfg)
         x = tfm.block_decode(p, x, _layer_cache(cache, i), index, positions,
                              cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -1,13 +1,20 @@
 """GQA attention: init, RoPE, single-token decode against a KV cache.
 
-Counterpart of the GQA part of ``repro.models.attention`` (MLA, M-RoPE,
-sliding-window decode and the blocked prefill attention are still to be
-ported).  ``attention_decode`` routes through the Hopper
-``decode_attention`` kernel when ``cfg.use_pallas_decode`` is set and
-the guard of the reference holds (full attention, no softcap,
-``d % 8 == 0``); otherwise it computes the reference's dense masked
-softmax.  The KV cache is updated in place: the new token's K/V are
-written into its slot of the given cache tensors.
+Counterpart of the GQA part of ``repro.models.attention`` (MLA, M-RoPE
+and the blocked prefill attention are still to be ported).  A
+sliding-window cache (``window > 0``) is a ring buffer of
+``min(seq, window)`` slots: slot ``p % S`` holds position ``p``.
+``attention_decode`` routes through the Hopper ``decode_attention``
+kernel when ``cfg.use_pallas_decode`` is set and the reference's guard
+holds apart from its ``window == 0`` (no softcap, ``d % 8 == 0``);
+otherwise it computes the reference's dense masked softmax.  The kernel
+takes the ring buffer too, which the reference's kernel route does not:
+a softmax does not depend on the order of its slots, and the
+reference's mask ``(slot - j) % S <= index`` keeps exactly the slots
+``j < min(index + 1, S)`` (before the first wrap slots ``0..index``,
+after it every slot), which is the kernel's ``lengths`` mask.  The KV
+cache is updated in place: the new token's K/V are written into its
+slot of the given cache tensors.
 """
 from __future__ import annotations
 
@@ -44,10 +51,8 @@ def attention_decode(params, x: torch.Tensor, cache: dict, cache_index: int,
     """Single-token decode.  x: (B, 1, d_model); cache: {"k", "v"} of
     (B, S, KV, D), keys cached post-RoPE; ``cache_index`` is the slot of
     this token.  Writes the token's K/V into the cache in place and
-    returns ``(y, cache)``."""
-    if window > 0:
-        raise NotImplementedError("the sliding-window ring buffer is not "
-                                  "ported yet")
+    returns ``(y, cache)``.  With ``window > 0`` the cache is a ring
+    buffer and the token goes to slot ``cache_index % S``."""
     h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     b = x.shape[0]
     q = linear(x, params["wq"]).reshape(b, 1, h, d)
@@ -57,19 +62,24 @@ def attention_decode(params, x: torch.Tensor, cache: dict, cache_index: int,
 
     ck, cv = cache["k"], cache["v"]
     s_cache = ck.shape[1]
-    ck[:, cache_index] = k[:, 0].to(ck.dtype)
-    cv[:, cache_index] = v[:, 0].to(cv.dtype)
+    slot = cache_index % s_cache if window > 0 else cache_index
+    ck[:, slot] = k[:, 0].to(ck.dtype)
+    cv[:, slot] = v[:, 0].to(cv.dtype)
 
     g = h // kvh
-    if (cfg.use_pallas_decode and window == 0 and cfg.logit_softcap == 0
-            and d % 8 == 0):
-        # Hopper flash-decode kernel: contiguous cache [0..index]
-        lengths = torch.full((b,), cache_index + 1, dtype=torch.int32,
-                             device=x.device)
+    if cfg.use_pallas_decode and cfg.logit_softcap == 0 and d % 8 == 0:
+        # Hopper flash-decode kernel over the valid slots [0, lengths)
+        lengths = torch.full((b,), min(cache_index + 1, s_cache),
+                             dtype=torch.int32, device=x.device)
         out = decode_attention(q.reshape(b, kvh, g, d), ck, cv, lengths)
         out = out.reshape(b, 1, h * d).to(x.dtype)
         return linear(out, params["wo"]), cache
-    valid = torch.arange(s_cache, device=x.device) <= cache_index
+    j = torch.arange(s_cache, device=x.device)
+    if window > 0:
+        # ring buffer: slot j holds position index - ((slot - j) mod S)
+        valid = (slot - j) % s_cache <= cache_index
+    else:
+        valid = j <= cache_index
     qf = (q.reshape(b, kvh, g, d) * (d ** -0.5)).float()
     scores = torch.einsum("bkgd,bskd->bkgs", qf, ck.float())
     scores = scores.masked_fill(~valid[None, None, None, :], NEG_INF)
@@ -80,8 +90,10 @@ def attention_decode(params, x: torch.Tensor, cache: dict, cache_index: int,
 
 
 def init_attention_cache(cfg: ModelConfig, batch: int, seq: int, dtype,
-                         device, *, layers: int = 1):
-    """Zeroed K/V cache of ``layers`` stacked (B, seq, KV, D) buffers."""
-    shape = (layers, batch, seq, cfg.num_kv_heads, cfg.head_dim)
+                         device, *, layers: int = 1, window: int = 0):
+    """Zeroed K/V cache of ``layers`` stacked (B, S, KV, D) buffers, with
+    S = ``min(seq, window)`` for a sliding window, else ``seq``."""
+    s = min(seq, window) if window > 0 else seq
+    shape = (layers, batch, s, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

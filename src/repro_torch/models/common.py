@@ -35,6 +35,14 @@ def embed_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
     return (w * 0.02).to(dtype)
 
 
+def keep_in(out, name: str, value: torch.Tensor) -> torch.Tensor:
+    """``value`` written into ``out[name]`` in place (a layer's view into
+    the decode cache), or ``value`` itself when ``out`` is None."""
+    if out is None:
+        return value
+    return out[name].copy_(value)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     dt = x.dtype
     x = x.float()

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan, rwkv6_scan_plain
-from repro_torch.models.common import dense_init, linear
+from repro_torch.models.common import dense_init, keep_in, linear
 
 LORA_R = 64
 DECAY_LORA_R = 128
@@ -86,13 +86,6 @@ def wkv6_scan(r, k, v, w, u, s0=None, *, kernel: bool = False, out=None):
     return scan(r, k, v, w, u, s0, s_out=out)
 
 
-def _keep(out: Optional[dict], name: str, value: torch.Tensor):
-    """``value`` written into ``out[name]`` in place, or ``value``."""
-    if out is None:
-        return value
-    return out[name].copy_(value)
-
-
 def rwkv6_tmix_fwd(params, x: torch.Tensor, cfg: ModelConfig,
                    state: Optional[dict] = None, *, kernel: bool = False,
                    out: Optional[dict] = None):
@@ -133,7 +126,7 @@ def rwkv6_tmix_fwd(params, x: torch.Tensor, cfg: ModelConfig,
     y = (yh.reshape(b, s, d) * params["ln_scale"]
          + params["ln_bias"]).to(x.dtype)
     y = linear(y * g, params["w_o"])
-    return y, {"shift": _keep(out, "shift", shift_out), "wkv": wkv}
+    return y, {"shift": keep_in(out, "shift", shift_out), "wkv": wkv}
 
 
 def rwkv6_cmix_fwd(params, x: torch.Tensor, cfg: ModelConfig,
@@ -149,7 +142,7 @@ def rwkv6_cmix_fwd(params, x: torch.Tensor, cfg: ModelConfig,
     k = torch.square(torch.relu(linear(xk, params["w_k"])))
     kv = linear(k, params["w_v"])
     y = torch.sigmoid(linear(xr, params["w_r"])) * kv
-    return y, {"shift": _keep(out, "shift", shift_out)}
+    return y, {"shift": keep_in(out, "shift", shift_out)}
 
 
 def init_rwkv6_state(cfg: ModelConfig, batch: int, dtype, device,

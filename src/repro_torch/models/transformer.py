@@ -1,5 +1,6 @@
-"""Block assembly for the ``attn+mlp`` and ``rwkv6+rwkv_cm`` stacks:
-prefill and decode.
+"""Block assembly for the ``attn+mlp``, ``rwkv6+rwkv_cm`` and
+``mamba2+none`` stacks and zamba2's shared attention block: prefill and
+decode.
 
 Counterpart of those parts of ``repro.models.transformer``.  Prefill
 attention runs the Hopper ``swa_prefill`` kernel when
@@ -7,10 +8,12 @@ attention runs the Hopper ``swa_prefill`` kernel when
 ``window = S``; the kernel masks ragged tiles itself, so the reference's
 ``S <= 256 or S % 256 == 0`` block guard is not needed), and its plain
 PyTorch version otherwise.  The RWKV-6 time mix runs its WKV6 recurrence
-on the ``rwkv6_scan`` kernel under ``cfg.use_pallas_prefill`` in prefill
-and ``cfg.use_pallas_decode`` in decode.  ``cache`` is one layer's views
-into the decode cache (``{"k", "v"}`` or ``{"tmix", "cmix"}``): prefill
-fills it and decode updates it, in place.
+on the ``rwkv6_scan`` kernel and the Mamba2 mixer its SSD recurrence on
+the ``ssd_scan`` kernel, under ``cfg.use_pallas_prefill`` in prefill and
+``cfg.use_pallas_decode`` in decode.  ``cache`` is one layer's views
+into the decode cache (``{"k", "v"}``, ``{"tmix", "cmix"}`` or
+``{"ssm"}``), or one shared-block application's ``{"k", "v"}`` ring
+buffer: prefill fills it and decode updates it, in place.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.swa_prefill.ops import (swa_prefill_attention,
                                                  swa_prefill_plain)
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2 as m2
 from repro_torch.models import rwkv6 as rk
 from repro_torch.models.common import linear, rms_norm
 from repro_torch.models.mlp import init_mlp, mlp_fwd
@@ -32,9 +36,12 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype,
     p = {"norm1": torch.zeros(d, dtype=dtype, device=device)}
     if mixer == "attn":
         p["attn"] = attn.init_attention(gen, cfg, dtype)
+    elif mixer == "mamba2":
+        p["mamba"] = m2.init_mamba2(gen, cfg, dtype)
     elif mixer == "rwkv6":
         p["tmix"] = rk.init_rwkv6_tmix(gen, cfg, dtype)
-    p["norm2"] = torch.zeros(d, dtype=dtype, device=device)
+    if ffn != "none":
+        p["norm2"] = torch.zeros(d, dtype=dtype, device=device)
     if ffn == "mlp":
         p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dtype)
     elif ffn == "rwkv_cm":
@@ -42,13 +49,30 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype,
     return p
 
 
+def init_shared_attn(gen: torch.Generator, cfg: ModelConfig, dtype, device):
+    """Zamba2's shared attention + MLP block: one weight set for every
+    application."""
+    d = cfg.d_model
+    return {"norm1": torch.zeros(d, dtype=dtype, device=device),
+            "attn": attn.init_attention(gen, cfg, dtype),
+            "norm2": torch.zeros(d, dtype=dtype, device=device),
+            "mlp": init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dtype)}
+
+
 def _write_kv_cache(k, v, cache: dict, window: int) -> None:
-    """Write full-sequence K/V (B, S, KV, D) into cache[:, :S] in place
-    (full attention: the cache holds at least S positions)."""
-    if window > 0:
-        raise NotImplementedError("the sliding-window ring buffer is not "
-                                  "ported yet")
+    """Write full-sequence K/V (B, S, KV, D) into the (zeroed) cache in
+    place.  Full attention: cache[:, :S] (the cache holds at least S
+    positions).  Sliding window: a ring buffer of w = min(window, cache
+    size) slots, slot p % w holding position p, for the last min(S, w)
+    positions."""
     s = k.shape[1]
+    if window > 0:
+        w = min(window, cache["k"].shape[1])
+        take = min(s, w)
+        slots = torch.arange(s - take, s, device=k.device) % w
+        cache["k"][:, slots] = k[:, s - take:].to(cache["k"].dtype)
+        cache["v"][:, slots] = v[:, s - take:].to(cache["v"].dtype)
+        return
     cache["k"][:, :s] = k.to(cache["k"].dtype)
     cache["v"][:, :s] = v.to(cache["v"].dtype)
 
@@ -83,11 +107,16 @@ def block_prefill(p, x, positions, cfg: ModelConfig, cache: dict):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if "attn" in p:
         y = _attn_prefill(p["attn"], h, positions, cfg, 0, cache)
+    elif "mamba" in p:
+        y, _ = m2.mamba2_fwd(p["mamba"], h, cfg, None,
+                             kernel=cfg.use_pallas_prefill, out=cache["ssm"])
     else:
         y, _ = rk.rwkv6_tmix_fwd(p["tmix"], h, cfg, None,
                                  kernel=cfg.use_pallas_prefill,
                                  out=cache["tmix"])
     x = x + y
+    if "norm2" not in p:                     # ffn "none"
+        return x
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     return x + _ffn(p, h, cfg, cache, None)
 
@@ -97,10 +126,39 @@ def block_decode(p, x, cache: dict, index: int, positions, cfg: ModelConfig):
     if "attn" in p:
         y, _ = attn.attention_decode(p["attn"], h, cache, index, positions,
                                      cfg)
+    elif "mamba" in p:
+        y, _ = m2.mamba2_decode(p["mamba"], h, cfg, cache["ssm"],
+                                kernel=cfg.use_pallas_decode,
+                                out=cache["ssm"])
     else:
         y, _ = rk.rwkv6_tmix_fwd(p["tmix"], h, cfg, cache["tmix"],
                                  kernel=cfg.use_pallas_decode,
                                  out=cache["tmix"])
     x = x + y
+    if "norm2" not in p:                     # ffn "none"
+        return x
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     return x + _ffn(p, h, cfg, cache, cache.get("cmix"))
+
+
+# ---------------------------------------------------------------------------
+# zamba2's shared attention block: one weight set, one ring-buffer KV cache
+# per application (``cache`` is that application's {"k", "v"})
+# ---------------------------------------------------------------------------
+
+def shared_attn_prefill(p, x, positions, cfg: ModelConfig, cache: dict):
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    x = x + _attn_prefill(p["attn"], h, positions, cfg,
+                          cfg.shared_attn_window, cache)
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + mlp_fwd(p["mlp"], h, cfg.mlp_kind)
+
+
+def shared_attn_decode(p, x, cache: dict, index: int, positions,
+                       cfg: ModelConfig):
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    y, _ = attn.attention_decode(p["attn"], h, cache, index, positions, cfg,
+                                 window=cfg.shared_attn_window)
+    x = x + y
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + mlp_fwd(p["mlp"], h, cfg.mlp_kind)

@@ -4,18 +4,22 @@ Counterpart of ``repro.serving.token_backend`` (``TokenJaxBackend``).  A
 dispatched gang runs phase-aware:
 
 * prefill runs the model's prompt pass through the Hopper prefill
-  kernel (``cfg.use_pallas_prefill``): attention on ``swa_prefill`` (full
-  causal attention is the window = S case), or for RWKV-6 the WKV6
-  recurrence on ``rwkv6_scan`` over the prompt, producing every
-  request's first token *and* the gang cache;
+  kernels (``cfg.use_pallas_prefill``): attention on ``swa_prefill``
+  (full causal attention is the window = S case), the RWKV-6 WKV6
+  recurrence on ``rwkv6_scan`` and the Mamba2 SSD recurrence on
+  ``ssd_scan`` over the prompt, producing every request's first token
+  *and* the gang cache;
 * each decode step runs the single-token pass through the Hopper decode
-  kernel (``cfg.use_pallas_decode``): attention on ``decode_attention``,
-  or ``rwkv6_scan`` with T = 1, one token per running slot.
+  kernels (``cfg.use_pallas_decode``): attention on ``decode_attention``,
+  ``rwkv6_scan`` or ``ssd_scan`` with T = 1, one token per running slot.
 
 The gang cache's batch axis is the slot pool: for attention each slot
-holds a request's KV cache, for RWKV-6 its recurrent state (token
-shifts and the f32 WKV state, a fixed size whatever the length).  The
-backend treats the cache as opaque; the model updates it in place.
+holds a request's KV cache; for RWKV-6 its recurrent state (token
+shifts and the f32 WKV state, a fixed size whatever the length); for
+zamba2 its Mamba2 state (conv windows and the f32 SSD state, a fixed
+size) and the shared attention block's KV, one ring buffer per
+application.  The backend treats the cache as opaque; the model updates
+it in place.
 Requests leave between decode steps by masking (their slots keep
 stepping as padding) and the gang ends when the longest stream
 finishes.  The two step
@@ -58,8 +62,8 @@ def build_token_step_fns(model, params, c_set: Sequence[int],
     ``prefill_fns[(c, b)](tokens)`` maps (b, prompt_len) int32 prompts to
     ``(first_token (b,), gang_cache)``; ``decode_fns[(c, b)](cache, tok)``
     advances every slot one token.  An attention cache holds
-    ``prompt_len + max_decode + 1`` positions per slot (an RWKV-6 state
-    has no positions).  Every c shares one function per b (see the
+    ``prompt_len + max_decode + 1`` positions per slot (a sliding window
+    at most its window; an RWKV-6 or Mamba2 state has no positions).  Every c shares one function per b (see the
     module docstring).
     """
     cache_len = prompt_len + max_decode + 1
@@ -158,7 +162,7 @@ class TokenTorchBackend(_PooledBackend):
     """Continuous-batching execution over the Hopper-kernel step tables.
 
     See the module docstring for the execution model (phase-aware gangs
-    over a slot pool of KV caches or, for RWKV-6, recurrent states).  ``clock="measured"`` advances virtual
+    over a slot pool of KV caches, recurrent states or both).  ``clock="measured"`` advances virtual
     time by the wall latency of each phase (device work included),
     ``"modeled"`` by the calibrated :class:`TokenCostModel` (the kernels
     still run and produce real tokens).  Per-request lifecycle

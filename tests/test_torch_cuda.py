@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import ops as dec
 from repro_torch.kernels.rwkv6_scan import ops as wkv
+from repro_torch.kernels.ssd_scan import ops as ssd
 from repro_torch.kernels.swa_prefill import ops as pre
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -42,7 +43,9 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,kv,d,w", [(1, 256, 9, 3, 64, 256),
                                           (4, 200, 9, 3, 64, 64),
-                                          (2, 77, 4, 1, 128, 1000)])
+                                          (2, 77, 4, 1, 128, 1000),
+                                          (4, 256, 32, 32, 80, 4096),
+                                          (2, 77, 4, 4, 80, 16)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_swa_prefill_kernel_matches_plain_on_card(b, s, h, kv, d, w, dtype,
                                                   cuda_device):
@@ -61,7 +64,9 @@ def test_swa_prefill_kernel_matches_plain_on_card(b, s, h, kv, d, w, dtype,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,kv,g,d,s,lens", [(4, 3, 3, 64, 321, [0, 1, 160, 321]),
-                                             (2, 2, 8, 128, 77, [5, 77])])
+                                             (2, 2, 8, 128, 77, [5, 77]),
+                                             (4, 32, 1, 80, 321, [1, 160, 320, 321]),
+                                             (2, 4, 1, 80, 16, [16, 9])])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_kernel_matches_plain_on_card(b, kv, g, d, s, lens,
                                                        dtype, cuda_device):
@@ -107,3 +112,40 @@ def test_rwkv6_scan_kernel_matches_plain_on_card(b, t, h, d, dtype,
     torch.cuda.synchronize()
     assert s2 is state
     assert torch.equal(y2, y) and torch.equal(state, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,p,n", [(4, 256, 80, 64, 64), (4, 1, 80, 64, 64),
+                                       (2, 77, 3, 32, 16), (1, 300, 2, 32, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "bfloat16-y32"])
+def test_ssd_scan_kernel_matches_plain_on_card(b, t, h, p, n, dtype,
+                                               cuda_device):
+    """x, B, C in ``dtype``, dt after a softplus in f32; ``bfloat16-y32``
+    is a decode step's case (bf16 inputs, y in f32).  y and the final
+    state against the plain version, then the same call with the state
+    updated in place."""
+    tdt = DTYPES[dtype[:8] if dtype != "float32" else dtype]
+    y_dtype = torch.float32 if dtype == "bfloat16-y32" else tdt
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(b, t, h, p, generator=g, device=cuda_device).to(tdt)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, t, h, generator=g, device=cuda_device))
+    a_log = torch.randn(h, generator=g, device=cuda_device) * 0.3
+    bm, cm = (torch.randn(b, t, n, generator=g, device=cuda_device).to(tdt)
+              for _ in range(2))
+    h0 = torch.randn(b, h, p, n, generator=g, device=cuda_device) * 0.1
+    before = ssd.launches
+    y, hf = ssd.ssd_scan(x, dt, a_log, bm, cm, h0, y_dtype=y_dtype)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1 and y.dtype == y_dtype
+    y_ref, h_ref = ssd.ssd_scan_plain(x, dt, a_log, bm, cm, h0,
+                                      y_dtype=y_dtype)
+    name = "float32" if y_dtype == torch.float32 else "bfloat16"
+    np.testing.assert_allclose(as_np(y), as_np(y_ref), **tol(name))
+    np.testing.assert_allclose(as_np(hf), as_np(h_ref), **tol("float32"))
+    state = h0.clone()
+    y2, h2 = ssd.ssd_scan(x, dt, a_log, bm, cm, state, h_out=state,
+                          y_dtype=y_dtype)
+    torch.cuda.synchronize()
+    assert h2 is state
+    assert torch.equal(y2, y) and torch.equal(state, hf)

@@ -57,6 +57,8 @@ PREFILL_RAGGED = [                # ..._ragged_and_window_edges
     (1, 64, 2, 2, 32, 1, 32),         # window=1: pure self-attention
     (2, 33, 1, 1, 16, 17, 64),        # prime-ish s, single head
     (1, 256, 9, 3, 64, 256, 256),     # smollm-135m serving shape, G = 3
+    (1, 64, 4, 4, 80, 4096, 64),      # zamba2's shared block: D = 80
+    (2, 40, 2, 2, 80, 16, 40),        # D = 80, the reduced cut's window 16
 ]
 
 
@@ -107,6 +109,8 @@ DECODE_SWEEP = [                  # tests/test_kernels.py sweeps + ragged
     (3, 1, 2, 16, 96, 32, [32, 64, 96]),  # lens on block edges
     (1, 3, 1, 64, 60, 20, [59]),          # non-pow2 everything, g=1
     (4, 3, 3, 64, 321, 321, [0, 1, 160, 321]),  # serving shape, length 0
+    (2, 4, 1, 80, 48, 48, [1, 48]),       # zamba2's shared block: D = 80
+    (2, 2, 1, 80, 16, 16, [9, 16]),       # D = 80 on a full 16-slot ring
 ]
 
 
@@ -210,8 +214,9 @@ def test_build_targets_name_each_source_by_content():
     of its source, the shared header and the flags, under the ignored
     build directory; nothing is built at import."""
     targets = {n: build._target(n) for n in build.SOURCES}
-    assert set(targets) == {"swa_prefill", "decode_attention", "rwkv6_scan"}
-    assert len({t.name for t in targets.values()}) == 3
+    assert set(targets) == {"swa_prefill", "decode_attention", "rwkv6_scan",
+                            "ssd_scan"}
+    assert len({t.name for t in targets.values()}) == 4
     for name, t in targets.items():
         assert t.parent == build.BUILD_DIR
         assert t.name.startswith(f"lib{name}-") and t.suffix == ".so"

@@ -19,12 +19,14 @@ from repro.models import build_model as jax_build
 from repro.models import attention as jattn
 from repro.models import common as jcommon
 from repro.models import mlp as jmlp
+from repro.models import transformer as jtfm
 from repro_torch.configs import get_config
 from repro_torch.models import build_model, params_from_jax
 from repro_torch.models import api as tapi
 from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
 from repro_torch.models import mlp as tmlp
+from repro_torch.models import transformer as ttfm
 
 ATOL = 1e-4
 ARCH = "smollm-135m-reduced"
@@ -53,7 +55,8 @@ def t(a):
 # configs
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", ["smollm-135m", "smollm-135m-reduced",
-                                  "rwkv6-1.6b", "rwkv6-1.6b-reduced"])
+                                  "rwkv6-1.6b", "rwkv6-1.6b-reduced",
+                                  "zamba2-2.7b", "zamba2-2.7b-reduced"])
 def test_config_maps_field_for_field(arch):
     ref, port = jax_config(arch), get_config(arch)
     names = [f.name for f in dataclasses.fields(port)]
@@ -61,6 +64,8 @@ def test_config_maps_field_for_field(arch):
     for n in names:
         assert getattr(port, n) == getattr(ref, n), n
     assert port.padded_vocab == ref.padded_vocab
+    assert (port.d_inner, port.ssm_num_heads) == (ref.d_inner,
+                                                  ref.ssm_num_heads)
 
 
 def test_full_width_smollm_is_the_published_shape():
@@ -147,6 +152,109 @@ def test_attention_decode_matches_reference(kernel_route):
     np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=ATOL)
     np.testing.assert_allclose(c["k"].numpy(), np.asarray(c_ref["k"]), atol=1e-5)
     np.testing.assert_allclose(c["v"].numpy(), np.asarray(c_ref["v"]), atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# the sliding-window ring buffer (zamba2's shared block) at head_dim 80
+# --------------------------------------------------------------------------
+RING = dict(dm=48, h=2, kv=2, d=80, window=8)
+
+
+def _ring_cfgs(kernel_route):
+    """A reduced dense config at head_dim 80 for both packages."""
+    change = dict(d_model=RING["dm"], num_heads=RING["h"],
+                  num_kv_heads=RING["kv"], head_dim=RING["d"])
+    return (routes(dataclasses.replace(get_config(ARCH), **change),
+                   kernel_route),
+            routes(dataclasses.replace(jax_config(ARCH), **change),
+                   kernel_route))
+
+
+def _ring_params(rng):
+    dm, h, kv, d = RING["dm"], RING["h"], RING["kv"], RING["d"]
+    p = {"wq": (dm, h * d), "wk": (dm, kv * d), "wv": (dm, kv * d),
+         "wo": (h * d, dm)}
+    return {k: (rng.standard_normal(s) / np.sqrt(s[0])).astype(np.float32)
+            for k, s in p.items()}
+
+
+@pytest.mark.parametrize("s,cache_len", [(5, 20), (13, 20), (8, 6)])
+def test_write_kv_cache_ring_matches_reference(s, cache_len):
+    """Prefill's K/V into a ring buffer of min(window, cache_len) slots,
+    before and after the prompt wraps it (window 8)."""
+    rng = np.random.default_rng(s + cache_len)
+    b, kv, d, w = 2, RING["kv"], RING["d"], RING["window"]
+    k = rng.standard_normal((b, s, kv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, kv, d)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s))
+    ref = jtfm._write_kv_cache(jnp.asarray(k), jnp.asarray(v),
+                               jnp.asarray(pos), cache_len, w)
+    cfg, _ = _ring_cfgs(False)
+    cache = {n: c[0] for n, c in tattn.init_attention_cache(
+        cfg, b, cache_len, torch.float32, "cpu", window=w).items()}
+    assert cache["k"].shape == ref["k"].shape == (b, min(w, cache_len), kv, d)
+    ttfm._write_kv_cache(t(k), t(v), cache, w)
+    for n in ("k", "v"):
+        np.testing.assert_array_equal(cache[n].numpy(), np.asarray(ref[n]))
+
+
+@pytest.mark.parametrize("kernel_route", [True, False])
+def test_attention_decode_ring_matches_reference_across_the_wrap(kernel_route):
+    """Decode steps into an 8-slot ring buffer from index 3 to 12: the
+    reference's masked route (its kernel route is never taken for a
+    window) against the port's kernel route (lengths = min(index + 1,
+    S)) and its masked route."""
+    cfg, jcfg = _ring_cfgs(kernel_route)
+    rng = np.random.default_rng(4)
+    p = _ring_params(rng)
+    b, kv, d, w = 2, RING["kv"], RING["d"], RING["window"]
+    ck = rng.standard_normal((b, w, kv, d)).astype(np.float32)
+    cv = rng.standard_normal((b, w, kv, d)).astype(np.float32)
+    jcache = {"k": jnp.asarray(ck), "v": jnp.asarray(cv)}
+    cache = {"k": t(ck), "v": t(cv)}
+    for index in range(3, 13):
+        x = rng.standard_normal((b, 1, RING["dm"])).astype(np.float32)
+        pos = np.full((b, 1), index, np.int32)
+        y_ref, jcache = jattn.attention_decode(
+            {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x), jcache,
+            jnp.int32(index), jnp.asarray(pos), jcfg, window=w)
+        y, c = tattn.attention_decode({k: t(v) for k, v in p.items()}, t(x),
+                                      cache, index, torch.from_numpy(pos),
+                                      cfg, window=w)
+        assert c["k"] is cache["k"]               # updated in place
+        np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=ATOL)
+        for n in ("k", "v"):
+            np.testing.assert_allclose(cache[n].numpy(),
+                                       np.asarray(jcache[n]), atol=1e-6)
+
+
+def test_ring_lengths_route_equals_the_masked_route():
+    """For every index before, at and after the wrap, the kernel route's
+    contiguous mask ``j < min(index + 1, S)`` keeps exactly the slots of
+    the reference's ring mask ``(index % S - j) % S <= index``, and the
+    two routes give the same output."""
+    s_cache = 8
+    j = torch.arange(s_cache)
+    for index in range(3 * s_cache):
+        ring = (index % s_cache - j) % s_cache <= index
+        assert torch.equal(ring, j < min(index + 1, s_cache)), index
+    on, _ = _ring_cfgs(True)
+    off, _ = _ring_cfgs(False)
+    rng = np.random.default_rng(5)
+    p = {k: t(v) for k, v in _ring_params(rng).items()}
+    b, kv, d = 2, RING["kv"], RING["d"]
+    ck = t(rng.standard_normal((b, s_cache, kv, d)))
+    cv = t(rng.standard_normal((b, s_cache, kv, d)))
+    for index in (0, 5, 7, 8, 15, 21):
+        x = t(rng.standard_normal((b, 1, RING["dm"])))
+        pos = torch.full((b, 1), index, dtype=torch.long)
+        outs = []
+        for cfg in (on, off):
+            cache = {"k": ck.clone(), "v": cv.clone()}
+            outs.append(tattn.attention_decode(p, x, cache, index, pos, cfg,
+                                               window=s_cache)[0])
+        np.testing.assert_allclose(outs[0].numpy(), outs[1].numpy(),
+                                   atol=1e-6)
 
 
 # --------------------------------------------------------------------------
@@ -241,7 +349,7 @@ def test_unported_configs_are_refused():
     for change in (dict(blocks=("swa+mlp",) * n, window_size=8),
                    dict(rope_kind="mrope"), dict(logit_softcap=30.0),
                    dict(mlp_kind="gelu"),
-                   dict(blocks=("mamba2+none",) * n, rope_kind="none"),
+                   dict(blocks=("attn+moe",) * n),
                    dict(blocks=("rwkv6+mlp",) * n, rope_kind="none"),
                    dict(blocks=("attn+mlp", "rwkv6+rwkv_cm")),
                    dict(blocks=("rwkv6+rwkv_cm",) * n),   # with RoPE

@@ -347,11 +347,14 @@ def _leaves(tree, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("arch", [ARCH, "smollm-135m-reduced"])
+@pytest.mark.parametrize("arch", [ARCH, "smollm-135m-reduced",
+                                  "zamba2-2.7b-reduced"])
 def test_leaf_dtypes_and_shapes_match_the_reference_in_bf16(arch):
     """At a bf16 param dtype, every leaf of ``init_params`` and of
     ``params_from_jax`` has the reference's dtype and shape: RWKV-6's
-    f32 leaves (decay base, bonus, group-norm affine) stay f32."""
+    f32 leaves (decay base, bonus, group-norm affine) and Mamba2's (dt
+    bias, a_log, D-skip) stay f32, and zamba2's shared block is one
+    weight set with no layer axis."""
     jcfg = dataclasses.replace(jax_config(arch), dtype="bfloat16",
                                param_dtype="bfloat16")
     cfg = dataclasses.replace(get_config(arch), dtype="bfloat16",
@@ -374,3 +377,7 @@ def test_leaf_dtypes_and_shapes_match_the_reference_in_bf16(arch):
     if arch == ARCH:
         assert layer_ref["tmix.bonus_u"][0] == "float32"
         assert layer_ref["tmix.w_r"][0] == "bfloat16"
+    if arch == "zamba2-2.7b-reduced":
+        assert layer_ref["mamba.a_log"][0] == "float32"
+        assert layer_ref["mamba.w_zx"][0] == "bfloat16"
+        assert "shared_attn.attn.wq" in ref and "norm2" not in layer_ref

@@ -191,7 +191,8 @@ def _jax_arrivals(batch, vocab_size):
     return out
 
 
-@pytest.fixture(scope="module", params=[ARCH, "rwkv6-1.6b-reduced"])
+@pytest.fixture(scope="module", params=[ARCH, "rwkv6-1.6b-reduced",
+                                        "zamba2-2.7b-reduced"])
 def slice_runs(request):
     arch = request.param
     n, seed = SLICE["requests"], SLICE["seed"]
@@ -263,7 +264,8 @@ def test_run_token_scenario_on_cpu():
     assert len(stats["generated"]) == rep.n_requests
 
 
-@pytest.mark.parametrize("arch", [ARCH, "rwkv6-1.6b-reduced"])
+@pytest.mark.parametrize("arch", [ARCH, "rwkv6-1.6b-reduced",
+                                  "zamba2-2.7b-reduced"])
 def test_launcher_token_branch_on_cpu(arch, capsys):
     out = launcher.main(["--scenario", "llm-chat", "--device", "cpu",
                          "--arch", arch, "--requests", "4",
