@@ -14,9 +14,12 @@ code is non-zero:
    (atol = rtol = 2e-2), then timed with CUDA events (median of 60
    launches, each queued behind a short device sleep so that the events
    time the device and not the host) beside the plain version and, where
-   one exists, one PyTorch call as yardstick.  Both attention kernels are
+   one exists, one PyTorch call as yardstick; a one-element ``zero_``
+   timed the same way gives the method's floor.  Both attention kernels are
    checked and timed at head_dim 64 (smollm-135m) and 80 (zamba2-2.7b's
-   shared block, decode lengths up to the ring buffer's wrap).
+   shared block, decode lengths up to the ring buffer's wrap), and
+   ``swa_prefill`` once more at zamba2's full window (B 1, S 4096), where
+   the operations bound it.
    ``rwkv6_scan`` is checked at the prefill shape (B 4, T 256, H 32,
    D 64), at decode (T 1), at ragged T (77, 300) and at D 16 and 32, with
    bf16 r/k/v beside an f32 decay, and for state continuation ([0:T]
@@ -27,7 +30,11 @@ code is non-zero:
 4. parity  -- full-width smollm-135m, rwkv6-1.6b and zamba2-2.7b, in
    float32: prefill (batch 2, prompt 256) + 4 decode steps through the
    kernel routes match the plain routes (logits atol 1e-3, identical
-   greedy ids);
+   greedy ids).  Then smollm-135m and zamba2-2.7b in bfloat16, the
+   served type, with the f32 weights rounded and teacher-forced with the
+   f32 plain route's greedy ids: the kernel route and the plain route
+   are each held against the f32 plain route, and max |kernel - f32|
+   must stay within 2 max |plain - f32| + 1e-2;
 5. serve   -- ``run_token_scenario("llm-chat", arch=..., ...)`` in bfloat16
    on smollm-135m, rwkv6-1.6b and zamba2-2.7b: the port's three main
    paths, each with every kernel's launch count reset just before and
@@ -79,10 +86,15 @@ DECODE = dict(B=4, S=321, KV=3, G=3, D=64, lengths=(0, 1, 160, 321))
 # ring buffer (lengths = min(index + 1, 321): 321 from the wrap on)
 PREFILL80 = dict(H=32, KV=32, D=80, window=4096)
 DECODE80 = dict(B=4, S=321, KV=32, G=1, D=80, lengths=(1, 160, 320, 321))
+# one prompt of zamba2-2.7b's full window
+LONG_PREFILL = dict(B=1, S=4096, H=32, KV=32, D=80, window=4096)
 WKV = dict(B=4, T=256, H=32, D=64)        # rwkv6-1.6b prefill at the serve
 SSD = dict(B=4, T=256, H=80, P=64, N=64)  # zamba2-2.7b prefill at the serve
 SERVE = dict(requests=48, prompt_len=256, max_decode=64, seed=0)
 ARCHS = ("smollm-135m", "rwkv6-1.6b", "zamba2-2.7b")
+# the models whose bf16 path runs the attention kernels: phase 4 checks
+# their bf16 routes too
+BF16_PARITY = ("smollm-135m", "zamba2-2.7b")
 
 
 def say(phase: str, **fields) -> None:
@@ -201,6 +213,11 @@ def kernel_phase(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     h, kv, d = PREFILL["H"], PREFILL["KV"], PREFILL["D"]
     rows = {}
+    # the least time this method reports for any launch (event and launch
+    # latency), to read the small kernels' times against
+    one = torch.zeros(1, device=dev)
+    say("kernels", timing_floor_ms=median_ms(lambda: one.zero_()),
+        timed="one-element zero_")
 
     # -- swa_prefill: B in {1, 4}, S = 256 full causal; S = 200, window 64
     worst = 0.0
@@ -355,12 +372,50 @@ def attn80_phase(dev, gen, rows) -> None:
         d80_bound_ms=bms, d80_bound_by=by,
         d80_timed=f"bf16 B={b} S={s} KV={kv} G={g} D={d} "
                   f"lengths={list(DECODE80['lengths'])}")
+    long_prefill_phase(dev, gen, rows)
     for name in ("swa_prefill", "decode_attention"):
         r = rows[name]
         say("kernels", kernel=name, d80_ms=r["d80_ms"],
             d80_plain_ms=r["d80_plain_ms"],
             d80_library_ms=r["d80_library_ms"],
             d80_bound_ms=r["d80_bound_ms"], d80_bound_by=r["d80_bound_by"])
+
+
+def long_prefill_phase(dev, gen, rows) -> None:
+    """``swa_prefill`` in bf16 at zamba2-2.7b's full window (B 1, S 4096,
+    32 + 32 heads of 80, window 4096), where the operations and not the
+    launch bound the call: checked against the plain version and timed
+    beside it, SDPA and the bound, under ``long_*`` keys."""
+    from repro_torch.kernels.swa_prefill import ops as pre
+    import torch.nn.functional as F
+
+    b, s, dtype = LONG_PREFILL["B"], LONG_PREFILL["S"], torch.bfloat16
+    h, kv, d, win = (LONG_PREFILL[k] for k in ("H", "KV", "D", "window"))
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+    err = check_close(f"swa_prefill D={d} B={b} S={s} W={win} {dtype}",
+                      pre.swa_prefill_attention(q, k, v, window=win),
+                      pre.swa_prefill_plain(q, k, v, window=win), dtype)
+    say("kernels", kernel="swa_prefill", dtype="bfloat16", B=b, S=s, H=h,
+        KV=kv, D=d, window=win, max_abs_err=err)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    bms, by = bound_ms(*prefill_bound(b, s, h, kv, d, win, dtype), dtype)
+    r = rows["swa_prefill"]
+    r.update(
+        max_abs_err=max(r["max_abs_err"], err),
+        long_ms=median_ms(lambda: pre.swa_prefill_attention(q, k, v,
+                                                            window=win)),
+        long_plain_ms=median_ms(lambda: pre.swa_prefill_plain(q, k, v,
+                                                              window=win)),
+        long_library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        long_bound_ms=bms, long_bound_by=by,
+        long_timed=f"bf16 B={b} S={s} H={h} KV={kv} D={d} window={win}")
+    say("kernels", kernel="swa_prefill", long_ms=r["long_ms"],
+        long_plain_ms=r["long_plain_ms"],
+        long_library_ms=r["long_library_ms"], long_bound_ms=bms,
+        long_bound_by=by)
 
 
 def wkv_inputs(gen, dev, b, t, h, d, dtype):
@@ -540,11 +595,13 @@ def parity_phase(dev, arch: str) -> None:
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                            device=dev, dtype=torch.int32)
     vocab = cfg.vocab_size
+    ref_logits, fed = [], []              # the f32 plain route's, for bf16
     with torch.inference_mode():
         lk, ck = kern.prefill(params, {"tokens": tokens}, cache_len=s + steps + 1)
         lp, cp = plain.prefill(params, {"tokens": tokens}, cache_len=s + steps + 1)
         worst = 0.0
         for step in range(steps + 1):
+            ref_logits.append(lp[:, :vocab].float())
             err = float((lk - lp).abs().max())
             ids_k = lk[:, :vocab].argmax(-1)
             ids_p = lp[:, :vocab].argmax(-1)
@@ -557,10 +614,69 @@ def parity_phase(dev, arch: str) -> None:
             if step == steps:
                 break
             tok = ids_k.to(torch.int32)[:, None]
+            fed.append(tok)
             lk, ck = kern.decode_step(params, ck, tok)
             lp, cp = plain.decode_step(params, cp, tok)
     say("parity", arch=cfg.name, dtype="float32", batch=b, prompt=s,
         decode_steps=steps, max_abs_logit_diff=worst, greedy_ids="identical")
+    del kern, plain, ck, cp
+    if arch in BF16_PARITY:
+        bf16_parity(dev, arch, params, tokens, fed, ref_logits)
+
+
+def cast_like(tree, like):
+    """``tree``'s tensors rounded to the dtype of the matching leaf of
+    ``like`` (a tree of the same structure)."""
+    if isinstance(tree, dict):
+        return {key: cast_like(val, like[key]) for key, val in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_like(a, b) for a, b in zip(tree, like))
+    return tree.to(like.dtype)
+
+
+def bf16_parity(dev, arch: str, params32, tokens, fed, ref_logits) -> None:
+    """The served type at full width: the bf16 kernel route and the bf16
+    plain route, each against the f32 plain route, teacher-forced with
+    the f32 route's greedy ids (``fed``).  The bf16 weights are the f32
+    ones rounded; a leaf that the bf16 configuration keeps in f32 stays
+    f32.  Fails unless every logit is finite and max |kernel - f32| <=
+    2 max |plain - f32| + 1e-2: the kernels may round differently from
+    the plain versions, but not by more than bf16 itself does."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(arch), dtype="bfloat16",
+                              param_dtype="bfloat16",
+                              use_pallas_prefill=False,
+                              use_pallas_decode=False)
+    kcfg = dataclasses.replace(cfg, use_pallas_prefill=True,
+                               use_pallas_decode=True)
+    plain, kern = build_model(cfg, device=dev), build_model(kcfg, device=dev)
+    params = cast_like(params32, kern.init(kern.generator(0)))
+    b, s = tokens.shape
+    steps, vocab = len(fed), cfg.vocab_size
+    err_k = err_p = 0.0
+    finite = True
+    with torch.inference_mode():
+        lk, ck = kern.prefill(params, {"tokens": tokens}, cache_len=s + steps + 1)
+        lp, cp = plain.prefill(params, {"tokens": tokens}, cache_len=s + steps + 1)
+        for step, ref in enumerate(ref_logits):
+            finite = finite and bool(torch.isfinite(lk).all()
+                                     and torch.isfinite(lp).all())
+            err_k = max(err_k, float((lk[:, :vocab].float() - ref).abs().max()))
+            err_p = max(err_p, float((lp[:, :vocab].float() - ref).abs().max()))
+            if step == steps:
+                break
+            lk, ck = kern.decode_step(params, ck, fed[step])
+            lp, cp = plain.decode_step(params, cp, fed[step])
+    limit = 2 * err_p + 1e-2
+    say("parity", arch=cfg.name, dtype="bfloat16", batch=b, prompt=s,
+        decode_steps=steps, teacher_forced="f32 plain greedy ids",
+        kernel_vs_f32=err_k, plain_vs_f32=err_p, limit=limit)
+    if not (finite and err_k <= limit):
+        raise AssertionError(f"bf16 parity {arch}: finite={finite}, max "
+                             f"|kernel - f32| {err_k} > limit {limit} "
+                             f"(max |plain - f32| {err_p})")
 
 
 def serve_phase(dev, arch: str):

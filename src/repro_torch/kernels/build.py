@@ -4,9 +4,10 @@ Each source under ``kernels/csrc`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface; all
 ``nvcc`` processes start together.  The libraries go to
 ``build/repro_torch_kernels/`` at the root of the checkout (listed in
-``.gitignore``), named by a hash of the sources and flags, so a changed
-source is rebuilt and an unchanged one is loaded as it is.  Nothing is
-built or loaded at import: the first launch (or ``build()``) does it.
+``.gitignore``), named by a hash of the flags, the source and every
+shared ``*.cuh`` header, so a changed source or header is rebuilt and an
+unchanged one is loaded as it is.  Nothing is built or loaded at
+import: the first launch (or ``build()``) does it.
 """
 from __future__ import annotations
 
@@ -39,8 +40,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    """The library of one source, named by a hash of the flags, the
+    source and every shared header under ``csrc`` (any of which it may
+    include), so that a changed header rebuilds every kernel."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

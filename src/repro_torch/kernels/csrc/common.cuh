@@ -12,6 +12,9 @@ namespace repro_torch {
 // the TPU kernels' finite mask value: a fully masked row stays finite
 constexpr float kNegInf = -1e30f;
 
+// exponentials in base 2 take scores scaled by log2(e)
+constexpr double kLog2e = 1.4426950408889634;
+
 // a true -inf, for lanes that hold no cache row at all
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
@@ -31,8 +34,8 @@ __device__ __forceinline__ void load8(const float* p, float* out) {
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
+// eight bf16 already loaded as one 16-byte word, as f32
+__device__ __forceinline__ void unpack8(const uint4& u, float* out) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -40,6 +43,10 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
+  unpack8(*reinterpret_cast<const uint4*>(p), out);
 }
 
 __device__ __forceinline__ float warp_max(float x) {

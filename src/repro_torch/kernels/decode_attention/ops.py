@@ -5,13 +5,17 @@ Replaces the TPU kernel
 ``decode_attention_pallas`` and its wrapper ``ops.py`` ``decode_attention``
 with the hand-written Hopper kernel ``kernels/csrc/decode_attention.cu``.
 
-What bounds it on the H100: the bytes of K and V read from the cache —
-the G query heads of a KV head share one pass over its cache rows, so
-the arithmetic intensity is about G.  At the serving shape the grid is
-B x KV blocks, far fewer than the card's SMs, so launch latency and one
-SM's load rate bound it; the design streams each cache row once with
-16-byte loads and combines the warps' partial softmax states in shared
-memory.  Splitting S across blocks is work for a later change.
+What bounds it on the H100: the bytes of K and V read from the cache
+(the G query heads of a KV head share one pass over its rows, so the
+arithmetic intensity is about G); at the serving shapes those are a few
+MB at most, so load latency and launch latency bound it.  The kernel is
+split by the storage type.  In bf16, the served type, the rows of each
+(batch row, KV head) are split over a thread-block cluster of up to 8
+blocks in one launch, each block reads only the valid rows of its range
+(``lengths[b] > 0``) with 16-byte loads that put several rows in flight,
+and rank 0 combines the blocks' softmax states through distributed
+shared memory.  In f32 (full-width parity, the tests) it is the first
+port's kernel, unchanged: one block per (batch row, KV head).
 ``chip_smoke.py`` measures it beside its bound, the plain version and a
 masked ``scaled_dot_product_attention``.
 

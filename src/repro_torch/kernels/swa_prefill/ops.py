@@ -4,14 +4,25 @@ Replaces the TPU kernel ``src/repro/kernels/swa_prefill/swa_prefill.py``
 ``swa_prefill_pallas`` and its wrapper ``ops.py`` ``swa_prefill_attention``
 with the hand-written Hopper kernel ``kernels/csrc/swa_prefill.cu``.
 
-What bounds it on the H100: at the serving shape (S = 256, D = 64, 9 query
-heads over 3 KV heads) both the bytes and the operations of one call are
-small, so launch overhead and the kernel's CUDA-core f32 arithmetic bound
-it.  The design reads each K/V row once per 64-row query tile (staged in
-shared memory), indexes the KV head of each query head directly instead
-of repeating K/V over the GQA groups, and skips every K/V tile outside
-the window band.  ``chip_smoke.py`` measures it beside its bound, the
-plain version and PyTorch's ``scaled_dot_product_attention``.
+The kernel is split by the storage type.  In bf16, the served type, it
+is a FlashAttention-2-style forward on the tensor cores (``mma.sync``
+m16n8k16, f32 accumulators): 64 query rows per block in 4 warps, K/V
+tiles of 64 keys kept in bf16 in a two-stage shared-memory ring filled
+with ``cp.async``, the scores scaled in f32, the online softmax in
+registers and P fed from registers into P V.  In f32 (full-width
+parity, the tests) it is the first port's CUDA-core kernel, unchanged,
+because tensor cores would take f32 through TF32 (about 1e-3
+relative), above the repo's f32 tolerance of 2e-5.  Both index the KV
+head of each query head directly instead of repeating K/V over the GQA
+groups, and skip every K/V tile outside the window band.
+
+What bounds it on the H100: at the serving shapes (S = 256, D = 64 or
+80) the bytes and the operations of one call are small, so latency
+bounds it: each warp's chain of key tiles (products, softmax,
+products) and the load of the first tile.  At a 4096-token prompt the
+tensor cores' ``mma.sync`` rate does.  ``chip_smoke.py`` measures it
+beside its bound, the plain version and PyTorch's
+``scaled_dot_product_attention``.
 
 ``swa_prefill_attention`` takes the plain version only for tensors on
 the CPU; a CUDA tensor launches the kernel or raises.

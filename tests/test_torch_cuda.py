@@ -84,6 +84,58 @@ def test_decode_attention_kernel_matches_plain_on_card(b, kv, g, d, s, lens,
     np.testing.assert_allclose(as_np(out), as_np(ref), **tol(dtype))
 
 
+# bf16 runs the tensor-core prefill (64-row query tiles of 4 warps x 16
+# rows, 64-key tiles) and the cluster-split decode (up to 8 blocks per
+# (batch row, KV head), each reading its range of the valid rows): these
+# cases sit on the edges of those tilings
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 15, 63, 65, 200])
+@pytest.mark.parametrize("w", [1, 17, 64, 4096])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("g", [1, 3, 8])
+def test_swa_prefill_bf16_tiling_edges_on_card(s, w, d, g, cuda_device):
+    b, kv = 2, 2
+    gen = torch.Generator(device=cuda_device).manual_seed(s * 7 + d)
+    q = torch.randn(b, s, kv * g, d, generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    k = torch.randn(b, s, kv, d, generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    v = torch.randn(b, s, kv, d, generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    before = pre.launches
+    out = pre.swa_prefill_attention(q, k, v, window=w)
+    torch.cuda.synchronize()
+    assert pre.launches == before + 1
+    ref = pre.swa_prefill_plain(q, k, v, window=w)
+    np.testing.assert_allclose(as_np(out), as_np(ref), **tol("bfloat16"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 16, 321, 4096])
+@pytest.mark.parametrize("g", [1, 3, 8])
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_decode_attention_bf16_split_edges_on_card(s, g, d, cuda_device):
+    """Lengths 0 (the mean of V over all S rows), 1 (one block of the
+    cluster holds a row, the others none), S, and one whose rows split
+    unevenly over the cluster's blocks."""
+    b, kv = 4, 2
+    lens = [0, 1, s, s * 3 // 5 + 1]
+    gen = torch.Generator(device=cuda_device).manual_seed(s + d + g)
+    q = torch.randn(b, kv, g, d, generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    k = torch.randn(b, s, kv, d, generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    v = torch.randn(b, s, kv, d, generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = dec.launches
+    out = dec.decode_attention(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert dec.launches == before + 1
+    ref = dec.decode_attention_plain(q, k, v, ln)
+    np.testing.assert_allclose(as_np(out), as_np(ref), **tol("bfloat16"))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,h,d", [(4, 256, 32, 64), (4, 1, 32, 64),
                                      (2, 77, 3, 32), (1, 300, 2, 16)])

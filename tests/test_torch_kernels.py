@@ -8,6 +8,8 @@ there); the JAX side runs its Pallas kernels in interpret mode, as
 ``tests/test_kernels.py`` does.  Tolerances are the repo's: f32 2e-5,
 bf16 2e-2 (absolute and relative).
 """
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -224,3 +226,23 @@ def test_build_targets_name_each_source_by_content():
     assert build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build._loaded == {} or all(n in build.SOURCES for n in build._loaded)
+
+
+@pytest.mark.parametrize("header", ["common.cuh", "mma.cuh", "new.cuh"])
+def test_build_targets_change_with_every_shared_header(header, tmp_path,
+                                                       monkeypatch):
+    """Every library's name hashes every ``*.cuh`` under ``csrc``, so a
+    changed (or new) shared header rebuilds every kernel instead of
+    loading a stale library; the same sources elsewhere give the same
+    names."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    before = {n: build._target(n) for n in build.SOURCES}
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert {n: build._target(n) for n in build.SOURCES} == before
+    path = csrc / header
+    old = path.read_bytes() if path.exists() else b""
+    path.write_bytes(old + b"\n// changed\n")
+    after = {n: build._target(n) for n in build.SOURCES}
+    assert all(after[n] != before[n] for n in build.SOURCES)
+    assert len({t.name for t in after.values()}) == len(build.SOURCES)
