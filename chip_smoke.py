@@ -22,11 +22,18 @@ code is non-zero:
    the operations bound it.
    ``rwkv6_scan`` is checked at the prefill shape (B 4, T 256, H 32,
    D 64), at decode (T 1), at ragged T (77, 300) and at D 16 and 32, with
-   bf16 r/k/v beside an f32 decay, and for state continuation ([0:T]
-   against [0:T/2] then [T/2:T], atol 1e-5 in f32).  ``ssd_scan`` is
-   checked at the prefill shape (B 4, T 256, H 80, P 64, N 64), at decode
-   (T 1, y in f32), at ragged T (77, 300) and smaller P and N, and for
-   state continuation and the in-place decode state;
+   bf16 r/k/v beside an f32 decay, for state continuation ([0:T]
+   against [0:T/2] then [T/2:T], atol 1e-5 in f32), and bit for bit
+   (``torch.equal``) at D 16/32/64 x T 1/2/17/300 in f32 and bf16.
+   ``ssd_scan`` is checked at the prefill shape (B 4, T 256, H 80, P 64,
+   N 64), at decode (T 1, y in f32), at ragged T (77, 300) and smaller P
+   and N, over a bf16 sweep of T 15..300 x P 32/64 x N 16/64 around the
+   chunked form's threshold, and for state continuation in f32 (1e-5)
+   and bf16 (5e-2).  Its recurrence (f32, and bf16 with T below
+   ``CHUNKED_MIN_T``) is held to ``ssd_scan_plain`` at the tolerances
+   above; its chunked form (bf16, T >= ``CHUNKED_MIN_T``) to
+   ``ssd_scan_chunked_plain`` (y 2e-2, h_final 2e-4) and to the
+   recurrence at the reference's SSD bf16 tolerance, 5e-2;
 4. parity  -- full-width smollm-135m, rwkv6-1.6b and zamba2-2.7b, in
    float32: prefill (batch 2, prompt 256) + 4 decode steps through the
    kernel routes match the plain routes (logits atol 1e-3, identical
@@ -128,20 +135,26 @@ def median_ms(fn) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in ev]))
 
 
-def check_close(name: str, out: torch.Tensor, ref: torch.Tensor,
-                dtype) -> float:
-    """Max |out - ref|; raises unless |out - ref| <= tol + tol * |ref|."""
+def check_within(name: str, out: torch.Tensor, ref: torch.Tensor,
+                 tol: float) -> float:
+    """Max |out - ref|; raises unless out is finite and |out - ref| <=
+    tol + tol * |ref|."""
     torch.cuda.synchronize()
     o, r = out.float(), ref.float()
     if not torch.isfinite(o).all():
         raise AssertionError(f"{name}: non-finite kernel output")
-    tol = TOL[dtype]
     bad = (o - r).abs() > tol + tol * r.abs()
     err = float((o - r).abs().max())
     if bad.any():
         raise AssertionError(f"{name}: {int(bad.sum())} elements off, "
                              f"max abs err {err} (tol {tol})")
     return err
+
+
+def check_close(name: str, out: torch.Tensor, ref: torch.Tensor,
+                dtype) -> float:
+    """``check_within`` at the repo's tolerance for ``dtype``."""
+    return check_within(name, out, ref, TOL[dtype])
 
 
 # ---------------------------------------------------------------------------
@@ -187,15 +200,24 @@ def wkv_bound(b, t, h, d, dtype):
 def ssd_bound(b, t, h, p, n, dtype, y_dtype):
     """Least time for one SSD call: x, B, C read in their type and y
     written in its own, dt read in f32, a_log read and the (P, N) state
-    read and written in f32, against the recurrence's 4 P N f32
-    operations per step and head (h <- a h + (dt x) B^T and y = h C, two
-    multiply-adds per state entry)."""
+    read and written in f32, against the cheaper of two ways to do the
+    operations: the recurrence's 4 P N f32 operations per step and head
+    (h <- a h + (dt x) B^T and y = h C) at the f32 peak, or the chunked
+    form's four products per chunk of q <= 64 steps and head (C B^T,
+    G' x, C h^T, x^T B': 2 q (q N + q P + 2 P N)) at the bf16
+    tensor-core peak.  Returns bytes, operations and the type whose peak
+    they run at."""
     elt = torch.tensor([], dtype=dtype).element_size()
     elt_y = torch.tensor([], dtype=y_dtype).element_size()
     n_x = b * t * h * p
     nbytes = ((elt + elt_y) * n_x + 4 * b * t * h + 4 * h
               + 2 * elt * b * t * n + 2 * 4 * b * h * p * n)
-    return nbytes, 4.0 * p * n * b * h * t
+    recurrence = 4.0 * p * n * b * h * t
+    chunked = sum(2.0 * q * (q * n + q * p + 2 * p * n) * b * h
+                  for q in (min(64, t - t0) for t0 in range(0, t, 64)))
+    if chunked / PEAK_FLOPS[torch.bfloat16] < recurrence / PEAK_FLOPS[torch.float32]:
+        return nbytes, chunked, torch.bfloat16
+    return nbytes, recurrence, torch.float32
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -465,6 +487,18 @@ def wkv_kernel_phase(dev, gen):
                              f"diff {cont} (atol 1e-5)")
     say("kernels", kernel="rwkv6_scan", check="state continuation f32",
         T=t, split=m, max_abs_err=cont)
+    # four threads per state column keep the plain version's bits
+    for dtype in (torch.float32, torch.bfloat16):
+        for cd in (16, 32, 64):
+            for ct in (1, 2, 17, 300):
+                r, k, v, w, u, s0 = wkv_inputs(gen, dev, 2, ct, 3, cd, dtype)
+                y, s = wkv.rwkv6_scan(r, k, v, w, u, s0)
+                y_ref, s_ref = wkv.rwkv6_scan_plain(r, k, v, w, u, s0)
+                if not (torch.equal(y, y_ref) and torch.equal(s, s_ref)):
+                    raise AssertionError(f"rwkv6_scan D={cd} T={ct} {dtype}: "
+                                         f"not bit for bit the plain version")
+    say("kernels", kernel="rwkv6_scan", check="bit for bit, D 16/32/64 x "
+        "T 1/2/17/300, f32 and bf16", equal=True)
     # timed at the serving shapes: bf16 r/k/v, f32 w; prefill T = 256 and
     # a decode step (T = 1) updating its state in place, as the model runs
     dtype = torch.bfloat16
@@ -504,6 +538,26 @@ def ssd_inputs(gen, dev, b, t, h, p, n, dtype):
     return x, dt, a_log, bm, cm, h0
 
 
+def check_ssd(ssd, name, args, y_dtype) -> float:
+    """One ``ssd_scan`` call against its plain versions.  The recurrence
+    (f32, or bf16 below ``CHUNKED_MIN_T``) against ``ssd_scan_plain`` at
+    the repo's tolerances; the chunked form against
+    ``ssd_scan_chunked_plain`` (y 2e-2, h_final 2e-4) and against the
+    recurrence at the reference's SSD bf16 tolerance (5e-2, the one
+    ``tests/test_kernels.py`` holds the chunked TPU kernel to)."""
+    y, hf = ssd.ssd_scan(*args, y_dtype=y_dtype)
+    y_rec, h_rec = ssd.ssd_scan_plain(*args, y_dtype=y_dtype)
+    if not ssd.takes_chunked_form(args[0]):
+        return max(check_close(name + " y", y, y_rec, y_dtype),
+                   check_close(name + " h_final", hf, h_rec, torch.float32))
+    y_ch, h_ch = ssd.ssd_scan_chunked_plain(*args, y_dtype=y_dtype)
+    err = max(check_within(name + " y vs chunked", y, y_ch, 2e-2),
+              check_within(name + " h_final vs chunked", hf, h_ch, 2e-4))
+    check_within(name + " y vs recurrence", y, y_rec, 5e-2)
+    check_within(name + " h_final vs recurrence", hf, h_rec, 5e-2)
+    return err
+
+
 def ssd_kernel_phase(dev, gen):
     from repro_torch.kernels.ssd_scan import ops as ssd
 
@@ -516,37 +570,50 @@ def ssd_kernel_phase(dev, gen):
                                    (2, 77, 3, 64, 64), (1, 300, 2, 64, 64),
                                    (2, 77, 3, 32, 16), (1, 300, 2, 32, 64)):
             args = ssd_inputs(gen, dev, cb, ct, ch, cp, cn, dtype)
-            y, hf = ssd.ssd_scan(*args, y_dtype=y_dtype)
-            y_ref, h_ref = ssd.ssd_scan_plain(*args, y_dtype=y_dtype)
             name = (f"ssd_scan B={cb} T={ct} H={ch} P={cp} N={cn} {dtype} "
                     f"y {y_dtype}")
-            err = max(check_close(name + " y", y, y_ref, y_dtype),
-                      check_close(name + " h_final", hf, h_ref,
-                                  torch.float32))
+            err = check_ssd(ssd, name, args, y_dtype)
             worst = max(worst, err)
             say("kernels", kernel="ssd_scan", dtype=str(dtype)[6:],
                 y_dtype=str(y_dtype)[6:], B=cb, T=ct, H=ch, P=cp, N=cn,
-                max_abs_err=err)
+                route="chunked" if ssd.takes_chunked_form(args[0])
+                else "recurrence", max_abs_err=err)
+    # bf16 on both sides of the chunked form's threshold and its chunks
+    sweep = 0.0
+    for ct in (ssd.CHUNKED_MIN_T - 1, ssd.CHUNKED_MIN_T, 63, 64, 65, 77,
+               256, 300):
+        for cp, cn in ((32, 16), (32, 64), (64, 16), (64, 64)):
+            for y_dtype in (torch.bfloat16, torch.float32):
+                args = ssd_inputs(gen, dev, 2, ct, 3, cp, cn, torch.bfloat16)
+                sweep = max(sweep, check_ssd(
+                    ssd, f"ssd_scan bf16 T={ct} P={cp} N={cn} y {y_dtype}",
+                    args, y_dtype))
+    worst = max(worst, sweep)
+    say("kernels", kernel="ssd_scan", check="bf16 sweep T 15..300, P 32/64, "
+        "N 16/64, y bf16/f32", max_abs_err_vs_plain=sweep)
     # state continuation in f32: [0:T] against [0:T/2] then [T/2:T] with
     # the second half updating its state in place, and a decode step
-    # (T = 1, y in f32) updating its state in place
-    x, dt, a_log, bm, cm, h0 = ssd_inputs(gen, dev, b, t, h, p, n,
-                                          torch.float32)
-    y_full, h_full = ssd.ssd_scan(x, dt, a_log, bm, cm, h0)
-    m = t // 2
-    y1, h1 = ssd.ssd_scan(*(a[:, :m].contiguous() for a in (x, dt)), a_log,
-                          *(a[:, :m].contiguous() for a in (bm, cm)), h0)
-    y2, h2 = ssd.ssd_scan(*(a[:, m:].contiguous() for a in (x, dt)), a_log,
-                          *(a[:, m:].contiguous() for a in (bm, cm)), h1,
-                          h_out=h1)
-    torch.cuda.synchronize()
-    cont = max(float((torch.cat([y1, y2], 1) - y_full).abs().max()),
-               float((h2 - h_full).abs().max()))
-    if not (h2 is h1 and cont <= 1e-5):
-        raise AssertionError(f"ssd_scan state continuation: max abs diff "
-                             f"{cont} (atol 1e-5)")
-    say("kernels", kernel="ssd_scan", check="state continuation f32", T=t,
-        split=m, max_abs_err=cont)
+    # (T = 1, y in f32) updating its state in place; then the same in
+    # bf16 (chunked halves) at the reference's SSD bf16 tolerance
+    for dtype, limit in ((torch.float32, 1e-5), (torch.bfloat16, 5e-2)):
+        x, dt, a_log, bm, cm, h0 = ssd_inputs(gen, dev, b, t, h, p, n, dtype)
+        y_full, h_full = ssd.ssd_scan(x, dt, a_log, bm, cm, h0)
+        m = t // 2
+        y1, h1 = ssd.ssd_scan(*(a[:, :m].contiguous() for a in (x, dt)),
+                              a_log, *(a[:, :m].contiguous() for a in (bm, cm)),
+                              h0)
+        y2, h2 = ssd.ssd_scan(*(a[:, m:].contiguous() for a in (x, dt)),
+                              a_log, *(a[:, m:].contiguous() for a in (bm, cm)),
+                              h1, h_out=h1)
+        torch.cuda.synchronize()
+        if h2 is not h1:
+            raise AssertionError("ssd_scan state continuation: h_out ignored")
+        cont = max(check_within(f"ssd_scan continuation {dtype} y",
+                                torch.cat([y1, y2], 1), y_full, limit),
+                   check_within(f"ssd_scan continuation {dtype} h_final",
+                                h2, h_full, limit))
+        say("kernels", kernel="ssd_scan", check=f"state continuation "
+            f"{str(dtype)[6:]}", T=t, split=m, tol=limit, max_abs_err=cont)
     # timed at the serving shapes: bf16 x/B/C, f32 dt; prefill T = 256 (y
     # in bf16) and a decode step (T = 1, y in f32) updating its state in
     # place, as the model runs them
@@ -554,16 +621,22 @@ def ssd_kernel_phase(dev, gen):
     x, dt, a_log, bm, cm, h0 = ssd_inputs(gen, dev, b, t, h, p, n, dtype)
     ms = median_ms(lambda: ssd.ssd_scan(x, dt, a_log, bm, cm, h0))
     plain_ms = median_ms(lambda: ssd.ssd_scan_plain(x, dt, a_log, bm, cm, h0))
-    bms, by = bound_ms(*ssd_bound(b, t, h, p, n, dtype, dtype), torch.float32)
+    chunked_plain_ms = median_ms(lambda: ssd.ssd_scan_chunked_plain(
+        x, dt, a_log, bm, cm, h0))
+    nbytes, _, _ = ssd_bound(b, t, h, p, n, dtype, dtype)
+    bms, by = bound_ms(*ssd_bound(b, t, h, p, n, dtype, dtype))
+    # PR 14's bound: the recurrence's operations at the f32 peak
+    rec_bms, _ = bound_ms(nbytes, 4.0 * p * n * b * h * t, torch.float32)
     one = [a[:, :1].contiguous() for a in (x, dt, bm, cm)]
     state = h0.clone()
     dec_ms = median_ms(lambda: ssd.ssd_scan(one[0], one[1], a_log, one[2],
                                             one[3], state, h_out=state,
                                             y_dtype=torch.float32))
     dec_bms, dec_by = bound_ms(*ssd_bound(b, 1, h, p, n, dtype,
-                                          torch.float32), torch.float32)
+                                          torch.float32))
     say("kernels", kernel="ssd_scan", decode_ms=dec_ms,
-        decode_bound_ms=dec_bms, decode_bound_by=dec_by)
+        decode_bound_ms=dec_bms, decode_bound_by=dec_by,
+        chunked_plain_ms=chunked_plain_ms, recurrence_bound_ms=rec_bms)
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:75",
@@ -571,7 +644,10 @@ def ssd_kernel_phase(dev, gen):
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             # no single PyTorch call computes the SSD recurrence
             "library_ms": None,
-            "timed": f"bf16 x/B/C/y, f32 dt, B={b} T={t} H={h} P={p} N={n}",
+            "timed": f"bf16 x/B/C/y, f32 dt, B={b} T={t} H={h} P={p} N={n} "
+                     f"(chunked form)",
+            "chunked_plain_ms": chunked_plain_ms,
+            "recurrence_bound_ms": rec_bms,
             "decode_ms": dec_ms, "decode_bound_ms": dec_bms,
             "decode_bound_by": dec_by}
 

@@ -8,13 +8,21 @@ hand-written Hopper kernel ``kernels/csrc/rwkv6_scan.cu``.  Unlike the
 Pallas kernel (``T % block_t == 0``) it takes any ``T >= 1``, so one
 kernel serves the prefill pass (T = prompt) and each decode step (T = 1).
 
+The kernel keeps the plain version's exact contract: every product and
+sum rounded on its own, in :func:`rwkv6_scan_plain`'s order, with the
+sum over i as the same pairwise tree, so the two agree bit for bit in
+f32 and bf16 (full-width f32 parity of rwkv6 is exact).  Four threads
+share each state column, each holding rows ``i = q + 4 m`` and serving
+two columns; the tree's last two levels run across lanes.
+
 What bounds it on the H100: at the prefill serving shape the bytes of
-r/k/v/w/y and of the state in and out (about 29 MB, 9 us at 3.35 TB/s)
-and the f32 arithmetic (4 D^2 per step and head, 8 us at 67 TFLOP/s)
-are both far below what the sequential time loop takes: one block per
-(batch, head) walks T in order, so the kernel is bound by the latency
-of one step times T.  ``chip_smoke.py`` measures it beside its bound
-and the plain version (no single PyTorch call computes WKV6).
+r/k/v/w/y and of the state in and out (about 29 MB, 8.8 us at 3.35
+TB/s) and the f32 arithmetic at the f32 peak (8 us) lie below what the
+exact contract costs: six rounded operations per state entry and step
+that cannot fuse, the shared-memory reads of r, k, w and each step's
+chain through the sum, times T, with one block per (batch, head).
+``chip_smoke.py`` measures it beside its bound and the plain version
+(no single PyTorch call computes WKV6).
 
 ``rwkv6_scan`` takes the plain version only for tensors on the CPU; a
 CUDA tensor launches the kernel or raises.

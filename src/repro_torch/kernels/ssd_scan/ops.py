@@ -1,26 +1,36 @@
-"""Mamba2 SSD recurrence: CUDA kernel, plain version, launch count.
+"""Mamba2 SSD scan: CUDA kernel, plain versions, launch count.
 
     h_t = exp(-exp(a_log) dt_t) h_{t-1} + dt_t x_t B_t^T;   y_t = h_t C_t
 
 Replaces the TPU kernel ``src/repro/kernels/ssd_scan/ssd_scan.py``
 ``ssd_scan_pallas`` and its wrapper ``ops.py`` ``ssd_scan`` with the
-hand-written Hopper kernel ``kernels/csrc/ssd_scan.cu``.  The Pallas
-kernel runs the chunked matmul form and needs ``T % chunk == 0``; this
-one runs the recurrence itself and takes any ``T >= 1``, so one kernel
-serves the prefill pass (T = prompt) and each decode step (T = 1).
+hand-written Hopper kernel ``kernels/csrc/ssd_scan.cu``, which takes any
+``T >= 1`` (the Pallas kernel needs ``T % chunk == 0``), so one kernel
+serves the prefill pass (T = prompt) and each decode step (T = 1).  It
+has two bodies:
+
+- bf16 x/B/C with ``T >= CHUNKED_MIN_T`` (the served prefill) runs the
+  TPU kernel's chunked matmul form on the tensor cores, chunks of
+  ``CHUNK`` steps, the f32 operands of its products split into two
+  bf16 halves; :func:`ssd_scan_chunked_plain` takes the same steps with
+  the same roundings.  Against the recurrence it holds the reference's
+  SSD bf16 tolerance (5e-2), as the Pallas kernel does.
+- everything else (f32 inputs, and bf16 with short T: the served decode
+  step) runs the recurrence, every rounding as :func:`ssd_scan_plain`,
+  so the two agree bit for bit.
 
 What bounds it on the H100: at the prefill serving shape (bf16 x/y, B 4,
 T 256, H 80, P 64, N 64) the bytes of x, y, dt, B, C and of the f32
-state in and out (about 32 MB, 9.6 us at 3.35 TB/s) and the f32
-arithmetic (1.34 GFLOP, 20 us at 67 TFLOP/s) are both below what the
-sequential time loop takes: one block per (head, batch row) walks T in
-order, so the kernel is bound by the latency of one step times T.  A
-decode step moves the state (10.6 MB, 3.2 us).  ``chip_smoke.py``
-measures it beside its bound and the plain version (no single PyTorch
-call computes the scan).
+state in and out (about 32 MB, 9.6 us at 3.35 TB/s); the chunked
+form's products would take 2.7 us at the bf16 tensor-core peak.  The
+chunked body is bound by the latency of its chain per chunk (loads,
+products, exponentials, barriers) times the chunks; the recurrence by
+one step's latency times T.  A decode step moves the state (10.6 MB,
+3.2 us).  ``chip_smoke.py`` measures both beside the bound and the
+plain version (no single PyTorch call computes the scan).
 
-``ssd_scan`` takes the plain version only for tensors on the CPU; a
-CUDA tensor launches the kernel or raises.
+``ssd_scan`` takes :func:`ssd_scan_plain` only for tensors on the CPU;
+a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -38,6 +48,10 @@ launches = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
 _STATE_DIMS = (16, 64)
+# bf16 calls with T at or above this take the chunked form (the same
+# number as kChunkedMinT in ssd_scan.cu), in chunks of CHUNK steps
+CHUNKED_MIN_T = 16
+CHUNK = 64
 _fn = None
 
 
@@ -79,6 +93,78 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         state = state * a[..., None, None] + dtx[..., None] * bt
         ys.append(_tree_sum_n(state * ct))
     y = torch.stack(ys, dim=1).to(y_dtype or x.dtype)
+    return y, (state if h_out is None else h_out.copy_(state))
+
+
+def takes_chunked_form(x: torch.Tensor) -> bool:
+    """Whether the kernel runs the chunked form for this x (B, T, H, P)."""
+    return x.dtype == torch.bfloat16 and x.shape[1] >= CHUNKED_MIN_T
+
+
+def bf16_split(v: torch.Tensor):
+    """``v`` (f32) as two bf16 halves ``hi = bf16(v)`` and ``lo = bf16(v -
+    hi)`` (round to nearest even), both returned in f32: the kernel's
+    operands where a product takes an f32 intermediate on the tensor
+    cores.  ``|v - hi - lo| <= 2^-17 |v|`` for normal values."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def ssd_scan_chunked_plain(x: torch.Tensor, dt: torch.Tensor,
+                           a_log: torch.Tensor, b: torch.Tensor,
+                           c: torch.Tensor,
+                           h0: Optional[torch.Tensor] = None,
+                           h_out: Optional[torch.Tensor] = None,
+                           y_dtype: Optional[torch.dtype] = None):
+    """The kernel's chunked form step for step in PyTorch (any device
+    and shape).  Arguments and result as :func:`ssd_scan`.
+
+    Per chunk of ``CHUNK`` steps (the last one ragged), with ``acum``
+    the inclusive cumulative sum of ``-exp(a_log) dt`` in f32::
+
+        G' = (C B^T) o exp(acum_i - acum_j) o dt_j   (i >= j; 0 above,
+             the exponent set to -inf before exp)
+        y  = exp(acum_i) (C h_hi^T + C h_lo^T) + G'_hi x + G'_lo x
+        h  = exp(acum_last) h + x^T B'_hi + x^T B'_lo,
+             B'_j = B_j exp(acum_last - acum_j) dt_j
+
+    with ``hi``/``lo`` the :func:`bf16_split` halves: x, B and C enter
+    the products as they are (exact in bf16), the f32 intermediates G',
+    B' and h as two bf16 halves each.  The kernel sums the products in
+    another order, so the two agree to f32 rounding, not bit for bit."""
+    bsz, t, h, p = x.shape
+    n = b.shape[-1]
+    if h0 is None:
+        h0 = torch.zeros(bsz, h, p, n, dtype=torch.float32, device=x.device)
+    state = h0.float()
+    ea = torch.exp(a_log.float())
+    ys = []
+    for t0 in range(0, t, CHUNK):
+        t1 = min(t0 + CHUNK, t)
+        xs = x[:, t0:t1].float()                                  # (B,Q,H,P)
+        d = dt[:, t0:t1].float()                                  # (B,Q,H)
+        bs, cs = b[:, t0:t1].float(), c[:, t0:t1].float()         # (B,Q,N)
+        acum = torch.cumsum(-(ea * d), dim=1)
+        alast = acum[:, -1]                                       # (B,H)
+        causal = torch.ones(t1 - t0, t1 - t0, dtype=torch.bool,
+                            device=x.device).tril()[None, :, :, None]
+        diff = acum[:, :, None, :] - acum[:, None, :, :]          # (B,i,j,H)
+        lmat = torch.exp(torch.where(causal, diff, -torch.inf))
+        cb = cs @ bs.transpose(1, 2)                              # (B,i,j)
+        g_hi, g_lo = bf16_split(cb[..., None] * lmat * d[:, None])
+        s_hi, s_lo = bf16_split(state)
+        y = (torch.exp(acum)[..., None]
+             * (torch.einsum("bin,bhpn->bihp", cs, s_hi)
+                + torch.einsum("bin,bhpn->bihp", cs, s_lo))
+             + torch.einsum("bijh,bjhp->bihp", g_hi, xs)
+             + torch.einsum("bijh,bjhp->bihp", g_lo, xs))
+        w = torch.exp(alast[:, None] - acum) * d                  # (B,Q,H)
+        bp_hi, bp_lo = bf16_split(bs[:, :, None, :] * w[..., None])
+        state = (torch.exp(alast)[..., None, None] * state
+                 + torch.einsum("bjhp,bjhn->bhpn", xs, bp_hi)
+                 + torch.einsum("bjhp,bjhn->bhpn", xs, bp_lo))
+        ys.append(y)
+    y = torch.cat(ys, dim=1).to(y_dtype or x.dtype)
     return y, (state if h_out is None else h_out.copy_(state))
 
 
@@ -133,7 +219,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
              h0: Optional[torch.Tensor] = None,
              h_out: Optional[torch.Tensor] = None,
              y_dtype: Optional[torch.dtype] = None):
-    """Mamba2 SSD recurrence.  x: (B, T, H, P) f32 or bf16; dt: (B, T, H)
+    """Mamba2 SSD scan.  x: (B, T, H, P) f32 or bf16; dt: (B, T, H)
     f32 after the softplus; a_log: (H,) f32 (A = -exp(a_log)); b, c:
     (B, T, N) in x's dtype, shared by every head; h0: (B, H, P, N) f32
     (zeros when None).
@@ -143,7 +229,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     which may be ``h0`` itself: the kernel reads each (b, h) state before
     it writes it, so a decode step updates a cache's state in place.  A
     decode step asks for an f32 ``y``, which the reference keeps in f32
-    through its D-skip."""
+    through its D-skip.  bf16 inputs with ``T >= CHUNKED_MIN_T`` run the
+    chunked form (:func:`ssd_scan_chunked_plain`'s roundings), all
+    others the recurrence (:func:`ssd_scan_plain`'s, bit for bit)."""
     global launches
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a_log, b, c, h0, h_out, y_dtype)

@@ -30,6 +30,25 @@ def as_np(x):
     return x.float().cpu().numpy()
 
 
+# the reference's SSD bf16 tolerance (tests/test_kernels.py), which the
+# chunked form is held to against the recurrence
+SSD_BF16_TOL = dict(atol=5e-2, rtol=5e-2)
+
+
+def ssd_inputs(b, t, h, p, n, dtype, dev, seed=0):
+    """x, B, C in ``dtype``; dt after a softplus and a_log scaled 0.3, as
+    the reference's kernel tests draw them; h0 in f32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, t, h, p, generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, t, h, generator=g, device=dev))
+    a_log = torch.randn(h, generator=g, device=dev) * 0.3
+    bm, cm = (torch.randn(b, t, n, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    h0 = torch.randn(b, h, p, n, generator=g, device=dev) * 0.1
+    return x, dt, a_log, bm, cm, h0
+
+
 # --------------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # --------------------------------------------------------------------------
@@ -167,6 +186,28 @@ def test_rwkv6_scan_kernel_matches_plain_on_card(b, t, h, d, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 2, 17, 300])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_scan_is_bit_exact_on_card(t, d, dtype, cuda_device):
+    """Four threads per state column take the plain version's rounded
+    steps in its order (the last two levels of the pairwise tree as xor
+    shuffles): y and the final state equal it bit for bit."""
+    tdt = DTYPES[dtype]
+    b, h = 2, 3
+    g = torch.Generator(device=cuda_device).manual_seed(t * 3 + d)
+    r, k, v = (torch.randn(b, t, h, d, generator=g, device=cuda_device)
+               .mul(0.5).to(tdt) for _ in range(3))
+    w = torch.rand(b, t, h, d, generator=g, device=cuda_device) * 0.199 + 0.8
+    u = torch.randn(h, d, generator=g, device=cuda_device) * 0.5
+    s0 = torch.randn(b, h, d, d, generator=g, device=cuda_device) * 0.1
+    y, s = wkv.rwkv6_scan(r, k, v, w, u, s0)
+    y_ref, s_ref = wkv.rwkv6_scan_plain(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_ref) and torch.equal(s, s_ref)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,t,h,p,n", [(4, 256, 80, 64, 64), (4, 1, 80, 64, 64),
                                        (2, 77, 3, 32, 16), (1, 300, 2, 32, 64)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "bfloat16-y32"])
@@ -174,30 +215,97 @@ def test_ssd_scan_kernel_matches_plain_on_card(b, t, h, p, n, dtype,
                                                cuda_device):
     """x, B, C in ``dtype``, dt after a softplus in f32; ``bfloat16-y32``
     is a decode step's case (bf16 inputs, y in f32).  y and the final
-    state against the plain version, then the same call with the state
-    updated in place."""
+    state against the plain version (the recurrence), then the same call
+    with the state updated in place.  Where the kernel runs the chunked
+    form (bf16, T >= CHUNKED_MIN_T) both are held to the reference's SSD
+    bf16 tolerance (5e-2, ``tests/test_kernels.py``), as the Pallas
+    kernel is; the recurrence to the repo's f32 and bf16 tolerances."""
     tdt = DTYPES[dtype[:8] if dtype != "float32" else dtype]
     y_dtype = torch.float32 if dtype == "bfloat16-y32" else tdt
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn(b, t, h, p, generator=g, device=cuda_device).to(tdt)
-    dt = torch.nn.functional.softplus(
-        torch.randn(b, t, h, generator=g, device=cuda_device))
-    a_log = torch.randn(h, generator=g, device=cuda_device) * 0.3
-    bm, cm = (torch.randn(b, t, n, generator=g, device=cuda_device).to(tdt)
-              for _ in range(2))
-    h0 = torch.randn(b, h, p, n, generator=g, device=cuda_device) * 0.1
+    x, dt, a_log, bm, cm, h0 = ssd_inputs(b, t, h, p, n, tdt, cuda_device)
     before = ssd.launches
     y, hf = ssd.ssd_scan(x, dt, a_log, bm, cm, h0, y_dtype=y_dtype)
     torch.cuda.synchronize()
     assert ssd.launches == before + 1 and y.dtype == y_dtype
     y_ref, h_ref = ssd.ssd_scan_plain(x, dt, a_log, bm, cm, h0,
                                       y_dtype=y_dtype)
-    name = "float32" if y_dtype == torch.float32 else "bfloat16"
-    np.testing.assert_allclose(as_np(y), as_np(y_ref), **tol(name))
-    np.testing.assert_allclose(as_np(hf), as_np(h_ref), **tol("float32"))
+    if ssd.takes_chunked_form(x):
+        np.testing.assert_allclose(as_np(y), as_np(y_ref), **SSD_BF16_TOL)
+        np.testing.assert_allclose(as_np(hf), as_np(h_ref), **SSD_BF16_TOL)
+    else:
+        name = "float32" if y_dtype == torch.float32 else "bfloat16"
+        np.testing.assert_allclose(as_np(y), as_np(y_ref), **tol(name))
+        np.testing.assert_allclose(as_np(hf), as_np(h_ref), **tol("float32"))
     state = h0.clone()
     y2, h2 = ssd.ssd_scan(x, dt, a_log, bm, cm, state, h_out=state,
                           y_dtype=y_dtype)
     torch.cuda.synchronize()
     assert h2 is state
     assert torch.equal(y2, y) and torch.equal(state, hf)
+
+
+# bf16 around the chunked form's threshold and its 64-step chunks
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [ssd.CHUNKED_MIN_T - 1, ssd.CHUNKED_MIN_T, 63,
+                               64, 65, 77, 256, 300])
+@pytest.mark.parametrize("p,n", [(32, 16), (32, 64), (64, 16), (64, 64)])
+@pytest.mark.parametrize("y32", [False, True])
+def test_ssd_scan_bf16_chunked_edges_on_card(t, p, n, y32, cuda_device):
+    """The chunked form against ``ssd_scan_chunked_plain`` (y 2e-2, the
+    final state 2e-4) and against the recurrence (5e-2); below the
+    threshold the recurrence against its plain version as before."""
+    b, h = 2, 3
+    y_dtype = torch.float32 if y32 else torch.bfloat16
+    x, dt, a_log, bm, cm, h0 = ssd_inputs(b, t, h, p, n, torch.bfloat16,
+                                          cuda_device, seed=t + p + n)
+    y, hf = ssd.ssd_scan(x, dt, a_log, bm, cm, h0, y_dtype=y_dtype)
+    torch.cuda.synchronize()
+    y_rec, h_rec = ssd.ssd_scan_plain(x, dt, a_log, bm, cm, h0,
+                                      y_dtype=y_dtype)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(hf).all()
+    if t < ssd.CHUNKED_MIN_T:
+        np.testing.assert_allclose(as_np(y), as_np(y_rec),
+                                   **tol("float32" if y32 else "bfloat16"))
+        np.testing.assert_allclose(as_np(hf), as_np(h_rec), **tol("float32"))
+        return
+    y_ch, h_ch = ssd.ssd_scan_chunked_plain(x, dt, a_log, bm, cm, h0,
+                                            y_dtype=y_dtype)
+    np.testing.assert_allclose(as_np(y), as_np(y_ch), **tol("bfloat16"))
+    np.testing.assert_allclose(as_np(hf), as_np(h_ch), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(as_np(y), as_np(y_rec), **SSD_BF16_TOL)
+    np.testing.assert_allclose(as_np(hf), as_np(h_rec), **SSD_BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [32, 77, 256, 300])
+def test_ssd_scan_bf16_state_continuation_on_card(t, cuda_device):
+    """[0:T] against [0:T/2] then [T/2:T] with the carried state updated
+    in place (a chunked prefill's state feeding what follows), bf16 at
+    the reference's SSD bf16 tolerance; then T/2 recurrence decode steps
+    after the chunked half against the recurrence throughout."""
+    b, h, p, n = 2, 3, 64, 64
+    x, dt, a_log, bm, cm, h0 = ssd_inputs(b, t, h, p, n, torch.bfloat16,
+                                          cuda_device, seed=t)
+    y_full, h_full = ssd.ssd_scan(x, dt, a_log, bm, cm, h0)
+    m = t // 2
+    first = [a[:, :m].contiguous() for a in (x, dt, bm, cm)]
+    second = [a[:, m:].contiguous() for a in (x, dt, bm, cm)]
+    y1, h1 = ssd.ssd_scan(first[0], first[1], a_log, first[2], first[3], h0)
+    y2, h2 = ssd.ssd_scan(second[0], second[1], a_log, second[2], second[3],
+                          h1, h_out=h1)
+    torch.cuda.synchronize()
+    assert h2 is h1
+    np.testing.assert_allclose(as_np(torch.cat([y1, y2], 1)), as_np(y_full),
+                               **SSD_BF16_TOL)
+    np.testing.assert_allclose(as_np(h2), as_np(h_full), **SSD_BF16_TOL)
+    # the chunked half, then decode steps (T 1, y in f32) in place
+    _, state = ssd.ssd_scan(first[0], first[1], a_log, first[2], first[3], h0)
+    ys = [ssd.ssd_scan(*(a[:, i:i + 1].contiguous() for a in second[:2]),
+                       a_log, *(a[:, i:i + 1].contiguous() for a in second[2:]),
+                       state, h_out=state, y_dtype=torch.float32)[0]
+          for i in range(t - m)]
+    y_ref, h_ref = ssd.ssd_scan_plain(x, dt, a_log, bm, cm, h0,
+                                      y_dtype=torch.float32)
+    np.testing.assert_allclose(as_np(torch.cat(ys, 1)), as_np(y_ref[:, m:]),
+                               **SSD_BF16_TOL)
+    np.testing.assert_allclose(as_np(state), as_np(h_ref), **SSD_BF16_TOL)

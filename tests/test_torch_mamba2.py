@@ -156,6 +156,101 @@ def test_ssd_scan_f32_y_is_the_unrounded_bf16_y():
 
 
 # --------------------------------------------------------------------------
+# the chunked form (the kernel's body for bf16 with T >= CHUNKED_MIN_T):
+# its plain version against the Pallas kernel, the oracle and the
+# recurrence, at the reference's SSD bf16 tolerance (5e-2)
+# --------------------------------------------------------------------------
+CHUNKED = SWEEP + [(2, 77, 3, 32, 16, None), (1, 300, 2, 64, 64, None)]
+
+
+@pytest.mark.parametrize("b,t,h,p,n,chunk", CHUNKED)
+def test_ssd_scan_chunked_plain_matches_pallas_and_oracle(b, t, h, p, n, chunk):
+    """bf16 x, B, C through ``ssd_scan_chunked_plain`` against the JAX
+    ``ssd_scan`` (Pallas, interpret mode; it needs T % chunk == 0, so
+    ragged T is held to the oracle alone) and ``ssd_scan_ref``."""
+    x, dt, a_log, bm, cm, h0 = scan_inputs(b, t, h, p, n, seed=b * 100 + t + n)
+    (jx, tx), (jb, tb), (jc, tc) = (both(a, "bfloat16") for a in (x, bm, cm))
+    (jdt, tdt), (ja, ta), (jh, th) = both(dt), both(a_log), both(h0)
+    y, hf = ops.ssd_scan_chunked_plain(tx, tdt, ta, tb, tc, th)
+    assert y.shape == (b, t, h, p) and y.dtype == torch.bfloat16
+    assert hf.shape == (b, h, p, n) and hf.dtype == torch.float32
+    refs = [ssd_scan_ref(jx, jdt, ja, jb, jc, jh)]
+    if chunk is not None:
+        refs.append(jax_scan(jx, jdt, ja, jb, jc, jh, chunk=chunk))
+    for ref_y, ref_h in refs:
+        np.testing.assert_allclose(as_np(y), as_np(ref_y), **tol("bfloat16"))
+        np.testing.assert_allclose(as_np(hf), as_np(ref_h), **tol("bfloat16"))
+
+
+@pytest.mark.parametrize("b,t,h,p,n,chunk", CHUNKED)
+@pytest.mark.parametrize("y_dtype", [torch.bfloat16, torch.float32])
+def test_ssd_scan_chunked_plain_matches_the_recurrence(b, t, h, p, n, chunk,
+                                                       y_dtype):
+    """The chunked form against ``ssd_scan_plain`` (the recurrence that
+    the CPU route and the kernel's short-T body run) on the same bf16
+    inputs, y in bf16 (prefill) and f32."""
+    x, dt, a_log, bm, cm, h0 = (torch.from_numpy(a).float() for a in
+                                scan_inputs(b, t, h, p, n, seed=t + p))
+    xb, bb, cb = x.bfloat16(), bm.bfloat16(), cm.bfloat16()
+    y, hf = ops.ssd_scan_chunked_plain(xb, dt, a_log, bb, cb, h0,
+                                       y_dtype=y_dtype)
+    y_rec, h_rec = ops.ssd_scan_plain(xb, dt, a_log, bb, cb, h0,
+                                      y_dtype=y_dtype)
+    assert y.dtype == y_dtype
+    np.testing.assert_allclose(as_np(y), as_np(y_rec), **tol("bfloat16"))
+    np.testing.assert_allclose(hf.numpy(), h_rec.numpy(), **tol("bfloat16"))
+
+
+@pytest.mark.parametrize("v", [0.0, -0.0, 1.0, -3.25, 1.0 + 2.0 ** -8,
+                               1.0 + 3 * 2.0 ** -8, 1.0 + 2.0 ** -7 + 2.0 ** -15,
+                               -(1.0 + 2.0 ** -9 + 2.0 ** -20), 0.1, 1e-30,
+                               -3.0e38, 6.5e4 + 1.0 / 3.0])
+def test_bf16_split_on_edge_values(v):
+    """hi is v rounded to bf16 to nearest, ties to even (checked on the
+    bits), lo is v - hi rounded the same way, and hi + lo is v to within
+    2^-17 |v| (exactly when v has at most 16 significant bits)."""
+    x = torch.tensor([v], dtype=torch.float32)
+    hi, lo = ops.bf16_split(x)
+    bits = int(x.view(torch.int32).item()) & 0xFFFFFFFF
+    rne = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    expect = np.array([rne], dtype=np.uint32).view(np.float32)[0]
+    assert hi.item() == expect and hi.dtype == torch.float32
+    assert lo.item() == float(torch.tensor([v - hi.item()]).bfloat16().item())
+    rest = abs(np.float64(v) - np.float64(hi.item()) - np.float64(lo.item()))
+    assert rest <= 2.0 ** -17 * abs(np.float64(np.float32(v)))
+    if v in (0.0, 1.0, -3.25, 1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8,
+             1.0 + 2.0 ** -7 + 2.0 ** -15):
+        assert hi.item() + lo.item() == np.float32(v)
+
+
+@pytest.mark.parametrize("t,steps", [(16, 3), (77, 5), (130, 4)])
+def test_ssd_scan_chunked_prefill_then_recurrence_decode(t, steps):
+    """The kernel's hand-off: a chunked prefill (bf16, T >= CHUNKED_MIN_T)
+    whose state feeds recurrence decode steps (T 1, y in f32, state in
+    place), against the recurrence throughout."""
+    total = t + steps
+    x, dt, a_log, bm, cm, h0 = (torch.from_numpy(a).float() for a in
+                                scan_inputs(2, total, 3, 32, 16, seed=total))
+    xb, bb, cb = x.bfloat16(), bm.bfloat16(), cm.bfloat16()
+    assert ops.takes_chunked_form(xb[:, :t])
+    y_pre, state = ops.ssd_scan_chunked_plain(xb[:, :t], dt[:, :t], a_log,
+                                              bb[:, :t], cb[:, :t], h0)
+    ys = []
+    for i in range(t, total):
+        assert not ops.takes_chunked_form(xb[:, i:i + 1])
+        ys.append(ops.ssd_scan_plain(xb[:, i:i + 1], dt[:, i:i + 1], a_log,
+                                     bb[:, i:i + 1], cb[:, i:i + 1], state,
+                                     h_out=state, y_dtype=torch.float32)[0])
+    y_ref, h_ref = ops.ssd_scan_plain(xb, dt, a_log, bb, cb, h0,
+                                      y_dtype=torch.float32)
+    np.testing.assert_allclose(as_np(y_pre), as_np(y_ref[:, :t]),
+                               **tol("bfloat16"))
+    np.testing.assert_allclose(torch.cat(ys, 1).numpy(),
+                               y_ref[:, t:].numpy(), **tol("bfloat16"))
+    np.testing.assert_allclose(state.numpy(), h_ref.numpy(), **tol("bfloat16"))
+
+
+# --------------------------------------------------------------------------
 # the wrapper refuses what the kernel does not take
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("case", ["head_dim", "state_dim", "dt_dtype",
