@@ -52,13 +52,29 @@ code is non-zero:
    kernels (each a multiple of the shared block's 9 applications), and
    not ``rwkv6_scan``.
 
+6. fixed   -- the paper's fixed-work Sponge loop (``make_live_server``,
+   ``launch/serve.py``'s ``run_live`` settings) on full-width smollm-135m:
+   one b = 4 table entry (prefill of 64 tokens + 8 greedy decode steps)
+   gives identical ids through the kernel and plain routes in float32;
+   both attention kernels in bfloat16 match their plain versions at the
+   entry's shapes (prefill S 64 and decode over 72 cache rows at lengths
+   65..72, for b 1/2/4/8); the bfloat16 table is calibrated (``l(b, c)`` printed) and each b
+   entry timed (median of 10 synchronised calls); 60 requests (10 rps for
+   6 s, SLO 1 s, 200 KB over the 4G trace) served on the modelled clock
+   give ``SimBackend``'s decisions and buckets on the same perf model;
+   the same requests served on the measured clock each get a result,
+   with ``swa_prefill`` launched 30 times (once per layer) and
+   ``decode_attention`` 240 times (per layer per step) for every entry
+   the serve ran, warm-up excluded, and neither scan.  Its launches join
+   the kernel rows.
+
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Without a CUDA device, or outside a checkout, it prints no result
 and exits non-zero.
 
-    python3 chip_smoke.py --profile  # adds phase 6 before the last lines
+    python3 chip_smoke.py --profile  # adds phase 7 before the last lines
 
-6. profile -- for each of the three models, one prefill and ten decode
+7. profile -- for each of the three models, one prefill and ten decode
    steps in bf16 at the serving shape (batch 4, prompt 256) under
    ``torch.profiler``: host wall per step, device busy time, kernel count
    and the kernels that take the most device time, also written as
@@ -98,6 +114,10 @@ LONG_PREFILL = dict(B=1, S=4096, H=32, KV=32, D=80, window=4096)
 WKV = dict(B=4, T=256, H=32, D=64)        # rwkv6-1.6b prefill at the serve
 SSD = dict(B=4, T=256, H=80, P=64, N=64)  # zamba2-2.7b prefill at the serve
 SERVE = dict(requests=48, prompt_len=256, max_decode=64, seed=0)
+# the fixed-work loop at run_live's settings (launch/serve.py)
+FIXED = dict(arch="smollm-135m", c_set=(1, 2, 4, 8), b_set=(1, 2, 4, 8),
+             prompt_len=64, gen_tokens=8, slo=1.0, size_kb=200.0, rps=10.0,
+             duration=6.0, seed=42)
 ARCHS = ("smollm-135m", "rwkv6-1.6b", "zamba2-2.7b")
 # the models whose bf16 path runs the attention kernels: phase 4 checks
 # their bf16 routes too
@@ -834,6 +854,188 @@ def serve_phase(dev, arch: str):
     return launches
 
 
+def fixed_kernel_checks(dev, cfg, rows) -> None:
+    """Both attention kernels in bf16 at the shapes the fixed-work entry
+    gives them, against their plain versions: the prefill over the
+    prompt (b in ``b_set``, S = prompt_len, full causal) and every decode
+    step over the cache of prompt_len + gen_tokens rows (lengths
+    prompt_len + 1 ... prompt_len + gen_tokens, one length per step for
+    the whole batch).  The worst errors go into the kernels' rows."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.swa_prefill import ops as pre
+
+    f, dtype = FIXED, torch.bfloat16
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    pl, s_cache = f["prompt_len"], f["prompt_len"] + f["gen_tokens"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    worst_p = worst_d = 0.0
+    for b in f["b_set"]:
+        q, k, v = randn(b, pl, h, d), randn(b, pl, kv, d), randn(b, pl, kv, d)
+        worst_p = max(worst_p, check_close(
+            f"fixed swa_prefill B={b} S={pl}",
+            pre.swa_prefill_attention(q, k, v, window=pl),
+            pre.swa_prefill_plain(q, k, v, window=pl), dtype))
+        q = randn(b, kv, h // kv, d)
+        k, v = randn(b, s_cache, kv, d), randn(b, s_cache, kv, d)
+        for n in range(pl + 1, s_cache + 1):
+            lengths = torch.full((b,), n, dtype=torch.int32, device=dev)
+            worst_d = max(worst_d, check_close(
+                f"fixed decode_attention B={b} S={s_cache} length={n}",
+                dec.decode_attention(q, k, v, lengths),
+                dec.decode_attention_plain(q, k, v, lengths), dtype))
+    for name, err in (("swa_prefill", worst_p), ("decode_attention", worst_d)):
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    say("fixed", check="bf16 kernels vs plain at the entry's shapes",
+        b_set=list(f["b_set"]), prefill=f"S={pl} H={h} KV={kv} D={d}",
+        decode=f"S={s_cache} lengths={pl + 1}..{s_cache}",
+        swa_prefill_max_abs_err=worst_p, decode_attention_max_abs_err=worst_d)
+
+
+def fixed_phase(dev, rows):
+    """The paper's fixed-work Sponge loop on full-width smollm-135m with
+    ``run_live``'s settings: f32 ids of the kernel and plain routes, both
+    attention kernels in bf16 at the entry's shapes, the modelled clock
+    against ``SimBackend``, then a measured serve whose kernel launches
+    are returned."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.rwkv6_scan import ops as wkv
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.kernels.swa_prefill import ops as pre
+    from repro_torch.launch.serve import live_arrivals
+    from repro_torch.models import build_model
+    from repro_torch.serving.api import (build_llm_step_fns,
+                                         make_live_server, make_sim_server)
+
+    f = FIXED
+    arch, pl, gen = f["arch"], f["prompt_len"], f["gen_tokens"]
+    # 1. ids, f32: one b = 4 entry through the kernel and plain routes
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              param_dtype="float32")
+    kcfg = dataclasses.replace(cfg, use_pallas_prefill=True,
+                               use_pallas_decode=True)
+    kern, plain = build_model(kcfg, device=dev), build_model(cfg, device=dev)
+    params = kern.init(kern.generator(0))
+    g = torch.Generator(device=dev).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (4, pl), generator=g,
+                           device=dev, dtype=torch.int32)
+    ids_k = build_llm_step_fns(kern, params, (1,), (4,), pl, gen)[(1, 4)](tokens)
+    ids_p = build_llm_step_fns(plain, params, (1,), (4,), pl, gen)[(1, 4)](tokens)
+    if not (ids_k.shape == (4, gen) and torch.equal(ids_k, ids_p)):
+        raise AssertionError(f"fixed f32 ids: kernel {ids_k.tolist()} vs "
+                             f"plain {ids_p.tolist()}")
+    say("fixed", check="f32 ids, kernel route vs plain route", arch=arch,
+        batch=4, prompt=pl, gen_tokens=gen, ids="identical")
+    del kern, plain, params, ids_k, ids_p
+    torch.cuda.empty_cache()
+    fixed_kernel_checks(dev, cfg, rows)
+
+    # 2. the modelled clock: the bf16 table calibrated, served against
+    # SimBackend on the same perf model, both without resize penalty
+    common = dict(c_set=f["c_set"], b_set=f["b_set"], prompt_len=pl,
+                  gen_tokens=gen, adaptation_interval=0.5,
+                  prior_rps=f["rps"], slo=f["slo"], expected_rps=f["rps"],
+                  seed=0, device=dev)
+    horizon = f["duration"] + 30
+
+    def arrivals(vocab):
+        return live_arrivals(f["rps"], f["duration"], f["slo"],
+                             f["size_kb"], pl, vocab, f["seed"])
+
+    server, cfg = make_live_server(arch, clock="modeled", **common)
+    perf = server.backend.perf
+    say("fixed", fit="l(b,c) = gamma b/c + eps/c + delta b + eta",
+        gamma=perf.gamma, eps=perf.eps, delta=perf.delta, eta=perf.eta,
+        r2=perf.r2, rmse=perf.rmse)
+    walls = {}
+    for b in f["b_set"]:
+        fn = server.backend.step_fns[(f["c_set"][0], b)]
+        x = np.ones((b, pl), np.int32)
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        walls[b] = float(np.median(times))
+    say("fixed", entry="prefill + gen_tokens decode steps, bf16",
+        median_wall_ms_by_b=json.dumps({b: w * 1e3 for b, w in walls.items()}))
+    live = server.run(arrivals(cfg.vocab_size), horizon=horizon)
+    sim = make_sim_server(perf, "sponge", c_set=f["c_set"], b_set=f["b_set"],
+                          c0=max(f["c_set"]), tick=0.5, prior_rps=f["rps"],
+                          resize_penalty=0.0, adaptation_interval=0.5,
+                          slo=f["slo"], expected_rps=f["rps"])
+    simrep = sim.run([r for r, _ in arrivals(cfg.vocab_size)],
+                     horizon=horizon)
+    d_live = [(t, d.c, d.b, d.feasible) for t, d in live.decisions]
+    d_sim = [(t, d.c, d.b, d.feasible) for t, d in simrep.decisions]
+    n_req = int(f["rps"] * f["duration"])
+    if not (d_live and d_live == d_sim and live.buckets == simrep.buckets
+            and live.n_requests == simrep.n_requests == n_req):
+        raise AssertionError(f"fixed modelled clock differs from SimBackend: "
+                             f"{len(d_live)} vs {len(d_sim)} decisions, "
+                             f"{len(live.buckets)} vs {len(simrep.buckets)} "
+                             "buckets")
+    say("fixed", check="modelled clock vs SimBackend", decisions=len(d_live),
+        buckets=len(live.buckets), equal=True)
+    del server, sim
+    torch.cuda.empty_cache()
+
+    # 3. the main path: a measured serve, launch counts around server.run
+    # (make_live_server's warm-up calls are not counted)
+    torch.cuda.reset_peak_memory_stats()
+    t_total = time.perf_counter()
+    server, cfg = make_live_server(arch, clock="measured", perf=perf,
+                                   **common)
+    arr = arrivals(cfg.vocab_size)
+    pre.launches = dec.launches = wkv.launches = ssd.launches = 0
+    t0 = time.perf_counter()
+    report = server.run(arr, horizon=horizon)
+    torch.cuda.synchronize()
+    run_wall = time.perf_counter() - t0
+    total_wall = time.perf_counter() - t_total
+    launches = {"swa_prefill": pre.launches, "decode_attention": dec.launches,
+                "rwkv6_scan": wkv.launches, "ssd_scan": ssd.launches}
+    results = server.backend.results
+    ids = np.stack([it.result for it in results]) if results else np.zeros(0)
+    layers, entries = cfg.num_layers, len(server.backend.measured)
+    checks = {
+        "every request got a result":
+            len(results) == report.n_requests == len(arr)
+            and all(it.result is not None for it in results),
+        "ids int32 of shape (gen_tokens,)":
+            ids.dtype == np.int32 and ids.shape == (len(arr), gen),
+        "ids in vocab": bool(((ids >= 0) & (ids < cfg.vocab_size)).all()),
+        "swa_prefill launched once per layer per entry":
+            entries > 0 and launches["swa_prefill"] == layers * entries,
+        "decode_attention launched once per layer per step per entry":
+            launches["decode_attention"] == layers * gen * entries,
+        "no scan launched":
+            launches["rwkv6_scan"] == launches["ssd_scan"] == 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"fixed serve checks failed: {failed} "
+                             f"(launches {launches})")
+    say("fixed", arch=cfg.name, dtype="bfloat16", clock="measured",
+        rps=f["rps"], duration=f["duration"], slo=f["slo"],
+        size_kb=f["size_kb"], prompt_len=pl, gen_tokens=gen,
+        n=report.n_requests, violation_rate=report.violation_rate,
+        p50=report.p50, p99=report.p99,
+        decisions=len(report.decisions or ()), instances=len(server.pool),
+        dispatches=len(report.buckets), entries=entries, run_wall_s=run_wall,
+        total_wall_s=total_wall,
+        generated_tokens_per_wall_s=len(results) * gen / run_wall,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    say("fixed", launches=json.dumps(launches))
+    return launches
+
+
 def profile_phase(dev, arch: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -918,7 +1120,7 @@ def profile_phase(dev, arch: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the serving shape (phase 6)")
+                    help="also profile the serving shape (phase 7)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -958,6 +1160,9 @@ def main() -> int:
         for name, n in serve_phase(dev, arch).items():
             rows[name]["launches"] += n
         torch.cuda.empty_cache()
+    for name, n in fixed_phase(dev, rows).items():
+        rows[name]["launches"] += n
+    torch.cuda.empty_cache()
     if args.profile:
         for arch in ARCHS:
             profile_phase(dev, arch)

@@ -1,15 +1,108 @@
-"""Token-level cost model behind the token solver.
+"""The work/cost abstraction behind the solvers.
 
-Copy of ``repro.core.cost_model`` cut to ``TokenCostModel`` (evaluation, fit, and the synthetic ``smollm_like``
-calibration the token scenarios carry).  The float expressions are the
-reference's term for term: the solver's decisions depend on them.
+Copy of ``repro.core.cost_model`` cut to what the fixed-work and token
+paths use: :class:`Composition` (the work of one engine step), the
+:class:`CostModel` protocol, :class:`FixedWorkCostModel` (the paper's
+``PerfModel`` as a cost model, decision-identical by construction:
+every surface delegates to the wrapped model's own float expression)
+and :class:`TokenCostModel` (evaluation, fit, and the synthetic
+``smollm_like`` calibration the token scenarios carry).  The float
+expressions are the reference's term for term: the solver's decisions
+depend on them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterable
+from typing import Iterable, Protocol, Union, runtime_checkable
 
 import numpy as np
+
+from repro_torch.core.perf_model import PerfModel
+
+
+@dataclass(frozen=True)
+class Composition:
+    """The work of one continuous-batching engine step.
+
+    ``prefill_tokens`` -- total prompt tokens prefilled this step;
+    ``decode_slots`` -- running sequences that take one decode step.  A
+    fixed-work request batch of size b is ``Composition(prefill_tokens=b,
+    decode_slots=0)`` under the one-token-per-request convention of
+    :class:`FixedWorkCostModel`.
+    """
+    prefill_tokens: int
+    decode_slots: int
+
+
+@runtime_checkable
+class CostModel(Protocol):
+    """What the solver/control-plane layers need from a cost surface.
+
+    ``batch_latency(b, c)`` is the fixed-work view (one dispatch of b
+    requests); ``prefill_latency`` / ``decode_latency`` /
+    ``step_latency`` expose the token-level decomposition.
+    """
+
+    def batch_latency(self, b, c): ...
+
+    def prefill_latency(self, c, tokens): ...
+
+    def decode_latency(self, c, slots): ...
+
+    def step_latency(self, c, comp: Composition) -> float: ...
+
+    def throughput(self, b, c): ...
+
+
+@dataclass(frozen=True)
+class FixedWorkCostModel:
+    """The paper's fixed-work model expressed as a :class:`CostModel`.
+
+    One request == a one-shot prefill of exactly one token and an empty
+    decode stream, so ``prefill_latency(c, tokens=b)``,
+    ``batch_latency(b, c)`` and ``latency(b, c)`` are all the wrapped
+    ``perf.latency(b, c)`` -- the same float expression, so every
+    decision made through this adapter equals one made on the bare
+    ``PerfModel``.
+    """
+    perf: PerfModel
+
+    def latency(self, b, c):
+        """Fixed-work batch latency -- ``perf.latency`` verbatim."""
+        return self.perf.latency(b, c)
+
+    def throughput(self, b, c):
+        """Fixed-work batch throughput -- ``perf.throughput`` verbatim."""
+        return self.perf.throughput(b, c)
+
+    def batch_latency(self, b, c):
+        """One dispatch of b requests: ``perf.latency(b, c)`` verbatim."""
+        return self.perf.latency(b, c)
+
+    def prefill_latency(self, c, tokens):
+        """tokens one-token requests prefilled together: l(tokens, c)."""
+        return self.perf.latency(tokens, c)
+
+    def decode_latency(self, c, slots):
+        """Fixed work has no decode stream: a decode step is free (and
+        the solver's TBT constraint is vacuous)."""
+        return np.zeros_like(np.asarray(slots, np.float64)
+                             * np.asarray(c, np.float64))
+
+    def step_latency(self, c, comp: Composition) -> float:
+        """Pure-prefill step cost; decode slots contribute nothing."""
+        if comp.prefill_tokens <= 0:
+            return 0.0
+        return float(self.perf.latency(comp.prefill_tokens, c))
+
+
+def as_cost_model(perf_or_cost: Union[PerfModel, CostModel]) -> CostModel:
+    """Adapt a ``PerfModel`` to the :class:`CostModel` protocol (wrap it
+    in :class:`FixedWorkCostModel`); pass an existing cost model through
+    untouched."""
+    if isinstance(perf_or_cost, PerfModel):
+        return FixedWorkCostModel(perf_or_cost)
+    return perf_or_cost
 
 
 @dataclass(frozen=True)

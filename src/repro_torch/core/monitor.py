@@ -1,7 +1,9 @@
 """Monitoring (paper §3.1): arrival-rate estimate and SLO accounting.
 
 Copy of ``repro.core.monitor`` cut to ``RateEstimator`` and ``Monitor``,
-the object-path estimators the ``ScenarioRunner`` drives.
+the object-path estimators the ``ScenarioRunner`` drives: arrival rate,
+completions, drops and cancels, and the perf-model residuals a live
+backend records (measured minus predicted batch latency).
 """
 from __future__ import annotations
 
@@ -74,13 +76,18 @@ class RateEstimator:
 class Monitor:
     rate: RateEstimator = field(default_factory=RateEstimator)
     completed: List[Request] = field(default_factory=list)
+    dropped: List[Request] = field(default_factory=list)
     cancelled: List[Request] = field(default_factory=list)
+    perf_residuals: List[float] = field(default_factory=list)
 
     def observe_arrival(self, req: Request) -> None:
         self.rate.observe(req.arrival)
 
     def observe_completion(self, req: Request) -> None:
         self.completed.append(req)
+
+    def observe_drop(self, req: Request) -> None:
+        self.dropped.append(req)
 
     def observe_cancel(self, req: Request) -> None:
         """A queued request was cancelled mid-flight: retract its
@@ -89,10 +96,13 @@ class Monitor:
         self.cancelled.append(req)
         self.rate.retract(req.arrival)
 
+    def observe_perf_residual(self, predicted: float, measured: float) -> None:
+        self.perf_residuals.append(measured - predicted)
+
     # -- aggregate metrics -------------------------------------------------
     @property
     def n_total(self) -> int:
-        return len(self.completed)
+        return len(self.completed) + len(self.dropped)
 
     @property
     def n_cancelled(self) -> int:
@@ -100,7 +110,8 @@ class Monitor:
 
     @property
     def n_violations(self) -> int:
-        return sum(1 for r in self.completed if r.violated)
+        return (sum(1 for r in self.completed if r.violated)
+                + len(self.dropped))
 
     @property
     def violation_rate(self) -> float:

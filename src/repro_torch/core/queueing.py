@@ -1,8 +1,10 @@
-"""EDF queue of ``Request`` objects (paper §3.1 "Queuing").
+"""EDF queue + dynamic batcher (paper §3.1 "Queuing").
 
-Copy of ``repro.core.queueing.EDFQueue`` cut to what the token path
-uses: push/pop/peek, mid-flight re-keying and cancellation (the online
-session's surface) and ``token_snapshot`` (the token solver's input).
+Copy of ``repro.core.queueing`` cut to ``EDFQueue`` (push/pop/peek,
+mid-flight re-keying and cancellation, the solvers' snapshots --
+``snapshot_remaining`` / ``remaining_array`` for the fixed-work solver,
+``token_snapshot`` for the token solver -- and ``drop_expired``) and
+``DynamicBatcher``.
 """
 from __future__ import annotations
 
@@ -94,6 +96,26 @@ class EDFQueue:
     def pop_batch(self, b: int) -> List[Request]:
         return [self.pop() for _ in range(min(b, len(self._live)))]
 
+    def live_requests(self) -> List[Request]:
+        """The live-entry snapshot: every queued request exactly once.
+
+        This — never ``_heap`` — is the observer-facing view.  After an
+        ``update_deadline`` the heap holds stale duplicates of the re-keyed
+        request, and after a ``cancel`` it still holds the dead tuple;
+        only ``_live`` reflects the queue's true contents.
+        """
+        return list(self._live.values())
+
+    def snapshot_remaining(self, now: float) -> List[float]:
+        """Remaining budgets (sorted ascending) — the solver's input."""
+        return sorted(r.deadline - now for r in self._live.values())
+
+    def remaining_array(self, now: float) -> np.ndarray:
+        """Vectorized ``snapshot_remaining``: sorted np.float64 budgets."""
+        dl = np.fromiter((r.deadline for r in self._live.values()),
+                         np.float64, len(self._live))
+        return np.sort(dl - now)
+
     def token_snapshot(self, now: float):
         """Token-aware solver input: ``(ttft_budgets, prompt_tokens,
         tbt_min)`` with budgets EDF-sorted ascending, token counts
@@ -109,3 +131,34 @@ class EDFQueue:
         tbt = min(r.tbt_slo for r in reqs)
         order = np.argsort(dl, kind="stable")
         return dl[order] - now, toks[order], float(tbt)
+
+    def drop_expired(self, now: float) -> List[Request]:
+        """Remove requests whose deadline already passed (counted as
+        violations by the caller)."""
+        dropped = [r for r in self._live.values() if r.deadline < now]
+        if dropped:
+            for r in dropped:
+                del self._live[r.id]
+            self._heap = [(self._key(r), r.id, r)
+                          for r in self._live.values()]
+            heapq.heapify(self._heap)
+        return dropped
+
+
+class DynamicBatcher:
+    """Forms batches of the scaler's current b from the EDF queue."""
+
+    def __init__(self, queue: EDFQueue, b: int = 1):
+        self.queue = queue
+        self.b = b
+
+    def set_batch_size(self, b: int) -> None:
+        if b < 1:
+            raise ValueError(f"batch size must be >= 1, got {b}")
+        self.b = b
+
+    def next_batch(self) -> List[Request]:
+        return self.queue.pop_batch(self.b)
+
+    def has_work(self) -> bool:
+        return len(self.queue) > 0

@@ -1,28 +1,95 @@
-"""The Sponge scaler over the token-level cost model.
+"""The Sponge scalers (paper §3.1 "Scaler"): every adaptation interval,
+read the queue snapshot and the λ estimate, solve the IP, and emit a
+Decision the engine applies by in-place vertical scaling.
 
-Copy of ``repro.core.scaler.TokenSpongeScaler`` without the
-decode-length ``uncertainty`` option: every adaptation interval, read
-the queue's token snapshot and the λ estimate, solve, emit a Decision.
+Copy of ``repro.core.scaler``: ``SpongeScaler`` over the fixed-work
+``PerfModel`` (without the ``extra_budgets`` hook no ported caller
+uses) and ``TokenSpongeScaler`` without the decode-length
+``uncertainty`` option.  ``SpongeScaler.solver`` selects the optimizer:
+
+* ``"bruteforce"`` -- the paper's Algorithm 1, a Python double loop
+  (the reference semantics);
+* ``"pruned"``     -- the vectorized exact variant;
+* ``"memo"``       -- a ``MemoizedSolver``: the ``(c, b)`` grid is
+  precomputed once and decisions are cached under a quantized
+  ``(budgets, λ, wait)`` signature (exact at quanta 0).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 
-from repro_torch.core.cost_model import TokenCostModel
+from repro_torch.core.cost_model import CostModel, TokenCostModel
+from repro_torch.core.perf_model import PerfModel
+from repro_torch.core.queueing import EDFQueue
 from repro_torch.core.slo import Decision
-from repro_torch.core.solver import (DEFAULT_B, DEFAULT_C,
-                                     TokenMemoizedSolver,
-                                     solve_token_bruteforce)
+from repro_torch.core.solver import (DEFAULT_B, DEFAULT_C, MemoizedSolver,
+                                     TokenMemoizedSolver, solve_bruteforce,
+                                     solve_pruned, solve_token_bruteforce)
+
+
+@dataclass
+class SpongeScaler:
+    """Conforms to the ``SchedulingPolicy`` protocol
+    (``repro_torch.serving.api``): a bare scaler can be handed to the
+    runner directly (the live engine does).
+
+    ``perf`` may be a ``PerfModel`` or any fixed-work-capable
+    ``CostModel`` (they share the ``latency(b, c)`` / ``throughput(b, c)``
+    surface)."""
+    perf: Union[PerfModel, CostModel]
+    name: str = "sponge"
+    c_set: Sequence[int] = DEFAULT_C
+    b_set: Sequence[int] = DEFAULT_B
+    adaptation_interval: float = 1.0
+    solver: str = "bruteforce"          # bruteforce (paper Alg.1) | pruned | memo
+    delta_pen: float = 1e-3
+    headroom: float = 0.05              # latency safety margin (seconds)
+    lam_headroom: float = 1.05          # provision for lam * this factor
+    budget_quantum: float = 0.0         # memo solver: budget bucket (s)
+    lam_quantum: float = 0.0            # memo solver: lambda bucket (rps)
+    decisions: List[tuple[float, Decision]] = field(default_factory=list)
+    _next_t: float = 0.0
+    _memo: Optional[MemoizedSolver] = field(default=None, repr=False)
+
+    def due(self, now: float) -> bool:
+        return now + 1e-12 >= self._next_t
+
+    @property
+    def memo(self) -> MemoizedSolver:
+        """The lazily built memoized solver (valid for solver="memo")."""
+        if self._memo is None:
+            self._memo = MemoizedSolver(
+                self.perf, self.c_set, self.b_set,
+                budget_quantum=self.budget_quantum,
+                lam_quantum=self.lam_quantum)
+        return self._memo
+
+    def decide(self, now: float, queue: EDFQueue, lam: float,
+               initial_wait: float = 0.0) -> Decision:
+        self._next_t = now + self.adaptation_interval
+        remaining = np.maximum(queue.remaining_array(now) - self.headroom,
+                               0.0)
+        lam_eff = lam * self.lam_headroom
+        if self.solver == "memo":
+            d = self.memo.solve(remaining, lam_eff,
+                                initial_wait=initial_wait)
+        else:
+            fn = (solve_bruteforce if self.solver == "bruteforce"
+                  else solve_pruned)
+            d = fn(list(remaining), lam_eff, self.perf, self.c_set,
+                   self.b_set, self.delta_pen, initial_wait=initial_wait)
+        self.decisions.append((now, d))
+        return d
 
 
 @dataclass
 class TokenSpongeScaler:
     """The Sponge scaler over the token-level cost model.
 
-    Same control-loop role as the fixed-work Sponge scaler — every adaptation
+    Same control-loop role as :class:`SpongeScaler` — every adaptation
     interval, read the queue snapshot + λ estimate, solve, emit a
     Decision — but the snapshot is token-aware (per-request TTFT budgets
     + prompt-token counts + the tightest per-token SLO, via

@@ -1,31 +1,226 @@
-"""Token-level Algorithm 1: the Sponge IP over token compositions.
+"""The Sponge optimizer: Integer Program (paper Eq. 3) + Algorithm 1.
 
-Copy of the token part of ``repro.core.solver``
+    minimize   c + delta_pen * b
+    s.t.       l(b,c) + q_r(b,c) + cl_max <= SLO   for every request r
+               h(b,c) >= lambda
+               b, c in Z+
+
+Copy of ``repro.core.solver`` cut to the fixed-work solvers
+(``solve_bruteforce``, the paper's Algorithm 1 with the reference's
+``initial_wait`` term and damage-minimizing fallback; ``solve_pruned``;
+``SolverTable`` behind a ``MemoizedSolver``) and the token solvers
 (``solve_token_bruteforce``, ``TokenSolverTable`` behind a
-``TokenMemoizedSolver``, and the shared quantize-and-cache shell).
-Iterate c ascending then b ascending and return the first (c, b) that
-meets the per-token (TBT) budget, the arrival rate and every queued
-request's TTFT budget; fall back to the fewest predicted violations.
-The float expressions and their summation order are the reference's
-term for term, so both packages make the same decisions.
+``TokenMemoizedSolver``), with the quantize-and-cache shell they share.
+Algorithm 1 iterates c ascending then b ascending and returns the first
+feasible (c, b): the lexicographic IP optimum.  The float expressions
+and their summation order are the reference's term for term, so both
+packages make the same decisions.
 """
 from __future__ import annotations
 
 import time
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 
-from repro_torch.core.cost_model import TokenCostModel
+from repro_torch.core.cost_model import CostModel, TokenCostModel
+from repro_torch.core.perf_model import PerfModel
 from repro_torch.core.slo import Decision
 
 DEFAULT_C = tuple(range(1, 17))
 DEFAULT_B = tuple(range(1, 17))
 
 
+def _predicted_violations(rem: Sequence[float], l: float, b: int,
+                          initial_wait: float) -> int:
+    """Requests whose batch completes after their remaining budget."""
+    n = len(rem)
+    v = 0
+    for idx in range(n):
+        finish = initial_wait + (idx // b + 1) * l
+        if finish > rem[idx]:
+            v += 1
+    return v
+
+
+def solve_bruteforce(remaining_slos: Sequence[float], lam: float,
+                     perf: PerfModel,
+                     c_set: Sequence[int] = DEFAULT_C,
+                     b_set: Sequence[int] = DEFAULT_B,
+                     delta_pen: float = 1e-3,
+                     initial_wait: float = 0.0) -> Decision:
+    """Faithful Algorithm 1 (+ the fallback described in the module doc).
+
+    remaining_slos: per queued request, the remaining budget SLO - cl_r
+    (equivalently deadline - now); the EDF queue hands them over sorted
+    ascending.  The binding budget of batch i in EDF order is that of its
+    first request, rem[i*b].
+    """
+    t0 = time.perf_counter()
+    rem = sorted(float(x) for x in remaining_slos)
+    n = len(rem)
+    iters = 0
+    best_fallback = None  # (violations, c, b)
+    for c in sorted(c_set):
+        for b in sorted(b_set):
+            iters += 1
+            l = float(perf.latency(b, c))
+            if lam > 0 and perf.throughput(b, c) < lam:
+                continue
+            ok = True
+            q_r = initial_wait
+            for i in range(0, max(n, 1), b):
+                budget = rem[i] if n else float("inf")
+                if l + q_r > budget:
+                    ok = False
+                    break
+                q_r += l
+                if n == 0:
+                    break
+            if ok:
+                return Decision(c=c, b=b, feasible=True, solver_iters=iters,
+                                solver_time=time.perf_counter() - t0)
+            v = _predicted_violations(rem, l, b, initial_wait)
+            # crisis ordering: fewest predicted violations, then fastest
+            # drain (max throughput) — arrivals keep coming during a fade
+            key = (v, -float(perf.throughput(b, c)))
+            if best_fallback is None or key < best_fallback[0]:
+                best_fallback = (key, c, b)
+    if best_fallback is None:  # nothing sustains lam: max capacity config
+        c = max(c_set)
+        b = max(b_set, key=lambda bb: perf.throughput(bb, c))
+        best_fallback = ((n, 0.0), c, b)
+    _, c, b = best_fallback
+    return Decision(c=c, b=b, feasible=False, solver_iters=iters,
+                    solver_time=time.perf_counter() - t0)
+
+
+def solve_pruned(remaining_slos: Sequence[float], lam: float,
+                 perf: PerfModel,
+                 c_set: Sequence[int] = DEFAULT_C,
+                 b_set: Sequence[int] = DEFAULT_B,
+                 delta_pen: float = 1e-3,
+                 initial_wait: float = 0.0) -> Decision:
+    """Vectorized exact solver (same constraint set, explicit argmin)."""
+    t0 = time.perf_counter()
+    rem = np.sort(np.asarray(list(remaining_slos), np.float64))
+    n = len(rem)
+    cs = np.asarray(sorted(c_set))
+    bs = np.asarray(sorted(b_set))
+    bb, cc = np.meshgrid(bs, cs, indexing="ij")       # (B, C)
+    lat = perf.latency(bb, cc)
+    thr = bb / np.maximum(lat, 1e-12)
+    sustain = thr >= (lam if lam > 0 else 0.0)
+    feas = sustain.copy()
+    viol = np.zeros_like(lat, dtype=np.int64)
+    if n:
+        idx = np.arange(n)
+        for j, b in enumerate(bs):
+            batch_mult = idx // int(b) + 1                # (n,)
+            finish = initial_wait + batch_mult[None, :] * lat[j][:, None]
+            over = finish > rem[None, :] + 1e-12
+            viol[j] = over.sum(axis=1)
+            feas[j] &= ~over.any(axis=1)
+    cost = cc + delta_pen * bb
+    cost = np.where(feas, cost, np.inf)
+    solver_time = time.perf_counter() - t0
+    if np.isfinite(cost).any():
+        j, i = np.unravel_index(np.argmin(cost), cost.shape)
+        return Decision(c=int(cs[i]), b=int(bs[j]), feasible=True,
+                        solver_iters=cost.size, solver_time=solver_time)
+    # damage-minimizing fallback among sustainable configs (or all),
+    # tie-broken by max throughput (fastest drain during the fade)
+    pool = np.where(sustain, viol.astype(np.float64), viol.max() + 1e6 + cc)
+    pool = pool - 1e-9 * thr
+    j, i = np.unravel_index(np.argmin(pool), pool.shape)
+    return Decision(c=int(cs[i]), b=int(bs[j]), feasible=False,
+                    solver_iters=cost.size, solver_time=solver_time)
+
+
+class SolverTable:
+    """Precomputed numpy feasibility grids over the ``(c, b)`` space.
+
+    Everything that depends only on (perf, c_set, b_set) — the latency
+    grid l(b, c), the throughput grid h(b, c), and the flattened
+    Algorithm-1 iteration order (c ascending, then b ascending) — is
+    computed once here.  ``solve`` then answers each query with O(|C||B|)
+    vectorized comparisons plus an O(n/b) reduction per batch size over
+    the EDF batch heads; there is no per-config Python loop.
+
+    The constraint set is exactly Algorithm 1's: batch i (0-indexed, EDF
+    order) finishes at ``initial_wait + (i+1)·l(b, c)`` and must meet the
+    budget of its head request ``rem[i·b]``; configs with
+    ``h(b, c) < λ`` are discarded; the first feasible entry in (c, b)
+    lexicographic order is the IP optimum.  The infeasible fallback
+    replicates ``solve_bruteforce``: among sustainable configs, fewest
+    predicted violations, ties broken by fastest drain.
+    """
+
+    def __init__(self, perf: Union[PerfModel, CostModel],
+                 c_set: Sequence[int] = DEFAULT_C,
+                 b_set: Sequence[int] = DEFAULT_B):
+        self.perf = perf        # PerfModel or any CostModel (same surface)
+        self.cs = np.asarray(sorted(c_set), np.int64)
+        self.bs = np.asarray(sorted(b_set), np.int64)
+        cc, bb = np.meshgrid(self.cs, self.bs, indexing="ij")   # (C, B)
+        self.lat = np.asarray(perf.latency(bb, cc), np.float64)
+        self.thr = bb / np.maximum(self.lat, 1e-12)
+        self.c_flat = cc.ravel()
+        self.b_flat = bb.ravel()
+        self.size = self.lat.size
+
+    def solve(self, remaining_slos, lam: float,
+              initial_wait: float = 0.0) -> Decision:
+        t0 = time.perf_counter()
+        rem = np.sort(np.asarray(remaining_slos, np.float64).ravel())
+        n = rem.size
+        C, B = self.lat.shape
+        feas = np.ones((C, B), bool)
+        if n:
+            for j in range(B):
+                b = int(self.bs[j])
+                heads = rem[::b]
+                k = np.arange(1, heads.size + 1, dtype=np.float64)
+                finish = initial_wait + self.lat[:, j, None] * k
+                feas[:, j] = (finish <= heads).all(axis=1)
+        sustain = (self.thr >= lam) if lam > 0 else np.ones((C, B), bool)
+        ok = (feas & sustain).ravel()
+        hit = np.flatnonzero(ok)
+        if hit.size:
+            i = int(hit[0])
+            return Decision(c=int(self.c_flat[i]), b=int(self.b_flat[i]),
+                            feasible=True, solver_iters=self.size,
+                            solver_time=time.perf_counter() - t0)
+        # fallback: among sustainable configs, fewest predicted violations,
+        # then max throughput, then first in (c, b) order — bruteforce's
+        # crisis ordering
+        sus_flat = sustain.ravel()
+        if sus_flat.any():
+            viol = np.zeros((C, B), np.int64)
+            if n:
+                idx = np.arange(n, dtype=np.int64)
+                for j in range(B):
+                    b = int(self.bs[j])
+                    mult = (idx // b + 1).astype(np.float64)
+                    finish = initial_wait + self.lat[:, j, None] * mult
+                    viol[:, j] = (finish > rem).sum(axis=1)
+            key1 = np.where(sus_flat, viol.ravel().astype(np.float64),
+                            np.inf)
+            cand = np.flatnonzero(key1 == key1.min())
+            thr_c = self.thr.ravel()[cand]
+            i = int(cand[np.flatnonzero(thr_c == thr_c.max())[0]])
+            c, b = int(self.c_flat[i]), int(self.b_flat[i])
+        else:  # nothing sustains lam: max capacity config
+            c = int(self.cs[-1])
+            j = int(np.argmax(self.thr[-1]))
+            b = int(self.bs[j])
+        return Decision(c=c, b=b, feasible=False, solver_iters=self.size,
+                        solver_time=time.perf_counter() - t0)
+
+
 class _QuantizedDecisionCache:
     """The conservative quantize-and-cache shell of the memoized
-    solvers (the token solver here).
+    solvers (fixed-work and token).
 
     The bucketing rule is correctness-critical and lives HERE once: all
     load-like inputs round *against* the caller — remaining budgets are
@@ -79,6 +274,29 @@ class _QuantizedDecisionCache:
             self.cache.clear()
         self.cache[key] = d
         return d
+
+
+class MemoizedSolver(_QuantizedDecisionCache):
+    """Decision cache in front of a :class:`SolverTable` — the
+    :class:`_QuantizedDecisionCache` bucketing over the fixed-work
+    Algorithm 1 (the million-request scenario-engine configuration)."""
+
+    def __init__(self, perf: Union[PerfModel, CostModel],
+                 c_set: Sequence[int] = DEFAULT_C,
+                 b_set: Sequence[int] = DEFAULT_B,
+                 budget_quantum: float = 0.0, lam_quantum: float = 0.0,
+                 max_entries: int = 200_000):
+        super().__init__(budget_quantum, lam_quantum, max_entries)
+        self.table = SolverTable(perf, c_set, b_set)
+
+    def solve(self, remaining_slos, lam: float,
+              initial_wait: float = 0.0) -> Decision:
+        """Quantize conservatively, then cache per bucket signature."""
+        rem = np.sort(np.asarray(remaining_slos, np.float64).ravel())
+        rem, lam_q, iw = self._quantize(rem, lam, initial_wait)
+        return self._cached(
+            (rem.tobytes(), lam_q, iw),
+            lambda: self.table.solve(rem, lam_q, initial_wait=iw))
 
 
 def _token_edf_order(ttft_budgets, prompt_tokens):

@@ -85,6 +85,17 @@ class TimedExecutor:
         self.fns = dict(fns)
         self.calls: list[tuple[float, int, int, float]] = []
 
+    def warmup(self, args_for: Callable[[int, int], tuple]) -> None:
+        """Run every distinct step function once before serving (builds
+        the kernels and warms the allocator).  Entries that share one
+        function -- every ``c`` of a ``b`` on one device -- run once."""
+        seen: set[int] = set()
+        for (c, b), fn in self.fns.items():
+            if id(fn) not in seen:
+                seen.add(id(fn))
+                fn(*args_for(c, b))
+        device_sync()
+
     def __call__(self, c: int, b: int, *args) -> Any:
         t0 = time.perf_counter()
         out = self.fns[(c, b)](*args)

@@ -1,24 +1,81 @@
-"""The Sponge serving control plane: slot pool, runner and report.
+"""The Sponge serving API: one control plane, pluggable policies and
+backends.
 
-Copy of ``repro.serving.api`` cut to what the token path uses: the
-decision-application rule (``round_up_c`` / ``resolve_decision``), the
-vertically scalable slot pool (``Server``, ``_PooledBackend``), the
-uniform ``RunReport`` and the one event loop, ``ScenarioRunner``.
+Copy of ``repro.serving.api`` cut to what the fixed-work and token
+paths use:
+
+* ``SchedulingPolicy`` -- anything with ``decide(now, queue, lam,
+  initial_wait) -> Decision`` (optionally ``due(now)``): the Sponge
+  scaler and the baselines of ``core.baselines``;
+* ``ExecutionBackend`` -- a pool of vertically scalable slots
+  (``Server``, ``_PooledBackend``) plus ``execute(batch, c, b, now) ->
+  finish_time``.  ``SimBackend`` finishes batches on the calibrated
+  ``PerfModel`` clock; ``TorchBackend`` runs the ``(c, b)`` executable
+  table on the device and advances time by the measured wall latency
+  (``clock="measured"``) or by the model's prediction
+  (``clock="modeled"``, event for event the ``SimBackend`` run);
+* ``ScenarioRunner`` -- the one event loop, returning a ``RunReport``;
+* ``SpongeServer`` -- the facade; ``make_sim_server`` /
+  ``make_live_server`` build one by name.
+
+The live table (``build_llm_step_fns``) serves the model on the Hopper
+kernels: one entry is a prefill plus ``gen_tokens`` greedy decode steps.
+On one device every ``c`` entry shares the same function, so a resize
+changes scheduling only.
 """
 from __future__ import annotations
 
+import dataclasses
 import heapq
 import itertools
 from dataclasses import dataclass, field
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Optional, Protocol, Sequence,
+                    Tuple, runtime_checkable)
 
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.baselines import FA2Policy, SpongePolicy, StaticPolicy
 from repro_torch.core.monitor import Monitor
-from repro_torch.core.perf_model import PerfModel
+from repro_torch.core.perf_model import PerfModel, yolov5s_like
 from repro_torch.core.queueing import EDFQueue
+from repro_torch.core.scaler import SpongeScaler
 from repro_torch.core.slo import Decision, Request
-from repro_torch.core.vertical import VerticalScaledInstance
+from repro_torch.core.solver import DEFAULT_B, DEFAULT_C
+from repro_torch.core.vertical import TimedExecutor, VerticalScaledInstance
+from repro_torch.models import build_model
+from repro_torch.models.api import resolve_device
+from repro_torch.serving.workload import WorkloadGenerator
 
 _sid = itertools.count()
+
+
+# --------------------------------------------------------------------------
+# protocols
+# --------------------------------------------------------------------------
+@runtime_checkable
+class SchedulingPolicy(Protocol):
+    """One decision interface for every scaling policy."""
+    name: str
+
+    def decide(self, now: float, queue: EDFQueue, lam: float,
+               initial_wait: float = 0.0) -> Decision: ...
+
+
+@runtime_checkable
+class ExecutionBackend(Protocol):
+    """A pool of vertically scalable slots + a way to execute batches."""
+    c_set: Tuple[int, ...]
+    b_set: Tuple[int, ...]
+
+    def apply(self, d: Decision, now: float) -> None: ...
+
+    def execute(self, batch: List[Request], c: int, b: int,
+                now: float) -> float: ...
+
+    def core_seconds(self, horizon: float) -> float: ...
+
 
 
 def round_up_c(c_set: Sequence[int], c: int) -> int:
@@ -116,6 +173,124 @@ class _PooledBackend:
         pass
 
 
+class SimBackend(_PooledBackend):
+    """Discrete-event execution: batch finish times come from the
+    calibrated PerfModel -- nothing actually runs (the Fig. 4 path)."""
+
+    name = "sim"
+
+    def execute(self, batch: List[Request], c: int, b: int,
+                now: float) -> float:
+        return now + float(self.perf.latency(b, c))
+
+
+@dataclass
+class ServedRequest:
+    """A live-backend unit of work: the request, the payload it carried
+    (e.g. a token array), and the model output filled in by ``execute``."""
+    req: Request
+    payload: Any
+    result: Any = None
+
+
+class TorchBackend(_PooledBackend):
+    """Live execution over a ``(c, b)`` executable table on the device.
+
+    ``step_fns[(c, b)](stacked_payload)`` must be ready to call (built
+    and warmed at deploy -- that is what makes the resize in-place; on
+    one device every ``c`` of a ``b`` is the same function).  ``clock``
+    selects how virtual time advances after a batch:
+
+    * ``"measured"`` -- by the measured wall latency, device work
+      included (the serving default);
+    * ``"modeled"``  -- by ``perf.latency(b, c)``, which makes the event
+      stream equal to ``SimBackend``'s for the same policy + workload
+      *provided both backends charge the same resize_penalty* (the table
+      still runs and produces real outputs, and the measured-vs-predicted
+      residual is still recorded).  The defaults differ: this backend
+      charges 0 (the table flip is free), ``SimBackend`` 5 ms; parity
+      runs must set both to 0.
+
+    Multi-slot pools are supported: a horizontal policy (FA2-style) can
+    target ``Decision.n`` replicas and each slot executes through the
+    table entry for its own core count.  On one card the replicas run
+    one after another in wall time while the virtual clock treats them
+    as parallel.  Execution and wall-latency measurement go through one
+    ``TimedExecutor``, which waits for the device before it reads the
+    clock.
+    """
+
+    name = "torch"
+
+    def __init__(self, step_fns: Dict[tuple[int, int], Callable],
+                 pad_payload: Callable, perf: PerfModel,
+                 clock: str = "measured", c0: Optional[int] = None,
+                 resize_penalty: float = 0.0):
+        if clock not in ("measured", "modeled"):
+            raise ValueError(f"clock must be 'measured' or 'modeled', "
+                             f"got {clock!r}")
+        self.table = TimedExecutor(step_fns)
+        self.step_fns = self.table.fns
+        self.pad_payload = pad_payload
+        self.clock = clock
+        self.results: List[ServedRequest] = []
+        self.measured: List[tuple[float, int, int, float]] = []
+        self._payloads: Dict[int, Any] = {}
+        c_set = sorted({c for c, _ in step_fns})
+        b_set = sorted({b for _, b in step_fns})
+        super().__init__(perf, c_set, b_set, c0=c0 or max(c_set),
+                         resize_penalty=resize_penalty)
+
+    def warmup(self, example_payload: Any) -> None:
+        self.table.warmup(
+            lambda c, b: (self.pad_payload([example_payload] * min(b, 2),
+                                           b),))
+
+    def on_submit(self, req: Request, payload: Any) -> None:
+        self._payloads[req.id] = payload
+
+    def execute(self, batch: List[Request], c: int, b: int,
+                now: float) -> float:
+        items = [ServedRequest(r, self._payloads.pop(r.id, None))
+                 for r in batch]
+        out = self.table(c, b, self.pad_payload(
+            [it.payload for it in items], b))
+        dt = self.table.calls[-1][3]
+        out = _to_host(out)             # one device-to-host copy per batch
+        for i, it in enumerate(items):
+            it.result = _index_result(out, i)
+            self.results.append(it)
+        predicted = float(self.perf.latency(b, c))
+        self.measured.append((now, c, b, dt))
+        if self.monitor is not None:
+            self.monitor.observe_perf_residual(predicted, dt)
+        return now + (dt if self.clock == "measured" else predicted)
+
+
+def _to_host(out: Any) -> Any:
+    """A step function's output with every tensor copied to a host numpy
+    array (dicts, lists and tuples are walked)."""
+    if isinstance(out, torch.Tensor):
+        return out.cpu().numpy()
+    if isinstance(out, dict):
+        return {k: _to_host(v) for k, v in out.items()}
+    if isinstance(out, (list, tuple)):
+        return type(out)(_to_host(v) for v in out)
+    return out
+
+
+def _index_result(out: Any, i: int):
+    """Row ``i`` of every array leaf of a host-side batch output (the
+    reference's ``jax.tree.map`` over the output pytree)."""
+    if isinstance(out, dict):
+        return {k: _index_result(v, i) for k, v in out.items()}
+    if isinstance(out, (list, tuple)):
+        return type(out)(_index_result(v, i) for v in out)
+    if hasattr(out, "shape") and getattr(out, "ndim", 0) > 0:
+        return np.asarray(out)[i]
+    return out
+
+
 @dataclass
 class RunReport:
     """Uniform result of a scenario run, backend- and policy-agnostic.
@@ -124,9 +299,9 @@ class RunReport:
     Fields:
 
     * ``policy`` / ``backend`` — names of the pair that produced the run.
-    * ``n_requests`` — requests served.
+    * ``n_requests`` — requests observed by the monitor (served + dropped).
     * ``n_violations`` — requests finishing after their absolute deadline
-      (strictly later than ``deadline + 1e-9``).
+      (strictly later than ``deadline + 1e-9``), plus any drops.
     * ``violation_rate`` — ``n_violations / max(n_requests, 1)``.
     * ``core_seconds`` — allocated-core integral over the horizon, resize
       penalties and dead replicas included (the paper's cost axis).
@@ -386,3 +561,237 @@ class ScenarioRunner:
             n_cancelled=mon.n_cancelled,
             **token_kw,
         )
+
+
+# --------------------------------------------------------------------------
+# facade + config-driven construction
+# --------------------------------------------------------------------------
+class SpongeServer:
+    """Facade composing SchedulingPolicy + ExecutionBackend + the runner."""
+
+    def __init__(self, policy, backend, tick: float = 1.0,
+                 dispatch_margin: float = 0.02, prior_rps: float = 0.0):
+        self.policy = policy
+        self.backend = backend
+        self.runner = ScenarioRunner(policy, backend, tick=tick,
+                                     dispatch_margin=dispatch_margin)
+        self.runner.monitor.rate.prior_rps = prior_rps
+
+    @property
+    def monitor(self) -> Monitor:
+        return self.runner.monitor
+
+    @property
+    def queue(self) -> EDFQueue:
+        return self.runner.queue
+
+    @property
+    def pool(self) -> List[Server]:
+        return self.backend.pool
+
+    def warmup(self, example_payload: Any) -> None:
+        self.backend.warmup(example_payload)
+
+    def run(self, arrivals: Sequence, horizon: Optional[float] = None
+            ) -> RunReport:
+        return self.runner.run(arrivals, horizon)
+
+    def serve(self, workload: WorkloadGenerator, trace,
+              duration: Optional[float] = None,
+              horizon: Optional[float] = None) -> RunReport:
+        """Generate a workload against a bandwidth trace and run it."""
+        return self.run(workload.generate(trace, duration), horizon)
+
+
+POLICY_NAMES = ("sponge", "fa2", "static-8", "static-16", "static-<cores>")
+
+
+def make_policy(name: str, perf: PerfModel, *,
+                c_set: Sequence[int] = DEFAULT_C,
+                b_set: Sequence[int] = DEFAULT_B,
+                adaptation_interval: float = 1.0,
+                slo: float = 1.0, expected_rps: float = 0.0,
+                **kw):
+    """Policy registry: one name -> one SchedulingPolicy instance."""
+    if name == "sponge":
+        return SpongePolicy(SpongeScaler(
+            perf, c_set=tuple(c_set), b_set=tuple(b_set),
+            adaptation_interval=adaptation_interval, **kw))
+    if name == "fa2":
+        return FA2Policy(perf, slo=slo, b_set=tuple(b_set),
+                         expected_rps=expected_rps, **kw)
+    if name.startswith("static"):
+        cores = int(name.split("-")[1]) if "-" in name else 16
+        return StaticPolicy(perf, cores=cores, b_set=tuple(b_set),
+                            interval=adaptation_interval, **kw)
+    raise KeyError(f"unknown policy {name!r}; known: {POLICY_NAMES}")
+
+
+def make_sim_server(perf: Optional[PerfModel] = None,
+                    policy="sponge", *,
+                    c_set: Sequence[int] = DEFAULT_C,
+                    b_set: Sequence[int] = DEFAULT_B,
+                    c0: int = 1, tick: float = 1.0,
+                    prior_rps: float = 0.0,
+                    resize_penalty: float = 0.005,
+                    dispatch_margin: float = 0.02,
+                    **policy_kw) -> SpongeServer:
+    """Simulation server: calibrated PerfModel backend + named policy."""
+    perf = perf if perf is not None else yolov5s_like()
+    pol = (make_policy(policy, perf, c_set=c_set, b_set=b_set, **policy_kw)
+           if isinstance(policy, str) else policy)
+    backend = SimBackend(perf, c_set, b_set, c0=c0,
+                         resize_penalty=resize_penalty)
+    return SpongeServer(pol, backend, tick=tick,
+                        dispatch_margin=dispatch_margin, prior_rps=prior_rps)
+
+
+# --------------------------------------------------------------------------
+# the live executable table
+# --------------------------------------------------------------------------
+def calibrate_step_fns(fns: Dict[tuple[int, int], Callable],
+                       example_for: Callable[[int, int], Any],
+                       robust: bool = False) -> PerfModel:
+    """Profile every (c, b) executable once and fit the paper's l(b, c).
+
+    The table is warmed first (one call per distinct function); each
+    timed call ends when the device has finished (``TimedExecutor``).
+    On one device ``dt`` does not depend on ``c``, so the ``b/c`` and
+    ``1/c`` coefficients are fitted to noise, as on the reference's CPU.
+    """
+    table = TimedExecutor(fns)
+    table.warmup(lambda c, b: (example_for(c, b),))
+    for (c, b) in fns:
+        table(c, b, example_for(c, b))
+    return PerfModel.fit([(b, c, dt) for _, c, b, dt in table.calls],
+                         robust=robust)
+
+
+def build_llm_step_fns(model, params, c_set: Sequence[int],
+                       b_set: Sequence[int], prompt_len: int,
+                       gen_tokens: int = 8):
+    """Executable table for short-generation LLM serving: each entry
+    prefills the (b, prompt_len) prompt batch and runs ``gen_tokens``
+    greedy decode steps, returning their ids as a (b, gen_tokens) int32
+    tensor on the model's device (the prefill's own argmax seeds the
+    first step and is not returned, as in the reference).
+
+    Between its first launch and its return an entry reads nothing back
+    to the host: the argmax stays on the device and the ids are stacked
+    there.  Every c shares one function per b (see ``TorchBackend``).
+    """
+    cache_len = prompt_len + gen_tokens
+    vocab = model.cfg.vocab_size
+    device = model.device
+
+    def make(_b):
+        @torch.inference_mode()
+        def fn(tokens):
+            tokens = torch.as_tensor(tokens, device=device)
+            logits, cache = model.prefill(params, {"tokens": tokens},
+                                          cache_len=cache_len)
+            tok = torch.argmax(logits[:, :vocab], dim=-1)
+            tok = tok.to(torch.int32)[:, None]
+            out = []
+            for _ in range(gen_tokens):
+                lg, cache = model.decode_step(params, cache, tok)
+                tok = torch.argmax(lg[:, :vocab], dim=-1)
+                tok = tok.to(torch.int32)[:, None]
+                out.append(tok)
+            return torch.cat(out, dim=1)
+        return fn
+
+    fns = {}
+    for b in b_set:
+        entry = make(b)
+        for c in c_set:
+            fns[(c, b)] = entry
+    return fns
+
+
+def pad_tokens(payloads: List[np.ndarray], b: int) -> np.ndarray:
+    """Stack int32 token payloads to the batch bucket ``b``, repeating
+    the last entry as padding."""
+    x = np.stack(payloads + [payloads[-1]] * (b - len(payloads)))
+    return x.astype(np.int32)
+
+
+def make_live_server(arch: str = "smollm-135m-reduced", *,
+                     c_set: Sequence[int] = (1, 2, 4, 8),
+                     b_set: Sequence[int] = (1, 2, 4, 8),
+                     prompt_len: int = 16, gen_tokens: int = 8,
+                     policy="sponge", adaptation_interval: float = 0.5,
+                     prior_rps: float = 0.0, clock: str = "measured",
+                     perf: Optional[PerfModel] = None,
+                     tick: Optional[float] = None,
+                     params: Optional[dict] = None, seed: int = 0,
+                     device=None, **policy_kw):
+    """Live server on the Hopper kernels.
+
+    Resolves ``arch`` through ``configs.registry`` with both kernel
+    routes on (the port's route breadth; the reference's default config
+    runs plain attention here), builds the model on ``device`` (``cuda``
+    unless named) with ``params`` (e.g. from ``params_from_jax``) or
+    random weights drawn from ``seed``, builds and warms the (c, b)
+    table, calibrates a ``PerfModel`` from it unless ``perf`` is given,
+    and wires the named policy + ``TorchBackend`` behind a
+    ``SpongeServer``.  Returns ``(server, model_config)``.
+    """
+    cfg = dataclasses.replace(get_config(arch), use_pallas_prefill=True,
+                              use_pallas_decode=True)
+    model = build_model(cfg, device=device)
+    if params is None:
+        params = model.init(model.generator(seed))
+    fns = build_llm_step_fns(model, params, c_set, b_set, prompt_len,
+                             gen_tokens=gen_tokens)
+
+    def example(c, b):
+        return np.ones((b, prompt_len), np.int32)
+
+    if perf is None:
+        perf = calibrate_step_fns(fns, example)
+    else:
+        TimedExecutor(fns).warmup(lambda c, b: (example(c, b),))
+    pol = (make_policy(policy, perf, c_set=c_set, b_set=b_set,
+                       adaptation_interval=adaptation_interval, **policy_kw)
+           if isinstance(policy, str) else policy)
+    backend = TorchBackend(fns, pad_tokens, perf, clock=clock)
+    server = SpongeServer(
+        pol, backend,
+        tick=tick if tick is not None else adaptation_interval,
+        prior_rps=prior_rps)
+    return server, cfg
+
+
+# --------------------------------------------------------------------------
+# tiny executable table for smoke tests and parity tests
+# --------------------------------------------------------------------------
+def toy_step_fns(c_set: Sequence[int], b_set: Sequence[int],
+                 dim: int = 32, seed: int = 0, device=None):
+    """Minimal (c, b) table -- a tanh layer over the reference's numpy
+    weights -- for exercising ``TorchBackend`` cheaply.  Every c shares
+    the same function, exactly like ``build_llm_step_fns``."""
+    dev = resolve_device(device)
+    w = torch.as_tensor(np.random.default_rng(seed)
+                        .standard_normal((dim, dim)) / np.sqrt(dim),
+                        dtype=torch.float32, device=dev)
+
+    def make(_b):
+        @torch.inference_mode()
+        def fn(x):
+            return torch.tanh(torch.as_tensor(x, device=dev) @ w)
+        return fn
+
+    fns = {}
+    for b in b_set:
+        entry = make(b)
+        for c in c_set:
+            fns[(c, b)] = entry
+    return fns
+
+
+def pad_vectors(payloads: List[np.ndarray], b: int) -> np.ndarray:
+    """Stack float payloads to the batch bucket ``b``, repeating the last
+    entry as padding (the toy-table counterpart of ``pad_tokens``)."""
+    x = np.stack(list(payloads) + [payloads[-1]] * (b - len(payloads)))
+    return x.astype(np.float32)

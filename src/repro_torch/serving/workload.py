@@ -1,7 +1,10 @@
-"""Workload columns: ``RequestBatch`` and token-length sampling.
+"""Workloads: ``WorkloadGenerator``, ``RequestBatch`` and token lengths.
 
-Copy of ``repro.serving.workload`` cut to ``RequestBatch`` (a workload
-as arrival-sorted numpy columns) and ``lognormal_lengths``.
+Copy of ``repro.serving.workload`` cut to ``WorkloadGenerator`` (the
+fixed-work arrival model over a bandwidth trace: a fixed rate, one
+payload size, comm latency from the trace; the reference's Poisson gaps
+and size jitter are left out), ``RequestBatch`` (a
+workload as arrival-sorted numpy columns) and ``lognormal_lengths``.
 """
 from __future__ import annotations
 
@@ -11,6 +14,8 @@ from typing import List, Optional
 import numpy as np
 
 from repro_torch.core.slo import Request
+from repro_torch.network.latency import comm_latency_many
+from repro_torch.network.traces import BandwidthTrace
 
 
 @dataclass(frozen=True)
@@ -116,6 +121,30 @@ class RequestBatch:
                     self.deadline, self.arrival, self.comm_latency,
                     self.slo, self.size_kb, self.prompt_tokens,
                     self.decode_tokens, self.tbt_slo)]
+
+
+@dataclass
+class WorkloadGenerator:
+    rps: float = 20.0
+    slo: float = 1.0
+    size_kb: float = 200.0
+
+    def _columns(self, trace: BandwidthTrace,
+                 duration_s: Optional[float] = None):
+        """Vectorized arrival model: (send, comm_latency, size) arrays."""
+        dur = duration_s or trace.duration
+        send_times = np.arange(0, dur, 1.0 / self.rps)
+        sizes = np.full(send_times.shape, self.size_kb, np.float64)
+        cl = comm_latency_many(sizes, trace, send_times)
+        return send_times, cl, sizes
+
+    def generate(self, trace: BandwidthTrace,
+                 duration_s: Optional[float] = None) -> List[Request]:
+        """Request objects in send order (the historical surface)."""
+        send, cl, sizes = self._columns(trace, duration_s)
+        return [Request.make(arrival=float(ts + c), comm_latency=float(c),
+                             slo=self.slo, size_kb=float(k))
+                for ts, c, k in zip(send, cl, sizes)]
 
 
 def lognormal_lengths(rng: np.random.Generator, n: int, median: float,

@@ -309,3 +309,67 @@ def test_ssd_scan_bf16_state_continuation_on_card(t, cuda_device):
     np.testing.assert_allclose(as_np(torch.cat(ys, 1)), as_np(y_ref[:, m:]),
                                **SSD_BF16_TOL)
     np.testing.assert_allclose(as_np(state), as_np(h_ref), **SSD_BF16_TOL)
+
+
+# --------------------------------------------------------------------------
+# on the card: the fixed-work table entry (prefill + greedy decode steps)
+# --------------------------------------------------------------------------
+GEN_TOKENS = 8
+
+
+@pytest.fixture(scope="module")
+def fixed_routes():
+    """Per arch: the f32 kernel-route and plain-route models of smollm-135m
+    (full width and the reduced cut) on one set of random weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for arch in ("smollm-135m", "smollm-135m-reduced"):
+        cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                                  param_dtype="float32")
+        kcfg = dataclasses.replace(cfg, use_pallas_prefill=True,
+                                   use_pallas_decode=True)
+        kern = build_model(kcfg, device=dev)
+        out[arch] = (kern, build_model(cfg, device=dev),
+                     kern.init(kern.generator(0)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-135m", "smollm-135m-reduced"])
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("prompt", [16, 64])
+def test_fixed_work_entry_on_card(arch, b, prompt, fixed_routes):
+    """Kernel-route ids equal plain-route ids in f32, and the entry reads
+    nothing back to the host between its first launch and its return."""
+    from repro_torch.serving.api import build_llm_step_fns
+
+    kern, plain, params = fixed_routes[arch]
+    dev = kern.device
+    g = torch.Generator(device=dev).manual_seed(b * 100 + prompt)
+    tokens = torch.randint(0, kern.cfg.vocab_size, (b, prompt), generator=g,
+                           device=dev, dtype=torch.int32)
+    fk = build_llm_step_fns(kern, params, (1,), (b,), prompt,
+                            GEN_TOKENS)[(1, b)]
+    fp = build_llm_step_fns(plain, params, (1,), (b,), prompt,
+                            GEN_TOKENS)[(1, b)]
+    before = (pre.launches, dec.launches)
+    ids_k, ids_p = fk(tokens), fp(tokens)
+    torch.cuda.synchronize()
+    layers = kern.cfg.num_layers
+    assert (pre.launches - before[0], dec.launches - before[1]) == \
+        (layers, layers * GEN_TOKENS)
+    assert ids_k.dtype == torch.int32 and ids_k.shape == (b, GEN_TOKENS)
+    assert torch.equal(ids_k, ids_p)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = fk(tokens)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(again, ids_k)

@@ -38,6 +38,7 @@ from repro_torch.launch import serve as launcher
 from repro_torch.models import params_from_jax
 from repro_torch.network.latency import comm_latency_many
 from repro_torch.network.traces import synth_4g_trace
+from repro_torch.serving import api as serving_api
 from repro_torch.serving import scenarios
 from repro_torch.serving import token_backend as tb
 
@@ -307,7 +308,9 @@ def test_port_lints_clean():
 
 
 @pytest.mark.parametrize("entry", ["make_token_live_server",
-                                   "run_token_scenario", "launcher"])
+                                   "run_token_scenario", "launcher",
+                                   "make_live_server", "launcher-live",
+                                   "toy_step_fns"])
 def test_entry_points_without_a_card_raise(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -315,5 +318,11 @@ def test_entry_points_without_a_card_raise(entry, monkeypatch):
             tb.make_token_live_server(ARCH, prompt_len=8, max_decode=2)
         elif entry == "run_token_scenario":
             tb.run_token_scenario("llm-chat", arch=ARCH, requests=2)
+        elif entry == "make_live_server":
+            serving_api.make_live_server(ARCH, prompt_len=8, gen_tokens=2)
+        elif entry == "launcher-live":
+            launcher.main(["--mode", "live", "--duration", "1"])
+        elif entry == "toy_step_fns":
+            serving_api.toy_step_fns((1,), (1,))
         else:
             launcher.main(["--scenario", "llm-chat", "--requests", "2"])
