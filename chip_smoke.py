@@ -42,24 +42,35 @@ code is non-zero:
    f32 plain route's greedy ids: the kernel route and the plain route
    are each held against the f32 plain route, and max |kernel - f32|
    must stay within 2 max |plain - f32| + 1e-2;
-5. serve   -- ``run_token_scenario("llm-chat", arch=..., ...)`` in bfloat16
+5. capture -- per model, in bfloat16 at the serving shape (batch 4,
+   prompt 256, 10 decode steps): the prefill and decode steps of one
+   static gang run eagerly and as replayed CUDA graphs
+   (``serving/capture.py``) on the same weights and prompts; the greedy
+   ids must be identical, and the largest logit difference is printed.
+   serve   -- ``run_token_scenario("llm-chat", arch=..., ...)`` in bfloat16
    on smollm-135m, rwkv6-1.6b and zamba2-2.7b: the port's three main
-   paths, each with every kernel's launch count reset just before and
-   read just after.  The smollm path must launch both attention kernels
-   and neither scan; the rwkv6 path must launch ``rwkv6_scan`` (a
-   multiple of its 24 layers) and no other kernel; the zamba2 path must
-   launch ``ssd_scan`` (a multiple of its 54 layers) and both attention
-   kernels (each a multiple of the shared block's 9 applications), and
-   not ``rwkv6_scan``.
+   paths, served through step tables captured as CUDA graphs at warm-up,
+   each with every kernel's launch count reset just before and read just
+   after (a replay adds the launches its graph holds).  The smollm path
+   must launch both attention kernels and neither scan; the rwkv6 path
+   must launch ``rwkv6_scan`` (a multiple of its 24 layers) and no other
+   kernel; the zamba2 path must launch ``ssd_scan`` (a multiple of its 54
+   layers) and both attention kernels (each a multiple of the shared
+   block's 9 applications), and not ``rwkv6_scan``.  Every served step
+   must be a graph replay.  Then ``llm-mixed-len`` (chat prompts beside
+   long documents, per-request TTFT and TBT SLOs) on smollm-135m with
+   ``b_set = c_set = (1, 2, 4, 8)``, under the same checks.
 
 6. fixed   -- the paper's fixed-work Sponge loop (``make_live_server``,
    ``launch/serve.py``'s ``run_live`` settings) on full-width smollm-135m:
    one b = 4 table entry (prefill of 64 tokens + 8 greedy decode steps)
-   gives identical ids through the kernel and plain routes in float32;
+   gives identical ids through the kernel route (one captured graph) and
+   the plain route (eager) in float32;
    both attention kernels in bfloat16 match their plain versions at the
    entry's shapes (prefill S 64 and decode over 72 cache rows at lengths
-   65..72, for b 1/2/4/8); the bfloat16 table is calibrated (``l(b, c)`` printed) and each b
-   entry timed (median of 10 synchronised calls); 60 requests (10 rps for
+   65..72, for b 1/2/4/8); the bfloat16 table, captured, is calibrated
+   (``l(b, c)`` printed) and each b entry timed (median of 10
+   synchronised calls), and so is the same table run eagerly; 60 requests (10 rps for
    6 s, SLO 1 s, 200 KB over the 4G trace) served on the modelled clock
    give ``SimBackend``'s decisions and buckets on the same perf model;
    the same requests served on the measured clock each get a result,
@@ -75,9 +86,12 @@ and exits non-zero.
     python3 chip_smoke.py --profile  # adds phase 7 before the last lines
 
 7. profile -- for each of the three models, one prefill and ten decode
-   steps in bf16 at the serving shape (batch 4, prompt 256) under
-   ``torch.profiler``: host wall per step, device busy time, kernel count
-   and the kernels that take the most device time, also written as
+   steps of the served b = 4 table entry in bf16 at the serving shape
+   (prompt 256), each step's ids copied to the host as the backend does,
+   run eagerly and replayed from CUDA graphs, under ``torch.profiler``:
+   host wall per step, device busy time and idle share, device kernels,
+   host launch calls (``cudaLaunchKernel*``, ``cudaGraphLaunch``) and
+   the kernels that take the most device time, also written as
    ``profile-<arch>.json`` into the run's output directory.
 """
 from __future__ import annotations
@@ -122,6 +136,13 @@ ARCHS = ("smollm-135m", "rwkv6-1.6b", "zamba2-2.7b")
 # the models whose bf16 path runs the attention kernels: phase 4 checks
 # their bf16 routes too
 BF16_PARITY = ("smollm-135m", "zamba2-2.7b")
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count set to 0."""
+    from repro_torch.serving.capture import KERNELS
+    for mod in KERNELS.values():
+        mod.launches = 0
 
 
 def say(phase: str, **fields) -> None:
@@ -775,30 +796,89 @@ def bf16_parity(dev, arch: str, params32, tokens, fed, ref_logits) -> None:
                              f"(max |plain - f32| {err_p})")
 
 
-def serve_phase(dev, arch: str):
-    from repro_torch.kernels.decode_attention import ops as dec
-    from repro_torch.kernels.rwkv6_scan import ops as wkv
-    from repro_torch.kernels.ssd_scan import ops as ssd
-    from repro_torch.kernels.swa_prefill import ops as pre
+def logit_steps(model, params, b, prompt_len, cache_len, capture):
+    """The served prefill and decode steps of one static gang (as
+    ``build_token_step_fns`` builds them), each also returning its
+    logits: two ``CapturedStep`` entries and the gang's id buffer."""
+    from repro_torch.serving.capture import CapturedStep
+
+    vocab, dev = model.cfg.vocab_size, model.device
+    with torch.inference_mode():
+        cache = model.init_cache(b, cache_len)
+        tokens = torch.zeros((b, prompt_len), dtype=torch.int32, device=dev)
+        ids = torch.zeros((b,), dtype=torch.int32, device=dev)
+
+    def prefill():
+        lg, _ = model.prefill(params, {"tokens": tokens}, cache=cache)
+        ids.copy_(lg[:, :vocab].argmax(-1))
+        return lg
+
+    def decode():
+        lg, _ = model.decode_step(params, cache, ids[:, None])
+        ids.copy_(lg[:, :vocab].argmax(-1))
+        return lg
+
+    return (CapturedStep(prefill, (tokens,), capture),
+            CapturedStep(decode, (ids,), capture), ids)
+
+
+def capture_phase(dev, arch: str) -> None:
+    """Eager steps against replayed CUDA graphs on the served path: bf16,
+    b 4, prompt 256, 10 decode steps, the served cache length, both
+    routes warmed first as the tables are (which captures the graphs);
+    ids must be identical, the largest logit difference is printed."""
     from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(arch), use_pallas_prefill=True,
+                              use_pallas_decode=True)
+    model = build_model(cfg, device=dev)
+    params = model.init(model.generator(0))
+    b, pl, steps = 4, SERVE["prompt_len"], 10
+    cache_len = pl + SERVE["max_decode"] + 1
+    gen = torch.Generator(device=dev).manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (b, pl), generator=gen,
+                           device=dev, dtype=torch.int32)
+    runs, replays = {}, 0
+    for capture in (False, True):
+        pre_step, dec_step, ids = logit_steps(model, params, b, pl,
+                                              cache_len, capture)
+        pre_step(torch.zeros_like(tokens))      # warm-up: the capture
+        dec_step(ids)
+        logits, got = [pre_step(tokens).float().clone()], [ids.clone()]
+        for _ in range(steps):
+            logits.append(dec_step(ids).float().clone())
+            got.append(ids.clone())
+        runs[capture] = (torch.stack(logits), torch.stack(got))
+        replays += pre_step.replays + dec_step.replays
+    (le, ie), (lc, ic) = runs[False], runs[True]
+    diff = float((lc - le).abs().max())
+    if not (torch.isfinite(lc).all() and torch.equal(ic, ie)
+            and replays == steps + 1):
+        raise AssertionError(f"{arch}: replayed ids {ic.tolist()} differ from "
+                             f"eager ids {ie.tolist()} (max |logit diff| "
+                             f"{diff}, {replays} replays)")
+    say("capture", arch=cfg.name, dtype="bfloat16", batch=b, prompt=pl,
+        decode_steps=steps, cache_len=cache_len, graphs=2, replays=replays,
+        ids="identical", max_abs_logit_diff=diff)
+
+
+def serve_phase(dev, arch: str, scenario: str = "llm-chat",
+                sets=(1, 2, 4)):
+    from repro_torch.configs import get_config
+    from repro_torch.serving.capture import launch_counts
     from repro_torch.serving.token_backend import run_token_scenario
 
     cfg = get_config(arch)
     vocab = cfg.vocab_size
-    pre.launches = 0
-    dec.launches = 0
-    wkv.launches = 0
-    ssd.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    report, stats = run_token_scenario("llm-chat", arch=arch, device=dev,
-                                       **SERVE)
+    report, stats = run_token_scenario(scenario, arch=arch, device=dev,
+                                       c_set=sets, b_set=sets, **SERVE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"swa_prefill": pre.launches,
-                "decode_attention": dec.launches,
-                "rwkv6_scan": wkv.launches,
-                "ssd_scan": ssd.launches}
+    launches = launch_counts()
     if cfg.blocks[0] == "rwkv6+rwkv_cm":
         kernel_checks = {
             "rwkv6_scan launched, a multiple of the layers":
@@ -833,20 +913,25 @@ def serve_phase(dev, arch: str):
         "tokens_executed == tokens_served > 0":
             stats["tokens_executed"] == report.tokens_served > 0,
         "ttft_p99 finite": math.isfinite(report.ttft_p99),
-        "every request generated": len(gen) == report.n_requests,
+        "every request served":
+            len(gen) == report.n_requests == stats["requests"],
         "ids in vocab": bool(((ids >= 0) & (ids < vocab)).all()),
+        "every served step a graph replay":
+            stats["graph_replays"] >= stats["step_calls"] > 0,
         **kernel_checks,
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"{arch} serve checks failed: {failed} "
+        raise AssertionError(f"{arch} {scenario} serve checks failed: {failed} "
                              f"(launches {launches})")
-    say("serve", arch=stats["arch"], dtype="bfloat16", **SERVE,
+    say("serve", arch=stats["arch"], scenario=scenario, b_set=list(sets),
+        dtype="bfloat16", **SERVE,
         n_requests=report.n_requests, tokens_served=report.tokens_served,
         tokens_per_s=report.tokens_per_s, ttft_p50=report.ttft_p50,
         ttft_p99=report.ttft_p99, tbt_violation_rate=report.tbt_violation_rate,
         violation_rate=report.violation_rate, p99=report.p99,
-        dispatches=len(report.buckets), run_wall_s=stats["run_wall_s"],
+        dispatches=len(report.buckets), step_calls=stats["step_calls"],
+        graph_replays=stats["graph_replays"], run_wall_s=stats["run_wall_s"],
         total_wall_s=wall, cost_r2_prefill=stats["cost_r2"][0],
         cost_r2_decode=stats["cost_r2"][1],
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
@@ -902,13 +987,11 @@ def fixed_phase(dev, rows):
     against ``SimBackend``, then a measured serve whose kernel launches
     are returned."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import ops as dec
-    from repro_torch.kernels.rwkv6_scan import ops as wkv
-    from repro_torch.kernels.ssd_scan import ops as ssd
-    from repro_torch.kernels.swa_prefill import ops as pre
     from repro_torch.launch.serve import live_arrivals
     from repro_torch.models import build_model
+    from repro_torch.serving.capture import launch_counts, table_replays
     from repro_torch.serving.api import (build_llm_step_fns,
+                                         calibrate_step_fns,
                                          make_live_server, make_sim_server)
 
     f = FIXED
@@ -924,7 +1007,8 @@ def fixed_phase(dev, rows):
     tokens = torch.randint(0, cfg.vocab_size, (4, pl), generator=g,
                            device=dev, dtype=torch.int32)
     ids_k = build_llm_step_fns(kern, params, (1,), (4,), pl, gen)[(1, 4)](tokens)
-    ids_p = build_llm_step_fns(plain, params, (1,), (4,), pl, gen)[(1, 4)](tokens)
+    ids_p = build_llm_step_fns(plain, params, (1,), (4,), pl, gen,
+                               capture=False)[(1, 4)](tokens)
     if not (ids_k.shape == (4, gen) and torch.equal(ids_k, ids_p)):
         raise AssertionError(f"fixed f32 ids: kernel {ids_k.tolist()} vs "
                              f"plain {ids_p.tolist()}")
@@ -946,25 +1030,44 @@ def fixed_phase(dev, rows):
         return live_arrivals(f["rps"], f["duration"], f["slo"],
                              f["size_kb"], pl, vocab, f["seed"])
 
+    def entry_walls(fns):
+        walls = {}
+        for b in f["b_set"]:
+            fn = fns[(f["c_set"][0], b)]
+            x = np.ones((b, pl), np.int32)
+            times = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(x)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            walls[b] = float(np.median(times))
+        return json.dumps({b: w * 1e3 for b, w in walls.items()})
+
+    def say_fit(route, perf, walls):
+        say("fixed", route=route,
+            fit="l(b,c) = gamma b/c + eps/c + delta b + eta",
+            gamma=perf.gamma, eps=perf.eps, delta=perf.delta, eta=perf.eta,
+            r2=perf.r2, rmse=perf.rmse)
+        say("fixed", route=route,
+            entry="prefill + gen_tokens decode steps, bf16",
+            median_wall_ms_by_b=walls)
+
+    # the same table run eagerly (the comparison route), on the same
+    # random weights make_live_server draws
+    ecfg = dataclasses.replace(get_config(arch), use_pallas_prefill=True,
+                               use_pallas_decode=True)
+    emodel = build_model(ecfg, device=dev)
+    eager = build_llm_step_fns(emodel, emodel.init(emodel.generator(0)),
+                               f["c_set"], f["b_set"], pl, gen,
+                               capture=False)
+    say_fit("eager", calibrate_step_fns(
+        eager, lambda c, b: np.ones((b, pl), np.int32)), entry_walls(eager))
+    del emodel, eager
     server, cfg = make_live_server(arch, clock="modeled", **common)
     perf = server.backend.perf
-    say("fixed", fit="l(b,c) = gamma b/c + eps/c + delta b + eta",
-        gamma=perf.gamma, eps=perf.eps, delta=perf.delta, eta=perf.eta,
-        r2=perf.r2, rmse=perf.rmse)
-    walls = {}
-    for b in f["b_set"]:
-        fn = server.backend.step_fns[(f["c_set"][0], b)]
-        x = np.ones((b, pl), np.int32)
-        times = []
-        for _ in range(10):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn(x)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        walls[b] = float(np.median(times))
-    say("fixed", entry="prefill + gen_tokens decode steps, bf16",
-        median_wall_ms_by_b=json.dumps({b: w * 1e3 for b, w in walls.items()}))
+    say_fit("captured", perf, entry_walls(server.backend.step_fns))
     live = server.run(arrivals(cfg.vocab_size), horizon=horizon)
     sim = make_sim_server(perf, "sponge", c_set=f["c_set"], b_set=f["b_set"],
                           c0=max(f["c_set"]), tick=0.5, prior_rps=f["rps"],
@@ -993,14 +1096,15 @@ def fixed_phase(dev, rows):
     server, cfg = make_live_server(arch, clock="measured", perf=perf,
                                    **common)
     arr = arrivals(cfg.vocab_size)
-    pre.launches = dec.launches = wkv.launches = ssd.launches = 0
+    reset_launches()
+    replays0 = table_replays(server.backend.step_fns)
     t0 = time.perf_counter()
     report = server.run(arr, horizon=horizon)
     torch.cuda.synchronize()
     run_wall = time.perf_counter() - t0
     total_wall = time.perf_counter() - t_total
-    launches = {"swa_prefill": pre.launches, "decode_attention": dec.launches,
-                "rwkv6_scan": wkv.launches, "ssd_scan": ssd.launches}
+    launches = launch_counts()
+    replays = table_replays(server.backend.step_fns) - replays0
     results = server.backend.results
     ids = np.stack([it.result for it in results]) if results else np.zeros(0)
     layers, entries = cfg.num_layers, len(server.backend.measured)
@@ -1017,6 +1121,7 @@ def fixed_phase(dev, rows):
             launches["decode_attention"] == layers * gen * entries,
         "no scan launched":
             launches["rwkv6_scan"] == launches["ssd_scan"] == 0,
+        "every entry a graph replay": replays == entries,
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -1028,7 +1133,8 @@ def fixed_phase(dev, rows):
         n=report.n_requests, violation_rate=report.violation_rate,
         p50=report.p50, p99=report.p99,
         decisions=len(report.decisions or ()), instances=len(server.pool),
-        dispatches=len(report.buckets), entries=entries, run_wall_s=run_wall,
+        dispatches=len(report.buckets), entries=entries,
+        graph_replays=replays, run_wall_s=run_wall,
         total_wall_s=total_wall,
         generated_tokens_per_wall_s=len(results) * gen / run_wall,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
@@ -1037,81 +1143,91 @@ def fixed_phase(dev, rows):
 
 
 def profile_phase(dev, arch: str) -> None:
+    """The served b = 4 table entry, eager and replayed from CUDA graphs:
+    one prefill and ten decode steps, each step's ids copied to the host
+    as ``TokenTorchBackend`` does, timed without the profiler and then
+    traced with it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
+    from repro_torch.serving.token_backend import (build_token_step_fns,
+                                                   warmup_token_fns)
 
     cfg = dataclasses.replace(get_config(arch),
                               use_pallas_prefill=True, use_pallas_decode=True)
     model = build_model(cfg, device=dev)
     params = model.init(model.generator(0))
     b, s, steps = 4, SERVE["prompt_len"], 10
-    cache_len = s + SERVE["max_decode"] + 1
-    gen = torch.Generator(device=dev).manual_seed(2)
-    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
-                           device=dev, dtype=torch.int32)
+    tokens = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+    out = {"window": f"1 prefill + {steps} decode steps, bf16 {arch}, "
+                     f"batch {b}, prompt {s}, cache "
+                     f"{s + SERVE['max_decode'] + 1}"}
+    for route in ("eager", "captured"):
+        pre, dec = build_token_step_fns(model, params, (1,), (b,), s,
+                                        max_decode=SERVE["max_decode"],
+                                        capture=route == "captured")
+        warmup_token_fns(pre, dec, s)
+        prefill, decode = pre[(1, b)], dec[(1, b)]
 
-    def prefill():
-        logits, cache = model.prefill(params, {"tokens": tokens},
-                                      cache_len=cache_len)
-        return logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32), cache
+        def run():
+            """Host seconds of the prefill and of the decode steps."""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, cache = prefill(tokens)
+            tok.to("cpu", copy=True)
+            t1 = time.perf_counter()
+            for _ in range(steps):
+                tok, cache = decode(cache, tok)
+                tok.to("cpu", copy=True)
+            torch.cuda.synchronize()
+            return t1 - t0, time.perf_counter() - t1
 
-    def decode(tok, cache):
-        logits, cache = model.decode_step(params, cache, tok[:, None])
-        # the serving backend reads every step's ids on the host
-        return logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32).cpu(), cache
-
-    def run():
-        """Host seconds of the decode steps after one prefill."""
-        tok, cache = prefill()
-        tok = tok.cpu()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            tok, cache = decode(tok.to(dev), cache)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    with torch.inference_mode():
         run()                                   # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        prefill()
-        torch.cuda.synchronize()
-        prefill_wall = time.perf_counter() - t0
-        decode_wall = run()
-        unprofiled = prefill_wall + decode_wall
+        prefill_wall, decode_wall = run()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run()
             window = time.perf_counter() - t0
-
-    rows = []
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", 0.0)
-        if e.device_type == DeviceType.CUDA and t > 0:
-            rows.append((t, e.count, e.key))
-    rows.sort(reverse=True)
-    busy_us = sum(r[0] for r in rows)
-    n_kernels = sum(r[1] for r in rows)
-    out = {"window": f"1 prefill + {steps} decode steps, bf16 {arch}, "
-                     f"batch {b}, prompt {s}, cache {cache_len}",
-           "prefill_wall_ms": prefill_wall * 1e3,
-           "decode_step_wall_ms": decode_wall / steps * 1e3,
-           "device_busy_ms": busy_us / 1e3,
-           # the profiler slows the host, so the idle share is taken
-           # against the same work's wall time without it
-           "device_idle_share": (1.0 - busy_us / 1e6 / unprofiled
-                                 if busy_us else None),
-           "profiled_window_wall_ms": window * 1e3,
-           "kernel_launches": n_kernels,
-           "top_kernels": [{"kernel": k[:120], "device_ms": t / 1e3,
-                            "count": n} for t, n, k in rows[:12]]}
-    say("profile", **{k: v for k, v in out.items() if k != "top_kernels"})
-    for r in out["top_kernels"]:
-        say("profile", **r)
+        kernels, api = [], {}
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", 0.0)
+            if e.device_type == DeviceType.CUDA and t > 0:
+                kernels.append((t, e.count, e.key))
+            elif e.device_type == DeviceType.CPU and e.key.startswith("cu"):
+                api[e.key] = api.get(e.key, 0) + e.count
+        kernels.sort(reverse=True)
+        busy_us = sum(r[0] for r in kernels)
+        launch_calls = sum(n for k, n in api.items() if "LaunchKernel" in k)
+        graph_launches = sum(n for k, n in api.items() if "GraphLaunch" in k)
+        res = {"prefill_wall_ms": prefill_wall * 1e3,
+               "decode_step_wall_ms": decode_wall / steps * 1e3,
+               "device_busy_ms": busy_us / 1e3,
+               # the profiler slows the host, so the idle share is taken
+               # against the same work's wall time without it
+               "device_idle_share": (1.0 - busy_us / 1e6
+                                     / (prefill_wall + decode_wall)
+                                     if busy_us else None),
+               "profiled_window_wall_ms": window * 1e3,
+               "device_kernels": sum(r[1] for r in kernels),
+               "host_kernel_launch_calls": launch_calls,
+               "host_graph_launch_calls": graph_launches,
+               "host_launch_calls_per_step":
+                   (launch_calls + graph_launches) / (steps + 1),
+               "host_cuda_api_calls": json.dumps(
+                   dict(sorted(api.items(), key=lambda kv: -kv[1])[:8])),
+               "top_kernels": [{"kernel": k[:120], "device_ms": t / 1e3,
+                                "count": n} for t, n, k in kernels[:12]]}
+        out[route] = res
+        say("profile", arch=arch, route=route,
+            **{k: v for k, v in res.items() if k != "top_kernels"})
+        for r in res["top_kernels"]:
+            say("profile", arch=arch, route=route, **r)
+        del pre, dec, prefill, decode
+        torch.cuda.empty_cache()
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)
     (dest / f"profile-{arch}.json").write_text(json.dumps(out, indent=1))
@@ -1155,11 +1271,17 @@ def main() -> int:
     for arch in ARCHS:
         parity_phase(dev, arch)
         torch.cuda.empty_cache()          # the f32 weights are freed here
+        capture_phase(dev, arch)
+        torch.cuda.empty_cache()
         # each main path's counts are reset before it and read after it;
         # a kernel's row adds up the paths (the other path must give 0)
         for name, n in serve_phase(dev, arch).items():
             rows[name]["launches"] += n
         torch.cuda.empty_cache()
+    for name, n in serve_phase(dev, "smollm-135m", "llm-mixed-len",
+                               sets=(1, 2, 4, 8)).items():
+        rows[name]["launches"] += n
+    torch.cuda.empty_cache()
     for name, n in fixed_phase(dev, rows).items():
         rows[name]["launches"] += n
     torch.cuda.empty_cache()

@@ -87,8 +87,9 @@ class TimedExecutor:
 
     def warmup(self, args_for: Callable[[int, int], tuple]) -> None:
         """Run every distinct step function once before serving (builds
-        the kernels and warms the allocator).  Entries that share one
-        function -- every ``c`` of a ``b`` on one device -- run once."""
+        the kernels and, on the card, captures each entry's CUDA graph).
+        Entries that share one function -- every ``c`` of a ``b`` on one
+        device -- run once."""
         seen: set[int] = set()
         for (c, b), fn in self.fns.items():
             if id(fn) not in seen:

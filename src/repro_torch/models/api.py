@@ -9,7 +9,8 @@ tensors: ``{"embed", "final_norm", ["head",] "layers": [per-layer dict,
 ``params["groups"][0]`` with its leading layer axis unstacked into a
 list (a Python loop over layers takes the place of ``lax.scan``).  The
 decode cache is the reference's ``cache["groups"][0]`` with its leading
-layer axis, plus ``"index"``: ``{"k", "v"}`` of shape (L, B, cache_len,
+layer axis, plus ``"index"`` (a 0-dim int32 tensor on the cache's
+device, as the reference's traced scalar): ``{"k", "v"}`` of shape (L, B, cache_len,
 KV, D) for attention; ``{"tmix": {"shift", "wkv"}, "cmix": {"shift"}}``
 for RWKV-6 (shifts (L, B, d) in the compute dtype, WKV state (L, B, H,
 D, D) in f32); ``{"ssm": {"conv_x", "conv_bc", "h"}}`` for Mamba2 (conv
@@ -17,7 +18,9 @@ windows (L, B, W-1, C) in the compute dtype, SSD state (L, B, H, P, N)
 in f32), with zamba2's ``"shared": {"k", "v"}`` of shape (apps, B,
 min(cache_len, window), KV, D), one ring buffer per application of the
 shared block (the reference's ``cache["shared"]``).  Prefill fills it
-and decode updates it in place.
+and decode updates it in place, the index included: no step reads a
+device value back to the host, so a step can be captured as a CUDA
+graph and replayed at every position.
 
 Every entry point runs on ``cuda`` unless the caller names another
 device; with no CUDA device and no explicit ``device="cpu"`` it raises.
@@ -181,8 +184,18 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
         cache["shared"] = attn_mod.init_attention_cache(
             cfg, batch, cache_len, dtype, device, layers=_shared_apps(cfg),
             window=cfg.shared_attn_window or cache_len)
-    cache["index"] = 0
+    cache["index"] = torch.zeros((), dtype=torch.int32, device=device)
     return cache
+
+
+def _zero_cache(cache: dict) -> None:
+    """Every tensor of ``cache`` set to zero in place: the fresh state
+    ``init_cache`` gives, in the same storage."""
+    for v in cache.values():
+        if isinstance(v, dict):
+            _zero_cache(v)
+        else:
+            v.zero_()
 
 
 def _layer_cache(cache: dict, i: int) -> dict:
@@ -202,12 +215,19 @@ def _shared_cache(cache: dict, app: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def prefill(params, batch: dict, cfg: ModelConfig,
-            cache_len: Optional[int] = None):
+            cache_len: Optional[int] = None, cache: Optional[dict] = None):
     """Process the whole prompt; returns ``(last_logits (B, V), cache)``.
-    ``batch["tokens"]``: (B, S) integer token ids on the model's device."""
+    ``batch["tokens"]``: (B, S) integer token ids on the model's device.
+    With ``cache`` (an ``init_cache`` of batch B, e.g. a captured step's
+    static cache) the prompt fills that cache, zeroed first, so that it
+    starts from the fresh state a new cache has; ``cache_len`` is then
+    the given cache's."""
     tokens = batch["tokens"].long()
     b, s = tokens.shape
-    cache = init_cache(cfg, b, cache_len or s, tokens.device)
+    if cache is None:
+        cache = init_cache(cfg, b, cache_len or s, tokens.device)
+    else:
+        _zero_cache(cache)
     positions = (None if _is_rwkv(cfg) else
                  torch.arange(s, device=tokens.device).expand(b, s))
     x = _embed(params, cfg, tokens)
@@ -219,23 +239,22 @@ def prefill(params, batch: dict, cfg: ModelConfig,
         x = tfm.block_prefill(p, x, positions, cfg, _layer_cache(cache, i))
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = _head(params, cfg, x)
-    cache["index"] = s
+    cache["index"].fill_(s)
     return logits[:, 0], cache
 
 
 def decode_step(params, cache: dict, token, cfg: ModelConfig):
     """One serve step: one new token per sequence against the cache.
 
-    token: (B, 1) integer ids.  Returns ``(logits (B, V), new_cache)``;
-    ``new_cache`` shares the tensors of ``cache`` (K/V, recurrent state
-    or ring buffers), which this step updates in place, and its
-    ``index`` is one further."""
+    token: (B, 1) integer ids.  Returns ``(logits (B, V), cache)``:
+    this step updates the cache's tensors (K/V, recurrent state or ring
+    buffers, the index) in place, and the index is one further after it.
+    Positions, ring slots and attention lengths come from the index on
+    the device."""
     index = cache["index"]
     token = token.long()
     b = token.shape[0]
-    positions = (None if _is_rwkv(cfg) else
-                 torch.full((b, 1), index, dtype=torch.long,
-                            device=token.device))
+    positions = None if _is_rwkv(cfg) else index.long().expand(b, 1)
     x = _embed(params, cfg, token)
     shared, every = params.get("shared_attn"), cfg.shared_attn_every
     for i, p in enumerate(params["layers"]):
@@ -247,9 +266,8 @@ def decode_step(params, cache: dict, token, cfg: ModelConfig):
                              cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _head(params, cfg, x)
-    new_cache = {k: v for k, v in cache.items() if k != "index"}
-    new_cache["index"] = index + 1
-    return logits[:, 0], new_cache
+    index.add_(1)
+    return logits[:, 0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -268,8 +286,8 @@ class Model:
         """A seeded generator on the model's device, for ``init``."""
         return torch.Generator(device=self.device).manual_seed(seed)
 
-    def prefill(self, params, batch, cache_len=None):
-        return prefill(params, batch, self.cfg, cache_len)
+    def prefill(self, params, batch, cache_len=None, cache=None):
+        return prefill(params, batch, self.cfg, cache_len, cache)
 
     def decode_step(self, params, cache, token):
         return decode_step(params, cache, token, self.cfg)

@@ -14,7 +14,10 @@ reference's mask ``(slot - j) % S <= index`` keeps exactly the slots
 ``j < min(index + 1, S)`` (before the first wrap slots ``0..index``,
 after it every slot), which is the kernel's ``lengths`` mask.  The KV
 cache is updated in place: the new token's K/V are written into its
-slot of the given cache tensors.
+slot of the given cache tensors.  The cache index is a 0-dim int32
+tensor on the device: the slot, the mask and the kernel's ``lengths``
+are computed from it there, so a decode step reads nothing back to the
+host and one captured step serves every position.
 """
 from __future__ import annotations
 
@@ -45,14 +48,15 @@ def _rope_qk(q, k, positions, cfg: ModelConfig):
             apply_rope(k, positions, cfg.rope_theta))
 
 
-def attention_decode(params, x: torch.Tensor, cache: dict, cache_index: int,
+def attention_decode(params, x: torch.Tensor, cache: dict, cache_index,
                      positions: torch.Tensor, cfg: ModelConfig, *,
                      window: int = 0):
     """Single-token decode.  x: (B, 1, d_model); cache: {"k", "v"} of
-    (B, S, KV, D), keys cached post-RoPE; ``cache_index`` is the slot of
-    this token.  Writes the token's K/V into the cache in place and
-    returns ``(y, cache)``.  With ``window > 0`` the cache is a ring
-    buffer and the token goes to slot ``cache_index % S``."""
+    (B, S, KV, D), keys cached post-RoPE; ``cache_index`` (a 0-dim
+    integer tensor, or an int) is the position of this token.  Writes
+    the token's K/V into the cache in place and returns ``(y, cache)``.
+    With ``window > 0`` the cache is a ring buffer and the token goes to
+    slot ``cache_index % S``."""
     h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     b = x.shape[0]
     q = linear(x, params["wq"]).reshape(b, 1, h, d)
@@ -62,24 +66,25 @@ def attention_decode(params, x: torch.Tensor, cache: dict, cache_index: int,
 
     ck, cv = cache["k"], cache["v"]
     s_cache = ck.shape[1]
-    slot = cache_index % s_cache if window > 0 else cache_index
-    ck[:, slot] = k[:, 0].to(ck.dtype)
-    cv[:, slot] = v[:, 0].to(cv.dtype)
+    index = torch.as_tensor(cache_index, device=x.device).long()
+    slot = index % s_cache if window > 0 else index
+    ck.index_copy_(1, slot.view(1), k.to(ck.dtype))
+    cv.index_copy_(1, slot.view(1), v.to(cv.dtype))
 
     g = h // kvh
     if cfg.use_pallas_decode and cfg.logit_softcap == 0 and d % 8 == 0:
         # Hopper flash-decode kernel over the valid slots [0, lengths)
-        lengths = torch.full((b,), min(cache_index + 1, s_cache),
-                             dtype=torch.int32, device=x.device)
-        out = decode_attention(q.reshape(b, kvh, g, d), ck, cv, lengths)
+        lengths = torch.clamp(index + 1, max=s_cache).to(torch.int32)
+        out = decode_attention(q.reshape(b, kvh, g, d), ck, cv,
+                               lengths.expand(b).contiguous())
         out = out.reshape(b, 1, h * d).to(x.dtype)
         return linear(out, params["wo"]), cache
     j = torch.arange(s_cache, device=x.device)
     if window > 0:
         # ring buffer: slot j holds position index - ((slot - j) mod S)
-        valid = (slot - j) % s_cache <= cache_index
+        valid = (slot - j) % s_cache <= index
     else:
-        valid = j <= cache_index
+        valid = j <= index
     qf = (q.reshape(b, kvh, g, d) * (d ** -0.5)).float()
     scores = torch.einsum("bkgd,bskd->bkgs", qf, ck.float())
     scores = scores.masked_fill(~valid[None, None, None, :], NEG_INF)

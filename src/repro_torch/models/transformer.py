@@ -13,7 +13,9 @@ the ``ssd_scan`` kernel, under ``cfg.use_pallas_prefill`` in prefill and
 ``cfg.use_pallas_decode`` in decode.  ``cache`` is one layer's views
 into the decode cache (``{"k", "v"}``, ``{"tmix", "cmix"}`` or
 ``{"ssm"}``), or one shared-block application's ``{"k", "v"}`` ring
-buffer: prefill fills it and decode updates it, in place.
+buffer: prefill fills it and decode updates it, in place.  A decode
+step's ``index`` is the cache's 0-dim int32 index tensor, passed on to
+the attention as it is.
 """
 from __future__ import annotations
 
@@ -70,8 +72,8 @@ def _write_kv_cache(k, v, cache: dict, window: int) -> None:
         w = min(window, cache["k"].shape[1])
         take = min(s, w)
         slots = torch.arange(s - take, s, device=k.device) % w
-        cache["k"][:, slots] = k[:, s - take:].to(cache["k"].dtype)
-        cache["v"][:, slots] = v[:, s - take:].to(cache["v"].dtype)
+        cache["k"].index_copy_(1, slots, k[:, s - take:].to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slots, v[:, s - take:].to(cache["v"].dtype))
         return
     cache["k"][:, :s] = k.to(cache["k"].dtype)
     cache["v"][:, :s] = v.to(cache["v"].dtype)
@@ -121,7 +123,8 @@ def block_prefill(p, x, positions, cfg: ModelConfig, cache: dict):
     return x + _ffn(p, h, cfg, cache, None)
 
 
-def block_decode(p, x, cache: dict, index: int, positions, cfg: ModelConfig):
+def block_decode(p, x, cache: dict, index: torch.Tensor, positions,
+                 cfg: ModelConfig):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if "attn" in p:
         y, _ = attn.attention_decode(p["attn"], h, cache, index, positions,
@@ -154,7 +157,7 @@ def shared_attn_prefill(p, x, positions, cfg: ModelConfig, cache: dict):
     return x + mlp_fwd(p["mlp"], h, cfg.mlp_kind)
 
 
-def shared_attn_decode(p, x, cache: dict, index: int, positions,
+def shared_attn_decode(p, x, cache: dict, index: torch.Tensor, positions,
                        cfg: ModelConfig):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     y, _ = attn.attention_decode(p["attn"], h, cache, index, positions, cfg,

@@ -10,7 +10,8 @@ paths use:
 * ``ExecutionBackend`` -- a pool of vertically scalable slots
   (``Server``, ``_PooledBackend``) plus ``execute(batch, c, b, now) ->
   finish_time``.  ``SimBackend`` finishes batches on the calibrated
-  ``PerfModel`` clock; ``TorchBackend`` runs the ``(c, b)`` executable
+  ``PerfModel`` clock and ``TokenSimBackend`` gangs on the
+  ``TokenCostModel`` clock; ``TorchBackend`` runs the ``(c, b)`` executable
   table on the device and advances time by the measured wall latency
   (``clock="measured"``) or by the model's prediction
   (``clock="modeled"``, event for event the ``SimBackend`` run);
@@ -19,9 +20,10 @@ paths use:
   ``make_live_server`` build one by name.
 
 The live table (``build_llm_step_fns``) serves the model on the Hopper
-kernels: one entry is a prefill plus ``gen_tokens`` greedy decode steps.
-On one device every ``c`` entry shares the same function, so a resize
-changes scheduling only.
+kernels: one entry is a prefill plus ``gen_tokens`` greedy decode steps,
+captured on the card as one CUDA graph at warm-up.  On one device every
+``c`` entry shares the same function, so a resize changes scheduling
+only.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ from repro_torch.core.solver import DEFAULT_B, DEFAULT_C
 from repro_torch.core.vertical import TimedExecutor, VerticalScaledInstance
 from repro_torch.models import build_model
 from repro_torch.models.api import resolve_device
+from repro_torch.serving.capture import CapturedStep
 from repro_torch.serving.workload import WorkloadGenerator
 
 _sid = itertools.count()
@@ -182,6 +185,61 @@ class SimBackend(_PooledBackend):
     def execute(self, batch: List[Request], c: int, b: int,
                 now: float) -> float:
         return now + float(self.perf.latency(b, c))
+
+
+class TokenSimBackend(_PooledBackend):
+    """Discrete-event *continuous-batching* execution over a token-level
+    cost model (``core.cost_model.TokenCostModel``), without the
+    reference's ``uncertainty`` argument.
+
+    A dispatched gang is served phase-aware: one prefill burst covering
+    every prompt (each request's **first token** -- its TTFT -- lands
+    when the burst finishes), then decode steps in which every live
+    stream gains one token and requests **leave the running batch as
+    their streams finish** (step latency tracks the shrinking slot
+    count, per the token cost model).  Per-request ``first_token`` /
+    ``finish`` / ``tbt_violations`` are written here -- the runner keeps
+    whatever the backend recorded -- and the slot frees when the last
+    stream drains.  The cost model also quacks like a PerfModel
+    (full-service ``latency(b, c)``), which the runner's slack-aware
+    dispatch and the pooled-slot bookkeeping consume.
+    """
+
+    name = "token-sim"
+
+    def __init__(self, cost, c_set: Sequence[int], b_set: Sequence[int],
+                 c0: int = 1, resize_penalty: float = 0.005):
+        super().__init__(cost, c_set, b_set, c0=c0,
+                         resize_penalty=resize_penalty)
+        self.cost = cost
+        self.tokens_served = 0
+
+    def execute(self, batch: List[Request], c: int, b: int,
+                now: float) -> float:
+        total_prompt = sum(r.prompt_tokens for r in batch)
+        t = now + float(self.cost.prefill_latency(c, total_prompt))
+        live: List[tuple[Request, int]] = []
+        for r in batch:
+            r.first_token = t
+            self.tokens_served += 1          # the prefill's first token
+            if r.decode_tokens > 0:
+                live.append((r, r.decode_tokens))
+            else:
+                r.finish = t
+        while live:
+            l_d = float(self.cost.decode_latency(c, len(live)))
+            t += l_d
+            nxt: List[tuple[Request, int]] = []
+            for r, remaining in live:
+                if l_d > r.tbt_slo + 1e-12:
+                    r.tbt_violations += 1
+                self.tokens_served += 1
+                if remaining - 1 > 0:
+                    nxt.append((r, remaining - 1))
+                else:
+                    r.finish = t
+            live = nxt
+        return t
 
 
 @dataclass
@@ -669,7 +727,7 @@ def calibrate_step_fns(fns: Dict[tuple[int, int], Callable],
 
 def build_llm_step_fns(model, params, c_set: Sequence[int],
                        b_set: Sequence[int], prompt_len: int,
-                       gen_tokens: int = 8):
+                       gen_tokens: int = 8, capture: Optional[bool] = None):
     """Executable table for short-generation LLM serving: each entry
     prefills the (b, prompt_len) prompt batch and runs ``gen_tokens``
     greedy decode steps, returning their ids as a (b, gen_tokens) int32
@@ -678,27 +736,44 @@ def build_llm_step_fns(model, params, c_set: Sequence[int],
 
     Between its first launch and its return an entry reads nothing back
     to the host: the argmax stays on the device and the ids are stacked
-    there.  Every c shares one function per b (see ``TorchBackend``).
+    there.  So each b's entry is one :class:`CapturedStep` over a static
+    prompt buffer and a static cache: on the card the whole entry,
+    prefill, decode steps, argmaxes and id stack, is one CUDA graph,
+    captured at its first call (the warm-up) when ``capture`` (the
+    default on a CUDA device), and eager otherwise.  The ids returned
+    are a copy, which a later call does not overwrite.  Every c shares
+    one function per b (see ``TorchBackend``).
     """
     cache_len = prompt_len + gen_tokens
     vocab = model.cfg.vocab_size
     device = model.device
 
-    def make(_b):
-        @torch.inference_mode()
-        def fn(tokens):
-            tokens = torch.as_tensor(tokens, device=device)
-            logits, cache = model.prefill(params, {"tokens": tokens},
-                                          cache_len=cache_len)
+    def make(b):
+        with torch.inference_mode():
+            cache = model.init_cache(b, cache_len)
+            tokens = torch.zeros((b, prompt_len), dtype=torch.int32,
+                                 device=device)
+
+        def body():
+            logits, _ = model.prefill(params, {"tokens": tokens},
+                                      cache=cache)
             tok = torch.argmax(logits[:, :vocab], dim=-1)
             tok = tok.to(torch.int32)[:, None]
             out = []
             for _ in range(gen_tokens):
-                lg, cache = model.decode_step(params, cache, tok)
+                lg, _ = model.decode_step(params, cache, tok)
                 tok = torch.argmax(lg[:, :vocab], dim=-1)
                 tok = tok.to(torch.int32)[:, None]
                 out.append(tok)
             return torch.cat(out, dim=1)
+
+        step = CapturedStep(body, (tokens,), capture)
+
+        def fn(prompts):
+            with torch.inference_mode():
+                return step(prompts).clone()
+
+        fn.step = step
         return fn
 
     fns = {}

@@ -1,8 +1,9 @@
-"""Scenario registry, cut to the ``llm-chat`` workload.
+"""Scenario registry, cut to the ``llm-chat`` and ``llm-mixed-len``
+workloads.
 
 Copy of ``repro.serving.scenarios``: ``Scenario``, the registry,
-``poisson_times``, the token meta, the ``llm-chat`` builder and
-``build_scenario``.  The same seed gives the same ``RequestBatch`` as
+``poisson_times``, the token meta, the ``llm-chat`` and
+``llm-mixed-len`` builders and ``build_scenario``.  The same seed gives the same ``RequestBatch`` as
 the reference.
 """
 from __future__ import annotations
@@ -103,6 +104,38 @@ register(Scenario(
     summary="autoregressive chat: log-normal prompt/decode lengths, "
             "1s TTFT + 80ms TBT SLOs, continuous batching",
     build=_build_llm_chat, default_rps=25.0, default_duration=600.0))
+
+
+def _build_llm_mixed_len(duration, rps, rng):
+    seed = int(rng.integers(2**31))
+    trace = synth_4g_trace(_trace_seconds(duration), seed=seed)
+    send = poisson_times(rps, duration, rng)
+    n = send.size
+    is_doc = rng.uniform(0.0, 1.0, n) < 0.25
+    prompt = np.where(
+        is_doc,
+        lognormal_lengths(rng, n, median=384, sigma=0.4, lo=128, hi=1024),
+        lognormal_lengths(rng, n, median=48, sigma=0.5, lo=8, hi=256))
+    decode = np.where(
+        is_doc,
+        lognormal_lengths(rng, n, median=48, sigma=0.5, lo=8, hi=192),
+        lognormal_lengths(rng, n, median=16, sigma=0.5, lo=1, hi=64))
+    slo = np.where(is_doc, 2.5, 0.8)            # TTFT budgets
+    tbt = np.where(is_doc, 0.15, 0.06)          # per-token budgets
+    sizes = np.maximum(prompt * 0.008, 1.0)
+    cl = comm_latency_many(sizes, trace, send)
+    batch = RequestBatch.from_send(send, cl, slo=slo, size_kb=sizes,
+                                   prompt_tokens=prompt,
+                                   decode_tokens=decode, tbt_slo=tbt)
+    meta = _token_meta(batch, rps, trace, slo=0.8, tbt=0.06)
+    return batch, meta
+
+
+register(Scenario(
+    name="llm-mixed-len",
+    summary="chat + long-document mix (8x prompt spread, per-class "
+            "TTFT/TBT SLOs) — batch composition varies wildly",
+    build=_build_llm_mixed_len, default_rps=18.0, default_duration=600.0))
 
 
 def build_scenario(name: str, *, duration: Optional[float] = None,

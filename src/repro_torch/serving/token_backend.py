@@ -25,9 +25,13 @@ stepping as padding) and the gang ends when the longest stream
 finishes.  The two step
 tables are keyed by ``(c, b)`` like the reference's executable tables;
 on one device every ``c`` shares the same computation, so vertical
-scaling changes scheduling only.  ``calibrate_token_fns`` times both
-tables, waiting for the device before reading the clock, and fits the
-``TokenCostModel`` the solver plans on.
+scaling changes scheduling only.  Each ``b`` owns one static gang (its
+cache, prompt buffer and token buffer on the device); on the card its
+prefill and decode steps are captured as CUDA graphs at warm-up
+(``serving/capture.py``), the counterpart of the reference's
+``jax.jit`` per entry, and serving replays them.  ``calibrate_token_fns``
+times both tables, waiting for the device before reading the clock, and
+fits the ``TokenCostModel`` the solver plans on.
 """
 from __future__ import annotations
 
@@ -46,52 +50,84 @@ from repro_torch.core.vertical import TimedExecutor, device_sync
 from repro_torch.models import build_model
 from repro_torch.models.api import resolve_device
 from repro_torch.serving.api import ScenarioRunner, _PooledBackend
+from repro_torch.serving.capture import CapturedStep, table_replays
 from repro_torch.serving.scenarios import build_scenario
 
 
 def _host(x) -> np.ndarray:
-    """Token ids as a host numpy array."""
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    """Token ids as a host numpy array of their own (a step's ids are its
+    static buffer, which the next step overwrites)."""
+    if isinstance(x, torch.Tensor):
+        return x.to("cpu", copy=True).numpy()
+    return np.asarray(x)
 
 
 def build_token_step_fns(model, params, c_set: Sequence[int],
                          b_set: Sequence[int], prompt_len: int,
-                         max_decode: int = 8):
+                         max_decode: int = 8,
+                         capture: Optional[bool] = None):
     """Two step tables for phase-aware LLM serving.
 
     ``prefill_fns[(c, b)](tokens)`` maps (b, prompt_len) int32 prompts to
     ``(first_token (b,), gang_cache)``; ``decode_fns[(c, b)](cache, tok)``
-    advances every slot one token.  An attention cache holds
-    ``prompt_len + max_decode + 1`` positions per slot (a sliding window
-    at most its window; an RWKV-6 or Mamba2 state has no positions).  Every c shares one function per b (see the
-    module docstring).
+    advances every slot one token and returns ``(next (b,), cache)``.
+    An attention cache holds ``prompt_len + max_decode + 1`` positions
+    per slot (a sliding window at most its window; an RWKV-6 or Mamba2
+    state has no positions).  Every c shares one pair of functions per b
+    (see the module docstring).
+
+    Each b has one static gang on the model's device: a cache of batch b
+    (``gang_cache`` is always this one), a prompt buffer and a token
+    buffer (the ids returned are always this one).  The prefill zeroes
+    the cache, fills it from the prompt and writes the first ids into
+    the token buffer; a decode step reads its ids from there and writes
+    the next ids back, so between steps the ids stay on the device as
+    the next input (a ``tok`` that is the buffer itself is not copied).
+    A new prefill of a b therefore ends the gang before it: a caller
+    runs one gang of a b at a time to its end, as
+    ``TokenTorchBackend.execute`` does, and copies the ids it keeps.
+    Both steps are :class:`CapturedStep` entries: captured as CUDA
+    graphs at their first call (:func:`warmup_token_fns`) when
+    ``capture`` (the default on a CUDA device), eager otherwise.
     """
     cache_len = prompt_len + max_decode + 1
     vocab = model.cfg.vocab_size
     device = model.device
 
-    def make_prefill(b):
-        @torch.inference_mode()
-        def fn(tokens):
-            tokens = torch.as_tensor(tokens, device=device)
-            logits, cache = model.prefill(params, {"tokens": tokens},
-                                          cache_len=cache_len)
-            first = torch.argmax(logits[:, :vocab], dim=-1).to(torch.int32)
-            return first, cache
-        return fn
+    def make(b):
+        with torch.inference_mode():
+            cache = model.init_cache(b, cache_len)
+            tokens = torch.zeros((b, prompt_len), dtype=torch.int32,
+                                 device=device)
+            ids = torch.zeros((b,), dtype=torch.int32, device=device)
 
-    def make_decode(b):
-        @torch.inference_mode()
-        def fn(cache, tok):
-            tok = torch.as_tensor(tok, device=device)
-            lg, cache = model.decode_step(params, cache, tok[:, None])
-            nxt = torch.argmax(lg[:, :vocab], dim=-1).to(torch.int32)
-            return nxt, cache
-        return fn
+        def prefill_body():
+            logits, _ = model.prefill(params, {"tokens": tokens},
+                                      cache=cache)
+            return ids.copy_(torch.argmax(logits[:, :vocab], dim=-1))
+
+        def decode_body():
+            lg, _ = model.decode_step(params, cache, ids[:, None])
+            return ids.copy_(torch.argmax(lg[:, :vocab], dim=-1))
+
+        pre = CapturedStep(prefill_body, (tokens,), capture)
+        dec = CapturedStep(decode_body, (ids,), capture)
+
+        def prefill_fn(prompts):
+            return pre(prompts), cache
+
+        def decode_fn(gang_cache, tok):
+            if gang_cache is not cache:
+                raise ValueError("a decode step continues the gang of its "
+                                 "own table entry")
+            return dec(tok), cache
+
+        prefill_fn.step, decode_fn.step = pre, dec
+        return prefill_fn, decode_fn
 
     prefill_fns, decode_fns = {}, {}
     for b in b_set:
-        pf, df = make_prefill(b), make_decode(b)
+        pf, df = make(b)
         for c in c_set:
             prefill_fns[(c, b)] = pf
             decode_fns[(c, b)] = df
@@ -116,9 +152,11 @@ def pad_prompts(payloads: List[np.ndarray], b: int,
 
 def warmup_token_fns(prefill_fns: Dict, decode_fns: Dict,
                      prompt_len: int) -> None:
-    """Run every distinct (c, b) entry of both tables once before serving
-    (builds the kernels and warms the allocator).  Entries sharing one
-    function are run once, not once per c."""
+    """Run every distinct (c, b) entry of both tables once before serving:
+    the deploy-time pass that makes the later resize in-place.  On the
+    card this captures each entry's CUDA graph (one eager run, which
+    builds the kernels, then the capture and a replay).  Entries sharing
+    one function are run once, not once per c."""
     seen: set[int] = set()
     for (c, b), pf in prefill_fns.items():
         if id(pf) in seen:
@@ -168,6 +206,10 @@ class TokenTorchBackend(_PooledBackend):
     still run and produce real tokens).  Per-request lifecycle
     (``first_token`` / ``finish`` / ``tbt_violations``) is written here;
     generated token ids are collected in ``generated[request.id]``.
+    A gang runs in its table entry's static cache and id buffer
+    (:func:`build_token_step_fns`); ``execute`` runs each gang to its
+    end before it returns, so no prefill overwrites a live gang, and it
+    copies each step's ids to the host.
     """
 
     name = "token-torch"
@@ -194,6 +236,12 @@ class TokenTorchBackend(_PooledBackend):
         super().__init__(cost, c_set, b_set, c0=c0 or max(c_set),
                          resize_penalty=resize_penalty)
 
+    def warmup(self) -> None:
+        """Run every (c, b) prefill + decode entry once (on the card:
+        capture its CUDA graphs)."""
+        warmup_token_fns(self.pre_table.fns, self.dec_table.fns,
+                         self.prompt_len)
+
     def on_submit(self, req: Request, payload: Any) -> None:
         self._payloads[req.id] = payload
 
@@ -201,8 +249,8 @@ class TokenTorchBackend(_PooledBackend):
                 now: float) -> float:
         tokens = pad_prompts([self._payloads.pop(r.id, None)
                               for r in batch], b, self.prompt_len)
-        first, cache = self.pre_table(c, b, tokens)
-        first = _host(first)
+        tok, cache = self.pre_table(c, b, tokens)
+        first = _host(tok)
         dt = self.pre_table.calls[-1][3]
         if self.clock == "modeled":
             total_prompt = sum(r.prompt_tokens for r in batch)
@@ -216,10 +264,9 @@ class TokenTorchBackend(_PooledBackend):
             remaining[i] = min(r.decode_tokens, self.max_decode)
             if remaining[i] == 0:
                 r.finish = t
-        tok = first
         while (remaining > 0).any():
-            nxt, cache = self.dec_table(c, b, cache, tok)
-            nxt = _host(nxt)
+            tok, cache = self.dec_table(c, b, cache, tok)
+            nxt = _host(tok)            # the ids stay on the device as input
             dt = self.dec_table.calls[-1][3]
             if self.clock == "modeled":
                 dt = float(self.cost.decode_latency(
@@ -235,7 +282,6 @@ class TokenTorchBackend(_PooledBackend):
                 remaining[i] -= 1
                 if remaining[i] == 0:
                     r.finish = t
-            tok = nxt
         return t
 
 
@@ -305,12 +351,16 @@ def run_token_scenario(name: str, *, requests: int = 24, seed: int = 0,
                        arch: str = "smollm-135m-reduced",
                        prompt_len: int = 16, max_decode: int = 8,
                        clock: str = "measured", rps: Optional[float] = None,
-                       device=None):
+                       c_set: Sequence[int] = (1, 2, 4),
+                       b_set: Sequence[int] = (1, 2, 4),
+                       params: Optional[dict] = None, device=None):
     """Serve a slice of a registered token scenario on the real kernels.
 
     Materializes ``requests`` arrivals from the scenario's workload,
-    serves them through :func:`make_token_live_server` on ``device``
-    (``cuda`` unless named) and returns ``(RunReport, stats)``.
+    serves them through :func:`make_token_live_server` (tables over
+    ``c_set`` x ``b_set``, with ``params`` or random weights) on
+    ``device`` (``cuda`` unless named) and returns ``(RunReport,
+    stats)``.
     """
     dev = resolve_device(device)
     batch, meta = build_scenario(name, requests=requests, seed=seed,
@@ -318,9 +368,9 @@ def run_token_scenario(name: str, *, requests: int = 24, seed: int = 0,
     if not meta.get("token"):
         raise ValueError(f"{name!r} is not a token scenario")
     runner, backend, cfg, cost = make_token_live_server(
-        arch, prompt_len=prompt_len, max_decode=max_decode, clock=clock,
-        prior_rps=meta["expected_rps"], tick=meta.get("tick", 0.5),
-        device=dev)
+        arch, c_set=c_set, b_set=b_set, prompt_len=prompt_len,
+        max_decode=max_decode, clock=clock, prior_rps=meta["expected_rps"],
+        tick=meta.get("tick", 0.5), params=params, device=dev)
     arrivals = scenario_arrivals(batch, requests, seed, prompt_len,
                                  max_decode, cfg.vocab_size)
     t0 = time.perf_counter()
@@ -328,8 +378,13 @@ def run_token_scenario(name: str, *, requests: int = 24, seed: int = 0,
     stats = {"engine": "token-torch", "arch": cfg.name,
              "device": str(dev),
              "events": runner.events_processed,
+             "requests": len(arrivals),
              "run_wall_s": time.perf_counter() - t0,
              "tokens_executed": backend.tokens_served,
+             "step_calls": (len(backend.pre_table.calls)
+                            + len(backend.dec_table.calls)),
+             "graph_replays": table_replays(backend.pre_table.fns,
+                                            backend.dec_table.fns),
              "generated": backend.generated,
              "cost_r2": (cost.r2_prefill, cost.r2_decode), "meta": meta}
     return report, stats

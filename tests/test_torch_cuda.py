@@ -346,8 +346,10 @@ def fixed_routes():
 @pytest.mark.parametrize("b", [1, 3, 8])
 @pytest.mark.parametrize("prompt", [16, 64])
 def test_fixed_work_entry_on_card(arch, b, prompt, fixed_routes):
-    """Kernel-route ids equal plain-route ids in f32, and the entry reads
-    nothing back to the host between its first launch and its return."""
+    """Kernel-route ids (the captured entry, replayed) equal plain-route
+    ids (eager) in f32, and the entry reads nothing back to the host
+    between its first launch and its return.  The first call captures
+    the entry; the launches are counted over the replay after it."""
     from repro_torch.serving.api import build_llm_step_fns
 
     kern, plain, params = fixed_routes[arch]
@@ -358,7 +360,9 @@ def test_fixed_work_entry_on_card(arch, b, prompt, fixed_routes):
     fk = build_llm_step_fns(kern, params, (1,), (b,), prompt,
                             GEN_TOKENS)[(1, b)]
     fp = build_llm_step_fns(plain, params, (1,), (b,), prompt,
-                            GEN_TOKENS)[(1, b)]
+                            GEN_TOKENS, capture=False)[(1, b)]
+    fk(torch.zeros_like(tokens))                 # capture
+    assert fk.step.graph is not None and fp.step.graph is None
     before = (pre.launches, dec.launches)
     ids_k, ids_p = fk(tokens), fp(tokens)
     torch.cuda.synchronize()
@@ -373,3 +377,167 @@ def test_fixed_work_entry_on_card(arch, b, prompt, fixed_routes):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.equal(again, ids_k)
+
+
+# --------------------------------------------------------------------------
+# on the card: the step tables captured as CUDA graphs
+# --------------------------------------------------------------------------
+CAPTURE_ARCHS = ("smollm-135m-reduced", "rwkv6-1.6b-reduced",
+                 "zamba2-2.7b-reduced")
+
+
+@pytest.fixture(scope="module")
+def reduced_models():
+    """Per arch: the f32 reduced model with both kernel routes on and
+    its random weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA graphs and the CUDA kernels "
+                    "have no CPU mode)")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for arch in CAPTURE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                                  param_dtype="float32",
+                                  use_pallas_prefill=True,
+                                  use_pallas_decode=True)
+        model = build_model(cfg, device=dev)
+        out[arch] = (model, model.init(model.generator(0)))
+    return out
+
+
+def _logit_steps(model, params, b, prompt_len, steps, capture):
+    """A prefill and a decode step over one static gang, each returning
+    its logits and writing its greedy ids into the gang's id buffer."""
+    from repro_torch.serving.capture import CapturedStep
+
+    vocab, dev = model.cfg.vocab_size, model.device
+    with torch.inference_mode():
+        cache = model.init_cache(b, prompt_len + steps + 1)
+        tokens = torch.zeros((b, prompt_len), dtype=torch.int32, device=dev)
+        ids = torch.zeros((b,), dtype=torch.int32, device=dev)
+
+    def prefill():
+        lg, _ = model.prefill(params, {"tokens": tokens}, cache=cache)
+        ids.copy_(lg[:, :vocab].argmax(-1))
+        return lg
+
+    def decode():
+        lg, _ = model.decode_step(params, cache, ids[:, None])
+        ids.copy_(lg[:, :vocab].argmax(-1))
+        return lg
+
+    return (CapturedStep(prefill, (tokens,), capture),
+            CapturedStep(decode, (ids,), capture), ids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", CAPTURE_ARCHS)
+def test_replay_equals_eager_on_card(arch, reduced_models):
+    """Graph replay gives the eager step's logits (f32 tolerance) and ids
+    (exact) for two prompts in turn, which shows that the static inputs
+    are refreshed, and a replay reads nothing back to the host.  The
+    captured steps are warmed (captured) first on a prompt of zeros."""
+    model, params = reduced_models[arch]
+    dev = model.device
+    b, pl, steps = 3, 16, 5
+    routes = [_logit_steps(model, params, b, pl, steps, capture)
+              for capture in (True, False)]
+    pre_step, dec_step, ids = routes[0]
+    pre_step(torch.zeros((b, pl), dtype=torch.int32, device=dev))
+    dec_step(ids)
+    assert pre_step.replays == dec_step.replays == 0
+    for seed in (0, 1):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        toks = torch.randint(0, model.cfg.vocab_size, (b, pl), generator=g,
+                             device=dev, dtype=torch.int32)
+        outs = []
+        for pre_r, dec_r, ids_r in routes:
+            logits, got = [pre_r(toks).clone()], [ids_r.clone()]
+            for _ in range(steps):
+                logits.append(dec_r(ids_r).clone())
+                got.append(ids_r.clone())
+            outs.append((torch.stack(logits), torch.stack(got)))
+        (lc, ic), (le, ie) = outs
+        assert torch.equal(ic, ie), seed
+        np.testing.assert_allclose(as_np(lc), as_np(le), **tol("float32"))
+    assert pre_step.graph is not None and dec_step.graph is not None
+    assert (pre_step.replays, dec_step.replays) == (2, 2 * steps)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pre_step(toks)
+        for _ in range(steps):
+            dec_step(ids)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, ic[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", CAPTURE_ARCHS)
+def test_replays_count_their_launches_on_card(arch, reduced_models):
+    """Each captured entry records the launches its graph holds, and every
+    replay adds exactly those to the kernels' counts."""
+    from repro_torch.serving import token_backend as tb
+    from repro_torch.serving.capture import launch_counts
+
+    model, params = reduced_models[arch]
+    cfg = model.cfg
+    b, pl, steps = 2, 8, 3
+    pre_fns, dec_fns = tb.build_token_step_fns(model, params, (1, 2), (b,),
+                                               pl, max_decode=steps)
+    tb.warmup_token_fns(pre_fns, dec_fns, pl)
+    layers = cfg.num_layers
+    if cfg.blocks[0] == "rwkv6+rwkv_cm":
+        want_pre = want_dec = {"rwkv6_scan": layers}
+    elif cfg.blocks[0] == "mamba2+none":
+        apps = -(-layers // cfg.shared_attn_every)
+        want_pre = {"ssd_scan": layers, "swa_prefill": apps}
+        want_dec = {"ssd_scan": layers, "decode_attention": apps}
+    else:
+        want_pre, want_dec = ({"swa_prefill": layers},
+                              {"decode_attention": layers})
+    pre_step, dec_step = pre_fns[(1, b)].step, dec_fns[(1, b)].step
+    assert pre_step.deltas == want_pre and dec_step.deltas == want_dec
+    before = launch_counts()
+    tok, cache = pre_fns[(2, b)](np.ones((b, pl), np.int32))
+    for _ in range(steps):
+        tok, cache = dec_fns[(2, b)](cache, tok)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    for name in after:
+        assert after[name] - before[name] == \
+            want_pre.get(name, 0) + steps * want_dec.get(name, 0), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", CAPTURE_ARCHS)
+def test_fixed_work_replay_equals_eager_on_card(arch, reduced_models):
+    """The fixed-work entry as one graph (prefill, decode steps, argmaxes
+    and id stack), captured by a first call on a prompt of zeros, gives
+    the eager entry's ids for two prompts in turn, each returned as a
+    copy that the next replay leaves alone."""
+    from repro_torch.serving.api import build_llm_step_fns
+
+    model, params = reduced_models[arch]
+    dev = model.device
+    b, pl = 4, 16
+    cap = build_llm_step_fns(model, params, (1,), (b,), pl, GEN_TOKENS)[(1, b)]
+    eag = build_llm_step_fns(model, params, (1,), (b,), pl, GEN_TOKENS,
+                             capture=False)[(1, b)]
+    cap(np.zeros((b, pl), np.int32))
+    kept, wants = [], []
+    for seed in (0, 1):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        toks = torch.randint(0, model.cfg.vocab_size, (b, pl), generator=g,
+                             device=dev, dtype=torch.int32)
+        kept.append(cap(toks))
+        wants.append(eag(toks))
+    for got, want in zip(kept, wants):
+        assert got.shape == (b, GEN_TOKENS) and torch.equal(got, want)
+    assert cap.step.graph is not None and cap.step.replays == 2

@@ -439,7 +439,8 @@ def test_prefill_and_decode_match_reference(reference, kernel_route, b, s):
 
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
     same_cache(tc, jc)
-    assert tc["index"] == int(jc["index"]) == s
+    assert tc["index"].shape == () and tc["index"].dtype == torch.int32
+    assert int(tc["index"]) == int(jc["index"]) == s
     assert set(tc) == {"ssm", "shared", "index"}
     assert tc["shared"]["k"].shape == (2, b, 16, cfg.num_kv_heads,
                                        cfg.head_dim)
@@ -451,7 +452,8 @@ def test_prefill_and_decode_match_reference(reference, kernel_route, b, s):
         assert tc["ssm"]["h"] is h                # updated in place
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
         same_cache(tc, jc)
-        assert tc["index"] == int(jc["index"]) == s + step + 1
+        assert tc["index"].shape == () and tc["index"].dtype == torch.int32
+        assert int(tc["index"]) == int(jc["index"]) == s + step + 1
         assert np.array_equal(tl[:, :cfg.vocab_size].argmax(-1).numpy(),
                               np.argmax(np.asarray(jl)[:, :cfg.vocab_size], -1))
         tok = np.argmax(np.asarray(jl)[:, :cfg.vocab_size], -1).astype(np.int32)

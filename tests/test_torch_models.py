@@ -317,13 +317,15 @@ def test_prefill_and_decode_match_reference(reference, kernel_route, b, s):
     jkv = jc["groups"][0]["kv"]
     np.testing.assert_allclose(tc["k"].numpy(), np.asarray(jkv["k"]), atol=ATOL)
     np.testing.assert_allclose(tc["v"].numpy(), np.asarray(jkv["v"]), atol=ATOL)
-    assert tc["index"] == int(jc["index"]) == s
+    assert tc["index"].shape == () and tc["index"].dtype == torch.int32
+    assert int(tc["index"]) == int(jc["index"]) == s
     tok = np.argmax(np.asarray(jl)[:, :cfg.vocab_size], -1).astype(np.int32)
     for step in range(3):
         jl, jc = jmodel.decode_step(jparams, jc, tok[:, None])
         tl, tc = model.decode_step(params, tc, torch.from_numpy(tok)[:, None])
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
-        assert tc["index"] == int(jc["index"]) == s + step + 1
+        assert tc["index"].shape == () and tc["index"].dtype == torch.int32
+        assert int(tc["index"]) == int(jc["index"]) == s + step + 1
         assert np.array_equal(tl[:, :cfg.vocab_size].argmax(-1).numpy(),
                               np.argmax(np.asarray(jl)[:, :cfg.vocab_size], -1))
         tok = np.argmax(np.asarray(jl)[:, :cfg.vocab_size], -1).astype(np.int32)
