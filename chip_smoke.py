@@ -8,7 +8,10 @@ code is non-zero:
 
 1. device  -- the card's name and power limit, as ``nvidia-smi`` prints them;
 2. build   -- the four CUDA kernels built from
-   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all at once);
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all at once),
+   and beside them one more ``nvcc -Xptxas -v`` per source, whose report
+   gives each kernel instantiation's registers, spill and static shared
+   memory on a ``ptxas`` line;
 3. kernels -- each kernel against its plain PyTorch version on the card at
    the serving shapes, in float32 (atol = rtol = 2e-5) and bfloat16
    (atol = rtol = 2e-2), then timed with CUDA events (median of 60
@@ -19,7 +22,10 @@ code is non-zero:
    checked and timed at head_dim 64 (smollm-135m) and 80 (zamba2-2.7b's
    shared block, decode lengths up to the ring buffer's wrap), and
    ``swa_prefill`` once more at zamba2's full window (B 1, S 4096), where
-   the operations bound it.
+   the operations bound it; and both at gemma-2b's head_dim 256 with 8
+   query heads over 1 KV head (prefill B 4, S 256, causal, and B 2, S 77
+   under a window of 16; decode B 4, S 321, G 8, lengths 0/1/160/321),
+   timed in bf16 under ``d256_*`` keys.
    ``rwkv6_scan`` is checked at the prefill shape (B 4, T 256, H 32,
    D 64), at decode (T 1), at ragged T (77, 300) and at D 16 and 32, with
    bf16 r/k/v beside an f32 decay, for state continuation ([0:T]
@@ -34,25 +40,36 @@ code is non-zero:
    above; its chunked form (bf16, T >= ``CHUNKED_MIN_T``) to
    ``ssd_scan_chunked_plain`` (y 2e-2, h_final 2e-4) and to the
    recurrence at the reference's SSD bf16 tolerance, 5e-2;
-4. parity  -- full-width smollm-135m, rwkv6-1.6b and zamba2-2.7b, in
-   float32: prefill (batch 2, prompt 256) + 4 decode steps through the
-   kernel routes match the plain routes (logits atol 1e-3, identical
-   greedy ids).  Then smollm-135m and zamba2-2.7b in bfloat16, the
-   served type, with the f32 weights rounded and teacher-forced with the
+4. parity  -- full-width smollm-135m, rwkv6-1.6b, zamba2-2.7b,
+   smollm-360m, gemma-2b and h2o-danube-1.8b, in float32: prefill (batch
+   2, prompt 256) + 4 decode steps through the kernel routes match the
+   plain routes (logits atol 1e-3, identical greedy ids).  Then
+   smollm-135m, zamba2-2.7b, gemma-2b and h2o-danube-1.8b in bfloat16,
+   the served type, with the f32 weights rounded and teacher-forced with the
    f32 plain route's greedy ids: the kernel route and the plain route
    are each held against the f32 plain route, and max |kernel - f32|
    must stay within 2 max |plain - f32| + 1e-2;
+   window  -- full-width h2o-danube-1.8b (window 4096), batch 1, a prompt
+   of 4160 tokens (longer than the window: ``swa_prefill`` skips the key
+   tiles outside the band, the prefill wraps the 4096-slot ring buffer)
+   and 16 greedy decode steps (``decode_attention`` over the wrapped
+   ring): in float32 the kernel route's greedy ids equal the plain
+   route's (logits atol 1e-3); in bfloat16 both routes, teacher-forced
+   with the f32 ids, give the same greedy id at every step and the
+   kernel route's logits keep the rule above;
 5. capture -- per model, in bfloat16 at the serving shape (batch 4,
    prompt 256, 10 decode steps): the prefill and decode steps of one
    static gang run eagerly and as replayed CUDA graphs
    (``serving/capture.py``) on the same weights and prompts; the greedy
    ids must be identical, and the largest logit difference is printed.
    serve   -- ``run_token_scenario("llm-chat", arch=..., ...)`` in bfloat16
-   on smollm-135m, rwkv6-1.6b and zamba2-2.7b: the port's three main
-   paths, served through step tables captured as CUDA graphs at warm-up,
-   each with every kernel's launch count reset just before and read just
-   after (a replay adds the launches its graph holds).  The smollm path
-   must launch both attention kernels and neither scan; the rwkv6 path
+   on smollm-135m, rwkv6-1.6b, zamba2-2.7b, gemma-2b and h2o-danube-1.8b:
+   the port's five main paths, served through step tables captured as
+   CUDA graphs at warm-up, each with every kernel's launch count reset
+   just before and read just after (a replay adds the launches its graph
+   holds).  The capture check runs on the same five.  The dense paths
+   (smollm, gemma, h2o-danube) must launch both attention kernels, each
+   a multiple of their layers (30, 18, 24), and neither scan; the rwkv6 path
    must launch ``rwkv6_scan`` (a multiple of its 24 layers) and no other
    kernel; the zamba2 path must launch ``ssd_scan`` (a multiple of its 54
    layers) and both attention kernels (each a multiple of the shared
@@ -85,7 +102,7 @@ and exits non-zero.
 
     python3 chip_smoke.py --profile  # adds phase 7 before the last lines
 
-7. profile -- for each of the three models, one prefill and ten decode
+7. profile -- for each of the five served models, one prefill and ten decode
    steps of the served b = 4 table entry in bf16 at the serving shape
    (prompt 256), each step's ids copied to the host as the backend does,
    run eagerly and replayed from CUDA graphs, under ``torch.profiler``:
@@ -125,6 +142,11 @@ PREFILL80 = dict(H=32, KV=32, D=80, window=4096)
 DECODE80 = dict(B=4, S=321, KV=32, G=1, D=80, lengths=(1, 160, 320, 321))
 # one prompt of zamba2-2.7b's full window
 LONG_PREFILL = dict(B=1, S=4096, H=32, KV=32, D=80, window=4096)
+# gemma-2b: 8 query heads of 256 over 1 KV head (multi-query, G = 8)
+PREFILL256 = dict(B=4, S=256, H=8, KV=1, D=256)
+DECODE256 = dict(B=4, S=321, KV=1, G=8, D=256, lengths=(0, 1, 160, 321))
+# h2o-danube-1.8b past its 4096-token window
+WINDOW = dict(arch="h2o-danube-1.8b", prompt=4160, steps=16)
 WKV = dict(B=4, T=256, H=32, D=64)        # rwkv6-1.6b prefill at the serve
 SSD = dict(B=4, T=256, H=80, P=64, N=64)  # zamba2-2.7b prefill at the serve
 SERVE = dict(requests=48, prompt_len=256, max_decode=64, seed=0)
@@ -132,10 +154,72 @@ SERVE = dict(requests=48, prompt_len=256, max_decode=64, seed=0)
 FIXED = dict(arch="smollm-135m", c_set=(1, 2, 4, 8), b_set=(1, 2, 4, 8),
              prompt_len=64, gen_tokens=8, slo=1.0, size_kb=200.0, rps=10.0,
              duration=6.0, seed=42)
-ARCHS = ("smollm-135m", "rwkv6-1.6b", "zamba2-2.7b")
+# the main paths: each model is checked for parity, captured and served
+ARCHS = ("smollm-135m", "rwkv6-1.6b", "zamba2-2.7b", "gemma-2b",
+         "h2o-danube-1.8b")
+# checked for parity only (the same blocks as smollm-135m, wider)
+PARITY_ONLY = ("smollm-360m",)
 # the models whose bf16 path runs the attention kernels: phase 4 checks
 # their bf16 routes too
-BF16_PARITY = ("smollm-135m", "zamba2-2.7b")
+BF16_PARITY = ("smollm-135m", "zamba2-2.7b", "gemma-2b", "h2o-danube-1.8b")
+
+
+def ptxas_start():
+    """One ``nvcc -Xptxas -v`` per kernel source, started at once (beside
+    the build), its library thrown away; ``ptxas_report`` reads them."""
+    from repro_torch.kernels import build
+
+    out = ROOT / "build" / "ptxas"
+    out.mkdir(parents=True, exist_ok=True)
+    return {n: subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         str(out / f"{n}.so"), str(build.CSRC / f"{n}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for n in build.SOURCES}
+
+
+def ptxas_report(procs) -> None:
+    """A ``ptxas`` line per kernel instantiation: registers, spill stores
+    and loads (bytes) and static shared memory (bytes), the names
+    demangled with ``cu++filt -p`` (no parameter lists) where the toolkit
+    has it."""
+    import re
+    import shutil
+
+    entries = []
+    for src, proc in procs.items():
+        log, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed for {src}:\n{log}")
+        name = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = m.group(1)
+                entries.append({"source": src, "kernel": name})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and name:
+                entries[-1].update(spill_stores=int(m.group(1)),
+                                   spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                smem = re.search(r"(\d+) bytes smem", line)
+                entries[-1].update(registers=int(m.group(1)),
+                                   static_smem=int(smem.group(1)) if smem
+                                   else 0)
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if entries and Path(filt).exists():
+        names = subprocess.run([filt, "-p"], input="\n".join(
+            e["kernel"] for e in entries), capture_output=True, text=True,
+            check=True, timeout=60).stdout.splitlines()
+        for e, n in zip(entries, names):
+            e["kernel"] = re.sub(
+                r"repro_torch::(<unnamed>|\(anonymous namespace\))::", "",
+                n).replace("(int)", "")
+    for e in entries:
+        say("ptxas", **{k: json.dumps(v) if k == "kernel" else v
+                        for k, v in e.items()})
 
 
 def reset_launches() -> None:
@@ -353,6 +437,7 @@ def kernel_phase(dev):
         "timed": f"bf16 B={b} S={s} KV={kv} G={g} D={d} "
                  f"lengths={list(DECODE['lengths'])}"}
     attn80_phase(dev, gen, rows)
+    attn256_phase(dev, gen, rows)
     rows["rwkv6_scan"] = wkv_kernel_phase(dev, gen)
     rows["ssd_scan"] = ssd_kernel_phase(dev, gen)
     for r in rows.values():
@@ -442,6 +527,90 @@ def attn80_phase(dev, gen, rows) -> None:
             d80_plain_ms=r["d80_plain_ms"],
             d80_library_ms=r["d80_library_ms"],
             d80_bound_ms=r["d80_bound_ms"], d80_bound_by=r["d80_bound_by"])
+
+
+def attn256_phase(dev, gen, rows) -> None:
+    """Both attention kernels at gemma-2b's widths (head dim 256, 8 query
+    heads over 1 KV head): checked against their plain versions in f32
+    and bf16 (prefill full causal and under a window narrower than the
+    prompt; decode with lengths 0, 1, partial and full), and timed in
+    bf16 beside the plain version and SDPA under ``d256_*`` keys."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.swa_prefill import ops as pre
+    import torch.nn.functional as F
+
+    h, kv, d = (PREFILL256[k] for k in ("H", "KV", "D"))
+    worst = rows["swa_prefill"]["max_abs_err"]
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, window in ((PREFILL256["B"], PREFILL256["S"],
+                              PREFILL256["S"]), (2, 77, 16)):
+            q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+            k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+            v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+            err = check_close(f"swa_prefill D={d} B={b} S={s} W={window} "
+                              f"{dtype}",
+                              pre.swa_prefill_attention(q, k, v, window=window),
+                              pre.swa_prefill_plain(q, k, v, window=window),
+                              dtype)
+            worst = max(worst, err)
+            say("kernels", kernel="swa_prefill", dtype=str(dtype)[6:], B=b,
+                S=s, H=h, KV=kv, D=d, window=window, max_abs_err=err)
+    b, s, dtype = PREFILL256["B"], PREFILL256["S"], torch.bfloat16
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    bms, by = bound_ms(*prefill_bound(b, s, h, kv, d, s, dtype), dtype)
+    rows["swa_prefill"].update(
+        max_abs_err=worst,
+        d256_ms=median_ms(lambda: pre.swa_prefill_attention(q, k, v,
+                                                            window=s)),
+        d256_plain_ms=median_ms(lambda: pre.swa_prefill_plain(q, k, v,
+                                                              window=s)),
+        d256_library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        d256_bound_ms=bms, d256_bound_by=by,
+        d256_timed=f"bf16 B={b} S={s} H={h} KV={kv} D={d} full causal")
+
+    b, s, g = DECODE256["B"], DECODE256["S"], DECODE256["G"]
+    lengths = torch.tensor(DECODE256["lengths"], dtype=torch.int32,
+                           device=dev)
+    worst = rows["decode_attention"]["max_abs_err"]
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(b, kv, g, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+        err = check_close(f"decode_attention D={d} {dtype}",
+                          dec.decode_attention(q, k, v, lengths),
+                          dec.decode_attention_plain(q, k, v, lengths), dtype)
+        worst = max(worst, err)
+        say("kernels", kernel="decode_attention", dtype=str(dtype)[6:], B=b,
+            S=s, KV=kv, G=g, D=d, lengths=list(DECODE256["lengths"]),
+            max_abs_err=err)
+    qh = q.reshape(b, kv * g, 1, d)
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    valid = torch.arange(s, device=dev)[None, :] < lengths[:, None].long()
+    mask = torch.zeros(b, 1, 1, s, device=dev, dtype=dtype).masked_fill(
+        ~valid[:, None, None, :], -1e30)
+    bms, by = bound_ms(*decode_bound(b, s, kv, g, d, DECODE256["lengths"],
+                                     dtype), dtype)
+    rows["decode_attention"].update(
+        max_abs_err=worst,
+        d256_ms=median_ms(lambda: dec.decode_attention(q, k, v, lengths)),
+        d256_plain_ms=median_ms(lambda: dec.decode_attention_plain(q, k, v,
+                                                                   lengths)),
+        d256_library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+            qh, kt, vt, attn_mask=mask, enable_gqa=True)),
+        d256_bound_ms=bms, d256_bound_by=by,
+        d256_timed=f"bf16 B={b} S={s} KV={kv} G={g} D={d} "
+                   f"lengths={list(DECODE256['lengths'])}")
+    for name in ("swa_prefill", "decode_attention"):
+        r = rows[name]
+        say("kernels", kernel=name, d256_ms=r["d256_ms"],
+            d256_plain_ms=r["d256_plain_ms"],
+            d256_library_ms=r["d256_library_ms"],
+            d256_bound_ms=r["d256_bound_ms"],
+            d256_bound_by=r["d256_bound_by"])
 
 
 def long_prefill_phase(dev, gen, rows) -> None:
@@ -735,7 +904,8 @@ def parity_phase(dev, arch: str) -> None:
             lk, ck = kern.decode_step(params, ck, tok)
             lp, cp = plain.decode_step(params, cp, tok)
     say("parity", arch=cfg.name, dtype="float32", batch=b, prompt=s,
-        decode_steps=steps, max_abs_logit_diff=worst, greedy_ids="identical")
+        decode_steps=steps, max_abs_logit_diff=worst, greedy_ids="identical",
+        params=cfg.param_count(), bf16_weight_bytes=2 * cfg.param_count())
     del kern, plain, ck, cp
     if arch in BF16_PARITY:
         bf16_parity(dev, arch, params, tokens, fed, ref_logits)
@@ -794,6 +964,110 @@ def bf16_parity(dev, arch: str, params32, tokens, fed, ref_logits) -> None:
         raise AssertionError(f"bf16 parity {arch}: finite={finite}, max "
                              f"|kernel - f32| {err_k} > limit {limit} "
                              f"(max |plain - f32| {err_p})")
+
+
+def window_phase(dev) -> None:
+    """Full-width h2o-danube-1.8b past its sliding window: batch 1, a
+    prompt of ``WINDOW["prompt"]`` tokens (more than the 4096 of the
+    window, so ``swa_prefill`` skips the key tiles outside the band and
+    the prefill wraps the ring buffer of 4096 slots), then
+    ``WINDOW["steps"]`` decode steps over the wrapped ring.  f32: the
+    kernel route, greedy on its own ids, gives the plain route's ids and
+    logits within 1e-3, with one ``swa_prefill`` per layer and one
+    ``decode_attention`` per layer and step.  bf16 (the weights rounded):
+    both routes, teacher-forced with the f32 plain route's ids, give the
+    same greedy id at every step, and the kernel route's logits keep
+    ``bf16_parity``'s rule against the f32 plain route."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.capture import launch_counts
+
+    arch, s, steps = WINDOW["arch"], WINDOW["prompt"], WINDOW["steps"]
+    base = get_config(arch)
+    window, layers = base.window_size, base.num_layers
+    if not 0 < window < s:
+        raise AssertionError(f"{arch}: window {window} not below prompt {s}")
+    cache_len = s + steps + 1
+
+    def routes(dtype):
+        cfg = dataclasses.replace(base, dtype=dtype, param_dtype=dtype)
+        kcfg = dataclasses.replace(cfg, use_pallas_prefill=True,
+                                   use_pallas_decode=True)
+        return build_model(cfg, device=dev), build_model(kcfg, device=dev)
+
+    def run(model, params, tokens, feed=None):
+        """Prefill and ``steps`` decode steps, greedy on the route's own
+        ids or fed ``feed``; the logits of each step (f32), its greedy
+        ids and the ring's slots."""
+        vocab = model.cfg.vocab_size
+        logits = []
+        with torch.inference_mode():
+            lg, cache = model.prefill(params, {"tokens": tokens},
+                                      cache_len=cache_len)
+            for step in range(steps + 1):
+                logits.append(lg[0, :vocab].float())
+                if step == steps:
+                    break
+                tok = (logits[-1].argmax() if feed is None
+                       else feed[step]).to(torch.int32).view(1, 1)
+                lg, cache = model.decode_step(params, cache, tok)
+        logits = torch.stack(logits)
+        return logits, logits.argmax(-1), cache["k"].shape[2]
+
+    plain, kern = routes("float32")
+    params = kern.init(kern.generator(0))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    tokens = torch.randint(0, base.vocab_size, (1, s), generator=gen,
+                           device=dev, dtype=torch.int32)
+    ref, ids_ref, ring = run(plain, params, tokens)
+    reset_launches()
+    lk, ids_k, _ = run(kern, params, tokens)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    err32 = float((lk - ref).abs().max())
+    checks = {
+        "ring of window slots": ring == window,
+        "f32 logits finite": bool(torch.isfinite(lk).all()),
+        "f32 greedy ids identical": torch.equal(ids_k, ids_ref),
+        "f32 max |logit diff| <= 1e-3": err32 <= 1e-3,
+        "swa_prefill once per layer":
+            launches["swa_prefill"] == layers,
+        "decode_attention once per layer per step":
+            launches["decode_attention"] == layers * steps}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"window f32 checks failed: {failed} (max "
+                             f"|logit diff| {err32}, launches {launches})")
+    say("window", arch=arch, dtype="float32", batch=1, prompt=s,
+        window=window, ring_slots=ring, decode_steps=steps,
+        max_abs_logit_diff=err32, greedy_ids="identical",
+        launches=json.dumps(launches))
+    del plain, kern
+    torch.cuda.empty_cache()
+
+    plain, kern = routes("bfloat16")
+    params = cast_like(params, kern.init(kern.generator(0)))
+    torch.cuda.empty_cache()
+    feed = ids_ref[:steps]
+    lk, ids_k, _ = run(kern, params, tokens, feed)
+    lp, ids_p, _ = run(plain, params, tokens, feed)
+    err_k = float((lk - ref).abs().max())
+    err_p = float((lp - ref).abs().max())
+    limit = 2 * err_p + 1e-2
+    top2 = lp.topk(2, dim=-1).values
+    say("window", arch=arch, dtype="bfloat16", batch=1, prompt=s,
+        window=window, ring_slots=ring, decode_steps=steps,
+        teacher_forced="f32 plain greedy ids", kernel_vs_f32=err_k,
+        plain_vs_f32=err_p, limit=limit,
+        kernel_vs_plain=float((lk - lp).abs().max()),
+        plain_min_top2_gap=float((top2[:, 0] - top2[:, 1]).min()),
+        ids_kernel=ids_k.tolist(), ids_plain=ids_p.tolist(),
+        ids_f32=ids_ref.tolist())
+    if not (torch.isfinite(lk).all() and err_k <= limit
+            and torch.equal(ids_k, ids_p)):
+        raise AssertionError(f"window bf16: max |kernel - f32| {err_k} "
+                             f"(limit {limit}), ids {ids_k.tolist()} vs "
+                             f"{ids_p.tolist()}")
 
 
 def logit_steps(model, params, b, prompt_len, cache_len, capture):
@@ -901,9 +1175,14 @@ def serve_phase(dev, arch: str, scenario: str = "llm-chat",
                 and launches["decode_attention"] % apps == 0,
             "rwkv6_scan not launched": launches["rwkv6_scan"] == 0}
     else:
+        layers = cfg.num_layers
         kernel_checks = {
-            "swa_prefill launched": launches["swa_prefill"] > 0,
-            "decode_attention launched": launches["decode_attention"] > 0,
+            "swa_prefill launched, a multiple of the layers":
+                launches["swa_prefill"] > 0
+                and launches["swa_prefill"] % layers == 0,
+            "decode_attention launched, a multiple of the layers":
+                launches["decode_attention"] > 0
+                and launches["decode_attention"] % layers == 0,
             "rwkv6_scan not launched": launches["rwkv6_scan"] == 0,
             "ssd_scan not launched": launches["ssd_scan"] == 0}
     gen = stats["generated"]
@@ -1261,9 +1540,11 @@ def main() -> int:
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
+    ptxas = ptxas_start()
     libs = build.build()
     say("build", seconds=time.perf_counter() - t0,
         libraries=json.dumps({k: str(v.relative_to(ROOT)) for k, v in libs.items()}))
+    ptxas_report(ptxas)
 
     rows = kernel_phase(dev)
     for row in rows.values():
@@ -1271,12 +1552,18 @@ def main() -> int:
     for arch in ARCHS:
         parity_phase(dev, arch)
         torch.cuda.empty_cache()          # the f32 weights are freed here
+        if arch == WINDOW["arch"]:
+            window_phase(dev)
+            torch.cuda.empty_cache()
         capture_phase(dev, arch)
         torch.cuda.empty_cache()
         # each main path's counts are reset before it and read after it;
         # a kernel's row adds up the paths (the other path must give 0)
         for name, n in serve_phase(dev, arch).items():
             rows[name]["launches"] += n
+        torch.cuda.empty_cache()
+    for arch in PARITY_ONLY:
+        parity_phase(dev, arch)
         torch.cuda.empty_cache()
     for name, n in serve_phase(dev, "smollm-135m", "llm-mixed-len",
                                sets=(1, 2, 4, 8)).items():

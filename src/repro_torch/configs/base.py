@@ -3,7 +3,8 @@
 Copy of ``repro.configs.base.ModelConfig`` with the same field names and
 defaults, so a config maps one to one between the packages, cut to the
 fields' declaration, ``padded_vocab``, ``d_inner``, ``ssm_num_heads``,
-``rwkv_num_heads`` and ``reduced()``.  The port's models run only what they implement
+``rwkv_num_heads``, ``mixer_kinds``, ``param_count()`` and
+``reduced()``.  The port's models run only what they implement
 (``models.api.build_model`` refuses the rest).
 
 ``use_pallas_prefill`` / ``use_pallas_decode`` keep the reference's
@@ -149,6 +150,53 @@ class ModelConfig:
     @property
     def uses_moe(self) -> bool:
         return any(b.endswith("+moe") for b in self.blocks)
+
+    @property
+    def mixer_kinds(self) -> Tuple[str, ...]:
+        return tuple(b.split("+")[0] for b in self.blocks)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (approximate: embeddings + blocks)."""
+        d = self.d_model
+        n = self.padded_vocab * d  # embedding
+        if not self.tie_embeddings:
+            n += self.padded_vocab * d
+        for b in self.blocks:
+            mixer, ffn = b.split("+")
+            if mixer in ("attn", "swa"):
+                n += d * self.num_heads * self.head_dim * 2  # q, o
+                n += d * self.num_kv_heads * self.head_dim * 2  # k, v
+            elif mixer == "mla":
+                n += d * self.q_lora_rank
+                n += self.q_lora_rank * self.num_heads * (self.qk_nope_dim + self.qk_rope_dim)
+                n += d * (self.kv_lora_rank + self.qk_rope_dim)
+                n += self.kv_lora_rank * self.num_heads * (self.qk_nope_dim + self.v_head_dim)
+                n += self.num_heads * self.v_head_dim * d
+            elif mixer == "mamba2":
+                di = self.d_inner
+                n += d * (2 * di + 2 * self.ssm_state_dim + self.ssm_num_heads)
+                n += di * d
+            elif mixer == "rwkv6":
+                n += 6 * d * d  # r,k,v,g,o,w(lora) rough
+            if ffn == "mlp":
+                mult = 3 if self.mlp_kind in ("swiglu", "geglu") else 2
+                n += mult * d * self.d_ff
+            elif ffn == "moe":
+                mult = 3
+                n += self.num_experts * mult * d * self.moe_d_ff
+                n += self.num_shared_experts * mult * d * self.moe_d_ff
+                n += d * self.num_experts  # router
+            elif ffn == "rwkv_cm":
+                n += 2 * d * self.d_ff + d * d
+        if self.shared_attn_every:
+            n += 4 * d * self.num_heads * self.head_dim
+        if self.is_encoder_decoder:
+            # encoder blocks + cross attention in decoder
+            enc = self.encoder_layers * (4 * d * self.num_heads * self.head_dim
+                                         + 2 * d * self.d_ff)
+            cross = self.num_layers * 4 * d * self.num_heads * self.head_dim
+            n += enc + cross
+        return n
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: <=2 layers, d_model<=256, <=4 experts."""

@@ -13,6 +13,9 @@ from repro_torch.configs.base import ModelConfig
 # arch id -> module name
 _MODULES = {
     "smollm-135m": "smollm_135m",
+    "smollm-360m": "smollm_360m",
+    "gemma-2b": "gemma_2b",
+    "h2o-danube-1.8b": "h2o_danube_1p8b",
     "rwkv6-1.6b": "rwkv6_1p6b",
     "zamba2-2.7b": "zamba2_2p7b",
 }

@@ -8,7 +8,7 @@
 // uniform mean of V over the S cache rows, as on the TPU, and never NaN.
 //
 // Layouts (row-major, contiguous): q, out (B, KV, G, D); k, v (B, S, KV, D);
-// lengths (B,) int32.  D in {16, 32, 64, 80, 128}, G in 1..8.
+// lengths (B,) int32.  D in {16, 32, 64, 80, 128, 256}, G in 1..8.
 //
 // Two kernels, split by the storage type:
 //
@@ -22,15 +22,20 @@
 // mean of V; a block whose range is empty holds m = -inf, l = 0.  A row is
 // read by D / 8 lanes with 16-byte loads (rounded up to a power of two: 8
 // lanes at D = 64, so a warp load covers 4 rows; 16 at D = 80, of which 10
-// load), the dot product of each of the G queries is reduced over the row's
+// load; a whole warp at D = 256, so a block has 4 streams and its partial
+// accumulators, 4 x G x D f32, stay within the 48 KB of static shared
+// memory at G = 8), the dot product of each of the G queries is reduced over the row's
 // lanes with xor shuffles, and each lane keeps 8 output columns x G
 // accumulators.  Each group of lanes is one online-softmax stream that
 // loads U rows (4, or 2 at G > 4) before it uses any, so several rows are in
 // flight.  The streams of a block combine in shared memory; after
-// cluster.sync() rank 0 reads every block's (m, l, acc[G][D]) through
-// distributed shared memory (cluster.map_shared_rank), combines them and
-// writes out; a second cluster.sync() keeps the other blocks' shared memory
-// alive until it has.  Exponentials are base 2 on scores scaled by
+// cluster.sync() the blocks share out the G D outputs (block r takes the
+// runs r, r + split, ... of 128) and each reads every block's (m, l, acc)
+// for its outputs through distributed shared memory
+// (cluster.map_shared_rank), combines them in rank order and writes out (at
+// G D = 2048, gemma-2b's G 8 and D 256, one combining block would read 16
+// outputs x 8 blocks a thread); a second cluster.sync() keeps each block's
+// shared memory alive until the others have read it.  Exponentials are base 2 on scores scaled by
 // D^-0.5 log2(e), the same softmax.
 //
 // f32 (full-width parity and the tests): the first port's kernel, unchanged.
@@ -216,7 +221,7 @@ constexpr int kDecWarps = 4;
 // power of two, so that a row's dot products reduce with xor shuffles
 template <int D>
 __host__ __device__ constexpr int lanes_per_row() {
-  return D <= 16 ? 2 : D <= 32 ? 4 : D <= 64 ? 8 : 16;
+  return D <= 16 ? 2 : D <= 32 ? 4 : D <= 64 ? 8 : D <= 128 ? 16 : 32;
 }
 
 // weight of a partial softmax state of max m in a combined state of max mx;
@@ -374,24 +379,25 @@ decode_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  // the cluster's blocks, combined by rank 0 through distributed shared memory
+  // the cluster's blocks, combined through distributed shared memory: each
+  // block takes every split-th run of 128 outputs and reads all blocks'
+  // states for them in rank order
   cluster.sync();
-  if (rank == 0) {
-    for (int i = threadIdx.x; i < G * D; i += kDecWarps * 32) {
-      const int g = i / D;
-      const int d = i % D;
-      float mx = neg_inf();
-      for (int r = 0; r < split; ++r) mx = fmaxf(mx, *cluster.map_shared_rank(&blk_m[g], r));
-      float ls = 0.f, a = 0.f;
-      for (int r = 0; r < split; ++r) {
-        const float w = rescale(*cluster.map_shared_rank(&blk_m[g], r), mx);
-        ls += *cluster.map_shared_rank(&blk_l[g], r) * w;
-        a += *cluster.map_shared_rank(&blk_acc[g][d], r) * w;
-      }
-      store(out + head + i, a / fmaxf(ls, 1e-30f));
+  for (int i = rank * kDecWarps * 32 + threadIdx.x; i < G * D;
+       i += split * kDecWarps * 32) {
+    const int g = i / D;
+    const int d = i % D;
+    float mx = neg_inf();
+    for (int r = 0; r < split; ++r) mx = fmaxf(mx, *cluster.map_shared_rank(&blk_m[g], r));
+    float ls = 0.f, a = 0.f;
+    for (int r = 0; r < split; ++r) {
+      const float w = rescale(*cluster.map_shared_rank(&blk_m[g], r), mx);
+      ls += *cluster.map_shared_rank(&blk_l[g], r) * w;
+      a += *cluster.map_shared_rank(&blk_acc[g][d], r) * w;
     }
+    store(out + head + i, a / fmaxf(ls, 1e-30f));
   }
-  cluster.sync();                            // rank 0 has read every block
+  cluster.sync();                            // every block has read the others
 }
 
 template <int D, int GM>
@@ -460,6 +466,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
     case 64: return launch_typed<T, 64>(q, k, v, lengths, out, B, S, KV, G, stream);
     case 80: return launch_typed<T, 80>(q, k, v, lengths, out, B, S, KV, G, stream);
     case 128: return launch_typed<T, 128>(q, k, v, lengths, out, B, S, KV, G, stream);
+    case 256: return launch_typed<T, 256>(q, k, v, lengths, out, B, S, KV, G, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -8,7 +8,7 @@
 //
 // Layouts (row-major, contiguous): q, out (B, S, H, D); k, v (B, S, KV, D);
 // query head h reads KV head h / (H / KV) directly (the TPU wrapper repeats
-// K/V over the GQA groups instead).  D in {16, 32, 64, 80, 128}, any S.
+// K/V over the GQA groups instead).  D in {16, 32, 64, 80, 128, 256}, any S.
 //
 // Two kernels, split by the storage type:
 //
@@ -23,8 +23,12 @@
 // in bf16 in shared memory in a ring of two stages: cp.async brings tile
 // t + 1 while tile t is computed, with one barrier per tile.  Rows are
 // padded by 16 bytes (pitch D + 8) so that ldmatrix is free of bank
-// conflicts at every D, the 160-byte rows of D = 80 included.  Each warp
-// reads its Q rows once from global memory straight into A fragments; S =
+// conflicts at every D, the 160-byte rows of D = 80 included.  At D <= 128
+// each warp reads its Q rows once from global memory straight into A
+// fragments; at D = 256 those fragments (64 registers a thread beside the
+// 128 of the O accumulator) would not fit, so the block's 64 Q rows come
+// into shared memory with the first K/V tile and each 16-wide k-step of
+// Q K^T reads its A fragment there with ldmatrix; S =
 // Q K^T reads K with ldmatrix; the row max is taken on the f32 scores and
 // each score is scaled (D^-0.5 log2 e, never a bf16 q) in the multiply-add
 // that feeds ex2.approx; masks are applied only on tiles that cross the
@@ -33,8 +37,10 @@
 // its sum is reduced once at the end); P is rounded to bf16 in registers
 // and is the A operand of P V as it stands, V read with ldmatrix.trans.
 // The output goes through shared memory and out as 16-byte stores.  Shared
-// memory per block: 512 (D + 8) bytes (36,864 at D = 64, 45,056 at D = 80).
-// Registers are capped so that 4 blocks fit an SM at D <= 64 and 3 above.
+// memory per block: 512 (D + 8) bytes (36,864 at D = 64, 45,056 at D = 80),
+// and at D = 256 another 128 (D + 8) for Q (168,960 in all: one block per
+// SM).  Registers are capped so that 4 blocks fit an SM at D <= 64 and 3 at
+// D 80 and 128; at D = 256 one block may take up to 255 registers a thread.
 // mma.sync and not wgmma: at the served shapes (S = 256, 144-512 blocks)
 // latency bounds the kernel, not the tensor-core rate, and a 16-row warp
 // tile keeps the causal tail short.
@@ -47,8 +53,8 @@
 // padded to D + 1 floats so that lane-per-key reads hit distinct banks), a
 // warp scores two keys per lane, updates (m, l) with warp reductions and
 // accumulates P.V with each lane owning ceil(D / 32) output columns.  D = 80
-// needs 63,744 bytes of shared memory, above the 48 KB default, which
-// launch() opts in to.
+// needs 63,744 bytes of shared memory (D = 256: 198,912), above the 48 KB
+// default, which launch() opts in to.
 //
 // What bounds it on the H100: at the served shapes the bytes and the
 // operations of one call are small (chip_smoke.py computes the least time
@@ -248,10 +254,21 @@ constexpr int kBfStages = 2;                 // K/V tiles in the shared-memory r
 template <int D>
 __host__ __device__ constexpr int bf16_pitch() { return D + 8; }
 
-// the ring of K and V tiles
+// Q in shared memory (read per k-step with ldmatrix) instead of registers
+template <int D>
+__host__ __device__ constexpr bool q_in_smem() { return D > 128; }
+
+// the ring of K and V tiles, then the block's Q rows where they are shared
 template <int D>
 __host__ __device__ constexpr size_t bf16_smem_bytes() {
-  return sizeof(__nv_bfloat16) * bf16_pitch<D>() * 2 * kBfStages * kBfKeys;
+  return sizeof(__nv_bfloat16) * bf16_pitch<D>()
+         * (2 * kBfStages * kBfKeys + (q_in_smem<D>() ? kBfRows : 0));
+}
+
+// blocks per SM the registers are capped for
+template <int D>
+__host__ __device__ constexpr int bf16_min_blocks() {
+  return D <= 64 ? 4 : D <= 128 ? 3 : 1;
 }
 
 // rows [r0, r0 + 64) of one head (`stride` elements apart in src, r0 < S)
@@ -277,7 +294,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
 }
 
 template <int D>
-__global__ void __launch_bounds__(kBfWarps * 32, D <= 64 ? 4 : 3)
+__global__ void __launch_bounds__(kBfWarps * 32, bf16_min_blocks<D>())
 swa_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
@@ -287,10 +304,12 @@ swa_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int KS = D / 16;                 // 16-wide steps of Q K^T over D
   constexpr int NT = D / 8;                  // 8-column tiles of the output
   constexpr int kTileElems = kBfKeys * P;
+  constexpr bool kQShared = q_in_smem<D>();
   extern __shared__ __align__(16) unsigned char bf16_smem[];
   // stage i of the ring: K at k_s + i * kTileElems, V at v_s + i * kTileElems
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(bf16_smem);
   __nv_bfloat16* v_s = k_s + kBfStages * kTileElems;
+  __nv_bfloat16* q_s = v_s + kBfStages * kTileElems;  // [64][P], kQShared only
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -312,7 +331,9 @@ swa_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + kv_off;
 
   // the first kBfStages - 1 tiles of the band, one commit group each (an
-  // empty group past the band keeps the count uniform)
+  // empty group past the band keeps the count uniform); shared Q rows join
+  // the first group
+  if constexpr (kQShared) load_tile<D>(q_s, qb, H * D, q0, S);
 #pragma unroll
   for (int i = 0; i < kBfStages - 1; ++i) {
     const int t = t_first + i;
@@ -327,15 +348,17 @@ swa_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   // first tiles are in flight); rows past S are zeros
   const int w0 = q0 + warp * 16;             // the warp's first query row
   const int row0 = w0 + gid;                 // row of c[0..1]; c[2..3]: row0 + 8
-  uint32_t qf[KS][4];
+  uint32_t qf[kQShared ? 1 : KS][4];
+  if constexpr (!kQShared) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
-    const uint32_t* qr = reinterpret_cast<const uint32_t*>(qb + row * q_stride) + tig;
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      const uint32_t* qr = reinterpret_cast<const uint32_t*>(qb + row * q_stride) + tig;
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      qf[ks][i] = row < S ? __ldg(qr + ks * 8) : 0u;
-      qf[ks][i + 2] = row < S ? __ldg(qr + ks * 8 + 4) : 0u;
+      for (int ks = 0; ks < KS; ++ks) {
+        qf[ks][i] = row < S ? __ldg(qr + ks * 8) : 0u;
+        qf[ks][i + 2] = row < S ? __ldg(qr + ks * 8 + 4) : 0u;
+      }
     }
   }
   float o[NT][4];
@@ -374,13 +397,20 @@ swa_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       }
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
+        uint32_t qa[4];                      // Q rows w0..w0+15, columns 16 ks..
+        if constexpr (kQShared) {
+          ldmatrix_x4(qa, q_s + (warp * 16 + (lane & 15)) * P + ks * 16 + (lane >> 4) * 8);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[e] = qf[ks][e];
+        }
 #pragma unroll
         for (int np = 0; np < 4; ++np) {     // 16 keys: two 8-key tiles
           uint32_t kf[4];
           ldmatrix_x4(kf, kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * P
                               + ks * 16 + ((lane >> 3) & 1) * 8);
-          mma_bf16_16816(s[2 * np], qf[ks], kf[0], kf[1]);
-          mma_bf16_16816(s[2 * np + 1], qf[ks], kf[2], kf[3]);
+          mma_bf16_16816(s[2 * np], qa, kf[0], kf[1]);
+          mma_bf16_16816(s[2 * np + 1], qa, kf[2], kf[3]);
         }
       }
       // masks only where the tile crosses the causal or the window edge; a
@@ -518,6 +548,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, i
     case 64: return launch_typed<T, 64>(q, k, v, out, B, S, H, KV, window, stream);
     case 80: return launch_typed<T, 80>(q, k, v, out, B, S, H, KV, window, stream);
     case 128: return launch_typed<T, 128>(q, k, v, out, B, S, H, KV, window, stream);
+    case 256: return launch_typed<T, 256>(q, k, v, out, B, S, H, KV, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -13,8 +13,8 @@ split by the storage type.  In bf16, the served type, the rows of each
 (batch row, KV head) are split over a thread-block cluster of up to 8
 blocks in one launch, each block reads only the valid rows of its range
 (``lengths[b] > 0``) with 16-byte loads that put several rows in flight,
-and rank 0 combines the blocks' softmax states through distributed
-shared memory.  In f32 (full-width parity, the tests) it is the first
+and the blocks combine their softmax states through distributed shared
+memory, each block a share of the outputs.  In f32 (full-width parity, the tests) it is the first
 port's kernel, unchanged: one block per (batch row, KV head).
 ``chip_smoke.py`` measures it beside its bound, the plain version and a
 masked ``scaled_dot_product_attention``.
@@ -35,7 +35,7 @@ from repro_torch.kernels import build
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 80, 128)
+_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 _MAX_G = 8
 _fn = None
 

@@ -40,7 +40,7 @@ from repro_torch.kernels import build
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 80, 128)
+_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 _fn = None
 
 

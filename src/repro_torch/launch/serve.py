@@ -24,7 +24,8 @@ Three modes, one control plane:
         --arch smollm-135m --requests 48 --prompt-len 256 --gen-tokens 64
 
 ``--arch`` takes any id of ``repro_torch.configs.registry`` (``smollm-135m``,
-``rwkv6-1.6b``, ``zamba2-2.7b``, and their ``-reduced`` cuts).
+``smollm-360m``, ``gemma-2b``, ``h2o-danube-1.8b``, ``rwkv6-1.6b``,
+``zamba2-2.7b``, and their ``-reduced`` cuts).
 """
 from __future__ import annotations
 
@@ -154,7 +155,8 @@ def main(argv=None):
                     help="scenario mode: size the run by request count "
                          "(default 24)")
     ap.add_argument("--arch", default="smollm-135m-reduced",
-                    help="a registered arch id (smollm-135m, rwkv6-1.6b, "
+                    help="a registered arch id (smollm-135m, smollm-360m, "
+                         "gemma-2b, h2o-danube-1.8b, rwkv6-1.6b, "
                          "zamba2-2.7b, or any of them with -reduced)")
     ap.add_argument("--policy", default="sponge",
                     help="live mode: sponge, fa2 or static-<cores>")

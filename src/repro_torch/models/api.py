@@ -1,17 +1,21 @@
-"""Public model API: ``build_model(cfg) -> Model`` with init/prefill/decode.
+"""Public model API: ``build_model(cfg) -> Model`` with init, forward,
+prefill and decode.
 
 Counterpart of the dense, RWKV-6 and Mamba2 / zamba2 parts of
-``repro.models.api``, for homogeneous stacks (``attn+mlp`` with standard
-RoPE, ``rwkv6+rwkv_cm`` with no positions, or ``mamba2+none``, with or
-without zamba2's shared attention block).  Parameters are plain dicts of
-tensors: ``{"embed", "final_norm", ["head",] "layers": [per-layer dict,
+``repro.models.api``, for homogeneous stacks (``attn+mlp`` or
+``swa+mlp`` with standard RoPE and a SwiGLU or GeGLU MLP,
+``rwkv6+rwkv_cm`` with no positions, or ``mamba2+none``, with or
+without zamba2's shared attention block).  ``forward`` is the
+reference's no-cache path over the whole sequence (no remat, no mesh,
+no MTP head).  Parameters are plain dicts of tensors: ``{"embed", "final_norm", ["head",] "layers": [per-layer dict,
 ...], ["shared_attn"]}`` — the reference's stacked
 ``params["groups"][0]`` with its leading layer axis unstacked into a
 list (a Python loop over layers takes the place of ``lax.scan``).  The
 decode cache is the reference's ``cache["groups"][0]`` with its leading
 layer axis, plus ``"index"`` (a 0-dim int32 tensor on the cache's
 device, as the reference's traced scalar): ``{"k", "v"}`` of shape (L, B, cache_len,
-KV, D) for attention; ``{"tmix": {"shift", "wkv"}, "cmix": {"shift"}}``
+KV, D) for attention (for ``swa`` a ring buffer of ``min(cache_len,
+window)`` slots); ``{"tmix": {"shift", "wkv"}, "cmix": {"shift"}}``
 for RWKV-6 (shifts (L, B, d) in the compute dtype, WKV state (L, B, H,
 D, D) in f32); ``{"ssm": {"conv_x", "conv_bc", "h"}}`` for Mamba2 (conv
 windows (L, B, W-1, C) in the compute dtype, SSD state (L, B, H, P, N)
@@ -64,8 +68,10 @@ def _is_mamba(cfg: ModelConfig) -> bool:
 
 def _check_supported(cfg: ModelConfig) -> None:
     kinds = set(cfg.blocks)
-    attention = cfg.rope_kind == "standard" and cfg.mlp_kind == "swiglu"
-    dense = kinds == {"attn+mlp"} and attention and not cfg.shared_attn_every
+    attention = (cfg.rope_kind == "standard"
+                 and cfg.mlp_kind in ("swiglu", "geglu"))
+    dense = (kinds in ({"attn+mlp"}, {"swa+mlp"}) and attention
+             and not cfg.shared_attn_every)
     rwkv = (kinds == {"rwkv6+rwkv_cm"} and cfg.rope_kind == "none"
             and not cfg.shared_attn_every)
     mamba = kinds == {"mamba2+none"} and (attention
@@ -74,10 +80,11 @@ def _check_supported(cfg: ModelConfig) -> None:
             or cfg.is_encoder_decoder or cfg.num_patch_tokens
             or cfg.mtp_depth):
         raise NotImplementedError(
-            f"{cfg.name}: only homogeneous stacks of dense attn+mlp blocks "
-            "(standard RoPE, SwiGLU), rwkv6+rwkv_cm blocks (no RoPE) or "
-            "mamba2+none blocks (a shared attention block with standard "
-            "RoPE and SwiGLU) are ported yet")
+            f"{cfg.name}: only homogeneous stacks of dense attn+mlp or "
+            "swa+mlp blocks (standard RoPE, SwiGLU or GeGLU), "
+            "rwkv6+rwkv_cm blocks (no RoPE) or mamba2+none blocks (a "
+            "shared attention block with standard RoPE and SwiGLU or "
+            "GeGLU) are ported yet")
 
 
 def _shared_apps(cfg: ModelConfig) -> int:
@@ -169,7 +176,8 @@ def _head(params, cfg: ModelConfig, x):
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
     """A zero decode cache; an RWKV-6 or Mamba2 state does not depend on
-    ``cache_len`` (the shared block's ring buffers do)."""
+    ``cache_len`` (the shared block's ring buffers do).  An ``swa``
+    stack's K/V hold ``min(cache_len, window)`` slots."""
     dtype = to_dtype(cfg.dtype)
     if _is_rwkv(cfg):
         cache = rk.init_rwkv6_state(cfg, batch, dtype, device,
@@ -178,8 +186,10 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
         cache = {"ssm": m2.init_mamba2_state(cfg, batch, dtype, device,
                                              layers=cfg.num_layers)}
     else:
+        window = cfg.window_size if "swa" in cfg.mixer_kinds else 0
         cache = attn_mod.init_attention_cache(cfg, batch, cache_len, dtype,
-                                              device, layers=cfg.num_layers)
+                                              device, layers=cfg.num_layers,
+                                              window=window)
     if cfg.shared_attn_every:
         cache["shared"] = attn_mod.init_attention_cache(
             cfg, batch, cache_len, dtype, device, layers=_shared_apps(cfg),
@@ -211,6 +221,41 @@ def _shared_cache(cache: dict, app: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# forward (no cache)
+# ---------------------------------------------------------------------------
+
+def _positions(cfg: ModelConfig, b: int, s: int, device):
+    """(B, S) positions 0..S-1, or None for a stack without positions."""
+    if _is_rwkv(cfg):
+        return None
+    return torch.arange(s, device=device).expand(b, s)
+
+
+def forward_hidden(params, batch: dict, cfg: ModelConfig):
+    """Like ``forward`` but returns the hidden states before the final
+    norm, ``(x (B, S, d_model), aux)``."""
+    tokens = batch["tokens"].long()
+    b, s = tokens.shape
+    positions = _positions(cfg, b, s, tokens.device)
+    x = _embed(params, cfg, tokens)
+    shared, every = params.get("shared_attn"), cfg.shared_attn_every
+    for i, p in enumerate(params["layers"]):
+        if shared is not None and i % every == 0:
+            x = tfm.shared_attn_fwd(shared, x, positions, cfg)
+        x = tfm.block_fwd(p, x, positions, cfg.blocks[i], cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=tokens.device)
+
+
+def forward(params, batch: dict, cfg: ModelConfig):
+    """Full-sequence forward with no cache.  ``batch["tokens"]``: (B, S)
+    integer ids.  Returns ``(logits (B, S, V), aux)``; ``aux`` is the
+    reference's auxiliary loss, 0 without MoE layers."""
+    x, aux = forward_hidden(params, batch, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _head(params, cfg, x), aux
+
+
+# ---------------------------------------------------------------------------
 # steps
 # ---------------------------------------------------------------------------
 
@@ -228,15 +273,15 @@ def prefill(params, batch: dict, cfg: ModelConfig,
         cache = init_cache(cfg, b, cache_len or s, tokens.device)
     else:
         _zero_cache(cache)
-    positions = (None if _is_rwkv(cfg) else
-                 torch.arange(s, device=tokens.device).expand(b, s))
+    positions = _positions(cfg, b, s, tokens.device)
     x = _embed(params, cfg, tokens)
     shared, every = params.get("shared_attn"), cfg.shared_attn_every
     for i, p in enumerate(params["layers"]):
         if shared is not None and i % every == 0:
             x = tfm.shared_attn_prefill(shared, x, positions, cfg,
                                         _shared_cache(cache, i // every))
-        x = tfm.block_prefill(p, x, positions, cfg, _layer_cache(cache, i))
+        x = tfm.block_prefill(p, x, positions, cfg.blocks[i], cfg,
+                              _layer_cache(cache, i))
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = _head(params, cfg, x)
     cache["index"].fill_(s)
@@ -263,7 +308,7 @@ def decode_step(params, cache: dict, token, cfg: ModelConfig):
                                        _shared_cache(cache, i // every),
                                        index, positions, cfg)
         x = tfm.block_decode(p, x, _layer_cache(cache, i), index, positions,
-                             cfg)
+                             cfg.blocks[i], cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _head(params, cfg, x)
     index.add_(1)
@@ -285,6 +330,12 @@ class Model:
     def generator(self, seed: int) -> torch.Generator:
         """A seeded generator on the model's device, for ``init``."""
         return torch.Generator(device=self.device).manual_seed(seed)
+
+    def forward(self, params, batch):
+        return forward(params, batch, self.cfg)
+
+    def forward_hidden(self, params, batch):
+        return forward_hidden(params, batch, self.cfg)
 
     def prefill(self, params, batch, cache_len=None, cache=None):
         return prefill(params, batch, self.cfg, cache_len, cache)

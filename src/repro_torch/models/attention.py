@@ -1,7 +1,11 @@
-"""GQA attention: init, RoPE, single-token decode against a KV cache.
+"""GQA attention: init, RoPE, the no-cache forward, single-token decode
+against a KV cache.
 
-Counterpart of the GQA part of ``repro.models.attention`` (MLA, M-RoPE
-and the blocked prefill attention are still to be ported).  A
+Counterpart of the GQA part of ``repro.models.attention`` (MLA, M-RoPE,
+the logit softcap and cross-attention are still to be ported).
+``attention_fwd`` is the forward over a whole sequence with no cache,
+through ``blocked_attention``: the reference computes it in plain array
+code outside any Pallas kernel, and so does this counterpart.  A
 sliding-window cache (``window > 0``) is a ring buffer of
 ``min(seq, window)`` slots: slot ``p % S`` holds position ``p``.
 ``attention_decode`` routes through the Hopper ``decode_attention``
@@ -22,6 +26,7 @@ host and one captured step serves every position.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
@@ -46,6 +51,89 @@ def _rope_qk(q, k, positions, cfg: ModelConfig):
                                   "ported yet")
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta))
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                      causal: bool, window: int, scale: float,
+                      block_q: int = 512, block_k: int = 1024) -> torch.Tensor:
+    """Flash-style online-softmax attention in plain PyTorch, block for
+    block the reference's.
+
+    q: (B, Sq, H, D); k, v: (B, Sk, KV, D); q_pos / k_pos: (B, Sq) /
+    (B, Sk).  Returns (B, Sq, H, D) in v's dtype.  Never materialises
+    (Sq, Sk): queries go in blocks of ``block_q``, keys in blocks of
+    ``block_k``, the sequences padded to whole blocks (padded queries at
+    position -1, padded keys at 2**30 and masked)."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = h // kvh
+    orig_sq = sq
+    pad_q = (-sq) % block_q
+    pad_k = (-sk) % block_k
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+        q_pos = F.pad(q_pos, (0, pad_q), value=-1)
+        sq += pad_q
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+        k_pos = F.pad(k_pos, (0, pad_k), value=2**30)
+        sk += pad_k
+    nq, nk = sq // block_q, sk // block_k
+
+    qb = q.reshape(b, nq, block_q, kvh, g, d).permute(1, 0, 3, 4, 2, 5)
+    # qb: (nq, B, KV, G, bq, D)
+    qpb = q_pos.reshape(b, nq, block_q).permute(1, 0, 2)       # (nq, B, bq)
+    kb = k.reshape(b, nk, block_k, kvh, d).permute(1, 0, 3, 2, 4)
+    vb = v.reshape(b, nk, block_k, kvh, dv).permute(1, 0, 3, 2, 4)
+    kpb = k_pos.reshape(b, nk, block_k).permute(1, 0, 2)       # (nk, B, bk)
+
+    outs = []
+    for qi, qp in zip(qb, qpb):              # (B,KV,G,bq,D), (B,bq)
+        qi = qi.float() * scale
+        m = torch.full((b, kvh, g, block_q), NEG_INF, device=q.device)
+        l = torch.zeros((b, kvh, g, block_q), device=q.device)
+        acc = torch.zeros((b, kvh, g, block_q, dv), device=q.device)
+        for ki, vi, kp in zip(kb, vb, kpb):  # (B,KV,bk,D) x2, (B,bk)
+            s = torch.einsum("bkgqd,bktd->bkgqt", qi, ki.float())
+            rel = qp[:, None, None, :, None] - kp[:, None, None, None, :]
+            mask = (kp < 2**30)[:, None, None, None, :]
+            if causal:
+                mask = mask & (rel >= 0)
+            if window > 0:
+                mask = mask & (rel < window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqt,bktd->bkgqd", p, vi.float())
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+
+    out = torch.stack(outs)                  # (nq, B, KV, G, bq, Dv)
+    out = out.permute(1, 0, 4, 2, 3, 5).reshape(b, sq, h, dv)
+    return out[:, :orig_sq].to(v.dtype)
+
+
+def attention_fwd(params, x: torch.Tensor, positions: torch.Tensor,
+                  cfg: ModelConfig, *, window: int = 0,
+                  causal: bool = True) -> torch.Tensor:
+    """Self-attention over a whole sequence, no cache.  x: (B, S,
+    d_model); positions: (B, S).  ``window > 0`` keeps the keys of the
+    last ``window`` positions (sliding window)."""
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    b, s, _ = x.shape
+    q = linear(x, params["wq"]).reshape(b, s, h, d)
+    k = linear(x, params["wk"]).reshape(b, s, kvh, d)
+    v = linear(x, params["wv"]).reshape(b, s, kvh, d)
+    q, k = _rope_qk(q, k, positions, cfg)
+    out = blocked_attention(q, k, v, positions, positions, causal=causal,
+                            window=window, scale=d ** -0.5)
+    return linear(out.reshape(b, s, h * d), params["wo"])
 
 
 def attention_decode(params, x: torch.Tensor, cache: dict, cache_index,

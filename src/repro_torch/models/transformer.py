@@ -1,8 +1,13 @@
-"""Block assembly for the ``attn+mlp``, ``rwkv6+rwkv_cm`` and
-``mamba2+none`` stacks and zamba2's shared attention block: prefill and
-decode.
+"""Block assembly for the ``attn+mlp``, ``swa+mlp``, ``rwkv6+rwkv_cm``
+and ``mamba2+none`` stacks and zamba2's shared attention block: the
+no-cache forward, prefill and decode.
 
-Counterpart of those parts of ``repro.models.transformer``.  Prefill
+Counterpart of those parts of ``repro.models.transformer``.  An ``swa``
+mixer is attention over the last ``cfg.window_size`` positions (its
+cache a ring buffer), an ``attn`` mixer full causal attention.  The
+forward (``block_fwd``) runs the reference's plain paths: attention
+through ``attention.blocked_attention``, the Mamba2 and RWKV-6 mixers
+through their kernels' plain versions.  Prefill
 attention runs the Hopper ``swa_prefill`` kernel when
 ``cfg.use_pallas_prefill`` is set (full causal attention is the case
 ``window = S``; the kernel masks ragged tiles itself, so the reference's
@@ -36,7 +41,7 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype,
     mixer, ffn = kind.split("+")
     d = cfg.d_model
     p = {"norm1": torch.zeros(d, dtype=dtype, device=device)}
-    if mixer == "attn":
+    if mixer in ("attn", "swa"):
         p["attn"] = attn.init_attention(gen, cfg, dtype)
     elif mixer == "mamba2":
         p["mamba"] = m2.init_mamba2(gen, cfg, dtype)
@@ -98,18 +103,52 @@ def _attn_prefill(p, h, positions, cfg: ModelConfig, window: int,
     return y
 
 
-def _ffn(p, h, cfg: ModelConfig, cache: dict, state):
+def _window(cfg: ModelConfig, mixer: str) -> int:
+    """The attention window of a mixer: ``cfg.window_size`` for ``swa``,
+    0 (full causal) for ``attn``."""
+    return cfg.window_size if mixer == "swa" else 0
+
+
+def _ffn(p, h, cfg: ModelConfig, cache, state):
+    """The feed-forward half on the normed ``h``; RWKV-6's channel mix
+    keeps its token shift in ``cache["cmix"]`` (None: no cache)."""
     if "mlp" in p:
         return mlp_fwd(p["mlp"], h, cfg.mlp_kind)
-    y, _ = rk.rwkv6_cmix_fwd(p["cmix"], h, cfg, state, out=cache["cmix"])
+    y, _ = rk.rwkv6_cmix_fwd(p["cmix"], h, cfg, state,
+                             out=None if cache is None else cache["cmix"])
     return y
 
 
-def block_prefill(p, x, positions, cfg: ModelConfig, cache: dict):
+# -- forward (no cache) ------------------------------------------------------
+
+def block_fwd(p, x, positions, kind: str, cfg: ModelConfig):
+    """One block over the whole sequence, no cache (the reference's
+    ``block_fwd`` without MoE, MLA or cross-attention)."""
+    mixer = kind.split("+")[0]
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if "attn" in p:
-        y = _attn_prefill(p["attn"], h, positions, cfg, 0, cache)
-    elif "mamba" in p:
+    if mixer in ("attn", "swa"):
+        y = attn.attention_fwd(p["attn"], h, positions, cfg,
+                               window=_window(cfg, mixer))
+    elif mixer == "mamba2":
+        y, _ = m2.mamba2_fwd(p["mamba"], h, cfg, None)
+    else:
+        y, _ = rk.rwkv6_tmix_fwd(p["tmix"], h, cfg, None)
+    x = x + y
+    if "norm2" not in p:                     # ffn "none"
+        return x
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + _ffn(p, h, cfg, None, None)
+
+
+# -- prefill and decode --------------------------------------------------------
+
+def block_prefill(p, x, positions, kind: str, cfg: ModelConfig, cache: dict):
+    mixer = kind.split("+")[0]
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if mixer in ("attn", "swa"):
+        y = _attn_prefill(p["attn"], h, positions, cfg, _window(cfg, mixer),
+                          cache)
+    elif mixer == "mamba2":
         y, _ = m2.mamba2_fwd(p["mamba"], h, cfg, None,
                              kernel=cfg.use_pallas_prefill, out=cache["ssm"])
     else:
@@ -124,12 +163,13 @@ def block_prefill(p, x, positions, cfg: ModelConfig, cache: dict):
 
 
 def block_decode(p, x, cache: dict, index: torch.Tensor, positions,
-                 cfg: ModelConfig):
+                 kind: str, cfg: ModelConfig):
+    mixer = kind.split("+")[0]
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if "attn" in p:
+    if mixer in ("attn", "swa"):
         y, _ = attn.attention_decode(p["attn"], h, cache, index, positions,
-                                     cfg)
-    elif "mamba" in p:
+                                     cfg, window=_window(cfg, mixer))
+    elif mixer == "mamba2":
         y, _ = m2.mamba2_decode(p["mamba"], h, cfg, cache["ssm"],
                                 kernel=cfg.use_pallas_decode,
                                 out=cache["ssm"])
@@ -148,6 +188,14 @@ def block_decode(p, x, cache: dict, index: torch.Tensor, positions,
 # zamba2's shared attention block: one weight set, one ring-buffer KV cache
 # per application (``cache`` is that application's {"k", "v"})
 # ---------------------------------------------------------------------------
+
+def shared_attn_fwd(p, x, positions, cfg: ModelConfig):
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    x = x + attn.attention_fwd(p["attn"], h, positions, cfg,
+                               window=cfg.shared_attn_window)
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + mlp_fwd(p["mlp"], h, cfg.mlp_kind)
+
 
 def shared_attn_prefill(p, x, positions, cfg: ModelConfig, cache: dict):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)

@@ -64,7 +64,9 @@ def cuda_device():
                                           (4, 200, 9, 3, 64, 64),
                                           (2, 77, 4, 1, 128, 1000),
                                           (4, 256, 32, 32, 80, 4096),
-                                          (2, 77, 4, 4, 80, 16)])
+                                          (2, 77, 4, 4, 80, 16),
+                                          (4, 256, 8, 1, 256, 256),
+                                          (2, 77, 8, 1, 256, 16)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_swa_prefill_kernel_matches_plain_on_card(b, s, h, kv, d, w, dtype,
                                                   cuda_device):
@@ -85,7 +87,8 @@ def test_swa_prefill_kernel_matches_plain_on_card(b, s, h, kv, d, w, dtype,
 @pytest.mark.parametrize("b,kv,g,d,s,lens", [(4, 3, 3, 64, 321, [0, 1, 160, 321]),
                                              (2, 2, 8, 128, 77, [5, 77]),
                                              (4, 32, 1, 80, 321, [1, 160, 320, 321]),
-                                             (2, 4, 1, 80, 16, [16, 9])])
+                                             (2, 4, 1, 80, 16, [16, 9]),
+                                             (4, 1, 8, 256, 321, [0, 1, 160, 321])])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_kernel_matches_plain_on_card(b, kv, g, d, s, lens,
                                                        dtype, cuda_device):
@@ -110,7 +113,7 @@ def test_decode_attention_kernel_matches_plain_on_card(b, kv, g, d, s, lens,
 @pytest.mark.cuda
 @pytest.mark.parametrize("s", [1, 15, 63, 65, 200])
 @pytest.mark.parametrize("w", [1, 17, 64, 4096])
-@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128, 256])
 @pytest.mark.parametrize("g", [1, 3, 8])
 def test_swa_prefill_bf16_tiling_edges_on_card(s, w, d, g, cuda_device):
     b, kv = 2, 2
@@ -132,7 +135,7 @@ def test_swa_prefill_bf16_tiling_edges_on_card(s, w, d, g, cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("s", [1, 16, 321, 4096])
 @pytest.mark.parametrize("g", [1, 3, 8])
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 def test_decode_attention_bf16_split_edges_on_card(s, g, d, cuda_device):
     """Lengths 0 (the mean of V over all S rows), 1 (one block of the
     cluster holds a row, the others none), S, and one whose rows split
@@ -312,6 +315,62 @@ def test_ssd_scan_bf16_state_continuation_on_card(t, cuda_device):
 
 
 # --------------------------------------------------------------------------
+# on the card: h2o-danube-1.8b's sliding window past its end
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_window_ring_wrap_on_card(dtype, cuda_device):
+    """h2o-danube-1.8b at full width cut to 2 layers: a 4160-token prompt
+    past the 4096-token window (``swa_prefill`` skips the tiles outside
+    the band, the prefill wraps the ring), then 8 decode steps over the
+    wrapped ring, fed the plain route's greedy ids.  The kernel route
+    matches the plain route: f32 logits within 1e-3 and the same greedy
+    ids; bf16 logits within 2e-2 of the plain route's, relative to
+    their largest magnitude."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("h2o-danube-1.8b")
+    cfg = dataclasses.replace(cfg, num_layers=2, blocks=cfg.blocks[:2],
+                              dtype=dtype, param_dtype=dtype)
+    kern = build_model(dataclasses.replace(cfg, use_pallas_prefill=True,
+                                           use_pallas_decode=True),
+                       device=cuda_device)
+    plain = build_model(cfg, device=cuda_device)
+    params = kern.init(kern.generator(0))
+    s, steps, vocab = 4160, 8, cfg.vocab_size
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    tokens = torch.randint(0, vocab, (1, s), generator=g, device=cuda_device,
+                           dtype=torch.int32)
+    before = (pre.launches, dec.launches)
+    with torch.inference_mode():
+        lk, ck = kern.prefill(params, {"tokens": tokens}, cache_len=s + 9)
+        lp, cp = plain.prefill(params, {"tokens": tokens}, cache_len=s + 9)
+        assert ck["k"].shape[2] == cfg.window_size == 4096
+        got, ref = [lk.float()], [lp.float()]
+        for _ in range(steps):
+            tok = lp[:, :vocab].argmax(-1).to(torch.int32)[:, None]
+            lk, ck = kern.decode_step(params, ck, tok)
+            lp, cp = plain.decode_step(params, cp, tok)
+            got.append(lk.float())
+            ref.append(lp.float())
+    torch.cuda.synchronize()
+    assert (pre.launches - before[0], dec.launches - before[1]) == \
+        (2, 2 * steps)
+    got, ref = torch.stack(got), torch.stack(ref)
+    assert torch.isfinite(got).all()
+    if dtype == "float32":
+        assert float((got - ref).abs().max()) <= 1e-3
+        assert torch.equal(got[..., :vocab].argmax(-1),
+                           ref[..., :vocab].argmax(-1))
+    else:
+        scale = float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= 2e-2 * scale
+
+
+# --------------------------------------------------------------------------
 # on the card: the fixed-work table entry (prefill + greedy decode steps)
 # --------------------------------------------------------------------------
 GEN_TOKENS = 8
@@ -383,7 +442,8 @@ def test_fixed_work_entry_on_card(arch, b, prompt, fixed_routes):
 # on the card: the step tables captured as CUDA graphs
 # --------------------------------------------------------------------------
 CAPTURE_ARCHS = ("smollm-135m-reduced", "rwkv6-1.6b-reduced",
-                 "zamba2-2.7b-reduced")
+                 "zamba2-2.7b-reduced", "gemma-2b-reduced",
+                 "h2o-danube-1.8b-reduced")
 
 
 @pytest.fixture(scope="module")

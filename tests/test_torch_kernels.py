@@ -61,6 +61,9 @@ PREFILL_RAGGED = [                # ..._ragged_and_window_edges
     (1, 256, 9, 3, 64, 256, 256),     # smollm-135m serving shape, G = 3
     (1, 64, 4, 4, 80, 4096, 64),      # zamba2's shared block: D = 80
     (2, 40, 2, 2, 80, 16, 40),        # D = 80, the reduced cut's window 16
+    (1, 64, 8, 1, 256, 4096, 64),     # gemma-2b: D = 256, 8 heads over 1
+    (2, 40, 4, 1, 256, 16, 40),       # D = 256 under a window of 16
+    (1, 96, 4, 2, 80, 32, 32),        # h2o-danube's widths, window < S
 ]
 
 
@@ -113,6 +116,8 @@ DECODE_SWEEP = [                  # tests/test_kernels.py sweeps + ragged
     (4, 3, 3, 64, 321, 321, [0, 1, 160, 321]),  # serving shape, length 0
     (2, 4, 1, 80, 48, 48, [1, 48]),       # zamba2's shared block: D = 80
     (2, 2, 1, 80, 16, 16, [9, 16]),       # D = 80 on a full 16-slot ring
+    (4, 1, 8, 256, 64, 64, [0, 1, 33, 64]),  # gemma-2b: D = 256, G = 8
+    (2, 2, 4, 80, 32, 32, [17, 32]),      # h2o-danube's widths, a full ring
 ]
 
 
@@ -209,6 +214,24 @@ def test_decode_check_rejects_what_the_kernel_does_not_take(case):
         k = torch.zeros(2, 16, 2, 64)
     with pytest.raises(ValueError):
         dec._check(q, k, k, lens)
+
+
+def test_checks_take_head_dim_256_and_refuse_others():
+    """Both wrappers take gemma-2b's head_dim 256 (a CUDA tensor of that
+    width launches the kernel) and refuse a width the kernels do not
+    instantiate."""
+    pre._check(torch.zeros(1, 8, 8, 256), torch.zeros(1, 8, 1, 256),
+               torch.zeros(1, 8, 1, 256), 8)
+    dec._check(torch.zeros(2, 1, 8, 256), torch.zeros(2, 16, 1, 256),
+               torch.zeros(2, 16, 1, 256), torch.ones(2, dtype=torch.int32))
+    for d in (96, 192, 512):
+        with pytest.raises(ValueError, match="head dim"):
+            pre._check(torch.zeros(1, 8, 2, d), torch.zeros(1, 8, 1, d),
+                       torch.zeros(1, 8, 1, d), 8)
+        with pytest.raises(ValueError, match="head dim"):
+            dec._check(torch.zeros(2, 1, 2, d), torch.zeros(2, 16, 1, d),
+                       torch.zeros(2, 16, 1, d),
+                       torch.ones(2, dtype=torch.int32))
 
 
 def test_build_targets_name_each_source_by_content():

@@ -193,7 +193,9 @@ def _jax_arrivals(batch, vocab_size):
 
 
 @pytest.fixture(scope="module", params=[ARCH, "rwkv6-1.6b-reduced",
-                                        "zamba2-2.7b-reduced"])
+                                        "zamba2-2.7b-reduced",
+                                        "gemma-2b-reduced",
+                                        "h2o-danube-1.8b-reduced"])
 def slice_runs(request):
     arch = request.param
     n, seed = SLICE["requests"], SLICE["seed"]
@@ -266,7 +268,9 @@ def test_run_token_scenario_on_cpu():
 
 
 @pytest.mark.parametrize("arch", [ARCH, "rwkv6-1.6b-reduced",
-                                  "zamba2-2.7b-reduced"])
+                                  "zamba2-2.7b-reduced", "smollm-360m-reduced",
+                                  "gemma-2b-reduced",
+                                  "h2o-danube-1.8b-reduced"])
 def test_launcher_token_branch_on_cpu(arch, capsys):
     out = launcher.main(["--scenario", "llm-chat", "--device", "cpu",
                          "--arch", arch, "--requests", "4",
