@@ -94,7 +94,27 @@ code is non-zero:
    with ``swa_prefill`` launched 30 times (once per layer) and
    ``decode_attention`` 240 times (per layer per step) for every entry
    the serve ran, warm-up excluded, and neither scan.  Its launches join
-   the kernel rows.
+   the kernel rows;
+   scenarios -- the dynamic-SLO scenarios on full-width smollm-135m, bf16:
+   ``llm-heavy-tail`` and ``retrieve-then-generate`` (decode lengths from
+   a declared distribution; the RAG prompts cut to the 256 bucket) served
+   like ``llm-chat``, under the same checks; then the fixed phase's
+   table (captured at warm-up, its fitted ``l(b, c)`` given) behind one
+   fresh ``SpongeServer`` per run: ``slo-renegotiation`` and
+   ``cancel-storm`` (120 requests each, seed 0) through
+   ``server.session()``, each row submitted with a random prompt and the
+   scenario's ``update_slo`` / ``cancel`` stream applied by
+   ``drive_session_events``, with and without that stream, on the
+   modelled clock (decisions, buckets, ``n``, violation rate,
+   ``n_cancelled`` and the applied/no-op counts equal to
+   ``run_scenario(name, engine="exact")`` on ``SimBackend`` over the same
+   ``l(b, c)``, neither charging a resize penalty) and on the measured
+   clock (violation rate, p50, p99, cancels, applied counts, decisions
+   that differ between the two runs); ``network-replay`` (4G and 5G
+   clients) served the same way on the measured clock.  Every live run
+   must launch ``swa_prefill`` 30 times and ``decode_attention`` 240
+   times per entry it ran, and neither scan.  All launches join the
+   kernel rows.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Without a CUDA device, or outside a checkout, it prints no result
@@ -154,6 +174,12 @@ SERVE = dict(requests=48, prompt_len=256, max_decode=64, seed=0)
 FIXED = dict(arch="smollm-135m", c_set=(1, 2, 4, 8), b_set=(1, 2, 4, 8),
              prompt_len=64, gen_tokens=8, slo=1.0, size_kb=200.0, rps=10.0,
              duration=6.0, seed=42)
+# the dynamic-SLO scenarios: the token scenarios with a declared
+# decode-length distribution, served like llm-chat; the session scenarios
+# and network-replay on the fixed-work server (FIXED's table and fit)
+TOKEN_SCENARIOS = ("llm-heavy-tail", "retrieve-then-generate")
+SESSION_SCENARIOS = ("slo-renegotiation", "cancel-storm")
+SCENARIO_REQUESTS = 120
 # the main paths: each model is checked for parity, captured and served
 ARCHS = ("smollm-135m", "rwkv6-1.6b", "zamba2-2.7b", "gemma-2b",
          "h2o-danube-1.8b")
@@ -1263,8 +1289,8 @@ def fixed_phase(dev, rows):
     """The paper's fixed-work Sponge loop on full-width smollm-135m with
     ``run_live``'s settings: f32 ids of the kernel and plain routes, both
     attention kernels in bf16 at the entry's shapes, the modelled clock
-    against ``SimBackend``, then a measured serve whose kernel launches
-    are returned."""
+    against ``SimBackend``, then a measured serve.  Returns the serve's
+    kernel launches and the fitted ``l(b, c)``."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import live_arrivals
     from repro_torch.models import build_model
@@ -1418,7 +1444,157 @@ def fixed_phase(dev, rows):
         generated_tokens_per_wall_s=len(results) * gen / run_wall,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     say("fixed", launches=json.dumps(launches))
-    return launches
+    return launches, perf
+
+
+def scenarios_phase(dev, perf):
+    """The dynamic-SLO scenarios on full-width smollm-135m: the two
+    distribution-declaring token scenarios served like ``llm-chat``; the
+    two session scenarios on the live fixed-work server (the fixed
+    phase's table settings and fit) through ``server.session()`` and
+    ``drive_session_events``, with and without their event stream, on
+    the modelled clock (held equal to ``run_scenario(engine="exact")``)
+    and on the measured clock; ``network-replay`` served live.  Returns
+    the kernel launches of every serve, each counted from 0."""
+    from repro_torch.serving.api import (SpongeServer, TorchBackend,
+                                         make_live_server, make_policy,
+                                         pad_tokens)
+    from repro_torch.serving.capture import launch_counts
+    from repro_torch.serving.scenarios import build_scenario, run_scenario
+    from repro_torch.serving.session import drive_session_events
+
+    total = dict.fromkeys(launch_counts(), 0)
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] += n
+
+    # 1. the token scenarios, served live like llm-chat
+    for name in TOKEN_SCENARIOS:
+        add(serve_phase(dev, "smollm-135m", name))
+        torch.cuda.empty_cache()
+
+    # 2. the fixed-work table once (captured at warm-up, the fixed
+    # phase's fit given), then one server over it per run
+    f = FIXED
+    sets = dict(c_set=f["c_set"], b_set=f["b_set"])
+    base, cfg = make_live_server(f["arch"], prompt_len=f["prompt_len"],
+                                 gen_tokens=f["gen_tokens"], perf=perf,
+                                 seed=0, device=dev, **sets)
+    fns, layers = base.backend.step_fns, cfg.num_layers
+
+    def serve(name, clock, mid_flight=True):
+        """One live run of a scenario's first ``SCENARIO_REQUESTS``
+        arrivals: a fresh server over the table, a session, the prompts
+        as payloads, the event stream (session scenarios), the report."""
+        batch, meta = build_scenario(name, requests=SCENARIO_REQUESTS,
+                                     seed=0)
+        tick = meta.get("tick", 1.0)
+        policy = make_policy("sponge", perf, adaptation_interval=tick,
+                             slo=meta["slo"],
+                             expected_rps=meta["expected_rps"], **sets)
+        server = SpongeServer(policy, TorchBackend(fns, pad_tokens, perf,
+                                                   clock=clock),
+                              tick=tick, prior_rps=meta["expected_rps"])
+        rng = np.random.default_rng(0)
+        sess = server.session()
+        reset_launches()
+        t0 = time.perf_counter()
+        handles = [sess.submit(r, payload=rng.integers(
+            0, cfg.vocab_size, f["prompt_len"]).astype(np.int32))
+            for r in batch.to_requests()]
+        events = meta.get("session_events", ()) if mid_flight else ()
+        applied = drive_session_events(sess, handles, events)
+        report = sess.finish()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        add(launches)
+        results = server.backend.results
+        entries = len(server.backend.measured)
+        ids = (np.stack([it.result for it in results]) if results
+               else np.zeros((0, f["gen_tokens"]), np.int32))
+        checks = {
+            "every served request got its ids":
+                len(results) == report.n_requests > 0
+                and ids.shape == (report.n_requests, f["gen_tokens"]),
+            "ids in vocab": bool(((ids >= 0) & (ids < cfg.vocab_size)).all()),
+            "served or cancelled, each once":
+                report.n_requests + report.n_cancelled == len(batch),
+            "swa_prefill launched once per layer per entry":
+                entries > 0 and launches["swa_prefill"] == layers * entries,
+            "decode_attention launched once per layer per step per entry":
+                launches["decode_attention"]
+                == layers * f["gen_tokens"] * entries,
+            "no scan launched":
+                launches["rwkv6_scan"] == launches["ssd_scan"] == 0,
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"{name} ({clock}) live checks failed: "
+                                 f"{failed} (launches {launches})")
+        return report, applied, entries, wall, launches
+
+    def stream(report):
+        return [(t, d.c, d.b, d.feasible) for t, d in report.decisions]
+
+    def check_modeled(name, mid_flight, rep, applied):
+        """The modelled clock: decision for decision the exact engine on
+        ``SimBackend`` over the same l(b, c), neither side charging a
+        resize penalty."""
+        ref, stats = run_scenario(
+            name, engine="exact", perf=perf, requests=SCENARIO_REQUESTS,
+            seed=0, c0=max(f["c_set"]), mid_flight=mid_flight,
+            resize_penalty=0.0, **sets)
+        same = {"decisions": stream(rep) == stream(ref) != [],
+                "buckets": rep.buckets == ref.buckets,
+                "n": rep.n_requests == ref.n_requests,
+                "violation_rate": rep.violation_rate == ref.violation_rate,
+                "n_cancelled": rep.n_cancelled == ref.n_cancelled,
+                "applied": applied == stats["session"]}
+        if not all(same.values()):
+            raise AssertionError(
+                f"{name} modelled clock differs from run_scenario("
+                f"engine='exact') (mid_flight={mid_flight}): "
+                f"{[k for k, ok in same.items() if not ok]}")
+        say("scenarios", scenario=name, clock="modeled",
+            mid_flight=mid_flight,
+            check="equal to run_scenario(engine='exact')",
+            decisions=len(rep.decisions), buckets=len(rep.buckets))
+
+    for name in SESSION_SCENARIOS:
+        for clock in ("modeled", "measured"):
+            runs = {mid_flight: serve(name, clock, mid_flight)
+                    for mid_flight in (True, False)}
+            torch.cuda.empty_cache()
+            for mid_flight, (rep, applied, entries, wall, launches) \
+                    in runs.items():
+                say("scenarios", scenario=name, arch=cfg.name,
+                    dtype="bfloat16", clock=clock, mid_flight=mid_flight,
+                    requests=SCENARIO_REQUESTS, n=rep.n_requests,
+                    violation_rate=rep.violation_rate, p50=rep.p50,
+                    p99=rep.p99, n_cancelled=rep.n_cancelled,
+                    applied=json.dumps(applied),
+                    decisions=len(rep.decisions), buckets=len(rep.buckets),
+                    entries=entries, run_wall_s=wall,
+                    launches=json.dumps(launches))
+                if clock == "modeled":
+                    check_modeled(name, mid_flight, rep, applied)
+            d_ev, d_pl = stream(runs[True][0]), stream(runs[False][0])
+            say("scenarios", scenario=name, clock=clock,
+                decisions_events=len(d_ev), decisions_plain=len(d_pl),
+                decisions_differing=sum(x != y for x, y in zip(d_ev, d_pl))
+                + abs(len(d_ev) - len(d_pl)))
+
+    # 3. network-replay: 4G and 5G clients, served on the measured clock
+    rep, _, entries, wall, launches = serve("network-replay", "measured")
+    say("scenarios", scenario="network-replay", arch=cfg.name,
+        dtype="bfloat16", clock="measured", requests=SCENARIO_REQUESTS,
+        n=rep.n_requests, violation_rate=rep.violation_rate, p50=rep.p50,
+        p99=rep.p99, decisions=len(rep.decisions), entries=entries,
+        run_wall_s=wall, launches=json.dumps(launches))
+    say("scenarios", launches=json.dumps(total))
+    return total
 
 
 def profile_phase(dev, arch: str) -> None:
@@ -1569,7 +1745,11 @@ def main() -> int:
                                sets=(1, 2, 4, 8)).items():
         rows[name]["launches"] += n
     torch.cuda.empty_cache()
-    for name, n in fixed_phase(dev, rows).items():
+    launches, perf = fixed_phase(dev, rows)
+    for name, n in launches.items():
+        rows[name]["launches"] += n
+    torch.cuda.empty_cache()
+    for name, n in scenarios_phase(dev, perf).items():
         rows[name]["launches"] += n
     torch.cuda.empty_cache()
     if args.profile:

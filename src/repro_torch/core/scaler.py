@@ -3,8 +3,7 @@ read the queue snapshot and the λ estimate, solve the IP, and emit a
 Decision the engine applies by in-place vertical scaling.
 
 Copy of ``repro.core.scaler``: ``SpongeScaler`` over the fixed-work
-``PerfModel`` (without the ``extra_budgets`` hook no ported caller
-uses) and ``TokenSpongeScaler`` without the decode-length
+``PerfModel`` and ``TokenSpongeScaler`` with the decode-length
 ``uncertainty`` option.  ``SpongeScaler.solver`` selects the optimizer:
 
 * ``"bruteforce"`` -- the paper's Algorithm 1, a Python double loop
@@ -28,6 +27,7 @@ from repro_torch.core.slo import Decision
 from repro_torch.core.solver import (DEFAULT_B, DEFAULT_C, MemoizedSolver,
                                      TokenMemoizedSolver, solve_bruteforce,
                                      solve_pruned, solve_token_bruteforce)
+from repro_torch.core.uncertainty import UncertaintyConfig
 
 
 @dataclass
@@ -68,10 +68,18 @@ class SpongeScaler:
         return self._memo
 
     def decide(self, now: float, queue: EDFQueue, lam: float,
-               initial_wait: float = 0.0) -> Decision:
+               initial_wait: float = 0.0,
+               extra_budgets: tuple = ()) -> Decision:
+        """One adaptation step.  ``extra_budgets`` are budgets of
+        requests not yet queued (``TelemetryPolicy``'s in-flight
+        estimate), solved for beside the queue's."""
         self._next_t = now + self.adaptation_interval
         remaining = np.maximum(queue.remaining_array(now) - self.headroom,
                                0.0)
+        if extra_budgets:
+            extra = np.maximum(
+                np.asarray(extra_budgets, np.float64) - self.headroom, 0.0)
+            remaining = np.sort(np.concatenate([remaining, extra]))
         lam_eff = lam * self.lam_headroom
         if self.solver == "memo":
             d = self.memo.solve(remaining, lam_eff,
@@ -121,6 +129,11 @@ class TokenSpongeScaler:
     # the cost model's mean decode length (a slot frees when its stream
     # finishes) — see ``repro_torch.core.solver.solve_token_bruteforce``
     drag_steps: Optional[float] = None
+    # distribution-aware admission: with a non-point distribution the
+    # solve plans drag at the admission quantile and widens the TTFT
+    # headroom by the shared predictor's slack factor; None or a point
+    # mass leaves the deterministic solve untouched
+    uncertainty: Optional[UncertaintyConfig] = None
     decisions: List[tuple[float, Decision]] = field(default_factory=list)
     _next_t: float = 0.0
     _memo: Optional[TokenMemoizedSolver] = field(default=None, repr=False)
@@ -143,9 +156,20 @@ class TokenSpongeScaler:
     def decide(self, now: float, queue, lam: float,
                initial_wait: float = 0.0, active_slots: int = 0,
                tbt_budget: Optional[float] = None) -> Decision:
-        """One adaptation step: snapshot, solve, log, return."""
+        """One adaptation step: snapshot, solve, log, return.
+
+        With a non-point ``UncertaintyConfig`` the p-quantile completion
+        estimate gates admission: slot-turnover drag is planned at
+        ``dist.quantile(admission_quantile)`` (not the cost model's
+        mean) and the TTFT headroom is multiplied by the predictor's
+        running slack factor.
+        """
         self._next_t = now + self.adaptation_interval
         headroom, drag = self.headroom, self.drag_steps
+        unc = self.uncertainty
+        if unc is not None and not unc.is_point():
+            headroom = self.headroom * unc.predictor.slack_factor()
+            drag = unc.drag_estimate()
         rem, toks, queue_tbt = queue.token_snapshot(now)
         remaining = np.maximum(rem - headroom, 0.0)
         tbt = queue_tbt if tbt_budget is None else min(tbt_budget, queue_tbt)

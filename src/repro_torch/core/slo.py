@@ -27,8 +27,9 @@ class Request:
     prompt_tokens: int = field(compare=False, default=1)
     decode_tokens: int = field(compare=False, default=0)
     tbt_slo: float = field(compare=False, default=float("inf"))
-    # the declared distribution of ``decode_tokens``; kept for a one-to-
-    # one field map with the reference (None here: lengths are known)
+    # the declared distribution of ``decode_tokens``
+    # (``core.uncertainty.LengthDistribution``); None or a point mass
+    # means the length is known exactly
     decode_dist: Optional[object] = field(compare=False, default=None,
                                           repr=False)
     # lifecycle (filled by the system)

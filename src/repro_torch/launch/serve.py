@@ -13,15 +13,25 @@ Three modes, one control plane:
   ``--device`` names another.  ``--policy fa2`` runs one-core replicas
   over the same table (on one card they run one after another in wall
   time; the virtual clock treats them as parallel).
-* ``--scenario <token scenario>`` (or ``--mode scenario``) -- a
-  registered token scenario served on the real kernels through
-  ``TokenTorchBackend`` (``--engine torch``).
+* ``--scenario <name>`` (or ``--mode scenario``) -- a registered
+  scenario.  ``--engine exact`` runs it on the object-based exact engine
+  (``serving.scenarios.run_scenario``; NumPy only, no device): the
+  session scenarios (``slo-renegotiation``, ``cancel-storm``) through
+  the online session API (``--no-mid-flight`` replays them without
+  their update/cancel stream), the token scenarios on
+  ``TokenSimBackend`` (``--admission-quantile`` and
+  ``--no-speculative`` steer the decode-length-aware ones).
+  ``--engine torch`` serves a token scenario on the real kernels through
+  ``TokenTorchBackend``.  The default is ``torch`` for token scenarios
+  and ``exact`` for the rest.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode sim --duration 600
     PYTHONPATH=src python -m repro_torch.launch.serve --mode live \\
         --arch smollm-135m --rps 10 --duration 6 --prompt-len 64
     PYTHONPATH=src python -m repro_torch.launch.serve --scenario llm-chat \\
         --arch smollm-135m --requests 48 --prompt-len 256 --gen-tokens 64
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --scenario slo-renegotiation --engine exact --duration 60
 
 ``--arch`` takes any id of ``repro_torch.configs.registry`` (``smollm-135m``,
 ``smollm-360m``, ``gemma-2b``, ``h2o-danube-1.8b``, ``rwkv6-1.6b``,
@@ -39,7 +49,8 @@ from repro_torch.core.slo import Request
 from repro_torch.network.latency import comm_latency
 from repro_torch.network.traces import synth_4g_trace
 from repro_torch.serving.api import make_live_server, make_sim_server
-from repro_torch.serving.scenarios import list_scenarios
+from repro_torch.serving.scenarios import (build_scenario, list_scenarios,
+                                           run_scenario)
 from repro_torch.serving.token_backend import run_token_scenario
 from repro_torch.serving.workload import WorkloadGenerator
 
@@ -115,28 +126,59 @@ def run_live(args) -> dict:
 
 
 def run_scenario_mode(args) -> dict:
-    if args.policy != "sponge":
-        raise SystemExit("the token engine runs the sponge policy only "
-                         f"(got --policy {args.policy!r})")
-    if args.duration is not None:
-        raise SystemExit("the token engine sizes the run by --requests, "
-                         "not --duration")
-    report, stats = run_token_scenario(
-        args.scenario, requests=args.requests or 24, seed=args.seed,
-        arch=args.arch, prompt_len=args.prompt_len,
-        max_decode=args.gen_tokens, rps=args.rps, device=args.device)
+    q = args.admission_quantile
+    if q is not None and not (q == 0.0 or 0.0 < q < 1.0):
+        raise SystemExit("--admission-quantile must be in [0, 1) "
+                         f"(0 disables the uncertainty path), got {q}")
+    if args.engine is None:
+        _, meta = build_scenario(args.scenario, duration=1.0)
+        args.engine = "torch" if meta.get("token") else "exact"
+    if args.engine == "torch":
+        if q is not None or args.no_speculative:
+            raise SystemExit("--admission-quantile/--no-speculative run "
+                             "on the exact token engine, not --engine "
+                             "torch")
+        if args.policy != "sponge":
+            raise SystemExit("--engine torch runs the sponge policy only "
+                             f"(got --policy {args.policy!r})")
+        if args.duration is not None:
+            raise SystemExit("--engine torch sizes the run by --requests, "
+                             "not --duration")
+        report, stats = run_token_scenario(
+            args.scenario, requests=args.requests or 24, seed=args.seed,
+            arch=args.arch, prompt_len=args.prompt_len,
+            max_decode=args.gen_tokens, rps=args.rps, device=args.device)
+    else:
+        report, stats = run_scenario(
+            args.scenario, policy=args.policy, engine=args.engine,
+            duration=args.duration, rps=args.rps, seed=args.seed,
+            requests=args.requests, mid_flight=not args.no_mid_flight,
+            admission_quantile=q, speculative=not args.no_speculative)
     ev = stats["events"]
-    dt = stats["run_wall_s"]
+    dt = stats["run_wall_s"]            # engine time only (no generation)
     out = {"scenario": args.scenario, "engine": stats["engine"],
-           "device": stats["device"], "policy": report.policy,
-           "n": report.n_requests, "violation_rate": report.violation_rate,
+           "policy": report.policy, "n": report.n_requests,
+           "violation_rate": report.violation_rate,
            "p50": report.p50, "p99": report.p99,
            "avg_cores": report.avg_cores,
-           "events": ev, "events_per_s": ev / max(dt, 1e-9), "wall_s": dt,
-           "tokens_served": report.tokens_served,
-           "tokens_per_s": report.tokens_per_s,
-           "ttft_p50": report.ttft_p50, "ttft_p99": report.ttft_p99,
-           "tbt_violation_rate": report.tbt_violation_rate}
+           "events": ev, "events_per_s": ev / max(dt, 1e-9), "wall_s": dt}
+    if "device" in stats:
+        out["device"] = stats["device"]
+    if report.tokens_served:            # token scenarios
+        out.update(tokens_served=report.tokens_served,
+                   tokens_per_s=report.tokens_per_s,
+                   ttft_p50=report.ttft_p50, ttft_p99=report.ttft_p99,
+                   tbt_violation_rate=report.tbt_violation_rate)
+    if "session" in stats:              # session scenarios
+        out.update(n_cancelled=report.n_cancelled, **{
+            f"mid_flight_{k}": v for k, v in stats["session"].items()})
+    if "uncertainty" in stats:          # distribution-aware runs
+        u = stats["uncertainty"]
+        out.update(n_cancelled=report.n_cancelled,
+                   admission_quantile=u["quantile"],
+                   slack_factor=u["slack_factor"],
+                   calibration_error=u["calibration_error"],
+                   overrun_cancels=u["overrun_cancels"])
     print(json.dumps(out, indent=1, default=float))
     return out
 
@@ -148,18 +190,38 @@ def main(argv=None):
     scenario_help = "; ".join(f"{k}: {v}" for k, v in
                               list_scenarios().items()).replace("%", "%%")
     ap.add_argument("--scenario", default=None,
-                    help=f"token scenario to serve ({scenario_help})")
-    ap.add_argument("--engine", choices=("torch",), default="torch",
-                    help="scenario mode: the real-kernel TokenTorchBackend")
+                    help=f"run a registered scenario ({scenario_help})")
+    ap.add_argument("--engine", choices=("exact", "torch"), default=None,
+                    help="scenario mode: the object-based exact engine "
+                         "(NumPy, no device) or, for token scenarios, the "
+                         "real-kernel TokenTorchBackend (default: torch "
+                         "for token scenarios, exact otherwise)")
     ap.add_argument("--requests", type=int, default=None,
                     help="scenario mode: size the run by request count "
-                         "(default 24)")
+                         "(--engine torch: default 24)")
+    ap.add_argument("--no-mid-flight", action="store_true",
+                    help="session scenarios: suppress the mid-flight "
+                         "update_slo/cancel stream (the closed-world "
+                         "replay of the same workload)")
+    ap.add_argument("--admission-quantile", type=float, default=None,
+                    help="token scenarios with a declared decode-length "
+                         "distribution, exact engine: plan admission at "
+                         "this quantile (0 disables the uncertainty path "
+                         "-- the deterministic-cost baseline; default: "
+                         "the scenario's own quantile)")
+    ap.add_argument("--no-speculative", action="store_true",
+                    help="distribution-aware runs: disable speculative "
+                         "over-admission with cancel-on-overrun (streams "
+                         "run to completion; the solver still plans at "
+                         "the admission quantile)")
     ap.add_argument("--arch", default="smollm-135m-reduced",
                     help="a registered arch id (smollm-135m, smollm-360m, "
                          "gemma-2b, h2o-danube-1.8b, rwkv6-1.6b, "
                          "zamba2-2.7b, or any of them with -reduced)")
     ap.add_argument("--policy", default="sponge",
-                    help="live mode: sponge, fa2 or static-<cores>")
+                    help="live mode and the exact engine: sponge, "
+                         "sponge-pred (exact engine), fa2 or "
+                         "static-<cores>")
     # None = "use the mode's default" (the token scenario carries its own
     # rps; sim/live keep the reference's 20 rps / 600 s)
     ap.add_argument("--rps", type=float, default=None)

@@ -1,8 +1,10 @@
-"""Synthetic 4G bandwidth traces (paper Fig. 1).
+"""Bandwidth traces (paper Fig. 1).
 
-Copy of ``repro.network.traces`` cut to ``BandwidthTrace`` and
-``synth_4g_trace`` (log-space Ornstein-Uhlenbeck bandwidth with regime
-shifts and deep fades, drawn from a seeded generator).
+Copy of ``repro.network.traces``: ``BandwidthTrace``, ``synth_4g_trace``
+(log-space Ornstein-Uhlenbeck bandwidth with regime shifts and deep
+fades, drawn from a seeded generator), ``synth_5g_trace`` (the same
+process on a faster, blockage-prone envelope) and ``load_csv_trace``
+(a recorded log).
 """
 from __future__ import annotations
 
@@ -65,3 +67,21 @@ def synth_4g_trace(duration_s: int = 600, seed: int = 0,
             bw[s:s + rng.integers(4, 12)] *= rng.uniform(*fade_depth)
     bw = np.clip(bw, lo, hi)
     return BandwidthTrace(t=np.arange(n, dtype=np.float64), mbps=bw)
+
+
+def synth_5g_trace(duration_s: int = 600, seed: int = 0,
+                   lo: float = 1.5, hi: float = 40.0) -> BandwidthTrace:
+    """5G-class synthetic trace: an order of magnitude more bandwidth than
+    the 4G envelope but with mmWave-style blockage — fades are rarer yet
+    proportionally deeper, so the *dynamic-SLO* effect (budgets collapsing
+    when the link dips) survives even on the faster network."""
+    return synth_4g_trace(duration_s, seed=seed, lo=lo, hi=hi,
+                          fade_depth=(0.05, 0.15))
+
+
+def load_csv_trace(path: str, col: int = 1, scale_to_mbytes: float = 1e-6
+                   ) -> BandwidthTrace:
+    """Load a real 4G log (one sample/line, bytes/s by default)."""
+    raw = np.loadtxt(path, delimiter=",", usecols=[col])
+    mbps = raw * scale_to_mbytes
+    return BandwidthTrace(t=np.arange(len(mbps), dtype=np.float64), mbps=mbps)

@@ -41,6 +41,8 @@ from repro_torch.configs import get_config
 from repro_torch.core.baselines import FA2Policy, SpongePolicy, StaticPolicy
 from repro_torch.core.monitor import Monitor
 from repro_torch.core.perf_model import PerfModel, yolov5s_like
+from repro_torch.core.predictive import (PredictivePolicy,
+                                         PredictiveSpongeScaler)
 from repro_torch.core.queueing import EDFQueue
 from repro_torch.core.scaler import SpongeScaler
 from repro_torch.core.slo import Decision, Request
@@ -189,8 +191,7 @@ class SimBackend(_PooledBackend):
 
 class TokenSimBackend(_PooledBackend):
     """Discrete-event *continuous-batching* execution over a token-level
-    cost model (``core.cost_model.TokenCostModel``), without the
-    reference's ``uncertainty`` argument.
+    cost model (``core.cost_model.TokenCostModel``).
 
     A dispatched gang is served phase-aware: one prefill burst covering
     every prompt (each request's **first token** -- its TTFT -- lands
@@ -203,41 +204,73 @@ class TokenSimBackend(_PooledBackend):
     stream drains.  The cost model also quacks like a PerfModel
     (full-service ``latency(b, c)``), which the runner's slack-aware
     dispatch and the pooled-slot bookkeeping consume.
+
+    Decode-length uncertainty: a non-point
+    ``core.uncertainty.UncertaintyConfig`` arms speculative execution --
+    every decode stream carries a token budget
+    (``config.budget_tokens(slo)``) and a stream that exhausts it before
+    finishing is cancelled mid-gang: its request is flagged
+    ``cancelled`` (the runner routes it through
+    ``Monitor.observe_cancel``, retracting its λ contribution and
+    excluding it from every aggregate) and it stops consuming decode
+    steps.  Finished and overrun streams feed the shared length
+    predictor.  With no config (or a point mass) the loop runs the
+    deterministic path verbatim.
     """
 
     name = "token-sim"
 
     def __init__(self, cost, c_set: Sequence[int], b_set: Sequence[int],
-                 c0: int = 1, resize_penalty: float = 0.005):
+                 c0: int = 1, resize_penalty: float = 0.005,
+                 uncertainty=None):
         super().__init__(cost, c_set, b_set, c0=c0,
                          resize_penalty=resize_penalty)
         self.cost = cost
         self.tokens_served = 0
+        self.uncertainty = uncertainty
+        self.overrun_cancels = 0
 
     def execute(self, batch: List[Request], c: int, b: int,
                 now: float) -> float:
+        unc = self.uncertainty
+        track = unc is not None and not unc.is_point()
+        spec = track and unc.speculative
         total_prompt = sum(r.prompt_tokens for r in batch)
         t = now + float(self.cost.prefill_latency(c, total_prompt))
-        live: List[tuple[Request, int]] = []
+        live: List[tuple[Request, int, int]] = []
         for r in batch:
             r.first_token = t
             self.tokens_served += 1          # the prefill's first token
             if r.decode_tokens > 0:
-                live.append((r, r.decode_tokens))
+                cap = (unc.budget_tokens(r.slo) if spec else (1 << 60))
+                live.append((r, r.decode_tokens, cap))
             else:
                 r.finish = t
         while live:
             l_d = float(self.cost.decode_latency(c, len(live)))
             t += l_d
-            nxt: List[tuple[Request, int]] = []
-            for r, remaining in live:
+            nxt: List[tuple[Request, int, int]] = []
+            for r, remaining, cap in live:
                 if l_d > r.tbt_slo + 1e-12:
                     r.tbt_violations += 1
                 self.tokens_served += 1
                 if remaining - 1 > 0:
-                    nxt.append((r, remaining - 1))
+                    if spec and cap <= 1:
+                        # cancel-on-overrun: budget spent, stream not
+                        # done -- drop it from the gang (the slot frees)
+                        # and let the runner observe the cancel
+                        r.cancelled = True
+                        self.overrun_cancels += 1
+                        if track:
+                            unc.observe(unc.planned_length(r.slo),
+                                        float(r.decode_tokens), r.slo)
+                    else:
+                        nxt.append((r, remaining - 1, cap - 1))
                 else:
                     r.finish = t
+                    if track:
+                        unc.observe(unc.planned_length(r.slo),
+                                    float(r.decode_tokens), r.slo)
             live = nxt
         return t
 
@@ -650,6 +683,12 @@ class SpongeServer:
     def warmup(self, example_payload: Any) -> None:
         self.backend.warmup(example_payload)
 
+    def session(self):
+        """Open an online session on the composed runner (``submit`` /
+        ``update_slo`` / ``cancel`` / ``step_until`` -- the live-client
+        surface; see ``repro_torch.serving.session``)."""
+        return self.runner.session()
+
     def run(self, arrivals: Sequence, horizon: Optional[float] = None
             ) -> RunReport:
         return self.runner.run(arrivals, horizon)
@@ -661,7 +700,8 @@ class SpongeServer:
         return self.run(workload.generate(trace, duration), horizon)
 
 
-POLICY_NAMES = ("sponge", "fa2", "static-8", "static-16", "static-<cores>")
+POLICY_NAMES = ("sponge", "sponge-pred", "fa2", "static-8", "static-16",
+                "static-<cores>")
 
 
 def make_policy(name: str, perf: PerfModel, *,
@@ -673,6 +713,10 @@ def make_policy(name: str, perf: PerfModel, *,
     """Policy registry: one name -> one SchedulingPolicy instance."""
     if name == "sponge":
         return SpongePolicy(SpongeScaler(
+            perf, c_set=tuple(c_set), b_set=tuple(b_set),
+            adaptation_interval=adaptation_interval, **kw))
+    if name == "sponge-pred":
+        return PredictivePolicy(PredictiveSpongeScaler(
             perf, c_set=tuple(c_set), b_set=tuple(b_set),
             adaptation_interval=adaptation_interval, **kw))
     if name == "fa2":

@@ -1,25 +1,69 @@
-"""The online session over the object-based ``ScenarioRunner``.
+"""The online session API over the object-based ``ScenarioRunner``:
+submit / update_slo / cancel.
 
-Copy of ``repro.serving.session.ExactSession`` (and the helpers it
-uses): arrivals on a pending heap keyed ``(arrival, submission
-order)``, an incremental tick train and a heap of dynamic events,
-merged in the reference's order (arrivals, then ticks, then dynamic
-events at equal times), with ``update_slo`` / ``cancel`` between
-events.  ``ScenarioRunner.run`` drives it.
+Copy of ``repro.serving.session`` cut to the exact engine: the
+``SpongeSession`` protocol, ``SessionTranscript``, ``replay_transcript``,
+``drive_session_events`` and ``ExactSession``.  A session is a live
+handle on a serving engine through which a client (or a
+network-telemetry feed) can
+
+* ``submit(...)`` a request and receive a **handle**,
+* ``update_slo(handle, ...)`` -- renegotiate a *queued* request's
+  deadline mid-flight (a network fade tightens the budget, a recovery
+  relaxes it),
+* ``cancel(handle)`` -- withdraw a queued or not-yet-arrived request,
+* ``step_until(t)`` -- advance the engine's virtual clock,
+* ``finish(horizon)`` -- drain and collect the uniform ``RunReport``.
+
+``ExactSession`` keeps arrivals on a pending heap keyed ``(arrival,
+submission order)``, an incremental tick train and a heap of dynamic
+events, merged in the reference's order (arrivals, then ticks, then
+dynamic events at equal times); ``update_slo`` / ``cancel`` apply
+between events at the session's clock and re-trigger a dispatch pass.
+Cancelled requests retract their arrival from the λ window and are
+excluded from every served/violation aggregate (``RunReport.
+n_cancelled``).  ``ScenarioRunner.run`` is the no-renegotiation replay
+over it, and it runs on any backend: ``SimBackend``,
+``TokenSimBackend``, or the live ``TorchBackend`` on the card.
 """
 from __future__ import annotations
 
 import heapq
 import itertools
-from typing import Any, Dict, List, Optional
+from typing import (Any, Dict, List, Optional, Protocol, Sequence,
+                    runtime_checkable)
 
 from repro_torch.core.slo import Request
 from repro_torch.serving.api import RunReport
+from repro_torch.serving.workload import RequestBatch
 
 INF = float("inf")
 
 # handle lifecycle states
 PENDING, QUEUED, DONE, CANCELLED = 0, 1, 2, 3
+
+
+@runtime_checkable
+class SpongeSession(Protocol):
+    """The online serving session protocol (see the module docstring)."""
+
+    now: float
+
+    def submit(self, req: Optional[Request] = None, **fields) -> int: ...
+
+    def submit_batch(self, batch: RequestBatch) -> Sequence[int]: ...
+
+    def update_slo(self, handle: int, *, deadline: Optional[float] = None,
+                   slo: Optional[float] = None,
+                   net_latency: Optional[float] = None) -> bool: ...
+
+    def cancel(self, handle: int) -> bool: ...
+
+    def step_until(self, t: float) -> None: ...
+
+    def finish(self, horizon: Optional[float] = None) -> RunReport: ...
+
+    def record(self, handle: int) -> dict: ...
 
 
 def _check_step_target(t: float) -> None:
@@ -44,6 +88,94 @@ def _new_deadline(send: float, cur_slo: float, deadline, slo,
         return float(deadline)
     s = cur_slo if slo is None else float(slo)
     return send + s - (0.0 if net_latency is None else float(net_latency))
+
+
+class SessionTranscript:
+    """A recorded stream of session ops, replayable on any engine.
+
+    Ops reference workload *rows* (indices into the ``RequestBatch`` the
+    transcript was recorded against), never engine handles — replay maps
+    rows to whatever handles the target session allocates:
+
+    * ``("submit", t, row)``            — submit row at its arrival t;
+    * ``("update", t, row, deadline)``  — renegotiate to ``deadline``;
+    * ``("cancel", t, row)``            — cancel.
+    """
+
+    def __init__(self, ops: Optional[List[tuple]] = None):
+        self.ops: List[tuple] = list(ops or [])
+
+    @classmethod
+    def from_batch(cls, batch: RequestBatch,
+                   events: Sequence[tuple] = ()) -> "SessionTranscript":
+        """Record a transcript: one submit per row at its arrival time,
+        merged time-stably with a renegotiation event stream (items
+        shaped like the ``session_events`` scenario meta:
+        ``(t, "update", row, new_deadline)`` / ``(t, "cancel", row)``)."""
+        ops = [("submit", float(t), i)
+               for i, t in enumerate(batch.arrival)]
+        for ev in events:
+            if ev[1] == "update":
+                ops.append(("update", float(ev[0]), int(ev[2]),
+                            float(ev[3])))
+            else:
+                ops.append(("cancel", float(ev[0]), int(ev[2])))
+        ops.sort(key=lambda op: op[1])       # stable: submits precede
+        return cls(ops)
+
+
+def _row_request(batch: RequestBatch, i: int) -> Request:
+    """Materialize one workload row as a ``Request``."""
+    return Request(deadline=float(batch.deadline[i]),
+                   arrival=float(batch.arrival[i]),
+                   comm_latency=float(batch.comm_latency[i]),
+                   slo=float(batch.slo[i]),
+                   size_kb=float(batch.size_kb[i]),
+                   prompt_tokens=int(batch.prompt_tokens[i]),
+                   decode_tokens=int(batch.decode_tokens[i]),
+                   tbt_slo=float(batch.tbt_slo[i]))
+
+
+def replay_transcript(session: SpongeSession, transcript: SessionTranscript,
+                      batch: RequestBatch,
+                      horizon: Optional[float] = None) -> RunReport:
+    """Drive ``session`` op by op — the true online path: each submit is
+    pushed just before the clock reaches its arrival (so arrival events
+    keep their tie precedence over same-time ticks), each renegotiation
+    applies after the engine has advanced to its timestamp."""
+    handles: Dict[int, int] = {}
+    for op in transcript.ops:
+        kind, t = op[0], op[1]
+        if kind == "submit":
+            handles[op[2]] = session.submit(_row_request(batch, op[2]))
+            session.step_until(t)
+        elif kind == "update":
+            session.step_until(t)
+            session.update_slo(handles[op[2]], deadline=op[3])
+        else:
+            session.step_until(t)
+            session.cancel(handles[op[2]])
+    return session.finish(horizon)
+
+
+def drive_session_events(session: SpongeSession, handles: Sequence[int],
+                         events: Sequence[tuple]) -> Dict[str, int]:
+    """Apply a scenario's mid-flight event stream (``session_events``
+    meta: time-sorted ``(t, "update", row, new_deadline)`` /
+    ``(t, "cancel", row)`` tuples) to an already-submitted session.
+    Returns applied/no-op counts (an event whose request already
+    dispatched is a no-op, exactly like a real telemetry feed racing
+    the scheduler)."""
+    applied = {"update": 0, "cancel": 0, "noop": 0}
+    for ev in events:
+        t, kind, i = float(ev[0]), ev[1], int(ev[2])
+        session.step_until(t)
+        if kind == "update":
+            ok = session.update_slo(handles[i], deadline=float(ev[3]))
+        else:
+            ok = session.cancel(handles[i])
+        applied[kind if ok else "noop"] += 1
+    return applied
 
 
 class ExactSession:
@@ -99,6 +231,10 @@ class ExactSession:
         self._status[req.id] = PENDING
         self._max_arrival = max(self._max_arrival, req.arrival)
         return req.id
+
+    def submit_batch(self, batch: RequestBatch) -> List[int]:
+        """Submit a whole workload (arrival order); returns its handles."""
+        return [self.submit(r) for r in batch.to_requests()]
 
     def update_slo(self, handle: int, *, deadline: Optional[float] = None,
                    slo: Optional[float] = None,

@@ -35,8 +35,10 @@ class RequestBatch:
     batch is unchanged.
 
     ``decode_dist`` optionally carries the workload's declared
-    decode-length distribution (one object for the batch, not a column;
-    None on the token path ported here).
+    decode-length distribution (``core.uncertainty.LengthDistribution``,
+    one object for the batch, not a column).  ``decode_tokens`` stays
+    the realized ground truth the engines serve; the distribution is
+    what the *scheduler* is allowed to know.
     """
     send: np.ndarray
     arrival: np.ndarray

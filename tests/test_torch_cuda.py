@@ -601,3 +601,79 @@ def test_fixed_work_replay_equals_eager_on_card(arch, reduced_models):
     for got, want in zip(kept, wants):
         assert got.shape == (b, GEN_TOKENS) and torch.equal(got, want)
     assert cap.step.graph is not None and cap.step.replays == 2
+
+
+# --------------------------------------------------------------------------
+# on the card: the session scenarios on the live fixed-work server
+# --------------------------------------------------------------------------
+SESSION_SETS = dict(c_set=(1, 2, 4, 8), b_set=(1, 2, 4, 8))
+
+
+@pytest.fixture(scope="module")
+def live_fixed_table():
+    """The reduced smollm's fixed-work table on the card (captured at
+    warm-up) and the l(b, c) make_live_server fitted from it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
+    from repro_torch.serving.api import make_live_server
+
+    server, cfg = make_live_server("smollm-135m-reduced", prompt_len=16,
+                                   gen_tokens=GEN_TOKENS, seed=0,
+                                   device=torch.device("cuda", 0),
+                                   **SESSION_SETS)
+    return server.backend.step_fns, server.backend.perf, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mid_flight", [True, False])
+@pytest.mark.parametrize("name", ["slo-renegotiation", "cancel-storm"])
+def test_live_session_modelled_clock_equals_exact_engine_on_card(
+        name, mid_flight, live_fixed_table):
+    """A session on the live server (``TorchBackend`` over the captured
+    table, modelled clock), fed the scenario's rows with prompts and its
+    update/cancel stream, makes the decisions, buckets and applied counts
+    of ``run_scenario(engine="exact")`` on ``SimBackend`` over the same
+    fitted l(b, c), neither charging a resize penalty; every dispatch
+    replays one entry (one ``swa_prefill`` per layer, one
+    ``decode_attention`` per layer per step)."""
+    from repro_torch.serving.api import (SpongeServer, TorchBackend,
+                                         make_policy, pad_tokens)
+    from repro_torch.serving.scenarios import build_scenario, run_scenario
+    from repro_torch.serving.session import drive_session_events
+
+    fns, perf, cfg = live_fixed_table
+    batch, meta = build_scenario(name, requests=80, seed=0)
+    policy = make_policy("sponge", perf, adaptation_interval=meta["tick"],
+                         slo=meta["slo"], expected_rps=meta["expected_rps"],
+                         **SESSION_SETS)
+    backend = TorchBackend(fns, pad_tokens, perf, clock="modeled")
+    server = SpongeServer(policy, backend, tick=meta["tick"],
+                          prior_rps=meta["expected_rps"])
+    sess = server.session()
+    rng = np.random.default_rng(0)
+    before = (pre.launches, dec.launches)
+    handles = [sess.submit(r, payload=rng.integers(
+        0, cfg.vocab_size, 16).astype(np.int32)) for r in batch.to_requests()]
+    applied = drive_session_events(
+        sess, handles, meta["session_events"] if mid_flight else ())
+    rep = sess.finish()
+    torch.cuda.synchronize()
+    ref, stats = run_scenario(name, perf=perf, requests=80, seed=0, c0=8,
+                              mid_flight=mid_flight, resize_penalty=0.0,
+                              **SESSION_SETS)
+
+    def stream(report):
+        return [(t, d.c, d.b, d.feasible) for t, d in report.decisions]
+
+    assert stream(rep) == stream(ref) and rep.decisions
+    assert rep.buckets == ref.buckets
+    assert (rep.n_requests, rep.violation_rate, rep.n_cancelled) == \
+        (ref.n_requests, ref.violation_rate, ref.n_cancelled)
+    assert applied == stats["session"]
+    entries, layers = len(backend.measured), cfg.num_layers
+    assert entries == len(rep.buckets) > 0
+    assert (pre.launches - before[0], dec.launches - before[1]) == \
+        (layers * entries, layers * GEN_TOKENS * entries)
+    ids = np.stack([it.result for it in backend.results])
+    assert ids.shape == (rep.n_requests, GEN_TOKENS)
+    assert ((ids >= 0) & (ids < cfg.vocab_size)).all()
