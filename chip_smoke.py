@@ -114,7 +114,28 @@ code is non-zero:
    clients) served the same way on the measured clock.  Every live run
    must launch ``swa_prefill`` 30 times and ``decode_attention`` 240
    times per entry it ran, and neither scan.  All launches join the
-   kernel rows.
+   kernel rows;
+   engines -- the struct-of-arrays engines over the cost models fitted
+   on the card in this run (smollm-135m's ``llm-chat`` warm-up
+   ``TokenCostModel`` and the fixed phase's refit ``l(b, c)``, ``c_set =
+   b_set = (1, 2, 4, 8)``).  The decode-stream scan engine
+   (``TokenFastSimRunner.scan_engine(chunk_steps=64)``), with static
+   knobs and with ``make_sponge_decide``: ``backend="torch"`` on the card
+   (each 64-step chunk one replay of the graph captured at the first
+   chunk) and ``backend="numpy"``, the plain version, give bit for bit
+   the same decisions, first-token and finish columns, TBT-violation
+   counts, core-seconds, steps and served count on ``llm-chat`` at
+   ``ENGINES["parity_s"]`` (240 s: the NumPy leg's wall); the torch
+   route then serves ``llm-chat``'s default 600 s (about 15,000
+   requests), every chunk after the first a replay, and a few chunks of
+   it run under ``torch.profiler`` (device busy, idle share, kernels per
+   chunk).  ``run_scenario(engine="fast", budget_quantum=0,
+   lam_quantum=0)`` equals ``engine="exact"`` on ``steady``,
+   ``mixed-slo``, ``slo-renegotiation`` and ``cancel-storm`` at 600 s
+   (decisions, buckets, counts, session counts); the five plain
+   scenarios run on the fast engine at their defaults, and ``llm-chat``
+   at 100,000 requests on ``TokenFastSimRunner``.  Their events per
+   wall second are host figures.  No kernel launches here.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Without a CUDA device, or outside a checkout, it prints no result
@@ -180,6 +201,16 @@ FIXED = dict(arch="smollm-135m", c_set=(1, 2, 4, 8), b_set=(1, 2, 4, 8),
 TOKEN_SCENARIOS = ("llm-heavy-tail", "retrieve-then-generate")
 SESSION_SCENARIOS = ("slo-renegotiation", "cancel-storm")
 SCENARIO_REQUESTS = 120
+# the struct-of-arrays engines: the scan engine over llm-chat's default
+# 600 s (its NumPy plain version at parity_s, the cut that keeps the
+# phase near 90 s), the fast engines over the card-fit cost models
+ENGINES = dict(arch="smollm-135m", scenario="llm-chat", seed=0,
+               sets=(1, 2, 4, 8), chunk_steps=64, scan_s=600.0,
+               parity_s=240.0, profile_horizon_s=3.0,
+               pairs=("steady", "mixed-slo", "slo-renegotiation",
+                      "cancel-storm"), token_requests=100_000)
+PLAIN_SCENARIOS = ("steady", "diurnal", "flash-crowd", "network-replay",
+                   "mixed-slo")
 # the main paths: each model is checked for parity, captured and served
 ARCHS = ("smollm-135m", "rwkv6-1.6b", "zamba2-2.7b", "gemma-2b",
          "h2o-danube-1.8b")
@@ -1241,7 +1272,7 @@ def serve_phase(dev, arch: str, scenario: str = "llm-chat",
         cost_r2_decode=stats["cost_r2"][1],
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     say("serve", launches=json.dumps(launches))
-    return launches
+    return launches, stats["cost"]
 
 
 def fixed_kernel_checks(dev, cfg, rows) -> None:
@@ -1471,7 +1502,7 @@ def scenarios_phase(dev, perf):
 
     # 1. the token scenarios, served live like llm-chat
     for name in TOKEN_SCENARIOS:
-        add(serve_phase(dev, "smollm-135m", name))
+        add(serve_phase(dev, "smollm-135m", name)[0])
         torch.cuda.empty_cache()
 
     # 2. the fixed-work table once (captured at warm-up, the fixed
@@ -1595,6 +1626,219 @@ def scenarios_phase(dev, perf):
         run_wall_s=wall, launches=json.dumps(launches))
     say("scenarios", launches=json.dumps(total))
     return total
+
+
+def scan_result_diff(a, b):
+    """The fields in which two scan-engine results differ (the
+    reference's ``_assert_parity``: bit for bit, NaN equal to NaN)."""
+    bad = [k for k in ("decisions", "core_seconds", "steps", "n_served")
+           if a[k] != b[k]]
+    bad += [k for k in ("first_tok", "finish", "tbt_violations")
+            if not np.array_equal(a[k], b[k], equal_nan=k != "tbt_violations")]
+    return bad
+
+
+def scan_profile(dev, eng, batch, horizon):
+    """A few chunks of the torch route (the same engine and workload, so
+    every chunk replays the captured graph), cut by ``horizon``: wall
+    without the profiler, then under ``torch.profiler``: device busy
+    time, idle share against that wall, device kernels per chunk."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(batch, horizon=horizon, backend="torch", device=dev)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run()
+    wall = run()
+    replays = eng.replays
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    replays = eng.replays - replays
+    kernels = copies = busy_us = 0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0)
+        if e.device_type == DeviceType.CUDA and t > 0:
+            busy_us += t
+            if e.key.startswith(("Memcpy", "Memset")):
+                copies += e.count
+            else:
+                kernels += e.count
+    return {"profiled_chunks": eng.chunks, "profiled_replays": replays,
+            "profiled_wall_ms": wall * 1e3,
+            "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": (1.0 - busy_us / 1e6 / wall
+                                  if busy_us else None),
+            "device_kernels_per_chunk": kernels / max(eng.chunks, 1),
+            "device_copies_per_chunk": copies / max(eng.chunks, 1)}
+
+
+def engines_phase(dev, perf, cost):
+    """The struct-of-arrays engines and the decode-stream scan engine,
+    over the cost models fitted on the card in this run: ``cost`` (the
+    smollm-135m llm-chat serve's warm-up ``TokenCostModel``) and
+    ``perf`` (the fixed phase's refit ``l(b, c)``).  Launches none of
+    the four kernels: returns their counts over the phase (all 0)."""
+    from repro_torch.core.scaler import SpongeScaler, TokenSpongeScaler
+    from repro_torch.serving.capture import launch_counts
+    from repro_torch.serving.fastpath import TokenFastSimRunner
+    from repro_torch.serving.scanpath import make_sponge_decide
+    from repro_torch.serving.scenarios import build_scenario, run_scenario
+
+    e = ENGINES
+    sets = e["sets"]
+    reset_launches()
+    say("engines", cost=json.dumps(dataclasses.asdict(cost)),
+        perf=json.dumps(dataclasses.asdict(perf)), sets=list(sets))
+
+    # 1. the scan engine: TokenFastSimRunner.scan_engine over the
+    # card-fit cost, torch route on the card against the NumPy plain
+    # version, with static knobs and with make_sponge_decide
+    def engine(knobs):
+        runner = TokenFastSimRunner(
+            TokenSpongeScaler(cost, c_set=sets, b_set=sets), cost, sets,
+            sets, c0=max(sets))
+        decide = (make_sponge_decide(SpongeScaler(cost), cost, sets, sets)
+                  if knobs == "sponge-decide" else None)
+        return runner.scan_engine(chunk_steps=e["chunk_steps"],
+                                  decide=decide)
+
+    def timed(eng, batch, backend):
+        replays = eng.replays
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run(batch, backend=backend,
+                      device=dev if backend == "torch" else None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return out, {"backend": backend, "wall_s": wall,
+                     "chunks": eng.chunks,
+                     "engine_steps_per_s": eng.chunks * e["chunk_steps"]
+                     / wall,
+                     "graph_replays": eng.replays - replays,
+                     "steps": out["steps"], "n_served": out["n_served"],
+                     "decisions": len(out["decisions"]),
+                     "core_seconds": out["core_seconds"]}
+
+    batch, _ = build_scenario(e["scenario"], duration=e["scan_s"],
+                              seed=e["seed"])
+    cut, _ = build_scenario(e["scenario"], duration=e["parity_s"],
+                            seed=e["seed"])
+    for knobs in ("static", "sponge-decide"):
+        # parity at the cut duration (the NumPy leg's wall)
+        got, t_torch = timed(engine(knobs), cut, "torch")
+        ref, t_numpy = timed(engine(knobs), cut, "numpy")
+        bad = scan_result_diff(got, ref)
+        if bad or not got["n_served"]:
+            raise AssertionError(f"scan engine ({knobs}): torch on the "
+                                 f"card differs from numpy in {bad}")
+        for t in (t_torch, t_numpy):
+            say("engines", scan=knobs, duration_s=e["parity_s"],
+                requests=len(cut), check="torch == numpy, bit for bit",
+                **t)
+        # the full duration on the card
+        eng = engine(knobs)
+        out, t_full = timed(eng, batch, "torch")
+        served = np.isfinite(out["finish"])
+        checks = {
+            "served": 0 < out["n_served"] == int(served.sum()),
+            "first token before finish": bool(np.all(
+                out["first_tok"][served] <= out["finish"][served])),
+            "first token after arrival": bool(np.all(
+                out["first_tok"][served]
+                >= np.asarray(batch.arrival)[served] - 1e-6)),
+            "every chunk after the first a replay":
+                t_full["graph_replays"] == t_full["chunks"] - 1 > 0,
+            "decide moved the knobs": knobs == "static" or len(
+                {d[1:] for d in out["decisions"]}) > 1}
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"scan engine ({knobs}, {e['scan_s']} s) "
+                                 f"checks failed: {failed}")
+        ttft = out["first_tok"] - np.asarray(batch.arrival)
+        say("engines", scan=knobs, duration_s=e["scan_s"],
+            requests=len(batch),
+            ttft_from_arrival_p99_s=float(np.nanpercentile(ttft, 99)),
+            tbt_violating_requests=int((out["tbt_violations"] > 0).sum()),
+            **t_full)
+        if knobs == "static":
+            say("engines", scan=knobs, horizon_s=e["profile_horizon_s"],
+                **scan_profile(dev, eng, batch, e["profile_horizon_s"]))
+
+    # 2. fast == exact on the card-fit l(b, c) (quanta 0), plain and
+    # session scenarios at 600 s
+    def stream(rep):
+        return [(t, d.c, d.b, d.n, d.feasible) for t, d in rep.decisions]
+
+    kw = dict(perf=perf, seed=e["seed"], c0=max(sets), c_set=sets,
+              b_set=sets)
+    for name in e["pairs"]:
+        fast, fs = run_scenario(name, engine="fast", duration=600.0,
+                                budget_quantum=0.0, lam_quantum=0.0, **kw)
+        exact, es = run_scenario(name, engine="exact", duration=600.0,
+                                 **kw)
+        same = {"decisions": stream(fast) == stream(exact) != [],
+                "buckets": fast.buckets == exact.buckets,
+                "n": fast.n_requests == exact.n_requests > 0,
+                "violations": fast.n_violations == exact.n_violations,
+                "n_cancelled": fast.n_cancelled == exact.n_cancelled,
+                "session": fs.get("session") == es.get("session")}
+        if not all(same.values()):
+            raise AssertionError(f"{name}: fast differs from exact on the "
+                                 "card-fit l(b, c) in "
+                                 f"{[k for k, ok in same.items() if not ok]}")
+        say("engines", scenario=name, duration_s=600.0,
+            check="fast (quanta 0) == exact", n=fast.n_requests,
+            violation_rate=fast.violation_rate,
+            n_cancelled=fast.n_cancelled, decisions=len(fast.decisions),
+            buckets=len(fast.buckets),
+            session=json.dumps(fs.get("session")),
+            host_fast_events_per_s=fs["events"] / fs["run_wall_s"],
+            host_exact_events_per_s=es["events"] / es["run_wall_s"])
+
+    # 3. the five plain scenarios on the fast engine at its defaults
+    for name in PLAIN_SCENARIOS:
+        rep, st = run_scenario(name, **kw)
+        if not (rep.n_requests > 0 and math.isfinite(rep.p99)):
+            raise AssertionError(f"{name} on the fast engine served nothing")
+        say("engines", scenario=name, engine="fast", n=rep.n_requests,
+            violation_rate=rep.violation_rate, p99=rep.p99,
+            avg_cores=rep.avg_cores, events=st["events"],
+            host_events_per_s=st["events"] / st["run_wall_s"],
+            solver=json.dumps(st["solver"]))
+
+    # 4. the token fast engine at the token bench's scale
+    batch, meta = build_scenario(e["scenario"],
+                                 requests=e["token_requests"],
+                                 seed=e["seed"])
+    scaler = TokenSpongeScaler(cost, c_set=sets, b_set=sets,
+                               adaptation_interval=meta["tick"],
+                               budget_quantum=0.01, lam_quantum=0.5,
+                               token_quantum=16)
+    runner = TokenFastSimRunner(scaler, cost, sets, sets, c0=max(sets),
+                                tick=meta["tick"],
+                                prior_rps=meta["expected_rps"])
+    t0 = time.perf_counter()
+    rep = runner.run(batch)
+    wall = time.perf_counter() - t0
+    if not (rep.n_requests > 0 and rep.tokens_served > 0
+            and math.isfinite(rep.ttft_p99)):
+        raise AssertionError("token fast engine served nothing")
+    say("engines", scenario=e["scenario"], engine="token-fast",
+        requests=len(batch), n=rep.n_requests, ttft_p99=rep.ttft_p99,
+        tbt_violation_rate=rep.tbt_violation_rate,
+        violation_rate=rep.violation_rate,
+        tokens_served=rep.tokens_served, events=runner.events_processed,
+        wall_s=wall, host_events_per_s=runner.events_processed / wall,
+        solver=json.dumps(scaler.solver_stats()))
+    launches = launch_counts()
+    say("engines", launches=json.dumps(launches))
+    return launches
 
 
 def profile_phase(dev, arch: str) -> None:
@@ -1735,14 +1979,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         # each main path's counts are reset before it and read after it;
         # a kernel's row adds up the paths (the other path must give 0)
-        for name, n in serve_phase(dev, arch).items():
+        launches, cost = serve_phase(dev, arch)
+        for name, n in launches.items():
             rows[name]["launches"] += n
+        if arch == ENGINES["arch"]:
+            token_cost = cost     # the warm-up fit the engines phase runs on
         torch.cuda.empty_cache()
     for arch in PARITY_ONLY:
         parity_phase(dev, arch)
         torch.cuda.empty_cache()
     for name, n in serve_phase(dev, "smollm-135m", "llm-mixed-len",
-                               sets=(1, 2, 4, 8)).items():
+                               sets=(1, 2, 4, 8))[0].items():
         rows[name]["launches"] += n
     torch.cuda.empty_cache()
     launches, perf = fixed_phase(dev, rows)
@@ -1750,6 +1997,9 @@ def main() -> int:
         rows[name]["launches"] += n
     torch.cuda.empty_cache()
     for name, n in scenarios_phase(dev, perf).items():
+        rows[name]["launches"] += n
+    torch.cuda.empty_cache()
+    for name, n in engines_phase(dev, perf, token_cost).items():
         rows[name]["launches"] += n
     torch.cuda.empty_cache()
     if args.profile:

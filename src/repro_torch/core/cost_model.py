@@ -5,7 +5,9 @@ paths use: :class:`Composition` (the work of one engine step), the
 :class:`CostModel` protocol, :class:`FixedWorkCostModel` (the paper's
 ``PerfModel`` as a cost model, decision-identical by construction:
 every surface delegates to the wrapped model's own float expression)
-and :class:`TokenCostModel` (evaluation, fit, and the synthetic
+and :class:`TokenCostModel` (evaluation, the mixed-step composition
+``step_latency`` and the chunked-admission ``prefill_token_allowance``
+the continuous-batching engines use, fit, and the synthetic
 ``smollm_like`` calibration the token scenarios carry).  The float
 expressions are the reference's term for term: the solver's decisions
 depend on them.
@@ -147,6 +149,15 @@ class TokenCostModel:
         c = np.asarray(c, np.float64)
         return (self.gamma_d * s + self.eps) / c + self.delta_d * s + self.eta
 
+    def step_latency(self, c, comp: Composition) -> float:
+        """One mixed engine step: admitted prompts + one token per slot.
+        Shares a single per-step overhead (ε/c + η)."""
+        t, s = float(comp.prefill_tokens), float(comp.decode_slots)
+        if t <= 0 and s <= 0:
+            return 0.0
+        return float((self.gamma_p * t + self.gamma_d * s + self.eps) / c
+                     + self.delta_p * t + self.delta_d * s + self.eta)
+
     # -- fixed-work quack surface (lets baselines plan on token work) -----
     def batch_latency(self, b, c):
         """Full-service latency of b mean-shaped requests: one prefill
@@ -164,6 +175,18 @@ class TokenCostModel:
         """Requests/second at full concurrency b (full-service view)."""
         return (np.asarray(b, np.float64)
                 / np.maximum(self.batch_latency(b, c), 1e-12))
+
+    def prefill_token_allowance(self, c, slots: int, budget: float) -> float:
+        """Max prefill tokens one step can absorb while keeping its
+        latency within ``budget`` given ``slots`` running decoders — the
+        chunked-admission bound the continuous-batching engine uses to
+        keep a large joining prompt from stalling running streams past
+        their per-token SLO.  ``inf`` when the budget is infinite."""
+        if not np.isfinite(budget):
+            return float("inf")
+        base = float(self.decode_latency(c, slots))
+        per_tok = self.gamma_p / float(c) + self.delta_p
+        return (budget - base) / max(per_tok, 1e-12)
 
     # ------------------------------------------------------------------ fit
     @staticmethod

@@ -1,9 +1,14 @@
 """Monitoring (paper §3.1): arrival-rate estimate and SLO accounting.
 
-Copy of ``repro.core.monitor`` cut to ``RateEstimator`` and ``Monitor``,
-the object-path estimators the ``ScenarioRunner`` drives: arrival rate,
-completions, drops and cancels, and the perf-model residuals a live
-backend records (measured minus predicted batch latency).
+Copy of ``repro.core.monitor`` cut to the struct-of-arrays λ windows
+(``array_window_rate``, ``tick_window_rate`` and
+``array_window_rate_cancel_aware``, which the fast engines' column
+sessions read) and ``RateEstimator`` and ``Monitor``, the object-path
+estimators the ``ScenarioRunner`` drives: arrival rate, completions,
+drops and cancels, and the perf-model residuals a live backend records
+(measured minus predicted batch latency).  The two estimators give the
+same floats: a cancel retracts from the window count and leaves the
+span anchored at the oldest observed arrival on both paths.
 """
 from __future__ import annotations
 
@@ -12,7 +17,98 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Deque, List
 
+import numpy as np
+
 from repro_torch.core.slo import Request
+
+
+def array_window_rate(arr, ai: int, w0: int, now: float,
+                      window_s: float, prior_rps: float
+                      ) -> tuple[float, int]:
+    """:class:`RateEstimator`'s estimate over a bare arrival array — the
+    ONE sliding-window λ shared by the struct-of-arrays engines (the
+    column sessions of ``serving.session`` resolve through this helper,
+    so the estimate cannot drift between engines).
+
+    ``arr`` is the (sorted) arrival-time column, ``ai`` the count of
+    arrivals observed so far, ``w0`` the caller-held left window pointer.
+    Returns ``(lambda, new_w0)``.  Semantics match ``RateEstimator``
+    exactly: the single-arrival guard (a lone arrival at the first tick
+    after an idle gap gives a ~zero-length window; dividing by it would
+    report a million-rps spike and over-provision) and the deploy-prior
+    blend that fades ``prior_rps`` out as the window fills.
+    """
+    lo = now - window_s
+    while w0 < ai and arr[w0] < lo:
+        w0 += 1
+    if ai == w0:
+        obs = 0.0
+    elif ai - w0 == 1:
+        obs = 1.0 / window_s
+    else:
+        span = min(window_s, max(now - arr[w0], 1e-6))
+        obs = (ai - w0) / span
+    if prior_rps <= 0:
+        return obs, w0
+    seen = max(now - arr[0], 0.0) if ai > 0 else 0.0
+    w = min(seen / window_s, 1.0)
+    return obs * w + prior_rps * (1.0 - w), w0
+
+
+def tick_window_rate(arr, w0: int, now: float, window_s: float,
+                     prior_rps: float) -> tuple[float, int]:
+    """Tick-granular :func:`array_window_rate`: derive the observed-count
+    pointer ``ai`` from the arrival column itself instead of having the
+    event loop advance a counter per arrival.
+
+    Valid whenever the caller asks for λ only at times by which every
+    arrival ``<= now`` has been observed — exactly the adaptation-tick
+    contract of every closed-world engine (the canonical event order
+    processes arrivals at time T *before* the tick at T), so
+    ``ai = searchsorted(arr, now, side="right")`` equals the count the
+    per-arrival increment would have reached, and the estimate is
+    bit-identical.  ``arr`` must be a sorted numpy array (the workload's
+    arrival column).  Returns ``(lambda, new_w0)``.
+    """
+    ai = int(np.searchsorted(arr, now, side="right"))
+    return array_window_rate(arr, ai, w0, now, window_s, prior_rps)
+
+
+def array_window_rate_cancel_aware(arr, ai: int, w0: int, now: float,
+                                   window_s: float, prior_rps: float,
+                                   cancels, cw0: int
+                                   ) -> tuple[float, int, int]:
+    """:func:`array_window_rate` with cancelled arrivals retracted.
+
+    ``cancels`` is a sorted (ascending) sequence of the *arrival times*
+    of requests cancelled while queued, ``cw0`` the caller-held left
+    pointer into it.  The in-window cancel count is subtracted from the
+    in-window arrival count before the rate formula; the span still
+    anchors at the oldest in-window arrival (cancelled or not), exactly
+    like :meth:`RateEstimator.retract` on the object path, so the two
+    estimators stay float-identical.  With no cancels in the window the
+    formula collapses to :func:`array_window_rate` bit-for-bit.
+    Returns ``(lambda, new_w0, new_cw0)``.
+    """
+    lo = now - window_s
+    while w0 < ai and arr[w0] < lo:
+        w0 += 1
+    nc = len(cancels)
+    while cw0 < nc and cancels[cw0] < lo:
+        cw0 += 1
+    count = (ai - w0) - (nc - cw0)
+    if count <= 0:
+        obs = 0.0
+    elif count == 1:
+        obs = 1.0 / window_s
+    else:
+        span = min(window_s, max(now - arr[w0], 1e-6))
+        obs = count / span
+    if prior_rps <= 0:
+        return obs, w0, cw0
+    seen = max(now - arr[0], 0.0) if ai > 0 else 0.0
+    w = min(seen / window_s, 1.0)
+    return obs * w + prior_rps * (1.0 - w), w0, cw0
 
 
 class RateEstimator:

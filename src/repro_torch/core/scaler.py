@@ -67,6 +67,13 @@ class SpongeScaler:
                 lam_quantum=self.lam_quantum)
         return self._memo
 
+    def solver_stats(self) -> dict:
+        """Cache economics of the memo solver ({} for exact solvers)."""
+        if self._memo is None:
+            return {}
+        return {"hits": self._memo.hits, "misses": self._memo.misses,
+                "hit_rate": self._memo.hit_rate}
+
     def decide(self, now: float, queue: EDFQueue, lam: float,
                initial_wait: float = 0.0,
                extra_budgets: tuple = ()) -> Decision:
@@ -152,6 +159,13 @@ class TokenSpongeScaler:
                 lam_quantum=self.lam_quantum,
                 token_quantum=self.token_quantum)
         return self._memo
+
+    def solver_stats(self) -> dict:
+        """Cache economics of the memo solver ({} before first use)."""
+        if self._memo is None:
+            return {}
+        return {"hits": self._memo.hits, "misses": self._memo.misses,
+                "hit_rate": self._memo.hit_rate}
 
     def decide(self, now: float, queue, lam: float,
                initial_wait: float = 0.0, active_slots: int = 0,

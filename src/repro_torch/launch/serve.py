@@ -14,22 +14,26 @@ Three modes, one control plane:
   over the same table (on one card they run one after another in wall
   time; the virtual clock treats them as parallel).
 * ``--scenario <name>`` (or ``--mode scenario``) -- a registered
-  scenario.  ``--engine exact`` runs it on the object-based exact engine
+  scenario.  ``--engine fast`` runs it on the struct-of-arrays fast
+  engine and ``--engine exact`` on the object-based exact engine
   (``serving.scenarios.run_scenario``; NumPy only, no device): the
   session scenarios (``slo-renegotiation``, ``cancel-storm``) through
   the online session API (``--no-mid-flight`` replays them without
   their update/cancel stream), the token scenarios on
-  ``TokenSimBackend`` (``--admission-quantile`` and
-  ``--no-speculative`` steer the decode-length-aware ones).
+  ``TokenFastSimRunner`` / ``TokenSimBackend`` (``--admission-quantile``
+  and ``--no-speculative`` steer the decode-length-aware ones).
   ``--engine torch`` serves a token scenario on the real kernels through
   ``TokenTorchBackend``.  The default is ``torch`` for token scenarios
-  and ``exact`` for the rest.
+  and ``fast`` for the rest; ``--engine vector`` is refused (not ported
+  yet).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode sim --duration 600
     PYTHONPATH=src python -m repro_torch.launch.serve --mode live \\
         --arch smollm-135m --rps 10 --duration 6 --prompt-len 64
     PYTHONPATH=src python -m repro_torch.launch.serve --scenario llm-chat \\
         --arch smollm-135m --requests 48 --prompt-len 256 --gen-tokens 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --scenario steady \\
+        --duration 60                           # the fast engine
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --scenario slo-renegotiation --engine exact --duration 60
 
@@ -49,7 +53,8 @@ from repro_torch.core.slo import Request
 from repro_torch.network.latency import comm_latency
 from repro_torch.network.traces import synth_4g_trace
 from repro_torch.serving.api import make_live_server, make_sim_server
-from repro_torch.serving.scenarios import (build_scenario, list_scenarios,
+from repro_torch.serving.scenarios import (ENGINES, build_scenario,
+                                           check_engine, list_scenarios,
                                            run_scenario)
 from repro_torch.serving.token_backend import run_token_scenario
 from repro_torch.serving.workload import WorkloadGenerator
@@ -132,12 +137,12 @@ def run_scenario_mode(args) -> dict:
                          f"(0 disables the uncertainty path), got {q}")
     if args.engine is None:
         _, meta = build_scenario(args.scenario, duration=1.0)
-        args.engine = "torch" if meta.get("token") else "exact"
+        args.engine = "torch" if meta.get("token") else "fast"
     if args.engine == "torch":
         if q is not None or args.no_speculative:
             raise SystemExit("--admission-quantile/--no-speculative run "
-                             "on the exact token engine, not --engine "
-                             "torch")
+                             "on the fast/exact token engines, not "
+                             "--engine torch")
         if args.policy != "sponge":
             raise SystemExit("--engine torch runs the sponge policy only "
                              f"(got --policy {args.policy!r})")
@@ -149,6 +154,10 @@ def run_scenario_mode(args) -> dict:
             arch=args.arch, prompt_len=args.prompt_len,
             max_decode=args.gen_tokens, rps=args.rps, device=args.device)
     else:
+        try:
+            check_engine(args.engine)
+        except ValueError as e:
+            raise SystemExit(str(e))
         report, stats = run_scenario(
             args.scenario, policy=args.policy, engine=args.engine,
             duration=args.duration, rps=args.rps, seed=args.seed,
@@ -179,6 +188,8 @@ def run_scenario_mode(args) -> dict:
                    slack_factor=u["slack_factor"],
                    calibration_error=u["calibration_error"],
                    overrun_cancels=u["overrun_cancels"])
+    if "solver" in stats:
+        out["solver_hit_rate"] = stats["solver"].get("hit_rate")
     print(json.dumps(out, indent=1, default=float))
     return out
 
@@ -191,11 +202,14 @@ def main(argv=None):
                               list_scenarios().items()).replace("%", "%%")
     ap.add_argument("--scenario", default=None,
                     help=f"run a registered scenario ({scenario_help})")
-    ap.add_argument("--engine", choices=("exact", "torch"), default=None,
-                    help="scenario mode: the object-based exact engine "
-                         "(NumPy, no device) or, for token scenarios, the "
+    ap.add_argument("--engine", choices=ENGINES + ("vector", "torch"),
+                    default=None,
+                    help="scenario mode: the struct-of-arrays fast engine "
+                         "or the object-based exact engine (NumPy, no "
+                         "device), or, for token scenarios, the "
                          "real-kernel TokenTorchBackend (default: torch "
-                         "for token scenarios, exact otherwise)")
+                         "for token scenarios, fast otherwise); vector is "
+                         "not ported yet and is refused")
     ap.add_argument("--requests", type=int, default=None,
                     help="scenario mode: size the run by request count "
                          "(--engine torch: default 24)")
@@ -205,7 +219,7 @@ def main(argv=None):
                          "replay of the same workload)")
     ap.add_argument("--admission-quantile", type=float, default=None,
                     help="token scenarios with a declared decode-length "
-                         "distribution, exact engine: plan admission at "
+                         "distribution, fast/exact engine: plan admission at "
                          "this quantile (0 disables the uncertainty path "
                          "-- the deterministic-cost baseline; default: "
                          "the scenario's own quantile)")
@@ -219,7 +233,7 @@ def main(argv=None):
                          "gemma-2b, h2o-danube-1.8b, rwkv6-1.6b, "
                          "zamba2-2.7b, or any of them with -reduced)")
     ap.add_argument("--policy", default="sponge",
-                    help="live mode and the exact engine: sponge, "
+                    help="live mode and the fast/exact engines: sponge, "
                          "sponge-pred (exact engine), fa2 or "
                          "static-<cores>")
     # None = "use the mode's default" (the token scenario carries its own

@@ -15,7 +15,9 @@ paths use:
   table on the device and advances time by the measured wall latency
   (``clock="measured"``) or by the model's prediction
   (``clock="modeled"``, event for event the ``SimBackend`` run);
-* ``ScenarioRunner`` -- the one event loop, returning a ``RunReport``;
+* ``ScenarioRunner`` -- the object-based event loop, returning a
+  ``RunReport``; ``build_array_report`` is the same report over the
+  struct-of-arrays engines' columns (``serving.fastpath``);
 * ``SpongeServer`` -- the facade; ``make_sim_server`` /
   ``make_live_server`` build one by name.
 
@@ -443,6 +445,57 @@ class RunReport:
     def __getitem__(self, key: str):
         return getattr(self, key)
 
+
+
+def build_array_report(policy, backend: str, batch, finish: np.ndarray,
+                       horizon: float, slots, core_samples,
+                       bucket_log, n_cancelled: int = 0) -> RunReport:
+    """The ONE report aggregation of the struct-of-arrays engines
+    (``fastpath.FastSimRunner`` and its column session): served mask
+    over the ``finish`` column, violations strictly past ``deadline +
+    1e-9``, end-to-end latency from client send time, the nearest-rank
+    percentile rule, and the per-slot core-seconds integral clamped to
+    each slot's release point.  Centralized so the acceptance metrics
+    (the violation epsilon, the percentile indexing) cannot drift
+    between engines."""
+    served = ~np.isnan(finish)
+    fin = finish[served]
+    n_req = int(served.sum())
+    viol = int((fin > batch.deadline[served] + 1e-9).sum())
+    e2e = np.sort(fin - (batch.arrival[served]
+                         - batch.comm_latency[served]))
+    nn = e2e.size
+
+    def p(q: float) -> float:
+        if not nn:
+            return float("nan")
+        return float(e2e[min(int(q * nn), nn - 1)])
+
+    core_s = 0.0
+    for s in slots:
+        end = min(s.dead_at if s.dead_at is not None else horizon,
+                  horizon)
+        s.account(max(end, s.alive_since))
+        core_s += s.core_seconds
+    decisions = getattr(policy, "decisions", None)
+    if decisions is None:
+        decisions = getattr(getattr(policy, "scaler", None),
+                            "decisions", None)
+    return RunReport(
+        policy=getattr(policy, "name", type(policy).__name__),
+        backend=backend,
+        n_requests=n_req,
+        n_violations=viol,
+        violation_rate=viol / max(n_req, 1),
+        core_seconds=core_s,
+        avg_cores=core_s / max(horizon, 1e-9),
+        p50=p(0.50), p99=p(0.99),
+        mean_latency=float(e2e.sum()) / max(nn, 1),
+        core_timeline=core_samples,
+        decisions=decisions,
+        buckets=bucket_log,
+        n_cancelled=n_cancelled,
+    )
 
 
 class ScenarioRunner:

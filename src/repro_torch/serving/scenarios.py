@@ -1,4 +1,4 @@
-"""Scenario registry: named workload scripts and the exact-engine runner.
+"""Scenario registry: named workload scripts and the scenario runner.
 
 Copy of ``repro.serving.scenarios`` cut to the single-instance
 scenarios.  Each scenario is a *vectorized* workload generator --
@@ -28,11 +28,13 @@ rate); the same seed gives the same batch as the reference:
   deadlines mid-flight; overload spikes in which half the queued spike
   traffic cancels.
 
-:func:`run_scenario` runs one on the object-based exact engine
+:func:`run_scenario` runs one on the struct-of-arrays fast engine (the
+default: ``serving.fastpath`` and its column sessions, with the
+quantized memo solver) or on the object-based exact engine
 (``ScenarioRunner`` over ``SimBackend``, ``TokenSimBackend`` or a
-session).  The reference's struct-of-arrays ``fast`` and ``vector``
-engines are not ported yet; ``token_backend.run_token_scenario`` serves
-a token scenario on the card.
+session).  The reference's ``vector`` engine is not ported yet;
+``token_backend.run_token_scenario`` serves a token scenario on the
+card.
 """
 from __future__ import annotations
 
@@ -52,7 +54,8 @@ from repro_torch.core.uncertainty import (LognormalLengths, MixtureLengths,
 from repro_torch.network.latency import comm_latency_many
 from repro_torch.network.traces import synth_4g_trace, synth_5g_trace
 from repro_torch.serving.api import (ScenarioRunner, TokenSimBackend,
-                                     make_sim_server)
+                                     make_policy, make_sim_server)
+from repro_torch.serving.fastpath import FastSimRunner, TokenFastSimRunner
 from repro_torch.serving.session import drive_session_events
 from repro_torch.serving.workload import RequestBatch, lognormal_lengths
 
@@ -495,30 +498,50 @@ def build_scenario(name: str, *, duration: Optional[float] = None,
     return batch, meta
 
 
+ENGINES = ("fast", "exact")
+
+
+def check_engine(engine: str) -> None:
+    """Refuse an engine the port does not run, naming what it runs."""
+    if engine not in ENGINES:
+        raise ValueError(
+            f"engine={engine!r} is not ported: the port runs "
+            "engine='fast' (the struct-of-arrays engines, the default) "
+            "and engine='exact'; the vector engine comes with ROADMAP.md "
+            "Queue 1 item 6c, and token_backend.run_token_scenario "
+            "serves a token scenario on the card")
+
+
 def run_scenario(name: str, *, policy: str = "sponge",
-                 engine: str = "exact", duration: Optional[float] = None,
+                 engine: str = "fast", duration: Optional[float] = None,
                  rps: Optional[float] = None, seed: int = 0,
                  requests: Optional[int] = None,
                  perf: Optional[PerfModel] = None,
                  c_set=DEFAULT_C, b_set=DEFAULT_B, c0: int = 16,
                  tick: Optional[float] = None,
                  horizon: Optional[float] = None,
+                 budget_quantum: float = 0.01, lam_quantum: float = 0.5,
                  mid_flight: bool = True,
                  admission_quantile: Optional[float] = None,
                  speculative: bool = True,
                  **policy_kw):
-    """Run a registered scenario end to end on the exact engine; returns
-    ``(RunReport, stats)`` where ``stats`` carries engine/meta info.
+    """Run a registered scenario end to end; returns ``(RunReport,
+    stats)`` where ``stats`` carries engine/meta/solver-cache info.
 
-    Plain scenarios go through ``make_sim_server`` with the paper's
-    bruteforce solver (``policy_kw`` reaches it, e.g. ``resize_penalty``
-    or a policy's own options).  Session scenarios
+    The fast engine (the default) pairs ``FastSimRunner`` with the
+    memoized solver (quantized as given: ``budget_quantum`` /
+    ``lam_quantum``, quanta 0 make it exact); the exact engine goes
+    through ``make_sim_server`` with the paper's bruteforce solver
+    (``policy_kw`` reaches the policy either way, e.g.
+    ``resize_penalty`` or a policy's own options).  ``stats["solver"]``
+    reports the memo solver's hits and misses.  Session scenarios
     (``meta["session_events"]``: ``slo-renegotiation``,
-    ``cancel-storm``) run through the online session API;
-    ``mid_flight=False`` suppresses the event stream -- the
+    ``cancel-storm``) run through the online session API on either
+    engine; ``mid_flight=False`` suppresses the event stream -- the
     no-renegotiation replay of the same workload, the baseline the
     decision-stream delta is measured against.  Token scenarios run
-    ``TokenSpongeScaler`` over ``TokenSimBackend``; those that declare a
+    ``TokenSpongeScaler`` over ``TokenFastSimRunner`` (fast) or
+    ``TokenSimBackend`` (exact, quanta 0); those that declare a
     decode-length distribution (``meta["decode_dist"]``:
     ``llm-heavy-tail``, ``retrieve-then-generate``) run
     distribution-aware admission: ``admission_quantile`` overrides the
@@ -527,15 +550,12 @@ def run_scenario(name: str, *, policy: str = "sponge",
     ``speculative=False`` turns off over-admission with
     cancel-on-overrun while keeping quantile drag.
 
-    ``engine`` is ``"exact"``: the reference's struct-of-arrays
-    ``"fast"`` and ``"vector"`` engines are not ported yet (ROADMAP.md
-    Queue 1 item 6b) and raise ``ValueError``.
+    ``engine`` is ``"fast"`` or ``"exact"``; the reference's
+    ``"vector"`` engine is not ported yet (ROADMAP.md Queue 1 item 6c)
+    and raises ``ValueError``, as does any other name.  ``sponge-pred``
+    inspects ``Request`` objects and runs on the exact engine only.
     """
-    if engine != "exact":
-        raise ValueError(
-            f"engine={engine!r} is not ported yet; the port runs "
-            "engine='exact' (the fast and vector engines come with "
-            "ROADMAP.md Queue 1 item 6b)")
+    check_engine(engine)
     perf = perf if perf is not None else yolov5s_like()
     batch, meta = build_scenario(name, duration=duration, rps=rps,
                                  seed=seed, requests=requests)
@@ -547,17 +567,41 @@ def run_scenario(name: str, *, policy: str = "sponge",
             f"(scenario {name!r} is not token-based)")
     if meta.get("token"):
         return _run_token_scenario(batch, meta, policy=policy,
-                                   c_set=c_set, b_set=b_set, c0=c0,
-                                   tick=tick, horizon=horizon,
+                                   engine=engine, c_set=c_set, b_set=b_set,
+                                   c0=c0, tick=tick, horizon=horizon,
+                                   budget_quantum=budget_quantum,
+                                   lam_quantum=lam_quantum,
                                    admission_quantile=admission_quantile,
                                    speculative=speculative, **policy_kw)
     if meta.get("session_events") is not None:
-        return _run_session_scenario(batch, meta, policy=policy, perf=perf,
+        return _run_session_scenario(batch, meta, policy=policy,
+                                     engine=engine, perf=perf,
                                      c_set=c_set, b_set=b_set, c0=c0,
                                      tick=tick, horizon=horizon,
+                                     budget_quantum=budget_quantum,
+                                     lam_quantum=lam_quantum,
                                      mid_flight=mid_flight, **policy_kw)
     common = dict(slo=meta["slo"], expected_rps=meta["expected_rps"],
                   adaptation_interval=tick)
+    if engine == "fast":
+        if policy.startswith("sponge-pred"):
+            raise ValueError("sponge-pred inspects Request objects; "
+                             "run it with engine='exact'")
+        kw = dict(common, **policy_kw)
+        if policy == "sponge":
+            kw.update(solver="memo", budget_quantum=budget_quantum,
+                      lam_quantum=lam_quantum)
+        pol = make_policy(policy, perf, c_set=c_set, b_set=b_set, **kw)
+        runner = FastSimRunner(pol, perf, c_set, b_set, c0=c0, tick=tick,
+                               prior_rps=meta["expected_rps"])
+        t0 = time.perf_counter()
+        report = runner.run(batch, horizon)
+        stats = {"engine": engine, "events": runner.events_processed,
+                 "run_wall_s": time.perf_counter() - t0, "meta": meta}
+        scaler = getattr(pol, "scaler", None)
+        if scaler is not None and hasattr(scaler, "solver_stats"):
+            stats["solver"] = scaler.solver_stats()
+        return report, stats
     server = make_sim_server(perf, policy, c_set=c_set, b_set=b_set,
                              c0=c0, tick=tick,
                              prior_rps=meta["expected_rps"],
@@ -572,34 +616,54 @@ def run_scenario(name: str, *, policy: str = "sponge",
 
 
 def _run_session_scenario(batch: RequestBatch, meta: dict, *, policy: str,
-                          perf: PerfModel, c_set, b_set, c0: int,
-                          tick: float, horizon, mid_flight: bool = True,
-                          **policy_kw):
+                          engine: str, perf: PerfModel, c_set, b_set,
+                          c0: int, tick: float, horizon,
+                          budget_quantum: float, lam_quantum: float,
+                          mid_flight: bool = True, **policy_kw):
     """Session-scenario execution: the online serving API end to end.
 
-    The workload is submitted through a session on ``make_sim_server``'s
-    runner and the scenario's ``session_events`` stream (mid-flight
-    ``update_slo`` / ``cancel`` ops, time-sorted) is applied between
-    ``step_until`` advances -- how a network-telemetry feed would drive
-    a real deployment.  ``mid_flight=False`` replays submits only (the
-    closed-world baseline).  ``stats["session"]`` reports applied/no-op
-    counts.
+    The workload is submitted through a live session and the scenario's
+    ``session_events`` stream (mid-flight ``update_slo`` / ``cancel``
+    ops, time-sorted) is applied between ``step_until`` advances --
+    how a network-telemetry feed would drive a real deployment.
+    ``engine="fast"`` opens the session on a ``FastSimRunner`` (the
+    ≥100k-request path); ``engine="exact"`` on ``make_sim_server``'s
+    object-based runner.  ``mid_flight=False`` replays submits only
+    (the closed-world baseline).  ``stats["session"]`` reports
+    applied/no-op counts.
     """
     events = meta.get("session_events", ()) if mid_flight else ()
     common = dict(slo=meta["slo"], expected_rps=meta["expected_rps"],
                   adaptation_interval=tick)
-    server = make_sim_server(perf, policy, c_set=c_set, b_set=b_set,
-                             c0=c0, tick=tick,
-                             prior_rps=meta["expected_rps"],
-                             **dict(common, **policy_kw))
-    sess = server.session()
+    scaler = None
+    if engine == "fast":
+        if policy.startswith("sponge-pred"):
+            raise ValueError("sponge-pred inspects Request objects; "
+                             "run it with engine='exact'")
+        kw = dict(common, **policy_kw)
+        if policy == "sponge":
+            kw.update(solver="memo", budget_quantum=budget_quantum,
+                      lam_quantum=lam_quantum)
+        pol = make_policy(policy, perf, c_set=c_set, b_set=b_set, **kw)
+        runner = FastSimRunner(pol, perf, c_set, b_set, c0=c0, tick=tick,
+                               prior_rps=meta["expected_rps"])
+        sess = runner.session()
+        scaler = getattr(pol, "scaler", None)
+    else:
+        server = make_sim_server(perf, policy, c_set=c_set, b_set=b_set,
+                                 c0=c0, tick=tick,
+                                 prior_rps=meta["expected_rps"],
+                                 **dict(common, **policy_kw))
+        sess = server.session()
     t0 = time.perf_counter()
     handles = sess.submit_batch(batch)
     applied = drive_session_events(sess, handles, events)
     report = sess.finish(horizon)
-    stats = {"engine": "exact", "events": sess.events_processed,
+    stats = {"engine": engine, "events": sess.events_processed,
              "run_wall_s": time.perf_counter() - t0, "meta": meta,
              "session": applied}
+    if scaler is not None and hasattr(scaler, "solver_stats"):
+        stats["solver"] = scaler.solver_stats()
     return report, stats
 
 
@@ -632,13 +696,19 @@ def _token_uncertainty(meta: dict, admission_quantile: Optional[float],
 
 def _run_token_scenario(batch: RequestBatch, meta: dict, *, policy: str,
                         c_set, b_set, c0: int, tick: float, horizon,
+                        engine: str = "fast", budget_quantum: float = 0.01,
+                        lam_quantum: float = 0.5, token_quantum: int = 16,
                         admission_quantile: Optional[float] = None,
                         speculative: bool = True, **policy_kw):
-    """Token-scenario execution on the exact engine: the object-based
+    """Token-scenario execution: the continuous-batching engines.
+
+    ``engine="fast"`` -- ``fastpath.TokenFastSimRunner`` (struct-of-arrays
+    decode streams, the >=100k-request path) with the quantized
+    ``TokenMemoizedSolver``; ``engine="exact"`` -- the object-based
     ``ScenarioRunner`` over a gang-scheduled ``TokenSimBackend``, with
-    an exact (unquantized) ``TokenSpongeScaler``.  Only the ``sponge``
-    policy understands token compositions; ``token_backend.
-    run_token_scenario`` serves the real kernels.
+    the scaler's quanta set to 0.  Only the ``sponge`` policy
+    understands token compositions; ``token_backend.run_token_scenario``
+    serves the real kernels.
 
     When the scenario declares a decode-length distribution a fresh
     ``UncertaintyConfig`` is built per run (shared between scaler and
@@ -653,7 +723,26 @@ def _run_token_scenario(batch: RequestBatch, meta: dict, *, policy: str,
     unc = _token_uncertainty(meta, admission_quantile, speculative)
     scaler = TokenSpongeScaler(
         cost, c_set=tuple(c_set), b_set=tuple(b_set),
-        adaptation_interval=tick, uncertainty=unc, **policy_kw)
+        adaptation_interval=tick, budget_quantum=budget_quantum,
+        lam_quantum=lam_quantum, token_quantum=token_quantum,
+        uncertainty=unc, **policy_kw)
+    if engine == "fast":
+        runner = TokenFastSimRunner(scaler, cost, c_set, b_set, c0=c0,
+                                    tick=tick,
+                                    prior_rps=meta["expected_rps"],
+                                    uncertainty=unc)
+        t0 = time.perf_counter()
+        report = runner.run(batch, horizon)
+        stats = {"engine": "fast", "events": runner.events_processed,
+                 "run_wall_s": time.perf_counter() - t0, "meta": meta,
+                 "solver": scaler.solver_stats()}
+        if unc is not None:
+            stats["uncertainty"] = dict(
+                unc.stats(), overrun_cancels=runner.overrun_cancels)
+        return report, stats
+    scaler.budget_quantum = 0.0
+    scaler.lam_quantum = 0.0
+    scaler.token_quantum = 0
     backend = TokenSimBackend(cost, c_set, b_set, c0=c0, uncertainty=unc)
     runner = ScenarioRunner(scaler, backend, tick=tick)
     runner.monitor.rate.prior_rps = meta["expected_rps"]

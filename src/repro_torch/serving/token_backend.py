@@ -386,5 +386,6 @@ def run_token_scenario(name: str, *, requests: int = 24, seed: int = 0,
              "graph_replays": table_replays(backend.pre_table.fns,
                                             backend.dec_table.fns),
              "generated": backend.generated,
-             "cost_r2": (cost.r2_prefill, cost.r2_decode), "meta": meta}
+             "cost": cost, "cost_r2": (cost.r2_prefill, cost.r2_decode),
+             "meta": meta}
     return report, stats

@@ -1,10 +1,12 @@
 """Workloads: ``WorkloadGenerator``, ``RequestBatch`` and token lengths.
 
 Copy of ``repro.serving.workload`` cut to ``WorkloadGenerator`` (the
-fixed-work arrival model over a bandwidth trace: a fixed rate, one
-payload size, comm latency from the trace; the reference's Poisson gaps
-and size jitter are left out), ``RequestBatch`` (a
-workload as arrival-sorted numpy columns) and ``lognormal_lengths``.
+fixed-work arrival model over a bandwidth trace: a fixed rate or
+seeded Poisson gaps, a payload size with optional seeded jitter, comm
+latency from the trace; ``generate`` gives ``Request`` objects,
+``generate_batch`` the same workload as a ``RequestBatch``),
+``RequestBatch`` (a workload as arrival-sorted numpy columns, the fast
+engines' input) and ``lognormal_lengths``.
 """
 from __future__ import annotations
 
@@ -130,13 +132,26 @@ class WorkloadGenerator:
     rps: float = 20.0
     slo: float = 1.0
     size_kb: float = 200.0
+    poisson: bool = False
+    size_jitter: float = 0.0           # +- fraction of size_kb
+    seed: int = 0
 
     def _columns(self, trace: BandwidthTrace,
                  duration_s: Optional[float] = None):
         """Vectorized arrival model: (send, comm_latency, size) arrays."""
         dur = duration_s or trace.duration
-        send_times = np.arange(0, dur, 1.0 / self.rps)
+        rng = np.random.default_rng(self.seed)
+        if self.poisson:
+            n_est = int(self.rps * dur * 1.5) + 10
+            gaps = rng.exponential(1.0 / self.rps, size=n_est)
+            send_times = np.cumsum(gaps)
+            send_times = send_times[send_times < dur]
+        else:
+            send_times = np.arange(0, dur, 1.0 / self.rps)
         sizes = np.full(send_times.shape, self.size_kb, np.float64)
+        if self.size_jitter:
+            sizes = self.size_kb * (1.0 + rng.uniform(
+                -self.size_jitter, self.size_jitter, size=len(send_times)))
         cl = comm_latency_many(sizes, trace, send_times)
         return send_times, cl, sizes
 
@@ -147,6 +162,12 @@ class WorkloadGenerator:
         return [Request.make(arrival=float(ts + c), comm_latency=float(c),
                              slo=self.slo, size_kb=float(k))
                 for ts, c, k in zip(send, cl, sizes)]
+
+    def generate_batch(self, trace: BandwidthTrace,
+                       duration_s: Optional[float] = None) -> RequestBatch:
+        """The same workload as an arrival-sorted ``RequestBatch``."""
+        send, cl, sizes = self._columns(trace, duration_s)
+        return RequestBatch.from_send(send, cl, slo=self.slo, size_kb=sizes)
 
 
 def lognormal_lengths(rng: np.random.Generator, n: int, median: float,

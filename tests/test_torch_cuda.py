@@ -658,7 +658,8 @@ def test_live_session_modelled_clock_equals_exact_engine_on_card(
         sess, handles, meta["session_events"] if mid_flight else ())
     rep = sess.finish()
     torch.cuda.synchronize()
-    ref, stats = run_scenario(name, perf=perf, requests=80, seed=0, c0=8,
+    ref, stats = run_scenario(name, engine="exact", perf=perf, requests=80,
+                              seed=0, c0=8,
                               mid_flight=mid_flight, resize_penalty=0.0,
                               **SESSION_SETS)
 
@@ -677,3 +678,74 @@ def test_live_session_modelled_clock_equals_exact_engine_on_card(
     ids = np.stack([it.result for it in backend.results])
     assert ids.shape == (rep.n_requests, GEN_TOKENS)
     assert ((ids >= 0) & (ids < cfg.vocab_size)).all()
+
+
+# --------------------------------------------------------------------------
+# the decode-stream scan engine: captured chunks against the plain version
+# --------------------------------------------------------------------------
+def _scan_workload(duration, seed):
+    from repro_torch.serving.scenarios import build_scenario
+    batch, meta = build_scenario("llm-chat", duration=duration, seed=seed)
+    return batch, meta["cost"]
+
+
+def _scan_parity(a, b):
+    assert a["decisions"] == b["decisions"]
+    for k in ("first_tok", "finish"):
+        assert np.array_equal(a[k], b[k], equal_nan=True), k
+    assert np.array_equal(a["tbt_violations"], b["tbt_violations"])
+    for k in ("core_seconds", "steps", "n_served"):
+        assert a[k] == b[k], k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["chunk16", "chunk64", "decide",
+                                  "allowance"])
+def test_scan_engine_on_card_matches_numpy(case, cuda_device):
+    """``backend="torch"`` on the card (each chunk a replay of the graph
+    captured at its first call) is bit for bit the NumPy plain version:
+    static knobs at both chunk sizes, ``make_sponge_decide`` moving the
+    knobs between chunks, and a prefill allowance that bites."""
+    from repro_torch.core.scaler import SpongeScaler
+    from repro_torch.core.solver import DEFAULT_B, DEFAULT_C
+    from repro_torch.serving.scanpath import (ScanDecodeEngine,
+                                              make_sponge_decide)
+    batch, cost = _scan_workload(40, 3)
+    kw = dict(c0=8, b0=8, chunk_steps=64)
+    if case == "chunk16":
+        kw["chunk_steps"] = 16
+    elif case == "decide":
+        kw = dict(c0=4, b0=4, chunk_steps=32, decide=make_sponge_decide(
+            SpongeScaler(cost), cost, DEFAULT_C, DEFAULT_B))
+    elif case == "allowance":
+        kw = dict(c0=8, b0=16, chunk_steps=32, prefill_allowance=int(
+            np.asarray(batch.prompt_tokens).mean() * 2))
+    eng = ScanDecodeEngine(cost, **kw)
+    out = eng.run(batch, backend="torch", device=cuda_device)
+    ref = ScanDecodeEngine(cost, **kw).run(batch, backend="numpy")
+    _scan_parity(out, ref)
+    assert out["n_served"] > 0
+    assert eng.replays == eng.chunks - 1 > 0
+    if case == "decide":
+        assert len({(c, b) for _, c, b in out["decisions"]}) > 1
+
+
+@pytest.mark.cuda
+def test_scan_engine_auto_is_the_card_and_replays_on_a_second_run(
+        cuda_device):
+    """``backend="auto"`` runs the torch route on ``cuda``; a second run
+    of the same engine on the same workload replays the captured chunk
+    for every chunk (no new capture) and gives the same result."""
+    from repro_torch.serving.scanpath import ScanDecodeEngine
+    batch, cost = _scan_workload(30, 9)
+    eng = ScanDecodeEngine(cost, c0=8, b0=8)
+    r1 = eng.run(batch, backend="auto")
+    assert r1["backend"] == "torch"
+    assert eng._torch_chunk.device.type == "cuda"
+    graph, replays = eng._torch_chunk.step.graph, eng.replays
+    r2 = eng.run(batch)
+    assert eng._torch_chunk.step.graph is graph
+    assert eng.replays - replays == eng.chunks
+    _scan_parity(r1, r2)
+    _scan_parity(r1, ScanDecodeEngine(cost, c0=8, b0=8).run(
+        batch, backend="numpy"))

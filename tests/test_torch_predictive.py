@@ -142,8 +142,8 @@ def test_make_policy_knows_sponge_pred():
 @pytest.mark.parametrize("name", ["steady", "network-replay",
                                   "slo-renegotiation"])
 def test_sponge_pred_runs_equal_reference(name):
-    rep, stats = run_scenario(name, policy="sponge-pred", duration=30,
-                              seed=6)
+    rep, stats = run_scenario(name, policy="sponge-pred", engine="exact",
+                              duration=30, seed=6)
     jrep, jstats = jax_scenarios.run_scenario(name, policy="sponge-pred",
                                               engine="exact", duration=30,
                                               seed=6)

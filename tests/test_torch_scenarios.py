@@ -1,10 +1,10 @@
-"""The port's scenario registry and exact-engine runner against the JAX package.
+"""The port's scenario registry and runner against the JAX package.
 
 ``serving/scenarios.py``, ``network/traces.py`` and the launcher's
 scenario branch are NumPy copies of the reference's, so the same seed
-must give the same workload columns and the same exact-engine run:
-equal reports, decision streams, buckets, session counts and
-uncertainty stats, with no float tolerance.  Mirrors the exact-engine
+must give the same workload columns and the same run on the fast and
+exact engines: equal reports, decision streams, buckets, session counts,
+solver and uncertainty stats, with no float tolerance.  Mirrors the
 cases of ``tests/test_scenarios.py``.  Everything here runs on the CPU.
 """
 import contextlib
@@ -115,7 +115,8 @@ def test_run_scenario_exact_equals_reference(name):
 
 
 def test_run_scenario_defaults_to_the_exact_engine():
-    rep, stats = scenarios.run_scenario("steady", duration=20, seed=2)
+    rep, stats = scenarios.run_scenario("steady", engine="exact",
+                                        duration=20, seed=2)
     jrep, _ = jax_scenarios.run_scenario("steady", engine="exact",
                                          duration=20, seed=2)
     assert stats["engine"] == "exact"
@@ -125,8 +126,8 @@ def test_run_scenario_defaults_to_the_exact_engine():
 @pytest.mark.parametrize("policy", ["fa2", "static-8"])
 @pytest.mark.parametrize("name", ["mixed-slo", "slo-renegotiation"])
 def test_run_scenario_baselines_equal_reference(name, policy):
-    rep, stats = scenarios.run_scenario(name, policy=policy, duration=30,
-                                        seed=5)
+    rep, stats = scenarios.run_scenario(name, policy=policy, engine="exact",
+                                        duration=30, seed=5)
     jrep, jstats = jax_scenarios.run_scenario(name, policy=policy,
                                               engine="exact", duration=30,
                                               seed=5)
@@ -136,7 +137,17 @@ def test_run_scenario_baselines_equal_reference(name, policy):
 
 @pytest.mark.parametrize("engine", ["fast", "vector", "jax"])
 def test_unported_engines_raise(engine):
-    with pytest.raises(ValueError, match="6b"):
+    """``vector`` (ROADMAP.md Queue 1 item 6c) and ``jax`` are refused;
+    ``fast`` is ported and gives the reference's fast-engine run."""
+    if engine == "fast":
+        rep, stats = scenarios.run_scenario("steady", engine=engine,
+                                            duration=10)
+        jrep, jstats = jax_scenarios.run_scenario("steady", engine=engine,
+                                                  duration=10)
+        assert report_sig(rep) == report_sig(jrep)
+        assert stats["solver"] == jstats["solver"]
+        return
+    with pytest.raises(ValueError, match="6c"):
         scenarios.run_scenario("steady", engine=engine, duration=10)
 
 
@@ -149,14 +160,73 @@ def test_run_scenario_validation_matches_reference(kw):
     with pytest.raises(ValueError):
         jax_scenarios.run_scenario(name, engine="exact", duration=10, **kw)
     with pytest.raises(ValueError):
-        scenarios.run_scenario(name, duration=10, **kw)
+        scenarios.run_scenario(name, engine="exact", duration=10, **kw)
+
+
+@pytest.mark.parametrize("name", ALL)
+def test_run_scenario_fast_equals_reference(name):
+    """The default engine (fast, quantized memo solver) on every
+    scenario: the report, event count and session, solver and
+    uncertainty stats equal the reference's fast engine."""
+    rep, stats = scenarios.run_scenario(name, duration=30, seed=3)
+    jrep, jstats = jax_scenarios.run_scenario(name, engine="fast",
+                                              duration=30, seed=3)
+    assert report_sig(rep) == report_sig(jrep)
+    assert rep.n_requests > 0 and rep.decisions
+    assert stats["engine"] == "fast"
+    assert stats["events"] == jstats["events"] > 0
+    assert stats["solver"]["hits"] + stats["solver"]["misses"] > 0
+    for k in ("session", "uncertainty", "solver"):
+        assert stats.get(k) == jstats.get(k), k
+
+
+@pytest.mark.parametrize("name", PLAIN + SESSION)
+def test_fast_at_quanta_zero_equals_exact(name):
+    """At quanta 0 the fast engine is decision for decision the exact
+    one (``test_determinism.py`` / ``test_fastpath.py``): decisions,
+    buckets, request, violation and cancel counts, session counts."""
+    fast, fstats = scenarios.run_scenario(name, duration=60, seed=1,
+                                          budget_quantum=0.0,
+                                          lam_quantum=0.0)
+    exact, estats = scenarios.run_scenario(name, engine="exact",
+                                           duration=60, seed=1)
+    assert [(t, d.c, d.b, d.n, d.feasible) for t, d in fast.decisions] \
+        == [(t, d.c, d.b, d.n, d.feasible) for t, d in exact.decisions]
+    assert fast.buckets == exact.buckets
+    assert (fast.n_requests, fast.n_violations, fast.n_cancelled) == \
+        (exact.n_requests, exact.n_violations, exact.n_cancelled)
+    assert fstats.get("session") == estats.get("session")
+
+
+def test_fast_and_exact_agree_on_request_counts():
+    for name in PLAIN:
+        fast, _ = scenarios.run_scenario(name, duration=45, seed=2)
+        exact, _ = scenarios.run_scenario(name, engine="exact", duration=45,
+                                          seed=2)
+        assert fast.n_requests == exact.n_requests, name
+
+
+def test_run_scenario_defaults_to_the_fast_engine():
+    rep, stats = scenarios.run_scenario("steady", duration=20, seed=2)
+    jrep, jstats = jax_scenarios.run_scenario("steady", duration=20, seed=2)
+    assert stats["engine"] == jstats["engine"] == "fast"
+    assert report_sig(rep) == report_sig(jrep)
+    assert stats["solver"] == jstats["solver"]
+
+
+@pytest.mark.parametrize("name", ["steady", "slo-renegotiation"])
+def test_sponge_pred_requires_exact_engine(name):
+    for run in (scenarios.run_scenario, jax_scenarios.run_scenario):
+        with pytest.raises(ValueError, match="exact"):
+            run(name, policy="sponge-pred", engine="fast", duration=10)
 
 
 def test_flash_crowd_overload_is_localized():
     """``tests/test_scenarios.py``'s overload case on the exact engine:
     the spikes exceed capacity, the base load around them is served."""
     batch, _ = scenarios.build_scenario("flash-crowd", duration=120, seed=7)
-    rep, _ = scenarios.run_scenario("flash-crowd", duration=120, seed=7)
+    rep, _ = scenarios.run_scenario("flash-crowd", engine="exact",
+                                    duration=120, seed=7)
     assert rep.violation_rate < 0.6
     assert rep.n_requests == len(batch)
 
@@ -198,7 +268,7 @@ def test_inhomogeneous_poisson_equals_reference():
 
 
 # --------------------------------------------------------------------------
-# the launcher's exact-engine branch
+# the launcher's fast- and exact-engine branches
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("argv", [
     ["--scenario", "slo-renegotiation", "--duration", "30"],
@@ -228,9 +298,48 @@ def test_launcher_exact_json_equals_reference(argv, capsys):
 
 
 def test_launcher_defaults_plain_scenarios_to_the_exact_engine():
+    """The launcher's default engine for a plain scenario: the fast
+    engine now that it is ported, as in the reference (it was the exact
+    engine while that was the only one); ``--engine exact`` still picks
+    the exact engine."""
     with contextlib.redirect_stdout(io.StringIO()):
         out = launcher.main(["--scenario", "steady", "--duration", "10"])
-    assert out["engine"] == "exact"
+        exact = launcher.main(["--scenario", "steady", "--duration", "10",
+                               "--engine", "exact"])
+    assert out["engine"] == "fast"
+    assert exact["engine"] == "exact"
+
+
+@pytest.mark.parametrize("argv", [
+    ["--scenario", "steady", "--duration", "30"],
+    ["--scenario", "mixed-slo", "--duration", "30", "--policy", "fa2"],
+    ["--scenario", "slo-renegotiation", "--duration", "30"],
+    ["--scenario", "cancel-storm", "--duration", "30", "--no-mid-flight"],
+    ["--scenario", "llm-heavy-tail", "--duration", "20",
+     "--admission-quantile", "0.8", "--engine", "fast"],
+    ["--scenario", "llm-chat", "--duration", "20", "--engine", "fast"],
+])
+def test_launcher_fast_json_equals_reference(argv, capsys):
+    """The fast engine through the launcher: every key of the
+    reference's JSON line, ``solver_hit_rate`` included, but the wall
+    clock."""
+    out = launcher.main(argv)
+    mine = json.loads(capsys.readouterr().out)
+    jax_launcher.main(argv)
+    ref = json.loads(capsys.readouterr().out)
+    assert mine == out and mine["engine"] == "fast" and mine["n"] > 0
+    assert set(mine) == set(ref)
+    timing = {"wall_s", "events_per_s"}
+    assert {k: mine[k] for k in set(mine) - timing} \
+        == {k: ref[k] for k in set(ref) - timing}
+    if "--policy" not in argv:
+        assert mine["solver_hit_rate"] > 0
+
+
+def test_launcher_refuses_the_vector_engine():
+    with pytest.raises(SystemExit, match="6c"):
+        launcher.main(["--scenario", "steady", "--duration", "10",
+                       "--engine", "vector"])
 
 
 @pytest.mark.parametrize("argv", [

@@ -299,8 +299,8 @@ def _full_sig(rep):
 def test_point_mass_reduces_bit_identically(scenario):
     """Declaring a PointMass reproduces the deterministic run verbatim."""
     batch, meta = build_scenario(scenario, requests=400, seed=5)
-    kw = dict(policy="sponge", c_set=C_SET, b_set=B_SET, c0=16,
-              tick=meta["tick"], horizon=None)
+    kw = dict(policy="sponge", engine="exact", c_set=C_SET, b_set=B_SET,
+              c0=16, tick=meta["tick"], horizon=None)
     base, _ = _run_token_scenario(batch, dict(meta), **kw)
     m2 = dict(meta, decode_dist=PointMass(24))
     pm, stats = _run_token_scenario(
@@ -316,13 +316,14 @@ def test_point_mass_reduces_bit_identically(scenario):
 def test_disabled_quantile_is_identical_to_no_dist():
     """admission_quantile=0.0 turns the mechanism off although the
     scenario declares a distribution: the run is the one without it."""
-    rep0, s0 = run_scenario("llm-heavy-tail", requests=400, seed=4,
-                            admission_quantile=0.0)
+    rep0, s0 = run_scenario("llm-heavy-tail", engine="exact", requests=400,
+                            seed=4, admission_quantile=0.0)
     assert "uncertainty" not in s0 and rep0.n_cancelled == 0
     batch, meta = build_scenario("llm-heavy-tail", requests=400, seed=4)
     meta.pop("decode_dist")
     plain, stats = _run_token_scenario(batch, meta, policy="sponge",
-                                       c_set=DEFAULT_C, b_set=DEFAULT_B,
+                                       engine="exact", c_set=DEFAULT_C,
+                                       b_set=DEFAULT_B,
                                        c0=16, tick=meta["tick"],
                                        horizon=None)
     assert "uncertainty" not in stats
@@ -337,7 +338,8 @@ def test_disabled_quantile_is_identical_to_no_dist():
 def test_uncertainty_runs_equal_reference(name, kw):
     """Stats, ``overrun_cancels`` and the whole report equal the
     reference's exact engine under every admission knob."""
-    rep, stats = run_scenario(name, requests=500, seed=7, **kw)
+    rep, stats = run_scenario(name, engine="exact", requests=500, seed=7,
+                              **kw)
     jrep, jstats = jax_scenarios.run_scenario(name, engine="exact",
                                               requests=500, seed=7, **kw)
     assert stats["uncertainty"] == jstats["uncertainty"]
@@ -347,7 +349,7 @@ def test_uncertainty_runs_equal_reference(name, kw):
 
 
 def test_overrun_cancels_free_slots_not_inflate_cost():
-    common = dict(requests=800, seed=13)
+    common = dict(engine="exact", requests=800, seed=13)
     spec, s_on = run_scenario("llm-heavy-tail", **common)
     nospec, s_off = run_scenario("llm-heavy-tail", speculative=False,
                                  **common)
@@ -364,8 +366,99 @@ def test_overrun_cancels_free_slots_not_inflate_cost():
 def test_overrun_cancels_bounded_by_promised_tail():
     """Speculative admission cancels at most the promised tail mass."""
     for seed in (0, 1, 2):
-        rep, stats = run_scenario("llm-heavy-tail", requests=500,
-                                  seed=seed)
+        rep, stats = run_scenario("llm-heavy-tail", engine="exact",
+                                  requests=500, seed=seed)
         q = stats["uncertainty"]["quantile"]
         total = rep.n_requests + rep.n_cancelled
         assert rep.n_cancelled / total <= (1.0 - q) + _coverage_tol(total, q)
+
+
+# --------------------------------------------------------------------------
+# the fast engine (TokenFastSimRunner, TokenFastSession's speculative
+# admission with cancel-on-overrun)
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("scenario", ["llm-chat", "llm-mixed-len"])
+def test_point_mass_reduces_bit_identically_fast(scenario):
+    batch, meta = build_scenario(scenario, requests=400, seed=5)
+    kw = dict(policy="sponge", engine="fast", c_set=C_SET, b_set=B_SET,
+              c0=16, tick=meta["tick"], horizon=None,
+              budget_quantum=0.01, lam_quantum=0.5)
+    base, _ = _run_token_scenario(batch, dict(meta), **kw)
+    pm, stats = _run_token_scenario(
+        dataclasses.replace(batch, decode_dist=PointMass(24)),
+        dict(meta, decode_dist=PointMass(24)), **kw)
+    assert stats["uncertainty"]["point"] is True
+    assert stats["uncertainty"]["overrun_cancels"] == 0
+    assert _full_sig(base) == _full_sig(pm)
+    sz, _ = _run_token_scenario(batch, dict(
+        meta, decode_dist=LognormalLengths(median=24, sigma=0.0)), **kw)
+    assert _full_sig(base) == _full_sig(sz)
+    jbatch, jmeta = jax_scenarios.build_scenario(scenario, requests=400,
+                                                 seed=5)
+    jbase, _ = jax_scenarios._run_token_scenario(jbatch, dict(jmeta), **kw)
+    assert _full_sig(base) == _full_sig(jbase)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(speculative=False),
+                                dict(admission_quantile=0.75),
+                                dict(admission_quantile=0.0)])
+@pytest.mark.parametrize("name", ["llm-heavy-tail",
+                                  "retrieve-then-generate"])
+def test_uncertainty_runs_equal_reference_fast(name, kw):
+    """The fast engine's speculative admission under every admission
+    knob: stats (``overrun_cancels`` included), solver stats and the
+    whole report equal the reference's fast engine."""
+    rep, stats = run_scenario(name, requests=600, seed=7, **kw)
+    jrep, jstats = jax_scenarios.run_scenario(name, engine="fast",
+                                              requests=600, seed=7, **kw)
+    assert stats["engine"] == "fast"
+    assert stats.get("uncertainty") == jstats.get("uncertainty")
+    assert stats["solver"] == jstats["solver"]
+    assert _full_sig(rep) == _full_sig(jrep)
+    if kw.get("admission_quantile") == 0.0:
+        assert "uncertainty" not in stats and rep.n_cancelled == 0
+    else:
+        assert stats["uncertainty"]["n_observed"] > 0
+
+
+def test_overrun_cancels_free_slots_not_inflate_cost_fast():
+    common = dict(engine="fast", requests=1000, seed=13)
+    spec, s_on = run_scenario("llm-heavy-tail", **common)
+    nospec, s_off = run_scenario("llm-heavy-tail", speculative=False,
+                                 **common)
+    assert spec.n_cancelled > 0
+    assert s_on["uncertainty"]["overrun_cancels"] == spec.n_cancelled
+    assert nospec.n_cancelled == 0
+    assert s_off["uncertainty"]["overrun_cancels"] == 0
+    assert spec.n_requests + spec.n_cancelled == nospec.n_requests
+    assert spec.core_seconds <= nospec.core_seconds + 1e-9
+    assert np.isfinite(spec.ttft_p99) and np.isfinite(spec.p99)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_overrun_cancels_bounded_by_promised_tail_fast(seed):
+    rep, stats = run_scenario("llm-heavy-tail", engine="fast",
+                              requests=600, seed=seed)
+    q = stats["uncertainty"]["quantile"]
+    total = rep.n_requests + rep.n_cancelled
+    assert rep.n_cancelled / total <= (1.0 - q) + _coverage_tol(total, q)
+
+
+def test_aware_never_more_violations_than_promised_fast():
+    rep, stats = run_scenario("llm-heavy-tail", engine="fast",
+                              requests=1500, seed=11)
+    q = stats["uncertainty"]["quantile"]
+    assert rep.violation_rate <= (1.0 - q) + _coverage_tol(
+        max(rep.n_requests, 1), q)
+
+
+def test_retrieve_then_generate_class_quantiles_and_feedback_fast():
+    """The RAG scenario carries per-class quantiles end to end on the
+    fast engine, and the shared config closes the calibration loop."""
+    rep, stats = run_scenario("retrieve-then-generate", engine="fast",
+                              requests=1000, seed=8)
+    unc = stats["uncertainty"]
+    assert unc["speculative"] is True and rep.n_cancelled > 0
+    assert rep.n_requests > 0 and np.isfinite(rep.ttft_p99)
+    assert unc["n_observed"] > 0 and 1.0 <= unc["slack_factor"] <= 3.0
+    assert unc["calibration_error"] >= 0.0
