@@ -25,7 +25,12 @@ code is non-zero:
    the operations bound it; and both at gemma-2b's head_dim 256 with 8
    query heads over 1 KV head (prefill B 4, S 256, causal, and B 2, S 77
    under a window of 16; decode B 4, S 321, G 8, lengths 0/1/160/321),
-   timed in bf16 under ``d256_*`` keys.
+   timed in bf16 under ``d256_*`` keys; at qwen2-vl-2b's 12 query heads
+   of 128 over 2 KV heads (prefill B 4, S 320, causal; decode B 4, S 352,
+   G 6, lengths 1/100/321/352) under ``d128_*`` keys, and
+   ``decode_attention`` at whisper-large-v3's cross-attention (B 4, 1,500
+   encoder rows, 20 heads of 64, every row valid) under ``cross_*``
+   keys.
    ``rwkv6_scan`` is checked at the prefill shape (B 4, T 256, H 32,
    D 64), at decode (T 1), at ragged T (77, 300) and at D 16 and 32, with
    bf16 r/k/v beside an f32 decay, for state continuation ([0:T]
@@ -57,6 +62,22 @@ code is non-zero:
    route's (logits atol 1e-3); in bfloat16 both routes, teacher-forced
    with the f32 ids, give the same greedy id at every step and the
    kernel route's logits keep the rule above;
+   models -- qwen2-vl-2b (256 patch embeddings of a 16 x 16 grid before a
+   64-token prompt, M-RoPE ids rising in sequence order with the grid's
+   rows and columns) and whisper-large-v3 (1,500 encoder frames, a
+   16-token prompt) at full width through the model API, inputs and
+   weights from seeds.  f32, at the main path's batch (4) and cache
+   length: prefill and 16 greedy decode steps, kernel route against
+   plain route (logits atol 1e-3, identical ids),
+   exactly one ``swa_prefill`` per layer per prefill and one
+   ``decode_attention`` per layer per step (whisper two: self- and
+   cross-attention); bf16 teacher-forced under the rule above.  Then the
+   main path, bf16 on the kernel route, counts reset before and read
+   after (they must be exactly those per prefill and step): the prefill
+   wall at b 4 (whisper's encoder also alone) and a 64-step greedy
+   generation at b 1, 2 and 4, eager and through one captured decode
+   graph (ids equal), with host wall per step and tokens per wall
+   second (prefill included);
 5. capture -- per model, in bfloat16 at the serving shape (batch 4,
    prompt 256, 10 decode steps): the prefill and decode steps of one
    static gang run eagerly and as replayed CUDA graphs
@@ -150,7 +171,15 @@ and exits non-zero.
    host wall per step, device busy time and idle share, device kernels,
    host launch calls (``cudaLaunchKernel*``, ``cudaGraphLaunch``) and
    the kernels that take the most device time, also written as
-   ``profile-<arch>.json`` into the run's output directory.
+   ``profile-<arch>.json`` into the run's output directory.  For
+   qwen2-vl-2b and whisper-large-v3 the phase ``models`` profiles, at b 4
+   in bf16, the prefill and 10 replayed decode steps as two windows.
+   Every idle share is ``1 - busy / wall``, the busy time the median of
+   three profiled runs and the wall the median of three runs without
+   the profiler; the raw share is printed beside their run-to-run
+   spread (the two relative ranges added) and the profiled windows' own
+   wall, and the share prints as 0 only where it is negative and within
+   the spread.
 """
 from __future__ import annotations
 
@@ -175,16 +204,19 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 N_TIMED = 60
 SLEEP_CYCLES = 1_000_000                  # ~0.5 ms at the H100's clocks
 
-PREFILL = dict(H=9, KV=3, D=64)           # smollm-135m attention widths
+# smollm-135m's attention widths, timed at B 4, S 256 (full causal)
+PREFILL = dict(B=4, S=256, H=9, KV=3, D=64,
+               checks=((1, 256, 256), (4, 200, 64)))
 DECODE = dict(B=4, S=321, KV=3, G=3, D=64, lengths=(0, 1, 160, 321))
 # zamba2-2.7b's shared block: 32 heads of 80, window 4096 over a 321-slot
 # ring buffer (lengths = min(index + 1, 321): 321 from the wrap on)
-PREFILL80 = dict(H=32, KV=32, D=80, window=4096)
+PREFILL80 = dict(B=4, S=256, H=32, KV=32, D=80, window=4096,
+                 checks=((2, 77, 16),))
 DECODE80 = dict(B=4, S=321, KV=32, G=1, D=80, lengths=(1, 160, 320, 321))
 # one prompt of zamba2-2.7b's full window
 LONG_PREFILL = dict(B=1, S=4096, H=32, KV=32, D=80, window=4096)
 # gemma-2b: 8 query heads of 256 over 1 KV head (multi-query, G = 8)
-PREFILL256 = dict(B=4, S=256, H=8, KV=1, D=256)
+PREFILL256 = dict(B=4, S=256, H=8, KV=1, D=256, checks=((2, 77, 16),))
 DECODE256 = dict(B=4, S=321, KV=1, G=8, D=256, lengths=(0, 1, 160, 321))
 # h2o-danube-1.8b past its 4096-token window
 WINDOW = dict(arch="h2o-danube-1.8b", prompt=4160, steps=16)
@@ -219,6 +251,22 @@ PARITY_ONLY = ("smollm-360m",)
 # the models whose bf16 path runs the attention kernels: phase 4 checks
 # their bf16 routes too
 BF16_PARITY = ("smollm-135m", "zamba2-2.7b", "gemma-2b", "h2o-danube-1.8b")
+# the prefix and encoder models, run through the model API (the reference
+# serves neither through its token backend): Qwen2-VL's 256 patch
+# embeddings (a 16 x 16 grid) before a 64-token prompt, whisper's 1,500
+# encoder frames beside a 16-token prompt; f32 parity over STEPS greedy
+# steps, bf16 generation of GEN_STEPS steps at each b of GEN_SETS
+VLM_AUDIO = {"qwen2-vl-2b": 64, "whisper-large-v3": 16}
+STEPS = 16
+GEN_STEPS = 64
+GEN_SETS = (1, 2, 4)
+# qwen2-vl-2b: 12 query heads of 128 over 2 KV heads (G 6); prefill over
+# the 256 patches and the 64-token prompt, decode over its served cache
+PREFILL128 = dict(B=4, S=320, H=12, KV=2, D=128)
+DECODE128 = dict(B=4, S=352, KV=2, G=6, D=128, lengths=(1, 100, 321, 352))
+# whisper-large-v3's decode cross-attention: 20 heads of 64 over every one
+# of the 1,500 encoder rows
+CROSS = dict(B=4, S=1500, KV=20, G=1, D=64, lengths=(1500,) * 4)
 
 
 def ptxas_start():
@@ -410,91 +458,30 @@ def bound_ms(nbytes, flops, dtype):
 
 
 def kernel_phase(dev):
-    from repro_torch.kernels.decode_attention import ops as dec
-    from repro_torch.kernels.swa_prefill import ops as pre
-    import torch.nn.functional as F
-
     gen = torch.Generator(device=dev).manual_seed(0)
-    h, kv, d = PREFILL["H"], PREFILL["KV"], PREFILL["D"]
-    rows = {}
+    rows = {name: {"name": name, "route": "cuda",
+                   "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                   "replaces": replaces, "launches": None,
+                   "max_abs_err": 0.0}
+            for name, replaces in (
+                ("swa_prefill",
+                 "src/repro/kernels/swa_prefill/swa_prefill.py:75"),
+                ("decode_attention",
+                 "src/repro/kernels/decode_attention/decode_attention.py:68"))}
     # the least time this method reports for any launch (event and launch
     # latency), to read the small kernels' times against
     one = torch.zeros(1, device=dev)
     say("kernels", timing_floor_ms=median_ms(lambda: one.zero_()),
         timed="one-element zero_")
-
-    # -- swa_prefill: B in {1, 4}, S = 256 full causal; S = 200, window 64
-    worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        for b, s, window in ((1, 256, 256), (4, 256, 256), (4, 200, 64)):
-            q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
-            k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-            v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-            out = pre.swa_prefill_attention(q, k, v, window=window)
-            ref = pre.swa_prefill_plain(q, k, v, window=window)
-            err = check_close(f"swa_prefill B={b} S={s} W={window} {dtype}",
-                              out, ref, dtype)
-            worst = max(worst, err)
-            say("kernels", kernel="swa_prefill", dtype=str(dtype)[6:], B=b,
-                S=s, window=window, max_abs_err=err)
-    # timed at the serving shape: bf16, B = 4, S = 256, full causal
-    b, s, dtype = 4, 256, torch.bfloat16
-    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
-    k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-    v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    ms = median_ms(lambda: pre.swa_prefill_attention(q, k, v, window=s))
-    plain_ms = median_ms(lambda: pre.swa_prefill_plain(q, k, v, window=s))
-    lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    bms, by = bound_ms(*prefill_bound(b, s, h, kv, d, s, dtype), dtype)
-    rows["swa_prefill"] = {
-        "name": "swa_prefill", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/swa_prefill.cu",
-        "replaces": "src/repro/kernels/swa_prefill/swa_prefill.py:75",
-        "launches": None, "max_abs_err": worst, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-        "library_ms": lib_ms,
-        "timed": f"bf16 B={b} S={s} H={h} KV={kv} D={d} full causal"}
-
-    # -- decode_attention: B = 4, S = 321, lengths {0, 1, 160, 321}
-    b, s, g = DECODE["B"], DECODE["S"], DECODE["G"]
-    lengths = torch.tensor(DECODE["lengths"], dtype=torch.int32, device=dev)
-    worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        q = torch.randn(b, kv, g, d, generator=gen, device=dev).to(dtype)
-        k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-        v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-        out = dec.decode_attention(q, k, v, lengths)
-        ref = dec.decode_attention_plain(q, k, v, lengths)
-        err = check_close(f"decode_attention {dtype}", out, ref, dtype)
-        worst = max(worst, err)
-        say("kernels", kernel="decode_attention", dtype=str(dtype)[6:], B=b,
-            S=s, lengths=list(DECODE["lengths"]), max_abs_err=err)
-    # timed on the bf16 inputs just checked; the yardstick is one SDPA
-    # call with the same finite -1e30 additive mask
-    qh = q.reshape(b, kv * g, 1, d)
-    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-    valid = torch.arange(s, device=dev)[None, :] < lengths[:, None].long()
-    mask = torch.zeros(b, 1, 1, s, device=dev, dtype=dtype).masked_fill(
-        ~valid[:, None, None, :], -1e30)
-    ms = median_ms(lambda: dec.decode_attention(q, k, v, lengths))
-    plain_ms = median_ms(lambda: dec.decode_attention_plain(q, k, v, lengths))
-    lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
-        qh, kt, vt, attn_mask=mask, enable_gqa=True))
-    bms, by = bound_ms(*decode_bound(b, s, kv, g, d, DECODE["lengths"],
-                                     dtype), dtype)
-    rows["decode_attention"] = {
-        "name": "decode_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
-        "replaces": "src/repro/kernels/decode_attention/decode_attention.py:68",
-        "launches": None, "max_abs_err": worst, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-        "library_ms": lib_ms,
-        "timed": f"bf16 B={b} S={s} KV={kv} G={g} D={d} "
-                 f"lengths={list(DECODE['lengths'])}"}
-    attn80_phase(dev, gen, rows)
-    attn256_phase(dev, gen, rows)
+    attn_shape_phase(dev, gen, rows, "", prefill=PREFILL, decode=DECODE)
+    attn_shape_phase(dev, gen, rows, "d80", prefill=PREFILL80,
+                     decode=DECODE80)
+    attn_shape_phase(dev, gen, rows, "long", prefill=LONG_PREFILL)
+    attn_shape_phase(dev, gen, rows, "d256", prefill=PREFILL256,
+                     decode=DECODE256)
+    attn_shape_phase(dev, gen, rows, "d128", prefill=PREFILL128,
+                     decode=DECODE128)
+    attn_shape_phase(dev, gen, rows, "cross", decode=CROSS)
     rows["rwkv6_scan"] = wkv_kernel_phase(dev, gen)
     rows["ssd_scan"] = ssd_kernel_phase(dev, gen)
     for r in rows.values():
@@ -504,207 +491,94 @@ def kernel_phase(dev):
     return rows
 
 
-def attn80_phase(dev, gen, rows) -> None:
-    """Both attention kernels at zamba2-2.7b's shared-block widths (head
-    dim 80, 32 query and 32 KV heads): checked against their plain
-    versions, including a decode over a wrapped ring buffer, and timed
-    in bf16 beside the plain version and SDPA.  The times go into the
-    kernels' rows under ``d80_*`` keys."""
+# the keys ``attn_shape_phase`` times, after the shape's prefix
+TIMED_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+
+
+def attn_shape_phase(dev, gen, rows, key, prefill=None, decode=None) -> None:
+    """The attention kernels at one model's widths: ``prefill`` (B, S, H,
+    KV, D; ``window``, S when absent: full causal; ``checks``, more
+    (B, S, window) shapes checked but not timed) and ``decode`` (B, S,
+    KV, G, D, lengths), each checked against its plain version in f32
+    and bf16 and timed in bf16 at (B, S) beside the plain version, one
+    SDPA call and the bound, under ``<key>_*`` keys of the kernels'
+    rows (unprefixed for ``key`` "")."""
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.swa_prefill import ops as pre
     import torch.nn.functional as F
 
-    h, kv, d, win = (PREFILL80[k] for k in ("H", "KV", "D", "window"))
-    worst = rows["swa_prefill"]["max_abs_err"]
-    for dtype in (torch.float32, torch.bfloat16):
-        for b, s, window in ((4, 256, win), (2, 77, 16)):
-            q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
-            k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-            v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-            err = check_close(f"swa_prefill D=80 B={b} S={s} W={window} "
-                              f"{dtype}",
-                              pre.swa_prefill_attention(q, k, v, window=window),
-                              pre.swa_prefill_plain(q, k, v, window=window),
+    def rand(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    pre_ = f"{key}_" if key else ""
+
+    if prefill is not None:
+        h, kv, d = (prefill[k] for k in ("H", "KV", "D"))
+        r = rows["swa_prefill"]
+        timed = (prefill["B"], prefill["S"],
+                 prefill.get("window", prefill["S"]))
+        for dtype in (torch.float32, torch.bfloat16):
+            for b, s, w in prefill.get("checks", ()) + (timed,):
+                q, k, v = (rand(b, s, n, d, dtype=dtype) for n in (h, kv, kv))
+                err = check_close(
+                    f"swa_prefill {key} B={b} S={s} W={w} {dtype}",
+                    pre.swa_prefill_attention(q, k, v, window=w),
+                    pre.swa_prefill_plain(q, k, v, window=w), dtype)
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                say("kernels", kernel="swa_prefill", dtype=str(dtype)[6:],
+                    B=b, S=s, H=h, KV=kv, D=d, window=w, max_abs_err=err)
+        b, s, w = timed                     # q, k, v: the last, bf16 draw
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        bms, by = bound_ms(*prefill_bound(b, s, h, kv, d, w, dtype), dtype)
+        r.update({
+            f"{pre_}ms": median_ms(
+                lambda: pre.swa_prefill_attention(q, k, v, window=w)),
+            f"{pre_}plain_ms": median_ms(
+                lambda: pre.swa_prefill_plain(q, k, v, window=w)),
+            f"{pre_}library_ms": median_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)),
+            f"{pre_}bound_ms": bms, f"{pre_}bound_by": by,
+            f"{pre_}timed": f"bf16 B={b} S={s} H={h} KV={kv} D={d} "
+                            + ("full causal" if w >= s else f"window={w}")})
+        say("kernels", kernel="swa_prefill",
+            **{pre_ + k_: r[pre_ + k_] for k_ in TIMED_KEYS})
+    if decode is not None:
+        b, s, kv, g, d = (decode[k] for k in ("B", "S", "KV", "G", "D"))
+        lengths = torch.tensor(decode["lengths"], dtype=torch.int32,
+                               device=dev)
+        r = rows["decode_attention"]
+        for dtype in (torch.float32, torch.bfloat16):
+            q = rand(b, kv, g, d, dtype=dtype)
+            k, v = (rand(b, s, kv, d, dtype=dtype) for _ in range(2))
+            err = check_close(f"decode_attention {key} {dtype}",
+                              dec.decode_attention(q, k, v, lengths),
+                              dec.decode_attention_plain(q, k, v, lengths),
                               dtype)
-            worst = max(worst, err)
-            say("kernels", kernel="swa_prefill", dtype=str(dtype)[6:], B=b,
-                S=s, H=h, KV=kv, D=d, window=window, max_abs_err=err)
-    b, s, dtype = 4, 256, torch.bfloat16
-    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
-    k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-    v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    bms, by = bound_ms(*prefill_bound(b, s, h, kv, d, win, dtype), dtype)
-    rows["swa_prefill"].update(
-        max_abs_err=worst,
-        d80_ms=median_ms(lambda: pre.swa_prefill_attention(q, k, v,
-                                                           window=win)),
-        d80_plain_ms=median_ms(lambda: pre.swa_prefill_plain(q, k, v,
-                                                             window=win)),
-        d80_library_ms=median_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)),
-        d80_bound_ms=bms, d80_bound_by=by,
-        d80_timed=f"bf16 B={b} S={s} H={h} KV={kv} D={d} window={win}")
-
-    b, s, g = DECODE80["B"], DECODE80["S"], DECODE80["G"]
-    lengths = torch.tensor(DECODE80["lengths"], dtype=torch.int32, device=dev)
-    worst = rows["decode_attention"]["max_abs_err"]
-    for dtype in (torch.float32, torch.bfloat16):
-        q = torch.randn(b, kv, g, d, generator=gen, device=dev).to(dtype)
-        k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-        v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-        err = check_close(f"decode_attention D=80 {dtype}",
-                          dec.decode_attention(q, k, v, lengths),
-                          dec.decode_attention_plain(q, k, v, lengths), dtype)
-        worst = max(worst, err)
-        say("kernels", kernel="decode_attention", dtype=str(dtype)[6:], B=b,
-            S=s, KV=kv, G=g, D=d, lengths=list(DECODE80["lengths"]),
-            max_abs_err=err)
-    qh = q.reshape(b, kv * g, 1, d)
-    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-    valid = torch.arange(s, device=dev)[None, :] < lengths[:, None].long()
-    mask = torch.zeros(b, 1, 1, s, device=dev, dtype=dtype).masked_fill(
-        ~valid[:, None, None, :], -1e30)
-    bms, by = bound_ms(*decode_bound(b, s, kv, g, d, DECODE80["lengths"],
-                                     dtype), dtype)
-    rows["decode_attention"].update(
-        max_abs_err=worst,
-        d80_ms=median_ms(lambda: dec.decode_attention(q, k, v, lengths)),
-        d80_plain_ms=median_ms(lambda: dec.decode_attention_plain(q, k, v,
-                                                                  lengths)),
-        d80_library_ms=median_ms(lambda: F.scaled_dot_product_attention(
-            qh, kt, vt, attn_mask=mask)),
-        d80_bound_ms=bms, d80_bound_by=by,
-        d80_timed=f"bf16 B={b} S={s} KV={kv} G={g} D={d} "
-                  f"lengths={list(DECODE80['lengths'])}")
-    long_prefill_phase(dev, gen, rows)
-    for name in ("swa_prefill", "decode_attention"):
-        r = rows[name]
-        say("kernels", kernel=name, d80_ms=r["d80_ms"],
-            d80_plain_ms=r["d80_plain_ms"],
-            d80_library_ms=r["d80_library_ms"],
-            d80_bound_ms=r["d80_bound_ms"], d80_bound_by=r["d80_bound_by"])
-
-
-def attn256_phase(dev, gen, rows) -> None:
-    """Both attention kernels at gemma-2b's widths (head dim 256, 8 query
-    heads over 1 KV head): checked against their plain versions in f32
-    and bf16 (prefill full causal and under a window narrower than the
-    prompt; decode with lengths 0, 1, partial and full), and timed in
-    bf16 beside the plain version and SDPA under ``d256_*`` keys."""
-    from repro_torch.kernels.decode_attention import ops as dec
-    from repro_torch.kernels.swa_prefill import ops as pre
-    import torch.nn.functional as F
-
-    h, kv, d = (PREFILL256[k] for k in ("H", "KV", "D"))
-    worst = rows["swa_prefill"]["max_abs_err"]
-    for dtype in (torch.float32, torch.bfloat16):
-        for b, s, window in ((PREFILL256["B"], PREFILL256["S"],
-                              PREFILL256["S"]), (2, 77, 16)):
-            q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
-            k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-            v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-            err = check_close(f"swa_prefill D={d} B={b} S={s} W={window} "
-                              f"{dtype}",
-                              pre.swa_prefill_attention(q, k, v, window=window),
-                              pre.swa_prefill_plain(q, k, v, window=window),
-                              dtype)
-            worst = max(worst, err)
-            say("kernels", kernel="swa_prefill", dtype=str(dtype)[6:], B=b,
-                S=s, H=h, KV=kv, D=d, window=window, max_abs_err=err)
-    b, s, dtype = PREFILL256["B"], PREFILL256["S"], torch.bfloat16
-    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
-    k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-    v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    bms, by = bound_ms(*prefill_bound(b, s, h, kv, d, s, dtype), dtype)
-    rows["swa_prefill"].update(
-        max_abs_err=worst,
-        d256_ms=median_ms(lambda: pre.swa_prefill_attention(q, k, v,
-                                                            window=s)),
-        d256_plain_ms=median_ms(lambda: pre.swa_prefill_plain(q, k, v,
-                                                              window=s)),
-        d256_library_ms=median_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
-        d256_bound_ms=bms, d256_bound_by=by,
-        d256_timed=f"bf16 B={b} S={s} H={h} KV={kv} D={d} full causal")
-
-    b, s, g = DECODE256["B"], DECODE256["S"], DECODE256["G"]
-    lengths = torch.tensor(DECODE256["lengths"], dtype=torch.int32,
-                           device=dev)
-    worst = rows["decode_attention"]["max_abs_err"]
-    for dtype in (torch.float32, torch.bfloat16):
-        q = torch.randn(b, kv, g, d, generator=gen, device=dev).to(dtype)
-        k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-        v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-        err = check_close(f"decode_attention D={d} {dtype}",
-                          dec.decode_attention(q, k, v, lengths),
-                          dec.decode_attention_plain(q, k, v, lengths), dtype)
-        worst = max(worst, err)
-        say("kernels", kernel="decode_attention", dtype=str(dtype)[6:], B=b,
-            S=s, KV=kv, G=g, D=d, lengths=list(DECODE256["lengths"]),
-            max_abs_err=err)
-    qh = q.reshape(b, kv * g, 1, d)
-    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-    valid = torch.arange(s, device=dev)[None, :] < lengths[:, None].long()
-    mask = torch.zeros(b, 1, 1, s, device=dev, dtype=dtype).masked_fill(
-        ~valid[:, None, None, :], -1e30)
-    bms, by = bound_ms(*decode_bound(b, s, kv, g, d, DECODE256["lengths"],
-                                     dtype), dtype)
-    rows["decode_attention"].update(
-        max_abs_err=worst,
-        d256_ms=median_ms(lambda: dec.decode_attention(q, k, v, lengths)),
-        d256_plain_ms=median_ms(lambda: dec.decode_attention_plain(q, k, v,
-                                                                   lengths)),
-        d256_library_ms=median_ms(lambda: F.scaled_dot_product_attention(
-            qh, kt, vt, attn_mask=mask, enable_gqa=True)),
-        d256_bound_ms=bms, d256_bound_by=by,
-        d256_timed=f"bf16 B={b} S={s} KV={kv} G={g} D={d} "
-                   f"lengths={list(DECODE256['lengths'])}")
-    for name in ("swa_prefill", "decode_attention"):
-        r = rows[name]
-        say("kernels", kernel=name, d256_ms=r["d256_ms"],
-            d256_plain_ms=r["d256_plain_ms"],
-            d256_library_ms=r["d256_library_ms"],
-            d256_bound_ms=r["d256_bound_ms"],
-            d256_bound_by=r["d256_bound_by"])
-
-
-def long_prefill_phase(dev, gen, rows) -> None:
-    """``swa_prefill`` in bf16 at zamba2-2.7b's full window (B 1, S 4096,
-    32 + 32 heads of 80, window 4096), where the operations and not the
-    launch bound the call: checked against the plain version and timed
-    beside it, SDPA and the bound, under ``long_*`` keys."""
-    from repro_torch.kernels.swa_prefill import ops as pre
-    import torch.nn.functional as F
-
-    b, s, dtype = LONG_PREFILL["B"], LONG_PREFILL["S"], torch.bfloat16
-    h, kv, d, win = (LONG_PREFILL[k] for k in ("H", "KV", "D", "window"))
-    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
-    k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-    v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-    err = check_close(f"swa_prefill D={d} B={b} S={s} W={win} {dtype}",
-                      pre.swa_prefill_attention(q, k, v, window=win),
-                      pre.swa_prefill_plain(q, k, v, window=win), dtype)
-    say("kernels", kernel="swa_prefill", dtype="bfloat16", B=b, S=s, H=h,
-        KV=kv, D=d, window=win, max_abs_err=err)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    bms, by = bound_ms(*prefill_bound(b, s, h, kv, d, win, dtype), dtype)
-    r = rows["swa_prefill"]
-    r.update(
-        max_abs_err=max(r["max_abs_err"], err),
-        long_ms=median_ms(lambda: pre.swa_prefill_attention(q, k, v,
-                                                            window=win)),
-        long_plain_ms=median_ms(lambda: pre.swa_prefill_plain(q, k, v,
-                                                              window=win)),
-        long_library_ms=median_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)),
-        long_bound_ms=bms, long_bound_by=by,
-        long_timed=f"bf16 B={b} S={s} H={h} KV={kv} D={d} window={win}")
-    say("kernels", kernel="swa_prefill", long_ms=r["long_ms"],
-        long_plain_ms=r["long_plain_ms"],
-        long_library_ms=r["long_library_ms"], long_bound_ms=bms,
-        long_bound_by=by)
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            say("kernels", kernel="decode_attention", dtype=str(dtype)[6:],
+                B=b, S=s, KV=kv, G=g, D=d, lengths=list(decode["lengths"]),
+                max_abs_err=err)
+        qh = q.reshape(b, kv * g, 1, d)
+        kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        valid = torch.arange(s, device=dev)[None, :] < lengths[:, None].long()
+        mask = torch.zeros(b, 1, 1, s, device=dev, dtype=dtype).masked_fill(
+            ~valid[:, None, None, :], -1e30)
+        bms, by = bound_ms(*decode_bound(b, s, kv, g, d, decode["lengths"],
+                                         dtype), dtype)
+        r.update({
+            f"{pre_}ms": median_ms(
+                lambda: dec.decode_attention(q, k, v, lengths)),
+            f"{pre_}plain_ms": median_ms(
+                lambda: dec.decode_attention_plain(q, k, v, lengths)),
+            f"{pre_}library_ms": median_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qh, kt, vt, attn_mask=mask, enable_gqa=True)),
+            f"{pre_}bound_ms": bms, f"{pre_}bound_by": by,
+            f"{pre_}timed": f"bf16 B={b} S={s} KV={kv} G={g} D={d} "
+                            f"lengths={list(decode['lengths'])}"})
+        say("kernels", kernel="decode_attention",
+            **{pre_ + k_: r[pre_ + k_] for k_ in TIMED_KEYS})
 
 
 def wkv_inputs(gen, dev, b, t, h, d, dtype):
@@ -925,13 +799,9 @@ def ssd_kernel_phase(dev, gen):
 
 def parity_phase(dev, arch: str) -> None:
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_config(arch), dtype="float32",
-                              param_dtype="float32")
-    kcfg = dataclasses.replace(cfg, use_pallas_prefill=True,
-                               use_pallas_decode=True)
-    plain, kern = build_model(cfg, device=dev), build_model(kcfg, device=dev)
+    plain, kern = route_pair(get_config(arch), dev, "float32")
+    cfg = plain.cfg
     params = kern.init(kern.generator(0))
     gen = torch.Generator(device=dev).manual_seed(1)
     b, s, steps = 2, 256, 4
@@ -987,15 +857,9 @@ def bf16_parity(dev, arch: str, params32, tokens, fed, ref_logits) -> None:
     2 max |plain - f32| + 1e-2: the kernels may round differently from
     the plain versions, but not by more than bf16 itself does."""
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_config(arch), dtype="bfloat16",
-                              param_dtype="bfloat16",
-                              use_pallas_prefill=False,
-                              use_pallas_decode=False)
-    kcfg = dataclasses.replace(cfg, use_pallas_prefill=True,
-                               use_pallas_decode=True)
-    plain, kern = build_model(cfg, device=dev), build_model(kcfg, device=dev)
+    plain, kern = route_pair(get_config(arch), dev, "bfloat16")
+    cfg = plain.cfg
     params = cast_like(params32, kern.init(kern.generator(0)))
     b, s = tokens.shape
     steps, vocab = len(fed), cfg.vocab_size
@@ -1023,6 +887,17 @@ def bf16_parity(dev, arch: str, params32, tokens, fed, ref_logits) -> None:
                              f"(max |plain - f32| {err_p})")
 
 
+def route_pair(base, dev, dtype):
+    """``base`` in ``dtype`` (weights too) on its plain route and on its
+    kernel route: two models on ``dev``."""
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(base, dtype=dtype, param_dtype=dtype)
+    kcfg = dataclasses.replace(cfg, use_pallas_prefill=True,
+                               use_pallas_decode=True)
+    return build_model(cfg, device=dev), build_model(kcfg, device=dev)
+
+
 def window_phase(dev) -> None:
     """Full-width h2o-danube-1.8b past its sliding window: batch 1, a
     prompt of ``WINDOW["prompt"]`` tokens (more than the 4096 of the
@@ -1036,7 +911,6 @@ def window_phase(dev) -> None:
     same greedy id at every step, and the kernel route's logits keep
     ``bf16_parity``'s rule against the f32 plain route."""
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model
     from repro_torch.serving.capture import launch_counts
 
     arch, s, steps = WINDOW["arch"], WINDOW["prompt"], WINDOW["steps"]
@@ -1046,32 +920,14 @@ def window_phase(dev) -> None:
         raise AssertionError(f"{arch}: window {window} not below prompt {s}")
     cache_len = s + steps + 1
 
-    def routes(dtype):
-        cfg = dataclasses.replace(base, dtype=dtype, param_dtype=dtype)
-        kcfg = dataclasses.replace(cfg, use_pallas_prefill=True,
-                                   use_pallas_decode=True)
-        return build_model(cfg, device=dev), build_model(kcfg, device=dev)
-
     def run(model, params, tokens, feed=None):
-        """Prefill and ``steps`` decode steps, greedy on the route's own
-        ids or fed ``feed``; the logits of each step (f32), its greedy
-        ids and the ring's slots."""
-        vocab = model.cfg.vocab_size
-        logits = []
-        with torch.inference_mode():
-            lg, cache = model.prefill(params, {"tokens": tokens},
-                                      cache_len=cache_len)
-            for step in range(steps + 1):
-                logits.append(lg[0, :vocab].float())
-                if step == steps:
-                    break
-                tok = (logits[-1].argmax() if feed is None
-                       else feed[step]).to(torch.int32).view(1, 1)
-                lg, cache = model.decode_step(params, cache, tok)
-        logits = torch.stack(logits)
-        return logits, logits.argmax(-1), cache["k"].shape[2]
+        """``greedy_run`` on the batch of one: each step's logits, its
+        greedy id and the ring's slots."""
+        logits, ids, cache = greedy_run(model, params, {"tokens": tokens},
+                                        steps, cache_len, feed)
+        return logits[:, 0], ids[:, 0], cache["k"].shape[2]
 
-    plain, kern = routes("float32")
+    plain, kern = route_pair(base, dev, "float32")
     params = kern.init(kern.generator(0))
     gen = torch.Generator(device=dev).manual_seed(6)
     tokens = torch.randint(0, base.vocab_size, (1, s), generator=gen,
@@ -1102,7 +958,7 @@ def window_phase(dev) -> None:
     del plain, kern
     torch.cuda.empty_cache()
 
-    plain, kern = routes("bfloat16")
+    plain, kern = route_pair(base, dev, "bfloat16")
     params = cast_like(params, kern.init(kern.generator(0)))
     torch.cuda.empty_cache()
     feed = ids_ref[:steps]
@@ -1125,6 +981,265 @@ def window_phase(dev) -> None:
         raise AssertionError(f"window bf16: max |kernel - f32| {err_k} "
                              f"(limit {limit}), ids {ids_k.tolist()} vs "
                              f"{ids_p.tolist()}")
+
+
+def vlm_audio_batch(cfg, b, prompt, dev, seed):
+    """One batch of the prefix and encoder models from a seed: ``prompt``
+    tokens; for Qwen2-VL 256 patch embeddings (the reference's data
+    pipeline's scale, 0.02) with M-RoPE ids t = sequence index, h and w
+    the patch's row and column in the 16 x 16 grid, then the sequence
+    index for the text (the temporal ids rise in sequence order, so the
+    kernel route, causal in sequence order, and the plain route, masked
+    by the temporal ids, compute the same function); for whisper (B,
+    1500, 1280) frame embeddings."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, prompt),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    p = cfg.num_patch_tokens
+    if p:
+        batch["prefix_embeds"] = 0.02 * torch.randn(
+            b, p, cfg.d_model, generator=gen, device=dev)
+        side = math.isqrt(p)
+        pos = torch.arange(p + prompt, device=dev).repeat(3, b, 1)
+        pos[1, :, :p] = torch.arange(p, device=dev) // side
+        pos[2, :, :p] = torch.arange(p, device=dev) % side
+        batch["mrope_positions"] = pos.to(torch.int32)
+    if cfg.is_encoder_decoder:
+        batch["enc_embeds"] = 0.02 * torch.randn(
+            b, cfg.encoder_seq_len, cfg.d_model, generator=gen, device=dev)
+    return batch
+
+
+def batch_rows(batch, b):
+    """The first ``b`` rows of a batch (the M-RoPE ids' batch axis is 1)."""
+    return {k: v[:, :b] if k == "mrope_positions" else v[:b]
+            for k, v in batch.items()}
+
+
+def next_mrope(batch, step):
+    """(3, B, 1) M-RoPE ids of decode step ``step``: the text goes on
+    from the largest id of the sequence; None without M-RoPE."""
+    pos = batch.get("mrope_positions")
+    if pos is None:
+        return None
+    b = pos.shape[1]
+    first = pos.amax(dim=(0, 2)).view(1, b, 1) + 1
+    return (first + step).expand(3, b, 1).to(torch.int32).contiguous()
+
+
+def greedy_run(model, params, batch, steps, cache_len, feed=None):
+    """Prefill and ``steps`` decode steps, greedy on the model's own ids
+    or fed ``feed`` (one id per row, or a scalar for batch 1), each
+    step's M-RoPE ids given (``next_mrope``): every step's logits (f32,
+    real vocabulary), its greedy ids and the cache."""
+    vocab = model.cfg.vocab_size
+    logits = []
+    with torch.inference_mode():
+        lg, cache = model.prefill(params, batch, cache_len=cache_len)
+        for step in range(steps + 1):
+            logits.append(lg[:, :vocab].float())
+            if step == steps:
+                break
+            tok = (logits[-1].argmax(-1) if feed is None
+                   else feed[step]).to(torch.int32).view(-1, 1)
+            lg, cache = model.decode_step(params, cache, tok,
+                                          next_mrope(batch, step))
+    logits = torch.stack(logits)
+    return logits, logits.argmax(-1), cache
+
+
+def vlm_audio_phase(dev, arch: str, profile: bool):
+    """One prefix or encoder model at full width through the model API
+    (``prefill``, ``decode_step(mrope_positions=...)``).  f32: the
+    kernel route against the plain route over a prefill and ``STEPS``
+    greedy steps (at the main path's batch, ``max(GEN_SETS)``, and cache
+    length, so the kernels run at the main path's shapes; logits within
+    1e-3, identical ids), with one
+    ``swa_prefill`` per layer per prefill and one ``decode_attention``
+    per layer per step (two for whisper: self- and cross-attention).
+    bf16: both routes teacher-forced with the f32 plain route's ids,
+    under ``bf16_parity``'s rule.  Then the main path, bf16 on the kernel
+    route, counts reset before it and read after: the prefill wall at b
+    = 4 (whisper's encoder also alone), and at each b of ``GEN_SETS`` a
+    greedy generation of ``GEN_STEPS`` steps eager and through one
+    captured decode graph (the ids and the M-RoPE ids in static tensors
+    that the step advances on the device), whose ids must be equal; the
+    b = 4 generation, prefill included, gives tokens per wall second.
+    Returns the main path's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serving.capture import CapturedStep, launch_counts
+
+    base = get_config(arch)
+    prompt = VLM_AUDIO[arch]
+    layers = base.num_layers
+    per_step = layers * (2 if base.is_encoder_decoder else 1)
+    s_total = base.num_patch_tokens + prompt
+
+    def expect(launches, prefills, steps):
+        want = {"swa_prefill": prefills * layers,
+                "decode_attention": steps * per_step,
+                "rwkv6_scan": 0, "ssd_scan": 0}
+        if launches != want:
+            raise AssertionError(f"{arch}: launches {launches}, expected "
+                                 f"{want}")
+
+    # -- f32 parity, kernel route against plain route
+    plain, kern = route_pair(base, dev, "float32")
+    params = kern.init(kern.generator(0))
+    b_max = max(GEN_SETS)
+    batch = vlm_audio_batch(base, b_max, prompt, dev, 1)
+    cache_len = s_total + GEN_STEPS + 1
+    reset_launches()
+    lp, ids_p, _ = greedy_run(plain, params, batch, STEPS, cache_len)
+    expect(launch_counts(), 0, 0)
+    reset_launches()
+    lk, ids_k, _ = greedy_run(kern, params, batch, STEPS, cache_len)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    expect(launches, 1, STEPS)
+    err32 = float((lk - lp).abs().max())
+    if not (torch.isfinite(lk).all() and err32 <= 1e-3
+            and torch.equal(ids_k, ids_p)):
+        raise AssertionError(f"{arch} f32: max |logit diff| {err32}, ids "
+                             f"{ids_k.tolist()} vs {ids_p.tolist()}")
+    say("models", arch=arch, dtype="float32", batch=b_max,
+        cache_len=cache_len,
+        prefix=base.num_patch_tokens, prompt=prompt,
+        encoder_frames=base.encoder_seq_len, decode_steps=STEPS,
+        max_abs_logit_diff=err32, greedy_ids="identical",
+        launches=json.dumps(launches), params=base.param_count())
+    del plain, kern
+    torch.cuda.empty_cache()
+
+    # -- bf16, both routes teacher-forced with the f32 plain route's ids
+    plain, kern = route_pair(base, dev, "bfloat16")
+    params = cast_like(params, kern.init(kern.generator(0)))
+    torch.cuda.empty_cache()
+    feed = ids_p[:STEPS]
+    lk16, ids_k16, _ = greedy_run(kern, params, batch, STEPS, cache_len,
+                                  feed)
+    lp16, ids_p16, _ = greedy_run(plain, params, batch, STEPS, cache_len,
+                                  feed)
+    err_k = float((lk16 - lp).abs().max())
+    err_p = float((lp16 - lp).abs().max())
+    limit = 2 * err_p + 1e-2
+    say("models", arch=arch, dtype="bfloat16", batch=b_max,
+        teacher_forced="f32 plain greedy ids", kernel_vs_f32=err_k,
+        plain_vs_f32=err_p, limit=limit,
+        kernel_vs_plain=float((lk16 - lp16).abs().max()),
+        ids_kernel_equal_plain=bool(torch.equal(ids_k16, ids_p16)))
+    if not (torch.isfinite(lk16).all() and err_k <= limit):
+        raise AssertionError(f"{arch} bf16: max |kernel - f32| {err_k} > "
+                             f"limit {limit}")
+    del plain, lk, lp, lk16, lp16
+    torch.cuda.empty_cache()
+
+    # -- the main path: bf16 generation on the kernel route
+    model, vocab = kern, base.vocab_size
+    cfg = model.cfg
+    batch4 = vlm_audio_batch(cfg, max(GEN_SETS), prompt, dev, 2)
+    reset_launches()
+    prefills = steps = 0
+
+    def walls(fn, n=5):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    res = {}
+    with torch.inference_mode():
+        pre = walls(lambda: model.prefill(params, batch4,
+                                          cache_len=cache_len), 6)[1:]
+        prefills += 6
+        res["prefill_b4_ms"] = float(np.median(pre)) * 1e3
+        if cfg.is_encoder_decoder:
+            enc = batch4["enc_embeds"].to(torch.bfloat16)
+            ew = walls(lambda: api._encoder_fwd(params, cfg, enc), 6)[1:]
+            res["encoder_b4_ms"] = float(np.median(ew)) * 1e3
+            res["encoder_share_of_prefill"] = (res["encoder_b4_ms"]
+                                               / res["prefill_b4_ms"])
+    for b in GEN_SETS:
+        rows_b = batch_rows(batch4, b)
+        with torch.inference_mode():
+            cache = model.init_cache(b, cache_len)
+            ids = torch.zeros(b, dtype=torch.int32, device=dev)
+            first = next_mrope(rows_b, 0)
+            mpos = None if first is None else first.clone()
+            got = torch.zeros(GEN_STEPS + 1, b, dtype=torch.int32,
+                              device=dev)
+
+        def start():
+            lg, _ = model.prefill(params, rows_b, cache=cache)
+            ids.copy_(lg[:, :vocab].argmax(-1))
+            if mpos is not None:
+                mpos.copy_(first)
+
+        def body():
+            lg, _ = model.decode_step(params, cache, ids[:, None], mpos)
+            ids.copy_(lg[:, :vocab].argmax(-1))
+            if mpos is not None:
+                mpos.add_(1)
+            return lg
+
+        static = (ids,) if mpos is None else (ids, mpos)
+        runs = {}
+        for capture in (False, True):
+            step = CapturedStep(body, static, capture)
+            with torch.inference_mode():
+                if capture:                 # warm-up: eager run + capture
+                    start()
+                    step(*static)
+                    prefills, steps = prefills + 1, steps + 1
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                start()
+                got[0].copy_(ids)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for i in range(GEN_STEPS):
+                    step(*static)
+                    got[i + 1].copy_(ids)
+                host_ids = got.cpu()
+                t2 = time.perf_counter()
+            prefills, steps = prefills + 1, steps + GEN_STEPS
+            if capture and step.replays != GEN_STEPS:
+                raise AssertionError(f"{arch} b={b}: {step.replays} replays")
+            runs[capture] = host_ids
+            route = "captured" if capture else "eager"
+            res[f"b{b}_{route}_step_ms"] = (t2 - t1) / GEN_STEPS * 1e3
+            res[f"b{b}_{route}_tokens_per_s"] = b * GEN_STEPS / (t2 - t0)
+        if not torch.equal(runs[False], runs[True]):
+            raise AssertionError(f"{arch} b={b}: replayed ids "
+                                 f"{runs[True].tolist()} differ from eager "
+                                 f"ids {runs[False].tolist()}")
+        if not ((runs[True] >= 0) & (runs[True] < vocab)).all():
+            raise AssertionError(f"{arch} b={b}: ids out of the vocabulary")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    expect(launches, prefills, steps)
+    say("models", arch=arch, dtype="bfloat16", route="kernel",
+        gen_steps=GEN_STEPS, b_set=list(GEN_SETS), cache_len=cache_len,
+        ids="replayed == eager", **res)
+    say("models", arch=arch, prefills=prefills, decode_steps=steps,
+        launches=json.dumps(launches))
+    if profile:                             # the b = GEN_SETS[-1] gang
+        windows = {"prefill": profiled(start),
+                   "10 replayed decode steps": profiled(
+                       lambda: [step(*static) for _ in range(10)],
+                       setup=start)}
+        for window, res in windows.items():
+            say("profile", arch=arch, batch=b, window=window,
+                **{k: v for k, v in res.items() if k != "top_kernels"})
+            for r in res["top_kernels"]:
+                say("profile", arch=arch, window=window, **r)
+    return launches
 
 
 def logit_steps(model, params, b, prompt_len, cache_len, capture):
@@ -1640,12 +1755,10 @@ def scan_result_diff(a, b):
 
 def scan_profile(dev, eng, batch, horizon):
     """A few chunks of the torch route (the same engine and workload, so
-    every chunk replays the captured graph), cut by ``horizon``: wall
-    without the profiler, then under ``torch.profiler``: device busy
-    time, idle share against that wall, device kernels per chunk."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    every chunk replays the captured graph), cut by ``horizon``, through
+    ``profile_window``: unprofiled wall, device busy time, idle share
+    (``idle_share``), the profiled windows' own wall, device kernels per
+    chunk (of the last profile)."""
     def run():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1654,27 +1767,20 @@ def scan_profile(dev, eng, batch, horizon):
         return time.perf_counter() - t0
 
     run()
-    wall = run()
     replays = eng.replays
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-    replays = eng.replays - replays
-    kernels = copies = busy_us = 0
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", 0.0)
-        if e.device_type == DeviceType.CUDA and t > 0:
-            busy_us += t
-            if e.key.startswith(("Memcpy", "Memset")):
-                copies += e.count
-            else:
-                kernels += e.count
-    return {"profiled_chunks": eng.chunks, "profiled_replays": replays,
-            "profiled_wall_ms": wall * 1e3,
-            "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": (1.0 - busy_us / 1e6 / wall
-                                  if busy_us else None),
-            "device_kernels_per_chunk": kernels / max(eng.chunks, 1),
+    walls, busys, windows, kernels, _ = profile_window(run)
+    replays = (eng.replays - replays) // (2 * len(walls))
+    copies = sum(r[1] for r in kernels
+                 if r[2].startswith(("Memcpy", "Memset")))
+    share, raw, spread = idle_share(busys, walls)
+    return {"profiled_chunks": eng.chunks, "replays_per_run": replays,
+            "profiled_wall_ms": float(np.median(walls)) * 1e3,
+            "spread": spread, "raw_idle_share": raw,
+            "profiled_window_wall_ms": float(np.median(windows)) * 1e3,
+            "device_busy_ms": float(np.median(busys)) * 1e3,
+            "device_idle_share": share,
+            "device_kernels_per_chunk":
+                (sum(r[1] for r in kernels) - copies) / max(eng.chunks, 1),
             "device_copies_per_chunk": copies / max(eng.chunks, 1)}
 
 
@@ -1841,14 +1947,98 @@ def engines_phase(dev, perf, cost):
     return launches
 
 
+def idle_share(busys, walls) -> tuple:
+    """The device's idle share of a window, ``1 - busy / wall``: the
+    busy time the median of ``busys`` (profiled runs), the wall the
+    median of ``walls``, runs of the same work without the profiler
+    (which slows the host).  The run-to-run spread is the range over
+    the median of the walls plus that of the busy times.  A negative
+    share within it (busy longer than the wall, which no run can be) is
+    given as 0; a positive share is given as measured, however small,
+    since a host-bound window's walls swing most.  Returns (share, raw
+    share, spread)."""
+    wall, busy = float(np.median(walls)), float(np.median(busys))
+    spread = (max(walls) - min(walls)) / wall
+    if busy > 0:
+        spread += (max(busys) - min(busys)) / busy
+    raw = 1.0 - busy / wall
+    return (0.0 if -spread <= raw < 0 else raw), raw, spread
+
+
+def device_events(prof):
+    """Device kernels and copies of a profile, (device us, count, name),
+    longest first, and the host's CUDA API calls by name."""
+    from torch.autograd import DeviceType
+
+    kernels, api = [], {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0)
+        if e.device_type == DeviceType.CUDA and t > 0:
+            kernels.append((t, e.count, e.key))
+        elif e.device_type == DeviceType.CPU and e.key.startswith("cu"):
+            api[e.key] = api.get(e.key, 0) + e.count
+    kernels.sort(reverse=True)
+    return kernels, api
+
+
+def profile_window(run, setup=lambda: None, runs: int = 3):
+    """``run()`` (the work between two synchronises; it returns its own
+    host seconds) ``runs`` times without the profiler, then ``runs``
+    times under ``torch.profiler``, one profile each, ``setup()`` untimed
+    before every run.  Returns the unprofiled walls, the profiled runs'
+    device busy seconds and walls, and the last profile's
+    ``device_events``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    walls, busys, windows = [], [], []
+    for _ in range(runs):
+        setup()
+        walls.append(run())
+    for _ in range(runs):
+        setup()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            windows.append(run())
+        kernels, api = device_events(prof)
+        busys.append(sum(r[0] for r in kernels) / 1e6)
+    return walls, busys, windows, kernels, api
+
+
+def profiled(fn, setup=lambda: None) -> dict:
+    """``fn`` through ``profile_window``: the wall and the spread, the
+    device's busy time and idle share (``idle_share``), the profiled
+    window's own wall and the busy share of it, and of the last profile
+    the device kernels, host launch calls and the kernels that take the
+    most device time."""
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    with torch.inference_mode():
+        walls, busys, windows, kernels, api = profile_window(timed, setup)
+    share, raw, spread = idle_share(busys, walls)
+    busy_s, window = float(np.median(busys)), float(np.median(windows))
+    launch_calls = sum(n for k, n in api.items() if "LaunchKernel" in k)
+    return {"wall_ms": float(np.median(walls)) * 1e3, "spread": spread,
+            "device_busy_ms": busy_s * 1e3, "device_idle_share": share,
+            "raw_idle_share": raw, "profiled_window_wall_ms": window * 1e3,
+            "device_busy_share_of_profiled_window": busy_s / window,
+            "device_kernels": sum(r[1] for r in kernels),
+            "host_kernel_launch_calls": launch_calls,
+            "host_graph_launch_calls": sum(n for k, n in api.items()
+                                           if "GraphLaunch" in k),
+            "top_kernels": [{"kernel": k[:120], "device_ms": t / 1e3,
+                             "count": n} for t, n, k in kernels[:12]]}
+
+
 def profile_phase(dev, arch: str) -> None:
     """The served b = 4 table entry, eager and replayed from CUDA graphs:
     one prefill and ten decode steps, each step's ids copied to the host
     as ``TokenTorchBackend`` does, timed without the profiler and then
     traced with it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serving.token_backend import (build_token_step_fns,
@@ -1871,8 +2061,11 @@ def profile_phase(dev, arch: str) -> None:
         warmup_token_fns(pre, dec, s)
         prefill, decode = pre[(1, b)], dec[(1, b)]
 
+        splits = []
+
         def run():
-            """Host seconds of the prefill and of the decode steps."""
+            """Host seconds of the prefill and of the decode steps (also
+            kept in ``splits``)."""
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             tok, cache = prefill(tokens)
@@ -1882,35 +2075,26 @@ def profile_phase(dev, arch: str) -> None:
                 tok, cache = decode(cache, tok)
                 tok.to("cpu", copy=True)
             torch.cuda.synchronize()
-            return t1 - t0, time.perf_counter() - t1
+            splits.append((t1 - t0, time.perf_counter() - t1))
+            return splits[-1]
 
         run()                                   # warm
-        prefill_wall, decode_wall = run()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            window = time.perf_counter() - t0
-        kernels, api = [], {}
-        for e in prof.key_averages():
-            t = getattr(e, "self_device_time_total", 0.0)
-            if e.device_type == DeviceType.CUDA and t > 0:
-                kernels.append((t, e.count, e.key))
-            elif e.device_type == DeviceType.CPU and e.key.startswith("cu"):
-                api[e.key] = api.get(e.key, 0) + e.count
-        kernels.sort(reverse=True)
-        busy_us = sum(r[0] for r in kernels)
+        splits.clear()
+        walls, busys, windows, kernels, api = profile_window(
+            lambda: sum(run()))
+        prefill_wall = float(np.median([t[0] for t in splits[:3]]))
+        decode_wall = float(np.median([t[1] for t in splits[:3]]))
         launch_calls = sum(n for k, n in api.items() if "LaunchKernel" in k)
         graph_launches = sum(n for k, n in api.items() if "GraphLaunch" in k)
+        # the profiler slows the host, so the idle share is taken against
+        # the same work's wall time without it (``idle_share``)
+        share, raw, spread = idle_share(busys, walls)
         res = {"prefill_wall_ms": prefill_wall * 1e3,
                "decode_step_wall_ms": decode_wall / steps * 1e3,
-               "device_busy_ms": busy_us / 1e3,
-               # the profiler slows the host, so the idle share is taken
-               # against the same work's wall time without it
-               "device_idle_share": (1.0 - busy_us / 1e6
-                                     / (prefill_wall + decode_wall)
-                                     if busy_us else None),
-               "profiled_window_wall_ms": window * 1e3,
+               "device_busy_ms": float(np.median(busys)) * 1e3,
+               "device_idle_share": share, "raw_idle_share": raw,
+               "spread": spread,
+               "profiled_window_wall_ms": float(np.median(windows)) * 1e3,
                "device_kernels": sum(r[1] for r in kernels),
                "host_kernel_launch_calls": launch_calls,
                "host_graph_launch_calls": graph_launches,
@@ -1987,6 +2171,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     for arch in PARITY_ONLY:
         parity_phase(dev, arch)
+        torch.cuda.empty_cache()
+    for arch in VLM_AUDIO:
+        for name, n in vlm_audio_phase(dev, arch, args.profile).items():
+            rows[name]["launches"] += n
         torch.cuda.empty_cache()
     for name, n in serve_phase(dev, "smollm-135m", "llm-mixed-len",
                                sets=(1, 2, 4, 8))[0].items():

@@ -18,6 +18,8 @@ _MODULES = {
     "h2o-danube-1.8b": "h2o_danube_1p8b",
     "rwkv6-1.6b": "rwkv6_1p6b",
     "zamba2-2.7b": "zamba2_2p7b",
+    "qwen2-vl-2b": "qwen2_vl_2b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -37,9 +37,13 @@ Three modes, one control plane:
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --scenario slo-renegotiation --engine exact --duration 60
 
-``--arch`` takes any id of ``repro_torch.configs.registry`` (``smollm-135m``,
-``smollm-360m``, ``gemma-2b``, ``h2o-danube-1.8b``, ``rwkv6-1.6b``,
-``zamba2-2.7b``, and their ``-reduced`` cuts).
+``--arch`` takes any id of ``repro_torch.configs.registry`` that serves
+prompts of token ids (``smollm-135m``, ``smollm-360m``, ``gemma-2b``,
+``h2o-danube-1.8b``, ``rwkv6-1.6b``, ``zamba2-2.7b``, and their
+``-reduced`` cuts).  ``qwen2-vl-2b`` and ``whisper-large-v3`` need
+patch or frame embeddings beside the tokens and run through the model
+API (``models.build_model``) only, as in the reference, whose serving
+backends feed tokens alone.
 """
 from __future__ import annotations
 

@@ -1,21 +1,33 @@
 """Public model API: ``build_model(cfg) -> Model`` with init, forward,
 prefill and decode.
 
-Counterpart of the dense, RWKV-6 and Mamba2 / zamba2 parts of
-``repro.models.api``, for homogeneous stacks (``attn+mlp`` or
-``swa+mlp`` with standard RoPE and a SwiGLU or GeGLU MLP,
-``rwkv6+rwkv_cm`` with no positions, or ``mamba2+none``, with or
-without zamba2's shared attention block).  ``forward`` is the
+Counterpart of the dense, VLM, audio, RWKV-6 and Mamba2 / zamba2 parts
+of ``repro.models.api``, for homogeneous stacks (``attn+mlp`` or
+``swa+mlp`` with standard RoPE and a SwiGLU or GeGLU MLP; Qwen2-VL's
+``attn+mlp`` with M-RoPE, SwiGLU and a prefix of patch embeddings;
+whisper's ``attn+mlp`` encoder-decoder with learned positions and a
+GELU MLP; ``rwkv6+rwkv_cm`` with no positions; or ``mamba2+none``,
+with or without zamba2's shared attention block).  ``forward`` is the
 reference's no-cache path over the whole sequence (no remat, no mesh,
-no MTP head).  Parameters are plain dicts of tensors: ``{"embed", "final_norm", ["head",] "layers": [per-layer dict,
-...], ["shared_attn"]}`` — the reference's stacked
-``params["groups"][0]`` with its leading layer axis unstacked into a
-list (a Python loop over layers takes the place of ``lax.scan``).  The
+no MTP head).  A batch is the reference's dict: ``"tokens"`` (B, S),
+and for Qwen2-VL ``"prefix_embeds"`` (B, P, d_model) before them with
+``"mrope_positions"`` (3, B, P + S), for whisper ``"enc_embeds"`` (B,
+encoder_seq_len, d_model); the frontends that make them are stubs in
+the reference too.  Parameters are plain dicts of tensors: ``{"embed",
+"final_norm", ["head",] ["pos_emb",] "layers": [per-layer dict, ...],
+["shared_attn"], ["encoder": {"layers", "pos_emb", "final_norm"}]}`` —
+the reference's stacked ``params["groups"][0]`` (and
+``params["encoder"]["groups"][0]``) with its leading layer axis
+unstacked into a list (a Python loop over layers takes the place of
+``lax.scan``).  The
 decode cache is the reference's ``cache["groups"][0]`` with its leading
 layer axis, plus ``"index"`` (a 0-dim int32 tensor on the cache's
 device, as the reference's traced scalar): ``{"k", "v"}`` of shape (L, B, cache_len,
 KV, D) for attention (for ``swa`` a ring buffer of ``min(cache_len,
-window)`` slots); ``{"tmix": {"shift", "wkv"}, "cmix": {"shift"}}``
+window)`` slots), with whisper's ``"cross": {"k", "v"}`` of shape (L,
+B, encoder_seq_len, KV, D), the encoder K/V each layer's
+cross-attention reads;
+``{"tmix": {"shift", "wkv"}, "cmix": {"shift"}}``
 for RWKV-6 (shifts (L, B, d) in the compute dtype, WKV state (L, B, H,
 D, D) in f32); ``{"ssm": {"conv_x", "conv_bc", "h"}}`` for Mamba2 (conv
 windows (L, B, W-1, C) in the compute dtype, SSD state (L, B, H, P, N)
@@ -24,7 +36,10 @@ min(cache_len, window), KV, D), one ring buffer per application of the
 shared block (the reference's ``cache["shared"]``).  Prefill fills it
 and decode updates it in place, the index included: no step reads a
 device value back to the host, so a step can be captured as a CUDA
-graph and replayed at every position.
+graph and replayed at every position.  A decode step of an M-RoPE
+stack takes its (3, B, 1) ids as ``mrope_positions`` (a captured step
+reads them from a static tensor), or, with None, the cache index for
+all three, as the reference does.
 
 Every entry point runs on ``cuda`` unless the caller names another
 device; with no CUDA device and no explicit ``device="cpu"`` it raises.
@@ -32,6 +47,7 @@ device; with no CUDA device and no explicit ``device="cpu"`` it raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -44,6 +60,8 @@ from repro_torch.models import rwkv6 as rk
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (dense_init, embed_init, linear,
                                        rms_norm, to_dtype)
+
+MAX_LEARNED_POS = 32768
 
 
 def resolve_device(device=None) -> torch.device:
@@ -68,23 +86,40 @@ def _is_mamba(cfg: ModelConfig) -> bool:
 
 def _check_supported(cfg: ModelConfig) -> None:
     kinds = set(cfg.blocks)
-    attention = (cfg.rope_kind == "standard"
-                 and cfg.mlp_kind in ("swiglu", "geglu"))
+    gated = cfg.mlp_kind in ("swiglu", "geglu")
+    attention = cfg.rope_kind == "standard" and gated
+    # the stacks without a prefix or an encoder
+    decoder_only = not (cfg.is_encoder_decoder or cfg.num_patch_tokens)
     dense = (kinds in ({"attn+mlp"}, {"swa+mlp"}) and attention
+             and not cfg.shared_attn_every and decoder_only)
+    vlm = (kinds == {"attn+mlp"} and cfg.rope_kind == "mrope" and gated
+           and cfg.num_patch_tokens > 0 and not cfg.is_encoder_decoder
+           and not cfg.shared_attn_every)
+    audio = (kinds == {"attn+mlp"} and cfg.is_encoder_decoder
+             and cfg.encoder_layers > 0 and cfg.rope_kind == "learned"
+             and cfg.mlp_kind == "gelu" and not cfg.num_patch_tokens
              and not cfg.shared_attn_every)
     rwkv = (kinds == {"rwkv6+rwkv_cm"} and cfg.rope_kind == "none"
-            and not cfg.shared_attn_every)
-    mamba = kinds == {"mamba2+none"} and (attention
-                                          or not cfg.shared_attn_every)
-    if (not (dense or rwkv or mamba) or cfg.logit_softcap
-            or cfg.is_encoder_decoder or cfg.num_patch_tokens
+            and not cfg.shared_attn_every and decoder_only)
+    mamba = (kinds == {"mamba2+none"} and decoder_only
+             and (attention or not cfg.shared_attn_every))
+    if (not (dense or vlm or audio or rwkv or mamba) or cfg.logit_softcap
             or cfg.mtp_depth):
         raise NotImplementedError(
             f"{cfg.name}: only homogeneous stacks of dense attn+mlp or "
-            "swa+mlp blocks (standard RoPE, SwiGLU or GeGLU), "
-            "rwkv6+rwkv_cm blocks (no RoPE) or mamba2+none blocks (a "
-            "shared attention block with standard RoPE and SwiGLU or "
-            "GeGLU) are ported yet")
+            "swa+mlp blocks (standard RoPE, SwiGLU or GeGLU), Qwen2-VL's "
+            "attn+mlp (M-RoPE, SwiGLU, patch prefix), whisper's attn+mlp "
+            "encoder-decoder (learned positions, GELU), rwkv6+rwkv_cm "
+            "blocks (no RoPE) or mamba2+none blocks (a shared attention "
+            "block with standard RoPE and SwiGLU or GeGLU) are ported yet")
+
+
+@functools.lru_cache(maxsize=None)
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The configuration whisper's encoder layers run under: no
+    cross-attention, no RoPE."""
+    return dataclasses.replace(cfg, is_encoder_decoder=False,
+                               rope_kind="none", shared_attn_every=0)
 
 
 def _shared_apps(cfg: ModelConfig) -> int:
@@ -109,10 +144,20 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
          "final_norm": torch.zeros(cfg.d_model, dtype=dtype, device=dev)}
     if not cfg.tie_embeddings:
         p["head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab), dtype)
+    if cfg.rope_kind == "learned":
+        p["pos_emb"] = embed_init(gen, (MAX_LEARNED_POS, cfg.d_model), dtype)
     p["layers"] = [tfm.init_block(gen, cfg, kind, dtype, dev)
                    for kind in cfg.blocks]
     if cfg.shared_attn_every:
         p["shared_attn"] = tfm.init_shared_attn(gen, cfg, dtype, dev)
+    if cfg.is_encoder_decoder:
+        ecfg = _encoder_cfg(cfg)
+        p["encoder"] = {
+            "layers": [tfm.init_block(gen, ecfg, "attn+mlp", dtype, dev)
+                       for _ in range(cfg.encoder_layers)],
+            "pos_emb": embed_init(gen, (cfg.encoder_seq_len, cfg.d_model),
+                                  dtype),
+            "final_norm": torch.zeros(cfg.d_model, dtype=dtype, device=dev)}
     return p
 
 
@@ -120,9 +165,11 @@ def params_from_jax(tree, cfg: ModelConfig, device=None):
     """The reference's ``Model.init`` pytree, already converted to numpy
     arrays by the caller, as this package's parameters on ``device``.
     The leading layer axis of ``tree["groups"][0]`` is unstacked into
-    ``params["layers"]``; ``tree["shared_attn"]`` (one weight set, no
-    layer axis) is taken as it is; every weight keeps its (in, out)
-    layout.  A leaf that is f32 in the tree stays f32 (the reference
+    ``params["layers"]``, and that of whisper's
+    ``tree["encoder"]["groups"][0]`` into ``params["encoder"]["layers"]``
+    (the encoder's own stack, not a second decoder group);
+    ``tree["shared_attn"]`` (one weight set, no layer axis) is taken as
+    it is; every weight keeps its (in, out) layout.  A leaf that is f32 in the tree stays f32 (the reference
     keeps some in f32 at every param dtype); the others go to
     ``cfg.param_dtype``."""
     dev = resolve_device(device)
@@ -152,8 +199,18 @@ def params_from_jax(tree, cfg: ModelConfig, device=None):
                     for i in range(cfg.num_layers)]}
     if not cfg.tie_embeddings:
         p["head"] = conv(tree["head"])
+    if cfg.rope_kind == "learned":
+        p["pos_emb"] = conv(tree["pos_emb"])
     if cfg.shared_attn_every:
         p["shared_attn"] = each(tree["shared_attn"], conv)
+    if cfg.is_encoder_decoder:
+        enc = tree["encoder"]
+        (stacked,) = enc["groups"]
+        p["encoder"] = {
+            "layers": [each(stacked, lambda a, i=i: conv(a[i]))
+                       for i in range(cfg.encoder_layers)],
+            "pos_emb": conv(enc["pos_emb"]),
+            "final_norm": conv(enc["final_norm"])}
     return p
 
 
@@ -161,10 +218,12 @@ def params_from_jax(tree, cfg: ModelConfig, device=None):
 # embedding / head / cache
 # ---------------------------------------------------------------------------
 
-def _embed(params, cfg: ModelConfig, tokens):
+def _embed(params, cfg: ModelConfig, tokens, positions=None):
     x = params["embed"][tokens]
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if cfg.rope_kind == "learned" and positions is not None:
+        x = x + params["pos_emb"][positions]
     return x
 
 
@@ -177,7 +236,8 @@ def _head(params, cfg: ModelConfig, x):
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
     """A zero decode cache; an RWKV-6 or Mamba2 state does not depend on
     ``cache_len`` (the shared block's ring buffers do).  An ``swa``
-    stack's K/V hold ``min(cache_len, window)`` slots."""
+    stack's K/V hold ``min(cache_len, window)`` slots, whisper's cross
+    K/V ``encoder_seq_len`` rows."""
     dtype = to_dtype(cfg.dtype)
     if _is_rwkv(cfg):
         cache = rk.init_rwkv6_state(cfg, batch, dtype, device,
@@ -194,6 +254,10 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
         cache["shared"] = attn_mod.init_attention_cache(
             cfg, batch, cache_len, dtype, device, layers=_shared_apps(cfg),
             window=cfg.shared_attn_window or cache_len)
+    if cfg.is_encoder_decoder:
+        cache["cross"] = attn_mod.init_attention_cache(
+            cfg, batch, cfg.encoder_seq_len, dtype, device,
+            layers=cfg.num_layers)
     cache["index"] = torch.zeros((), dtype=torch.int32, device=device)
     return cache
 
@@ -224,32 +288,74 @@ def _shared_cache(cache: dict, app: int) -> dict:
 # forward (no cache)
 # ---------------------------------------------------------------------------
 
-def _positions(cfg: ModelConfig, b: int, s: int, device):
-    """(B, S) positions 0..S-1, or None for a stack without positions."""
+def _positions_for(cfg: ModelConfig, batch: dict, b: int, s: int, device):
+    """The sequence's positions: the batch's (3, B, S) ids under M-RoPE,
+    None for a stack without positions, else (B, S) 0..S-1."""
+    if cfg.rope_kind == "mrope":
+        return batch["mrope_positions"].to(device).long()
     if _is_rwkv(cfg):
         return None
     return torch.arange(s, device=device).expand(b, s)
 
 
+def _encoder_fwd(params, cfg: ModelConfig, enc_embeds):
+    """Whisper's encoder: learned positions, bidirectional attention,
+    the final norm."""
+    enc = params["encoder"]
+    b, s, _ = enc_embeds.shape
+    x = enc_embeds + enc["pos_emb"][None, :s]
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    ecfg = _encoder_cfg(cfg)
+    for p in enc["layers"]:
+        x = tfm.block_fwd(p, x, positions, "attn+mlp", ecfg, causal=False)
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def _assemble_inputs(params, cfg: ModelConfig, batch: dict):
+    """The decoder's input embeddings, positions and encoder output:
+    ``(x (B, S_total, d_model), positions, enc_out, S_total)``, S_total
+    counting the prefix of patch embeddings."""
+    tokens = batch["tokens"].long()
+    b, dev = tokens.shape[0], tokens.device
+    dtype = to_dtype(cfg.dtype)
+    prefix = (batch["prefix_embeds"]
+              if cfg.num_patch_tokens and "prefix_embeds" in batch else None)
+    s_total = tokens.shape[1] + (0 if prefix is None else prefix.shape[1])
+    positions = _positions_for(cfg, batch, b, s_total, dev)
+    tok_positions = positions if cfg.rope_kind != "mrope" else None
+    if prefix is not None:
+        pe = prefix.to(dev, dtype)
+        te = _embed(params, cfg, tokens,
+                    None if tok_positions is None else
+                    tok_positions[:, pe.shape[1]:])
+        x = torch.cat([pe, te], dim=1)
+    else:
+        x = _embed(params, cfg, tokens, tok_positions)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = _encoder_fwd(params, cfg,
+                               batch["enc_embeds"].to(dev, dtype))
+    return x, positions, enc_out, s_total
+
+
 def forward_hidden(params, batch: dict, cfg: ModelConfig):
     """Like ``forward`` but returns the hidden states before the final
     norm, ``(x (B, S, d_model), aux)``."""
-    tokens = batch["tokens"].long()
-    b, s = tokens.shape
-    positions = _positions(cfg, b, s, tokens.device)
-    x = _embed(params, cfg, tokens)
+    x, positions, enc_out, _ = _assemble_inputs(params, cfg, batch)
     shared, every = params.get("shared_attn"), cfg.shared_attn_every
     for i, p in enumerate(params["layers"]):
         if shared is not None and i % every == 0:
             x = tfm.shared_attn_fwd(shared, x, positions, cfg)
-        x = tfm.block_fwd(p, x, positions, cfg.blocks[i], cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=tokens.device)
+        x = tfm.block_fwd(p, x, positions, cfg.blocks[i], cfg,
+                          enc_out=enc_out)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def forward(params, batch: dict, cfg: ModelConfig):
     """Full-sequence forward with no cache.  ``batch["tokens"]``: (B, S)
-    integer ids.  Returns ``(logits (B, S, V), aux)``; ``aux`` is the
-    reference's auxiliary loss, 0 without MoE layers."""
+    integer ids (and the prefix or encoder inputs of the stack).  Returns
+    ``(logits (B, S_total, V), aux)``; ``aux`` is the reference's
+    auxiliary loss, 0 without MoE layers."""
     x, aux = forward_hidden(params, batch, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _head(params, cfg, x), aux
@@ -262,36 +368,38 @@ def forward(params, batch: dict, cfg: ModelConfig):
 def prefill(params, batch: dict, cfg: ModelConfig,
             cache_len: Optional[int] = None, cache: Optional[dict] = None):
     """Process the whole prompt; returns ``(last_logits (B, V), cache)``.
-    ``batch["tokens"]``: (B, S) integer token ids on the model's device.
-    With ``cache`` (an ``init_cache`` of batch B, e.g. a captured step's
-    static cache) the prompt fills that cache, zeroed first, so that it
-    starts from the fresh state a new cache has; ``cache_len`` is then
-    the given cache's."""
-    tokens = batch["tokens"].long()
-    b, s = tokens.shape
+    ``batch["tokens"]``: (B, S) integer token ids on the model's device
+    (and the prefix or encoder inputs of the stack; S_total counts the
+    prefix).  With ``cache`` (an ``init_cache`` of batch B, e.g. a
+    captured step's static cache) the prompt fills that cache, zeroed
+    first, so that it starts from the fresh state a new cache has;
+    ``cache_len`` is then the given cache's."""
+    x, positions, enc_out, s = _assemble_inputs(params, cfg, batch)
+    b = x.shape[0]
     if cache is None:
-        cache = init_cache(cfg, b, cache_len or s, tokens.device)
+        cache = init_cache(cfg, b, cache_len or s, x.device)
     else:
         _zero_cache(cache)
-    positions = _positions(cfg, b, s, tokens.device)
-    x = _embed(params, cfg, tokens)
     shared, every = params.get("shared_attn"), cfg.shared_attn_every
     for i, p in enumerate(params["layers"]):
         if shared is not None and i % every == 0:
             x = tfm.shared_attn_prefill(shared, x, positions, cfg,
                                         _shared_cache(cache, i // every))
         x = tfm.block_prefill(p, x, positions, cfg.blocks[i], cfg,
-                              _layer_cache(cache, i))
+                              _layer_cache(cache, i), enc_out=enc_out)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = _head(params, cfg, x)
     cache["index"].fill_(s)
     return logits[:, 0], cache
 
 
-def decode_step(params, cache: dict, token, cfg: ModelConfig):
+def decode_step(params, cache: dict, token, cfg: ModelConfig,
+                mrope_positions=None):
     """One serve step: one new token per sequence against the cache.
 
-    token: (B, 1) integer ids.  Returns ``(logits (B, V), cache)``:
+    token: (B, 1) integer ids; ``mrope_positions``: (3, B, 1) ids of an
+    M-RoPE stack, or None for the cache index in all three (the
+    reference's default).  Returns ``(logits (B, V), cache)``:
     this step updates the cache's tensors (K/V, recurrent state or ring
     buffers, the index) in place, and the index is one further after it.
     Positions, ring slots and attention lengths come from the index on
@@ -299,8 +407,15 @@ def decode_step(params, cache: dict, token, cfg: ModelConfig):
     index = cache["index"]
     token = token.long()
     b = token.shape[0]
-    positions = None if _is_rwkv(cfg) else index.long().expand(b, 1)
-    x = _embed(params, cfg, token)
+    if cfg.rope_kind == "mrope":
+        positions = (index.long().expand(3, b, 1) if mrope_positions is None
+                     else mrope_positions.long())
+    elif _is_rwkv(cfg):
+        positions = None
+    else:
+        positions = index.long().expand(b, 1)
+    x = _embed(params, cfg, token,
+               positions if cfg.rope_kind != "mrope" else None)
     shared, every = params.get("shared_attn"), cfg.shared_attn_every
     for i, p in enumerate(params["layers"]):
         if shared is not None and i % every == 0:
@@ -340,8 +455,8 @@ class Model:
     def prefill(self, params, batch, cache_len=None, cache=None):
         return prefill(params, batch, self.cfg, cache_len, cache)
 
-    def decode_step(self, params, cache, token):
-        return decode_step(params, cache, token, self.cfg)
+    def decode_step(self, params, cache, token, mrope_positions=None):
+        return decode_step(params, cache, token, self.cfg, mrope_positions)
 
     def init_cache(self, batch: int, cache_len: int):
         return init_cache(self.cfg, batch, cache_len, self.device)

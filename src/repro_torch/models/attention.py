@@ -1,11 +1,14 @@
-"""GQA attention: init, RoPE, the no-cache forward, single-token decode
-against a KV cache.
+"""GQA attention: init, RoPE and M-RoPE, the no-cache forward (self-
+and cross-attention), single-token decode against a KV cache.
 
-Counterpart of the GQA part of ``repro.models.attention`` (MLA, M-RoPE,
-the logit softcap and cross-attention are still to be ported).
-``attention_fwd`` is the forward over a whole sequence with no cache,
-through ``blocked_attention``: the reference computes it in plain array
-code outside any Pallas kernel, and so does this counterpart.  A
+Counterpart of the GQA part of ``repro.models.attention`` (MLA is still
+to be ported).  ``attention_fwd`` is the forward over a whole sequence
+with no cache, through ``blocked_attention``: the reference computes it
+in plain array code outside any Pallas kernel, and so does this
+counterpart; with ``kv_x`` it is cross-attention (no RoPE, not causal,
+keys at positions 0..Sk-1 unless ``kv_positions`` says otherwise).
+Under M-RoPE (``positions`` of shape (3, B, S)) the mask reads the
+temporal ids ``positions[0]``, as the reference's does.  A
 sliding-window cache (``window > 0``) is a ring buffer of
 ``min(seq, window)`` slots: slot ``p % S`` holds position ``p``.
 ``attention_decode`` routes through the Hopper ``decode_attention``
@@ -30,7 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
-from repro_torch.models.common import apply_rope, dense_init, linear
+from repro_torch.models.common import (apply_mrope, apply_rope, dense_init,
+                                       linear, softcap)
 
 NEG_INF = -1e30
 
@@ -46,17 +50,28 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype):
 
 
 def _rope_qk(q, k, positions, cfg: ModelConfig):
-    if cfg.rope_kind != "standard":
-        raise NotImplementedError(f"rope kind {cfg.rope_kind!r} is not "
-                                  "ported yet")
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta))
+    """RoPE on q and k: standard over (B, S) positions, M-RoPE over
+    (3, B, S) ids; ``learned`` and ``none`` leave them as they are."""
+    if cfg.rope_kind == "standard":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope_kind == "mrope":
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    return q, k
+
+
+def mask_positions(positions, cfg: ModelConfig):
+    """The (B, S) positions the attention mask reads: the temporal ids
+    under M-RoPE, else the positions themselves."""
+    return positions[0] if cfg.rope_kind == "mrope" else positions
 
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                       causal: bool, window: int, scale: float,
-                      block_q: int = 512, block_k: int = 1024) -> torch.Tensor:
+                      cap: float = 0.0, block_q: int = 512,
+                      block_k: int = 1024) -> torch.Tensor:
     """Flash-style online-softmax attention in plain PyTorch, block for
     block the reference's.
 
@@ -64,7 +79,8 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, Sk).  Returns (B, Sq, H, D) in v's dtype.  Never materialises
     (Sq, Sk): queries go in blocks of ``block_q``, keys in blocks of
     ``block_k``, the sequences padded to whole blocks (padded queries at
-    position -1, padded keys at 2**30 and masked)."""
+    position -1, padded keys at 2**30 and masked).  ``cap > 0`` soft-caps
+    the scores before the mask."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -98,6 +114,8 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = torch.zeros((b, kvh, g, block_q, dv), device=q.device)
         for ki, vi, kp in zip(kb, vb, kpb):  # (B,KV,bk,D) x2, (B,bk)
             s = torch.einsum("bkgqd,bktd->bkgqt", qi, ki.float())
+            if cap > 0:
+                s = softcap(s, cap)
             rel = qp[:, None, None, :, None] - kp[:, None, None, None, :]
             mask = (kp < 2**30)[:, None, None, None, :]
             if causal:
@@ -119,20 +137,44 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[:, :orig_sq].to(v.dtype)
 
 
+def project_kv(params, src: torch.Tensor, cfg: ModelConfig):
+    """Keys and values of ``src`` (B, Sk, d_model), each (B, Sk, KV, D),
+    before any RoPE."""
+    kvh, d = cfg.num_kv_heads, cfg.head_dim
+    b, sk, _ = src.shape
+    return (linear(src, params["wk"]).reshape(b, sk, kvh, d),
+            linear(src, params["wv"]).reshape(b, sk, kvh, d))
+
+
 def attention_fwd(params, x: torch.Tensor, positions: torch.Tensor,
-                  cfg: ModelConfig, *, window: int = 0,
-                  causal: bool = True) -> torch.Tensor:
-    """Self-attention over a whole sequence, no cache.  x: (B, S,
-    d_model); positions: (B, S).  ``window > 0`` keeps the keys of the
-    last ``window`` positions (sliding window)."""
-    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+                  cfg: ModelConfig, *, window: int = 0, causal: bool = True,
+                  kv_x: torch.Tensor | None = None,
+                  kv_positions: torch.Tensor | None = None,
+                  kv=None) -> torch.Tensor:
+    """Attention over a whole sequence, no cache.  x: (B, S, d_model);
+    positions: (B, S), or (3, B, S) under M-RoPE.  ``window > 0`` keeps
+    the keys of the last ``window`` positions (sliding window).  With
+    ``kv_x`` (B, Sk, d_model) it is cross-attention: keys and values
+    from ``kv_x``, no RoPE and no causal mask; ``kv`` is
+    ``project_kv(params, kv_x, cfg)`` when the caller has it already."""
+    h, d = cfg.num_heads, cfg.head_dim
     b, s, _ = x.shape
+    src = kv_x if kv_x is not None else x
+    sk = src.shape[1]
     q = linear(x, params["wq"]).reshape(b, s, h, d)
-    k = linear(x, params["wk"]).reshape(b, s, kvh, d)
-    v = linear(x, params["wv"]).reshape(b, s, kvh, d)
-    q, k = _rope_qk(q, k, positions, cfg)
-    out = blocked_attention(q, k, v, positions, positions, causal=causal,
-                            window=window, scale=d ** -0.5)
+    k, v = kv if kv is not None else project_kv(params, src, cfg)
+    if kv_x is None:
+        q, k = _rope_qk(q, k, positions, cfg)
+    qp = mask_positions(positions, cfg)
+    if kv_x is not None:
+        kp = kv_positions
+        if kp is None:
+            kp = torch.arange(sk, device=x.device).expand(b, sk)
+    else:
+        kp = qp
+    out = blocked_attention(q, k, v, qp, kp, causal=causal and kv_x is None,
+                            window=window, scale=d ** -0.5,
+                            cap=cfg.logit_softcap)
     return linear(out.reshape(b, s, h * d), params["wo"])
 
 
@@ -143,8 +185,9 @@ def attention_decode(params, x: torch.Tensor, cache: dict, cache_index,
     (B, S, KV, D), keys cached post-RoPE; ``cache_index`` (a 0-dim
     integer tensor, or an int) is the position of this token.  Writes
     the token's K/V into the cache in place and returns ``(y, cache)``.
-    With ``window > 0`` the cache is a ring buffer and the token goes to
-    slot ``cache_index % S``."""
+    ``positions``: (B, 1), or (3, B, 1) under M-RoPE.  With ``window >
+    0`` the cache is a ring buffer and the token goes to slot
+    ``cache_index % S``."""
     h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     b = x.shape[0]
     q = linear(x, params["wq"]).reshape(b, 1, h, d)
@@ -175,6 +218,8 @@ def attention_decode(params, x: torch.Tensor, cache: dict, cache_index,
         valid = j <= index
     qf = (q.reshape(b, kvh, g, d) * (d ** -0.5)).float()
     scores = torch.einsum("bkgd,bskd->bkgs", qf, ck.float())
+    if cfg.logit_softcap > 0:
+        scores = softcap(scores, cfg.logit_softcap)
     scores = scores.masked_fill(~valid[None, None, None, :], NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, cv.float())

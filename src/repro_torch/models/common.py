@@ -51,12 +51,28 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * (1.0 + scale.float())).to(dt)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, unbiased=False, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with w in (in, out) layout.  The product accumulates in f32
     and rounds once to x's dtype, as the reference's
     ``preferred_element_type=f32`` then cast: f32 inputs stay f32, and
     bf16 products accumulate in f32 in PyTorch's CPU and cuBLAS GEMMs."""
     return torch.matmul(x, w)
+
+
+def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap <= 0:
+        return logits
+    return cap * torch.tanh(logits / cap)
 
 
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
@@ -82,6 +98,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     d = x.shape[-1]
     freqs = _freqs_on(d, theta, x.device)                            # (d/2,)
     angles = positions[..., None].float() * freqs                   # (B,S,d/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
+                sections: tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL's M-RoPE.  x: (B, S, H, D); positions_3d: (3, B, S)
+    temporal, height and width ids.  The D/2 frequency slots fall into
+    three sections, which take their angle from the temporal, height and
+    width id in turn; the rotation is split-halves RoPE in f32."""
+    d = x.shape[-1]
+    half = d // 2
+    assert sum(sections) == half, (sections, half)
+    freqs = _freqs_on(d, theta, x.device)                            # (half,)
+    parts, start = [], 0
+    for i, sec in enumerate(sections):
+        f = freqs[start:start + sec]
+        parts.append(positions_3d[i][..., None].float() * f)
+        start += sec
+    angles = torch.cat(parts, dim=-1)                               # (B,S,half)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

@@ -1,10 +1,11 @@
 """Block assembly for the ``attn+mlp``, ``swa+mlp``, ``rwkv6+rwkv_cm``
-and ``mamba2+none`` stacks and zamba2's shared attention block: the
-no-cache forward, prefill and decode.
+and ``mamba2+none`` stacks, zamba2's shared attention block and
+whisper's cross-attention: the no-cache forward, prefill and decode.
 
 Counterpart of those parts of ``repro.models.transformer``.  An ``swa``
 mixer is attention over the last ``cfg.window_size`` positions (its
-cache a ring buffer), an ``attn`` mixer full causal attention.  The
+cache a ring buffer), an ``attn`` mixer full causal attention (or, for
+whisper's encoder, bidirectional: ``causal=False``).  The
 forward (``block_fwd``) runs the reference's plain paths: attention
 through ``attention.blocked_attention``, the Mamba2 and RWKV-6 mixers
 through their kernels' plain versions.  Prefill
@@ -12,11 +13,22 @@ attention runs the Hopper ``swa_prefill`` kernel when
 ``cfg.use_pallas_prefill`` is set (full causal attention is the case
 ``window = S``; the kernel masks ragged tiles itself, so the reference's
 ``S <= 256 or S % 256 == 0`` block guard is not needed), and its plain
-PyTorch version otherwise.  The RWKV-6 time mix runs its WKV6 recurrence
+PyTorch version otherwise.  The kernel, as the reference's Pallas
+kernel, is causal in sequence order; the reference's plain route masks
+by the positions, which under M-RoPE are the temporal ids and may
+repeat (all patches of one image share t = 0), so the plain route of an
+M-RoPE stack is ``blocked_attention`` over those ids, as there.  The
+RWKV-6 time mix runs its WKV6 recurrence
 on the ``rwkv6_scan`` kernel and the Mamba2 mixer its SSD recurrence on
 the ``ssd_scan`` kernel, under ``cfg.use_pallas_prefill`` in prefill and
-``cfg.use_pallas_decode`` in decode.  ``cache`` is one layer's views
-into the decode cache (``{"k", "v"}``, ``{"tmix", "cmix"}`` or
+``cfg.use_pallas_decode`` in decode.  Whisper's cross-attention reads
+the encoder output: in the forward and the prefill through
+``blocked_attention`` (not causal, outside any kernel, as the
+reference's), and at decode over the encoder K/V that the prefill wrote
+into the layer's ``cache["cross"]``, through ``decode_attention`` with
+every row valid under ``cfg.use_pallas_decode`` (the reference computes
+it as a dense softmax, the plain route here).  ``cache`` is one layer's views
+into the decode cache (``{"k", "v"[, "cross"]}``, ``{"tmix", "cmix"}`` or
 ``{"ssm"}``), or one shared-block application's ``{"k", "v"}`` ring
 buffer: prefill fills it and decode updates it, in place.  A decode
 step's ``index`` is the cache's 0-dim int32 index tensor, passed on to
@@ -27,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.swa_prefill.ops import (swa_prefill_attention,
                                                  swa_prefill_plain)
 from repro_torch.models import attention as attn
@@ -53,6 +66,9 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype,
         p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dtype)
     elif ffn == "rwkv_cm":
         p["cmix"] = rk.init_rwkv6_cmix(gen, cfg, dtype)
+    if cfg.is_encoder_decoder:
+        p["norm_cross"] = torch.zeros(d, dtype=dtype, device=device)
+        p["cross"] = attn.init_attention(gen, cfg, dtype)
     return p
 
 
@@ -96,6 +112,11 @@ def _attn_prefill(p, h, positions, cfg: ModelConfig, window: int,
     w = window if window > 0 else s
     if cfg.use_pallas_prefill and cfg.logit_softcap == 0:
         out = swa_prefill_attention(q, k, v, window=w)
+    elif cfg.rope_kind == "mrope":
+        qp = attn.mask_positions(positions, cfg)
+        out = attn.blocked_attention(q, k, v, qp, qp, causal=True,
+                                     window=window, scale=d ** -0.5,
+                                     cap=cfg.logit_softcap)
     else:
         out = swa_prefill_plain(q, k, v, window=w)
     y = linear(out.reshape(b, s, hh * d), p["wo"])
@@ -119,21 +140,55 @@ def _ffn(p, h, cfg: ModelConfig, cache, state):
     return y
 
 
+def _cross_fwd(p, x, positions, enc_out, cfg: ModelConfig, kv=None):
+    """Cross-attention over the encoder output (``kv``: its keys and
+    values, when the caller has projected them already)."""
+    h = rms_norm(x, p["norm_cross"], cfg.norm_eps)
+    return attn.attention_fwd(p["cross"], h, positions, cfg, causal=False,
+                              kv_x=enc_out, kv=kv)
+
+
+def _cross_decode(p, x, cache: dict, cfg: ModelConfig):
+    """Cross-attention at decode over the encoder K/V of ``cache``
+    (B, S_enc, KV, D), every row valid."""
+    b = x.shape[0]
+    hh, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h = rms_norm(x, p["norm_cross"], cfg.norm_eps)
+    q = linear(h, p["cross"]["wq"]).reshape(b, 1, hh, d)
+    g = hh // kvh
+    ck, cv = cache["k"], cache["v"]
+    if cfg.use_pallas_decode:
+        lengths = torch.full((b,), ck.shape[1], dtype=torch.int32,
+                             device=x.device)
+        out = decode_attention(q.reshape(b, kvh, g, d), ck, cv, lengths)
+    else:
+        qf = (q.reshape(b, kvh, g, d) * (d ** -0.5)).float()
+        scores = torch.einsum("bkgd,bskd->bkgs", qf, ck.float())
+        pr = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bkgs,bskd->bkgd", pr, cv.float())
+    out = out.reshape(b, 1, hh * d).to(x.dtype)
+    return linear(out, p["cross"]["wo"])
+
+
 # -- forward (no cache) ------------------------------------------------------
 
-def block_fwd(p, x, positions, kind: str, cfg: ModelConfig):
+def block_fwd(p, x, positions, kind: str, cfg: ModelConfig, *,
+              causal: bool = True, enc_out=None):
     """One block over the whole sequence, no cache (the reference's
-    ``block_fwd`` without MoE, MLA or cross-attention)."""
+    ``block_fwd`` without MoE or MLA); cross-attention over ``enc_out``
+    when the stack is an encoder-decoder's and it is given."""
     mixer = kind.split("+")[0]
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if mixer in ("attn", "swa"):
         y = attn.attention_fwd(p["attn"], h, positions, cfg,
-                               window=_window(cfg, mixer))
+                               window=_window(cfg, mixer), causal=causal)
     elif mixer == "mamba2":
         y, _ = m2.mamba2_fwd(p["mamba"], h, cfg, None)
     else:
         y, _ = rk.rwkv6_tmix_fwd(p["tmix"], h, cfg, None)
     x = x + y
+    if cfg.is_encoder_decoder and enc_out is not None:
+        x = x + _cross_fwd(p, x, positions, enc_out, cfg)
     if "norm2" not in p:                     # ffn "none"
         return x
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
@@ -142,7 +197,10 @@ def block_fwd(p, x, positions, kind: str, cfg: ModelConfig):
 
 # -- prefill and decode --------------------------------------------------------
 
-def block_prefill(p, x, positions, kind: str, cfg: ModelConfig, cache: dict):
+def block_prefill(p, x, positions, kind: str, cfg: ModelConfig, cache: dict,
+                  enc_out=None):
+    """One block over the prompt, filling the layer's ``cache``; with
+    ``enc_out`` the encoder's K/V go into ``cache["cross"]``."""
     mixer = kind.split("+")[0]
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if mixer in ("attn", "swa"):
@@ -156,6 +214,11 @@ def block_prefill(p, x, positions, kind: str, cfg: ModelConfig, cache: dict):
                                  kernel=cfg.use_pallas_prefill,
                                  out=cache["tmix"])
     x = x + y
+    if cfg.is_encoder_decoder and enc_out is not None:
+        ck, cv = attn.project_kv(p["cross"], enc_out, cfg)
+        cache["cross"]["k"].copy_(ck)
+        cache["cross"]["v"].copy_(cv)
+        x = x + _cross_fwd(p, x, positions, enc_out, cfg, kv=(ck, cv))
     if "norm2" not in p:                     # ffn "none"
         return x
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
@@ -178,6 +241,8 @@ def block_decode(p, x, cache: dict, index: torch.Tensor, positions,
                                  kernel=cfg.use_pallas_decode,
                                  out=cache["tmix"])
     x = x + y
+    if cfg.is_encoder_decoder and "cross" in cache:
+        x = x + _cross_decode(p, x, cache["cross"], cfg)
     if "norm2" not in p:                     # ffn "none"
         return x
     h = rms_norm(x, p["norm2"], cfg.norm_eps)

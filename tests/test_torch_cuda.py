@@ -66,7 +66,8 @@ def cuda_device():
                                           (4, 256, 32, 32, 80, 4096),
                                           (2, 77, 4, 4, 80, 16),
                                           (4, 256, 8, 1, 256, 256),
-                                          (2, 77, 8, 1, 256, 16)])
+                                          (2, 77, 8, 1, 256, 16),
+                                          (4, 320, 12, 2, 128, 320)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_swa_prefill_kernel_matches_plain_on_card(b, s, h, kv, d, w, dtype,
                                                   cuda_device):
@@ -88,7 +89,9 @@ def test_swa_prefill_kernel_matches_plain_on_card(b, s, h, kv, d, w, dtype,
                                              (2, 2, 8, 128, 77, [5, 77]),
                                              (4, 32, 1, 80, 321, [1, 160, 320, 321]),
                                              (2, 4, 1, 80, 16, [16, 9]),
-                                             (4, 1, 8, 256, 321, [0, 1, 160, 321])])
+                                             (4, 1, 8, 256, 321, [0, 1, 160, 321]),
+                                             (4, 2, 6, 128, 352, [1, 100, 321, 352]),
+                                             (4, 20, 1, 64, 1500, [1500] * 4)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_kernel_matches_plain_on_card(b, kv, g, d, s, lens,
                                                        dtype, cuda_device):
@@ -749,3 +752,133 @@ def test_scan_engine_auto_is_the_card_and_replays_on_a_second_run(
     _scan_parity(r1, r2)
     _scan_parity(r1, ScanDecodeEngine(cost, c0=8, b0=8).run(
         batch, backend="numpy"))
+
+
+# --------------------------------------------------------------------------
+# on the card: whisper's cross-attention and the prefix / encoder models'
+# captured decode
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_decode_routes_agree_on_card(dtype, cuda_device):
+    """``_cross_decode`` at whisper-large-v3's cross-attention widths (20
+    heads of 64 over 1,500 encoder rows, d_model cut to 256): the kernel
+    route (``decode_attention``, lengths 1500) equals the dense softmax
+    of the plain route."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+
+    tdt = DTYPES[dtype]
+    base = dataclasses.replace(get_config("whisper-large-v3-reduced"),
+                               num_heads=20, num_kv_heads=20, head_dim=64,
+                               encoder_seq_len=1500)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    dm, hd = base.d_model, 20 * 64
+
+    def w(*shape):
+        return (torch.randn(*shape, generator=g, device=cuda_device)
+                / shape[0] ** 0.5).to(tdt)
+
+    p = {"norm_cross": w(dm) * 0.1,
+         "cross": {"wq": w(dm, hd), "wk": w(dm, hd), "wv": w(dm, hd),
+                   "wo": w(hd, dm)}}
+    x = torch.randn(4, 1, dm, generator=g, device=cuda_device).to(tdt)
+    cache = {n: torch.randn(4, 1500, 20, 64, generator=g,
+                            device=cuda_device).to(tdt) for n in ("k", "v")}
+    outs = {}
+    for on in (True, False):
+        before = dec.launches
+        outs[on] = tfm._cross_decode(
+            p, x, cache, dataclasses.replace(base, use_pallas_decode=on))
+        torch.cuda.synchronize()
+        assert dec.launches == before + int(on)
+    np.testing.assert_allclose(as_np(outs[True]), as_np(outs[False]),
+                               **tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b-reduced",
+                                  "whisper-large-v3-reduced"])
+def test_vlm_audio_captured_decode_equals_eager_on_card(arch, cuda_device):
+    """The reduced Qwen2-VL (one image's grid of M-RoPE ids, t = 0 for
+    every patch, the decode ids in a static (3, B, 1) tensor the step
+    advances on the device) and whisper (the cross K/V written in place
+    by the prefill): decode steps replayed from one CUDA graph give the
+    eager steps' ids and f32 logits, read nothing back to the host, and
+    each replay counts one ``decode_attention`` per layer (two for
+    whisper)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.capture import CapturedStep
+
+    cfg = dataclasses.replace(get_config(arch), use_pallas_prefill=True,
+                              use_pallas_decode=True)
+    model = build_model(cfg, device=cuda_device)
+    params = model.init(model.generator(0))
+    b, s, steps, p = 2, 9, 5, cfg.num_patch_tokens
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                     device=cuda_device, dtype=torch.int32)}
+    first = None
+    if p:
+        batch["prefix_embeds"] = torch.randn(b, p, cfg.d_model, generator=g,
+                                             device=cuda_device)
+        pos = torch.arange(p + s, device=cuda_device).repeat(3, b, 1)
+        pos[0, :, :p] = 0
+        pos[1, :, :p] = torch.arange(p, device=cuda_device) // 2
+        pos[2, :, :p] = torch.arange(p, device=cuda_device) % 2
+        batch["mrope_positions"] = pos.to(torch.int32)
+        first = torch.full((3, b, 1), p + s, dtype=torch.int32,
+                           device=cuda_device)
+    if cfg.is_encoder_decoder:
+        batch["enc_embeds"] = torch.randn(b, cfg.encoder_seq_len, cfg.d_model,
+                                          generator=g, device=cuda_device)
+    vocab = cfg.vocab_size
+    with torch.inference_mode():
+        cache = model.init_cache(b, p + s + steps + 2)
+        ids = torch.zeros(b, dtype=torch.int32, device=cuda_device)
+        mpos = None if first is None else first.clone()
+
+    def start():
+        lg, _ = model.prefill(params, batch, cache=cache)
+        ids.copy_(lg[:, :vocab].argmax(-1))
+        if mpos is not None:
+            mpos.copy_(first)
+
+    def body():
+        lg, _ = model.decode_step(params, cache, ids[:, None], mpos)
+        ids.copy_(lg[:, :vocab].argmax(-1))
+        if mpos is not None:
+            mpos.add_(1)
+        return lg
+
+    static = (ids,) if mpos is None else (ids, mpos)
+    runs = {}
+    for capture in (False, True):
+        step = CapturedStep(body, static, capture)
+        with torch.inference_mode():
+            if capture:
+                start()
+                step(*static)               # warm-up: eager run + capture
+            start()
+            logits, got = [], []
+            for _ in range(steps):
+                if capture:                 # a replay reads nothing back
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    logits.append(step(*static).clone())
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                got.append(ids.clone())
+        runs[capture] = (torch.stack(logits), torch.stack(got))
+    assert step.replays == steps
+    assert step.deltas == {"decode_attention":
+                           cfg.num_layers * (2 if cfg.is_encoder_decoder
+                                             else 1)}
+    (le, ie), (lc, ic) = runs[False], runs[True]
+    assert torch.equal(ic, ie)
+    np.testing.assert_allclose(as_np(lc), as_np(le), **tol("float32"))
