@@ -155,8 +155,21 @@ code is non-zero:
    ``mixed-slo``, ``slo-renegotiation`` and ``cancel-storm`` at 600 s
    (decisions, buckets, counts, session counts); the five plain
    scenarios run on the fast engine at their defaults, and ``llm-chat``
-   at 100,000 requests on ``TokenFastSimRunner``.  Their events per
-   wall second are host figures.  No kernel launches here.
+   at 100,000 requests on ``TokenFastSimRunner``.  Then, on the same
+   refit ``l(b, c)``, the vector engine, the joint fleet and the model
+   ladder (``scale_out_legs``): ``engine="vector"`` equals
+   ``engine="fast"`` bit for bit on the five plain scenarios at 600 s
+   and replays ``steady`` at 1,000,000 requests; the fleet's fast engine
+   (quanta 0) equals its exact gang loop on ``replica-failure``,
+   ``rolling-restart`` and ``fleet-flash-crowd`` at 90 s under each
+   router, and ``fleet-flash-crowd`` runs at 300,000 requests on the
+   reference's ``yolov5s_like`` surface and on the card fit, each beside
+   the static fleet at the largest core count; the ladder's fast engine
+   equals its exact one, model swaps included, on the three
+   ``degrade-*`` scenarios at 60 s, and ``degrade-flash-overload`` runs
+   at 300 s with the whole ladder and with fixed ``smollm-360m``.
+   Their events per wall second are host figures.  No kernel launches
+   here: the phase fails if any count is above 0.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Without a CUDA device, or outside a checkout, it prints no result
@@ -243,6 +256,26 @@ ENGINES = dict(arch="smollm-135m", scenario="llm-chat", seed=0,
                       "cancel-storm"), token_requests=100_000)
 PLAIN_SCENARIOS = ("steady", "diurnal", "flash-crowd", "network-replay",
                    "mixed-slo")
+# the vector engine, the fleet and the degradation ladder (NumPy engines
+# over the same card-fit l(b, c) and sets): vector == fast at vector_s,
+# then steady at vector_requests (the reference's bench: 10,000,000);
+# fleet fast (quanta 0) == exact at fleet_s over every router, then
+# fleet-flash-crowd at fleet_requests (the reference's bench: >= 500,000)
+# on the reference's yolov5s_like surface and on the card-fit one, each
+# beside the static fleet at the largest core count; degrade fast ==
+# exact at degrade_s, then degrade-flash-overload at degrade_compare_s
+# with the whole ladder and with one fixed rung.  The request counts are
+# cut so that the three legs add about a minute to the phase (PERF.md).
+SCALE_OUT = dict(vector_s=600.0, vector_requests=1_000_000,
+                 fleet=("replica-failure", "rolling-restart",
+                        "fleet-flash-crowd"),
+                 routers=("least-loaded", "jsq", "edf-deadline"),
+                 fleet_s=90.0, fleet_requests=300_000, fleet_seed=1,
+                 degrade=("degrade-sustained-overload",
+                          "degrade-flash-overload",
+                          "degrade-fade-overload"),
+                 degrade_s=60.0, degrade_compare_s=300.0,
+                 fixed_rung="smollm-360m")
 # the main paths: each model is checked for parity, captured and served
 ARCHS = ("smollm-135m", "rwkv6-1.6b", "zamba2-2.7b", "gemma-2b",
          "h2o-danube-1.8b")
@@ -1681,9 +1714,6 @@ def scenarios_phase(dev, perf):
                                  f"{failed} (launches {launches})")
         return report, applied, entries, wall, launches
 
-    def stream(report):
-        return [(t, d.c, d.b, d.feasible) for t, d in report.decisions]
-
     def check_modeled(name, mid_flight, rep, applied):
         """The modelled clock: decision for decision the exact engine on
         ``SimBackend`` over the same l(b, c), neither side charging a
@@ -1692,7 +1722,8 @@ def scenarios_phase(dev, perf):
             name, engine="exact", perf=perf, requests=SCENARIO_REQUESTS,
             seed=0, c0=max(f["c_set"]), mid_flight=mid_flight,
             resize_penalty=0.0, **sets)
-        same = {"decisions": stream(rep) == stream(ref) != [],
+        same = {"decisions":
+                decision_stream(rep) == decision_stream(ref) != [],
                 "buckets": rep.buckets == ref.buckets,
                 "n": rep.n_requests == ref.n_requests,
                 "violation_rate": rep.violation_rate == ref.violation_rate,
@@ -1726,7 +1757,8 @@ def scenarios_phase(dev, perf):
                     launches=json.dumps(launches))
                 if clock == "modeled":
                     check_modeled(name, mid_flight, rep, applied)
-            d_ev, d_pl = stream(runs[True][0]), stream(runs[False][0])
+            d_ev = decision_stream(runs[True][0])
+            d_pl = decision_stream(runs[False][0])
             say("scenarios", scenario=name, clock=clock,
                 decisions_events=len(d_ev), decisions_plain=len(d_pl),
                 decisions_differing=sum(x != y for x, y in zip(d_ev, d_pl))
@@ -1798,6 +1830,7 @@ def engines_phase(dev, perf, cost):
 
     e = ENGINES
     sets = e["sets"]
+    t_phase = time.perf_counter()
     reset_launches()
     say("engines", cost=json.dumps(dataclasses.asdict(cost)),
         perf=json.dumps(dataclasses.asdict(perf)), sets=list(sets))
@@ -1878,9 +1911,6 @@ def engines_phase(dev, perf, cost):
 
     # 2. fast == exact on the card-fit l(b, c) (quanta 0), plain and
     # session scenarios at 600 s
-    def stream(rep):
-        return [(t, d.c, d.b, d.n, d.feasible) for t, d in rep.decisions]
-
     kw = dict(perf=perf, seed=e["seed"], c0=max(sets), c_set=sets,
               b_set=sets)
     for name in e["pairs"]:
@@ -1888,7 +1918,8 @@ def engines_phase(dev, perf, cost):
                                 budget_quantum=0.0, lam_quantum=0.0, **kw)
         exact, es = run_scenario(name, engine="exact", duration=600.0,
                                  **kw)
-        same = {"decisions": stream(fast) == stream(exact) != [],
+        same = {"decisions":
+                decision_stream(fast) == decision_stream(exact) != [],
                 "buckets": fast.buckets == exact.buckets,
                 "n": fast.n_requests == exact.n_requests > 0,
                 "violations": fast.n_violations == exact.n_violations,
@@ -1942,9 +1973,249 @@ def engines_phase(dev, perf, cost):
         tokens_served=rep.tokens_served, events=runner.events_processed,
         wall_s=wall, host_events_per_s=runner.events_processed / wall,
         solver=json.dumps(scaler.solver_stats()))
+
+    # 5-7. the vector engine, the joint fleet and the degradation ladder
+    t_legs = time.perf_counter()
+    scale_out_legs(perf)
+    now = time.perf_counter()
     launches = launch_counts()
-    say("engines", launches=json.dumps(launches))
+    say("engines", launches=json.dumps(launches),
+        legs_5_7_seconds=now - t_legs, seconds=now - t_phase)
+    if any(launches.values()):
+        raise AssertionError(f"the engines phase launched kernels: "
+                             f"{launches}")
     return launches
+
+
+def report_floats(rep) -> str:
+    """The report's floats (and counts) as one string: each value as a
+    Python float, so NaN compares equal and a NumPy scalar compares by
+    value."""
+    return repr(tuple(float(v) for v in (
+        rep.n_requests, rep.n_violations, rep.violation_rate,
+        rep.core_seconds, rep.avg_cores, rep.p50, rep.p99,
+        rep.mean_latency, rep.accuracy_goodput, rep.mean_served_accuracy,
+        rep.model_swaps)))
+
+
+def decision_stream(rep) -> list:
+    """Every field of every decision but the solver's own wall time."""
+    return [(t, d.c, d.b, d.n, d.scale_up_delay, d.feasible, d.m)
+            for t, d in (rep.decisions or [])]
+
+
+def scale_out_legs(perf) -> None:
+    """Phase ``engines`` legs 5-7, all NumPy (no kernel launches), over
+    the card-fit ``perf`` and ``ENGINES["sets"]``, ``c0 = max(sets)``.
+
+    5. the vector engine equals the fast engine on the five plain
+       scenarios (decision streams, buckets, report floats, core-seconds;
+       its event count is the fast run's arrivals + ticks + launches),
+       then replays ``steady`` at ``vector_requests``;
+    6. the joint fleet: ``FleetFastSimRunner`` at quanta 0 equals
+       ``FleetExactRunner`` on the three fleet scenarios for every
+       router (decisions, buckets, ``max_replicas``, core-seconds), then
+       ``fleet-flash-crowd`` at ``fleet_requests`` on the reference's
+       ``yolov5s_like`` surface and on the card-fit one, each beside the
+       static fleet at the largest core count;
+    7. the degradation ladder: fast equals exact with model swaps on the
+       three ``degrade-*`` scenarios (the scenario's ladder, whose rungs
+       are fitted from the reference's base surface), then
+       ``degrade-flash-overload``'s accuracy-weighted goodput, sheds and
+       rungs used with the whole ladder and with one fixed rung.
+    """
+    from repro_torch.core.degradation import ModelLadder, resolve_ladder
+    from repro_torch.core.perf_model import yolov5s_like
+    from repro_torch.serving.fleet import (DegradingFleetScaler,
+                                           FleetExactRunner,
+                                           FleetFastSimRunner,
+                                           FleetSpongeScaler,
+                                           StaticFleetPolicy)
+    from repro_torch.serving.scenarios import build_scenario, run_scenario
+
+    sets = ENGINES["sets"]
+    seed = ENGINES["seed"]
+    c0 = max(sets)
+    x = SCALE_OUT
+
+    def fail_if(name, same):
+        bad = [k for k, ok in same.items() if not ok]
+        if bad:
+            raise AssertionError(f"{name}: differs in {bad}")
+
+    # 5. the vector engine
+    kw = dict(perf=perf, seed=seed, c0=c0, c_set=sets, b_set=sets)
+    for name in PLAIN_SCENARIOS:
+        n_arrivals = len(build_scenario(name, duration=x["vector_s"],
+                                        seed=seed)[0])
+        fast, fs = run_scenario(name, engine="fast", duration=x["vector_s"],
+                                **kw)
+        vec, vs = run_scenario(name, engine="vector",
+                               duration=x["vector_s"], **kw)
+        fail_if(f"{name}: vector against fast", {
+            "decisions":
+                decision_stream(vec) == decision_stream(fast) != [],
+            "buckets": vec.buckets == fast.buckets,
+            "report floats": report_floats(vec) == report_floats(fast),
+            "core-seconds": vec.core_seconds == fast.core_seconds,
+            "core timeline": vec.core_timeline == fast.core_timeline,
+            "events": vs["events"] == n_arrivals
+            + len(fast.core_timeline) + len(fast.buckets),
+            "solver": vs["solver"] == fs["solver"]})
+        say("engines", scenario=name, duration_s=x["vector_s"],
+            check="vector == fast, bit for bit", n=vec.n_requests,
+            violation_rate=vec.violation_rate, p99=vec.p99,
+            core_seconds=vec.core_seconds, decisions=len(vec.decisions),
+            events_vector=vs["events"], events_fast=fs["events"],
+            host_vector_events_per_s=vs["events"] / vs["run_wall_s"],
+            host_fast_events_per_s=fs["events"] / fs["run_wall_s"])
+    rep, st = run_scenario("steady", engine="vector",
+                           requests=x["vector_requests"], **kw)
+    if not (rep.n_requests >= 0.9 * x["vector_requests"]
+            and math.isfinite(rep.p99)):
+        raise AssertionError("steady on the vector engine served "
+                             f"{rep.n_requests} requests")
+    say("engines", scenario="steady", engine="vector",
+        requests=x["vector_requests"], n=rep.n_requests,
+        violation_rate=rep.violation_rate, p99=rep.p99,
+        avg_cores=rep.avg_cores, events=st["events"],
+        wall_s=st["run_wall_s"],
+        host_events_per_s=st["events"] / st["run_wall_s"],
+        solver=json.dumps(st["solver"]))
+
+    # 6. the joint fleet
+    def fleet_runner(cls, pol, meta, surface, cs, router):
+        return cls(pol, surface, cs, cs, n0=meta["n0"], c0=max(cs),
+                   tick=meta["tick"], prior_rps=meta["expected_rps"],
+                   router=router)
+
+    for name in x["fleet"]:
+        batch, meta = build_scenario(name, duration=x["fleet_s"], seed=seed)
+        for router in x["routers"]:
+            out = []
+            for cls in (FleetFastSimRunner, FleetExactRunner):
+                pol = FleetSpongeScaler(perf, c_set=sets, b_set=sets,
+                                        adaptation_interval=meta["tick"])
+                runner = fleet_runner(cls, pol, meta, perf, sets, router)
+                t0 = time.perf_counter()
+                r = runner.run(batch, events=meta["fleet_events"])
+                out.append((r, runner, time.perf_counter() - t0))
+            (f, fr, fw), (e, er, ew) = out
+            fail_if(f"{name} ({router}): fleet fast against exact", {
+                "decisions": decision_stream(f) == decision_stream(e) != [],
+                "buckets": f.buckets == e.buckets,
+                "max_replicas": fr.max_replicas == er.max_replicas,
+                "core-seconds": f.core_seconds == e.core_seconds,
+                "report floats": report_floats(f) == report_floats(e)})
+            say("engines", scenario=name, router=router,
+                duration_s=x["fleet_s"],
+                check="fleet fast (quanta 0) == exact", n=f.n_requests,
+                max_replicas=fr.max_replicas,
+                violation_rate=f.violation_rate,
+                core_seconds=f.core_seconds, decisions=len(f.decisions),
+                host_fast_events_per_s=fr.events_processed / fw,
+                host_exact_events_per_s=er.events_processed / ew)
+    batch, meta = build_scenario("fleet-flash-crowd",
+                                 requests=x["fleet_requests"],
+                                 seed=x["fleet_seed"])
+    for surface_name, surface, cs in (("yolov5s_like", yolov5s_like(),
+                                       tuple(range(1, 17))),
+                                      ("card-fit", perf, sets)):
+        for kind in ("sponge", "static"):
+            if kind == "sponge":
+                pol = FleetSpongeScaler(surface, c_set=cs, b_set=cs,
+                                        adaptation_interval=meta["tick"],
+                                        budget_quantum=0.01,
+                                        lam_quantum=0.5)
+            else:
+                pol = StaticFleetPolicy(surface, replicas=meta["n0"],
+                                        cores=max(cs), b_set=cs,
+                                        interval=meta["tick"],
+                                        budget_quantum=0.01,
+                                        lam_quantum=0.5)
+            runner = fleet_runner(FleetFastSimRunner, pol, meta, surface,
+                                  cs, meta["router"])
+            t0 = time.perf_counter()
+            r = runner.run(batch, events=meta["fleet_events"])
+            wall = time.perf_counter() - t0
+            if not (r.n_requests > 0 and math.isfinite(r.p99)):
+                raise AssertionError(f"fleet-flash-crowd ({surface_name}, "
+                                     f"{kind}) served nothing")
+            say("engines", scenario="fleet-flash-crowd",
+                surface=surface_name, policy=pol.name,
+                requests=len(batch), n=r.n_requests,
+                max_replicas=runner.max_replicas,
+                violation_rate=r.violation_rate, p99=r.p99,
+                core_seconds=r.core_seconds,
+                solver_hit_rate=pol.solver_stats().get("hit_rate"),
+                events=runner.events_processed, wall_s=wall,
+                host_events_per_s=runner.events_processed / wall)
+
+    # 7. the degradation ladder
+    for name in x["degrade"]:
+        batch, meta = build_scenario(name, duration=x["degrade_s"],
+                                     seed=seed)
+        ladder = resolve_ladder(meta["ladder"])
+        out = []
+        for cls in (FleetFastSimRunner, FleetExactRunner):
+            pol = DegradingFleetScaler(perf, c_set=sets, b_set=sets,
+                                       adaptation_interval=meta["tick"],
+                                       ladder=ladder,
+                                       accuracy_floor=meta["accuracy_floor"])
+            runner = cls(pol, perf, sets, sets, n0=meta["n0"], c0=c0,
+                         tick=meta["tick"], prior_rps=meta["expected_rps"],
+                         router=meta["router"], ladder=ladder, m0=pol.model)
+            out.append((runner.run(batch, events=meta["fleet_events"]),
+                        runner))
+        (f, fr), (e, er) = out
+        fail_if(f"{name}: ladder fast against exact", {
+            "decisions": decision_stream(f) == decision_stream(e) != [],
+            "buckets": f.buckets == e.buckets,
+            "max_replicas": fr.max_replicas == er.max_replicas,
+            "core-seconds": f.core_seconds == e.core_seconds,
+            "report floats": report_floats(f) == report_floats(e),
+            "model timeline": f.model_timeline == e.model_timeline,
+            "swaps": f.model_swaps > 0})
+        say("engines", scenario=name, duration_s=x["degrade_s"],
+            check="ladder fast (quanta 0) == exact, with swaps",
+            n=f.n_requests, swaps=f.model_swaps,
+            rungs=json.dumps(sorted({m for _, m, _ in f.model_timeline})),
+            accuracy_goodput=f.accuracy_goodput,
+            violation_rate=f.violation_rate, core_seconds=f.core_seconds)
+    batch, meta = build_scenario("degrade-flash-overload",
+                                 duration=x["degrade_compare_s"], seed=seed)
+    ladder = resolve_ladder(meta["ladder"])
+    for label, lad, floor in (
+            ("whole ladder", ladder, meta["accuracy_floor"]),
+            (f"fixed-{x['fixed_rung']}",
+             ModelLadder([ladder.rung(x["fixed_rung"])]), 0.0)):
+        pol = DegradingFleetScaler(perf, c_set=sets, b_set=sets,
+                                   adaptation_interval=meta["tick"],
+                                   budget_quantum=0.01, lam_quantum=0.5,
+                                   ladder=lad, accuracy_floor=floor)
+        runner = FleetFastSimRunner(pol, perf, sets, sets, n0=meta["n0"],
+                                    c0=c0, tick=meta["tick"],
+                                    prior_rps=meta["expected_rps"],
+                                    router=meta["router"], ladder=lad,
+                                    m0=pol.model)
+        t0 = time.perf_counter()
+        r = runner.run(batch, events=meta["fleet_events"])
+        wall = time.perf_counter() - t0
+        timeline = r.model_timeline
+        sheds = sum(1 for (_, _, a0), (_, _, a1)
+                    in zip(timeline, timeline[1:]) if a1 < a0)
+        if not (r.n_requests > 0 and r.accuracy_goodput > 0.0):
+            raise AssertionError(f"degrade-flash-overload ({label}) "
+                                 "served nothing in time")
+        say("engines", scenario="degrade-flash-overload",
+            duration_s=x["degrade_compare_s"], ladder=json.dumps(label),
+            n=r.n_requests, accuracy_goodput=r.accuracy_goodput,
+            mean_served_accuracy=r.mean_served_accuracy,
+            swaps=r.model_swaps, sheds=sheds,
+            rungs=json.dumps(sorted({m for _, m, _ in timeline})),
+            violation_rate=r.violation_rate, core_seconds=r.core_seconds,
+            max_replicas=runner.max_replicas,
+            host_events_per_s=runner.events_processed / wall)
 
 
 def idle_share(busys, walls) -> tuple:

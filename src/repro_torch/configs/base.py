@@ -3,9 +3,9 @@
 Copy of ``repro.configs.base.ModelConfig`` with the same field names and
 defaults, so a config maps one to one between the packages, cut to the
 fields' declaration, ``padded_vocab``, ``d_inner``, ``ssm_num_heads``,
-``rwkv_num_heads``, ``mixer_kinds``, ``param_count()`` and
-``reduced()``.  The port's models run only what they implement
-(``models.api.build_model`` refuses the rest).
+``rwkv_num_heads``, ``mixer_kinds``, ``param_count()``,
+``active_param_count()`` and ``reduced()``.  The port's models run only
+what they implement (``models.api.build_model`` refuses the rest).
 
 ``use_pallas_prefill`` / ``use_pallas_decode`` keep the reference's
 names with a wider meaning: they route the prefill pass and the decode
@@ -196,6 +196,18 @@ class ModelConfig:
                                          + 2 * d * self.d_ff)
             cross = self.num_layers * 4 * d * self.num_heads * self.head_dim
             n += enc + cross
+        return n
+
+    def active_param_count(self) -> int:
+        """Params active per token (MoE: only routed top-k + shared)."""
+        if not self.uses_moe:
+            return self.param_count()
+        d = self.d_model
+        n = self.param_count()
+        moe_layers = sum(1 for b in self.blocks if b.endswith("+moe"))
+        all_exp = self.num_experts * 3 * d * self.moe_d_ff
+        act_exp = self.num_experts_per_tok * 3 * d * self.moe_d_ff
+        n -= moe_layers * (all_exp - act_exp)
         return n
 
     def reduced(self) -> "ModelConfig":

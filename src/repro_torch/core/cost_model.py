@@ -7,7 +7,8 @@ paths use: :class:`Composition` (the work of one engine step), the
 every surface delegates to the wrapped model's own float expression)
 and :class:`TokenCostModel` (evaluation, the mixed-step composition
 ``step_latency`` and the chunked-admission ``prefill_token_allowance``
-the continuous-batching engines use, fit, and the synthetic
+the continuous-batching engines use, ``tokens_per_second``, fit, the
+noisy ``sample_profile`` the fit is tested on, and the synthetic
 ``smollm_like`` calibration the token scenarios carry).  The float
 expressions are the reference's term for term: the solver's decisions
 depend on them.
@@ -15,7 +16,7 @@ depend on them.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterable, Protocol, Union, runtime_checkable
+from typing import Iterable, Protocol, Sequence, Union, runtime_checkable
 
 import numpy as np
 
@@ -176,6 +177,10 @@ class TokenCostModel:
         return (np.asarray(b, np.float64)
                 / np.maximum(self.batch_latency(b, c), 1e-12))
 
+    def tokens_per_second(self, c, slots) -> float:
+        """Steady-state decode token throughput at a given concurrency."""
+        return float(slots) / max(float(self.decode_latency(c, slots)), 1e-12)
+
     def prefill_token_allowance(self, c, slots: int, budget: float) -> float:
         """Max prefill tokens one step can absorb while keeping its
         latency within ``budget`` given ``slots`` running decoders — the
@@ -240,3 +245,21 @@ class TokenCostModel:
                    gamma_d=2.5e-3, delta_d=5.0e-5,
                    eps=1.0e-2, eta=2.0e-3,
                    mean_prompt=mean_prompt, mean_decode=mean_decode)
+
+    def sample_profile(self, token_counts: Sequence[int],
+                       slot_counts: Sequence[int], cs: Sequence[int],
+                       noise: float = 0.02, seed: int = 0):
+        """Noisy (prefill_samples, decode_samples) drawn from this model
+        — the token-level counterpart of ``PerfModel.sample_profile``."""
+        rng = np.random.default_rng(seed)
+        pre, dec = [], []
+        for c in cs:
+            for t in token_counts:
+                l = float(self.prefill_latency(c, t))
+                pre.append((float(t), float(c),
+                            max(l * (1 + rng.normal(0, noise)), 1e-6)))
+            for s in slot_counts:
+                l = float(self.decode_latency(c, s))
+                dec.append((float(s), float(c),
+                            max(l * (1 + rng.normal(0, noise)), 1e-6)))
+        return pre, dec

@@ -3,10 +3,12 @@
 Copy of ``repro.core.monitor`` cut to the struct-of-arrays λ windows
 (``array_window_rate``, ``tick_window_rate`` and
 ``array_window_rate_cancel_aware``, which the fast engines' column
-sessions read) and ``RateEstimator`` and ``Monitor``, the object-path
-estimators the ``ScenarioRunner`` drives: arrival rate, completions,
-drops and cancels, and the perf-model residuals a live backend records
-(measured minus predicted batch latency).  The two estimators give the
+sessions and the fleet runners read), ``accuracy_weighted_goodput`` (the
+model-ladder fleets' quality-weighted rate) and ``RateEstimator`` and
+``Monitor``, the object-path estimators the ``ScenarioRunner`` drives:
+arrival rate, completions, drops and cancels, and the perf-model
+residuals a live backend records (measured minus predicted batch
+latency).  The two estimators give the
 same floats: a cancel retracts from the window count and leaves the
 span anchored at the oldest observed arrival on both paths.
 """
@@ -27,8 +29,9 @@ def array_window_rate(arr, ai: int, w0: int, now: float,
                       ) -> tuple[float, int]:
     """:class:`RateEstimator`'s estimate over a bare arrival array — the
     ONE sliding-window λ shared by the struct-of-arrays engines (the
-    column sessions of ``serving.session`` resolve through this helper,
-    so the estimate cannot drift between engines).
+    column sessions of ``serving.session`` and both ``serving.fleet``
+    runners resolve through this helper, so the estimate cannot drift
+    between engines).
 
     ``arr`` is the (sorted) arrival-time column, ``ai`` the count of
     arrivals observed so far, ``w0`` the caller-held left window pointer.
@@ -222,3 +225,36 @@ class Monitor:
         if not ls:
             return float("nan")
         return ls[min(int(q * len(ls)), len(ls) - 1)]
+
+
+def accuracy_weighted_goodput(finish, deadline, model_log, horizon: float
+                              ) -> tuple[float, float]:
+    """Accuracy-weighted goodput over a closed run.
+
+    ``finish`` / ``deadline`` are parallel per-request arrays (NaN
+    finish = never served); ``model_log`` is the fleet's resident-model
+    timeline ``[(t, rung_name, accuracy), ...]`` (time-ascending, first
+    entry at t=0).  Each served request is weighted by the accuracy of
+    the model resident at its *finish* time — the rung that actually
+    produced the answer (a batch dispatched on a rung completes before
+    any swap away from it takes effect, because swaps drain in-flight
+    work first).
+
+    Returns ``(goodput, mean_served_accuracy)``: the accuracy sum over
+    requests served within deadline divided by the horizon (Orloj's
+    objective — degraded-but-in-time counts, but for less), and the
+    mean accuracy over all served requests (degradation depth).
+    """
+    finish = np.asarray(finish, np.float64)
+    deadline = np.asarray(deadline, np.float64)
+    ts = np.asarray([t for t, _, _ in model_log], np.float64)
+    accs = np.asarray([a for _, _, a in model_log], np.float64)
+    served = ~np.isnan(finish)
+    if not served.any():
+        return 0.0, float("nan")
+    seg = np.clip(np.searchsorted(ts, finish[served], side="right") - 1,
+                  0, len(accs) - 1)
+    acc_req = accs[seg]
+    in_time = finish[served] <= deadline[served] + 1e-9
+    return (float(acc_req[in_time].sum()) / max(horizon, 1e-12),
+            float(acc_req.mean()))

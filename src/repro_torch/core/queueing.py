@@ -7,8 +7,9 @@ mid-flight re-keying and cancellation, the solvers' snapshots --
 ``DynamicBatcher``, and the fast engines' ``FastEDFQueue`` and
 ``TokenFastEDFQueue``: heaps of bare ``(deadline, index)`` pairs into a
 struct-of-arrays workload, with the same re-keying and cancellation
-(the fleet and vector engines' ``push_many`` / ``pop_ready`` /
-``drain`` / ``peek_deadline`` are left out).  Both substrates keep the
+and the bulk API (``push_many`` / ``pop_ready`` / ``drain`` /
+``peek_deadline``; the fleet engines drain a retiring replica's queue
+through ``drain``).  Both substrates keep the
 top-live invariant after every mutation: the heap's root is always a
 live entry, so the fast engines' inlined dispatch loops read
 ``_heap[0][0]`` (head deadline) and ``bool(_heap)`` (emptiness)
@@ -17,7 +18,7 @@ directly.
 from __future__ import annotations
 
 import heapq
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -49,6 +50,10 @@ class EDFQueue:
     def push(self, req: Request) -> None:
         self._live[req.id] = req
         heapq.heappush(self._heap, (self._key(req), req.id, req))
+
+    def extend(self, reqs: Iterable[Request]) -> None:
+        for r in reqs:
+            self.push(r)
 
     def _fix_top(self) -> None:
         """Restore the top-live invariant (drop stale root tuples)."""
@@ -161,8 +166,8 @@ class FastEDFQueue:
     million queued requests cost two machine words each and no
     object allocation.  Presents the same read surface the scheduling
     policies use (``__len__`` / ``snapshot_remaining`` /
-    ``remaining_array``), which lets any decide-protocol
-    ``SchedulingPolicy`` run unmodified on the fast path.
+    ``remaining_array`` / ``peek_deadline``), which lets any
+    decide-protocol ``SchedulingPolicy`` run unmodified on the fast path.
 
     ``_live`` (index → current deadline) carries the renegotiation
     state: ``update_deadline`` re-pushes under the new key,  ``cancel``
@@ -180,6 +185,9 @@ class FastEDFQueue:
     def __len__(self):
         return len(self._live)
 
+    def __contains__(self, idx: int) -> bool:
+        return idx in self._live
+
     def push(self, deadline: float, idx: int) -> None:
         self._live[idx] = deadline
         heapq.heappush(self._heap, (deadline, idx))
@@ -189,6 +197,54 @@ class FastEDFQueue:
         h, live = self._heap, self._live
         while h and live.get(h[0][1]) != h[0][0]:
             heapq.heappop(h)
+
+    def push_many(self, deadlines, idxs) -> None:
+        """Bulk push of aligned ``(deadline, index)`` columns — one
+        extend + heapify instead of n sift-ups.  Order-identical to
+        sequential :meth:`push` calls: the heap is a set ordered by
+        ``(deadline, index)`` at pop time, so how entries entered it
+        cannot change any pop sequence (the queueing tests prove this
+        against interleaved re-keys and cancels)."""
+        live = self._live
+        h = self._heap
+        pairs = list(zip(np.asarray(deadlines, np.float64).tolist(),
+                         np.asarray(idxs, np.int64).tolist()))
+        if not pairs:
+            return
+        for dl, i in pairs:
+            live[i] = dl
+        if not h:
+            # an already-(deadline, idx)-sorted block is a valid heap
+            if all(pairs[k] <= pairs[k + 1] for k in range(len(pairs) - 1)):
+                self._heap = pairs
+                return
+        h.extend(pairs)
+        # heapify is O(n); per-item sift-up is O(n log n) — for small
+        # tails on a big heap the pushes win, so pick by size
+        if len(pairs) * 8 >= len(h):
+            heapq.heapify(h)
+        else:
+            del h[-len(pairs):]
+            for p in pairs:
+                heapq.heappush(h, p)
+        self._fix_top()
+
+    def pop_ready(self, b: int, before: float = float("inf")) -> List[int]:
+        """Bulk EDF pop with a deadline bound: pop the ≤``b`` earliest
+        live indices whose deadline is < ``before`` (exclusive), in the
+        exact ``(deadline, index)`` order sequential pops would use.
+        ``before=inf`` makes it :meth:`pop_batch`.  Stale tuples
+        (re-keyed / cancelled entries) are discarded as they surface."""
+        pop = heapq.heappop
+        h, live = self._heap, self._live
+        out: List[int] = []
+        while h and len(out) < b and h[0][0] < before:
+            dl, idx = pop(h)
+            if live.get(idx) == dl:
+                del live[idx]
+                out.append(idx)
+        self._fix_top()
+        return out
 
     def update_deadline(self, idx: int, new_deadline: float) -> bool:
         """Re-key a queued index to ``new_deadline``; False when the
@@ -225,6 +281,9 @@ class FastEDFQueue:
         self._fix_top()
         return out
 
+    def peek_deadline(self) -> float:
+        return self._heap[0][0]
+
     def remaining_array(self, now: float) -> np.ndarray:
         """Sorted remaining budgets — one vectorized pass over the
         live-entry map."""
@@ -233,6 +292,19 @@ class FastEDFQueue:
 
     def snapshot_remaining(self, now: float) -> List[float]:
         return self.remaining_array(now).tolist()
+
+    def drain(self) -> List[Tuple[float, int]]:
+        """Pop every live entry in EDF order as ``(deadline, index)``
+        pairs (fleet re-routing / retirement)."""
+        pop = heapq.heappop
+        h, live = self._heap, self._live
+        out: List[Tuple[float, int]] = []
+        while h:
+            dl, idx = pop(h)
+            if live.get(idx) == dl:
+                del live[idx]
+                out.append((dl, idx))
+        return out
 
 
 class TokenFastEDFQueue(FastEDFQueue):

@@ -31,13 +31,19 @@ class VerticalScaledInstance:
 
     def __init__(self, c_set: Sequence[int], b_set: Sequence[int],
                  perf: PerfModel, c0: Optional[int] = None,
-                 resize_penalty: float = 0.005):
+                 resize_penalty: float = 0.005,
+                 weight_bytes: float = 0.0, ici_bw: float = 50e9):
         self.c_set = tuple(sorted(c_set))
         self.b_set = tuple(sorted(b_set))
         self.perf = perf
         self.c = c0 or self.c_set[0]
         assert self.c in self.c_set
-        self.resize_penalty = resize_penalty
+        # resize penalty: explicit, or the reference's estimated re-gather
+        # time of the weight shard over the TPU interconnect (kept for
+        # the API; on one device nothing re-gathers, so callers leave
+        # weight_bytes at 0)
+        self.resize_penalty = (weight_bytes / ici_bw
+                               if weight_bytes else resize_penalty)
         self.resizes: list[ResizeEvent] = []
         self.core_seconds = 0.0
         self._last_t: Optional[float] = None
@@ -72,6 +78,10 @@ class VerticalScaledInstance:
     def latency(self, b: int) -> float:
         """Processing latency of a batch of b at the current allocation."""
         return float(self.perf.latency(self.bucket_b(b), self.c))
+
+    def throughput(self) -> float:
+        return max(float(self.perf.throughput(b, self.c))
+                   for b in self.b_set)
 
 
 class TimedExecutor:

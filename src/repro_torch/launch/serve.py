@@ -22,10 +22,20 @@ Three modes, one control plane:
   their update/cancel stream), the token scenarios on
   ``TokenFastSimRunner`` / ``TokenSimBackend`` (``--admission-quantile``
   and ``--no-speculative`` steer the decode-length-aware ones).
+  ``--engine vector`` replays a plain single-instance scenario on the
+  batched-tick vector engine (``serving.vectorpath``).  Fleet scenarios
+  (``replica-failure``, ``rolling-restart``, ``fleet-flash-crowd``) run
+  the joint horizontal + vertical engines (``serving.fleet``);
+  ``--replicas`` sizes the deploy-time fleet and ``--router`` picks the
+  arrival router (``least-loaded`` / ``jsq`` / ``edf-deadline``).
+  Degradation scenarios (``degrade-sustained-overload``,
+  ``degrade-flash-overload``, ``degrade-fade-overload``) run the
+  (m, n, c, b) planner over a model ladder; ``--model-ladder`` attaches
+  (or overrides) the ladder, ``--accuracy-floor`` bounds the shed and
+  ``--policy fixed-<arch>`` pins one rung (the fixed-model baseline).
   ``--engine torch`` serves a token scenario on the real kernels through
   ``TokenTorchBackend``.  The default is ``torch`` for token scenarios
-  and ``fast`` for the rest; ``--engine vector`` is refused (not ported
-  yet).
+  and ``fast`` for the rest.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode sim --duration 600
     PYTHONPATH=src python -m repro_torch.launch.serve --mode live \\
@@ -36,6 +46,12 @@ Three modes, one control plane:
         --duration 60                           # the fast engine
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --scenario slo-renegotiation --engine exact --duration 60
+    PYTHONPATH=src python -m repro_torch.launch.serve --scenario steady \\
+        --engine vector --requests 1000000
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --scenario fleet-flash-crowd --router edf-deadline --duration 120
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --scenario degrade-flash-overload --duration 120
 
 ``--arch`` takes any id of ``repro_torch.configs.registry`` that serves
 prompts of token ids (``smollm-135m``, ``smollm-360m``, ``gemma-2b``,
@@ -57,9 +73,9 @@ from repro_torch.core.slo import Request
 from repro_torch.network.latency import comm_latency
 from repro_torch.network.traces import synth_4g_trace
 from repro_torch.serving.api import make_live_server, make_sim_server
+from repro_torch.serving.fleet import ROUTERS
 from repro_torch.serving.scenarios import (ENGINES, build_scenario,
-                                           check_engine, list_scenarios,
-                                           run_scenario)
+                                           list_scenarios, run_scenario)
 from repro_torch.serving.token_backend import run_token_scenario
 from repro_torch.serving.workload import WorkloadGenerator
 
@@ -158,15 +174,14 @@ def run_scenario_mode(args) -> dict:
             arch=args.arch, prompt_len=args.prompt_len,
             max_decode=args.gen_tokens, rps=args.rps, device=args.device)
     else:
-        try:
-            check_engine(args.engine)
-        except ValueError as e:
-            raise SystemExit(str(e))
         report, stats = run_scenario(
             args.scenario, policy=args.policy, engine=args.engine,
             duration=args.duration, rps=args.rps, seed=args.seed,
-            requests=args.requests, mid_flight=not args.no_mid_flight,
-            admission_quantile=q, speculative=not args.no_speculative)
+            requests=args.requests, replicas=args.replicas,
+            router=args.router, mid_flight=not args.no_mid_flight,
+            admission_quantile=q, speculative=not args.no_speculative,
+            model_ladder=args.model_ladder,
+            accuracy_floor=args.accuracy_floor)
     ev = stats["events"]
     dt = stats["run_wall_s"]            # engine time only (no generation)
     out = {"scenario": args.scenario, "engine": stats["engine"],
@@ -182,6 +197,16 @@ def run_scenario_mode(args) -> dict:
                    tokens_per_s=report.tokens_per_s,
                    ttft_p50=report.ttft_p50, ttft_p99=report.ttft_p99,
                    tbt_violation_rate=report.tbt_violation_rate)
+    if "max_replicas" in stats:         # fleet scenarios
+        out.update(max_replicas=stats["max_replicas"],
+                   router=stats["router"])
+    if "ladder" in stats:               # degradation runs
+        out.update(core_seconds=report.core_seconds,
+                   ladder=stats["ladder"],
+                   accuracy_floor=stats["accuracy_floor"],
+                   accuracy_goodput=report.accuracy_goodput,
+                   mean_served_accuracy=report.mean_served_accuracy,
+                   model_swaps=report.model_swaps)
     if "session" in stats:              # session scenarios
         out.update(n_cancelled=report.n_cancelled, **{
             f"mid_flight_{k}": v for k, v in stats["session"].items()})
@@ -206,17 +231,22 @@ def main(argv=None):
                               list_scenarios().items()).replace("%", "%%")
     ap.add_argument("--scenario", default=None,
                     help=f"run a registered scenario ({scenario_help})")
-    ap.add_argument("--engine", choices=ENGINES + ("vector", "torch"),
+    ap.add_argument("--engine", choices=ENGINES + ("torch",),
                     default=None,
-                    help="scenario mode: the struct-of-arrays fast engine "
-                         "or the object-based exact engine (NumPy, no "
-                         "device), or, for token scenarios, the "
+                    help="scenario mode: the struct-of-arrays fast engine, "
+                         "the object-based exact engine or the "
+                         "batched-tick vector engine (plain scenarios; "
+                         "NumPy, no device), or, for token scenarios, the "
                          "real-kernel TokenTorchBackend (default: torch "
-                         "for token scenarios, fast otherwise); vector is "
-                         "not ported yet and is refused")
+                         "for token scenarios, fast otherwise)")
     ap.add_argument("--requests", type=int, default=None,
                     help="scenario mode: size the run by request count "
                          "(--engine torch: default 24)")
+    ap.add_argument("--replicas", type=int, default=None,
+                    help="fleet scenarios: deploy-time replica count "
+                         "(overrides the scenario's n0)")
+    ap.add_argument("--router", default=None, choices=ROUTERS,
+                    help="fleet scenarios: arrival router across replicas")
     ap.add_argument("--no-mid-flight", action="store_true",
                     help="session scenarios: suppress the mid-flight "
                          "update_slo/cancel stream (the closed-world "
@@ -227,6 +257,16 @@ def main(argv=None):
                          "this quantile (0 disables the uncertainty path "
                          "-- the deterministic-cost baseline; default: "
                          "the scenario's own quantile)")
+    ap.add_argument("--model-ladder", default=None,
+                    help="fleet scenarios: attach a model ladder and run "
+                         "the (m, n, c, b) planner -- 'default', 'full' or "
+                         "a comma-separated registry arch list (degrade-* "
+                         "scenarios carry 'default' already); "
+                         "--policy fixed-<arch> pins one rung")
+    ap.add_argument("--accuracy-floor", type=float, default=None,
+                    help="ladder runs: never shed below this accuracy "
+                         "score (default: the scenario's own floor, 0.60 "
+                         "for the degrade-* family)")
     ap.add_argument("--no-speculative", action="store_true",
                     help="distribution-aware runs: disable speculative "
                          "over-admission with cancel-on-overrun (streams "
@@ -239,7 +279,8 @@ def main(argv=None):
     ap.add_argument("--policy", default="sponge",
                     help="live mode and the fast/exact engines: sponge, "
                          "sponge-pred (exact engine), fa2 or "
-                         "static-<cores>")
+                         "static-<cores>; fleet scenarios: sponge, "
+                         "static-<cores> or, with a ladder, fixed-<arch>")
     # None = "use the mode's default" (the token scenario carries its own
     # rps; sim/live keep the reference's 20 rps / 600 s)
     ap.add_argument("--rps", type=float, default=None)

@@ -421,6 +421,20 @@ class RunReport:
     * ``n_cancelled`` — requests withdrawn mid-flight via
       ``SpongeSession.cancel``; excluded from every served/violation
       aggregate (0 on closed-world replays).
+
+    Degradation extras (``core.degradation`` fleets; NaN/0/None on
+    single-model runs):
+
+    * ``accuracy_goodput`` — accuracy-weighted goodput: the sum of the
+      serving model's accuracy score over requests served *within* their
+      deadline, divided by the horizon (Orloj's objective — a degraded
+      answer in time beats a full-accuracy answer that is late, but
+      counts for less than a full-accuracy answer in time).
+    * ``mean_served_accuracy`` — mean accuracy score over served
+      requests (degradation depth, independent of the rate axis).
+    * ``model_swaps`` — committed model swaps over the run.
+    * ``model_timeline`` — ``(t, rung_name, accuracy)`` resident-model
+      segments (first entry at t=0).
     """
     policy: str
     backend: str
@@ -441,9 +455,23 @@ class RunReport:
     ttft_p99: float = float("nan")
     tbt_violation_rate: float = 0.0
     n_cancelled: int = 0
+    accuracy_goodput: float = float("nan")
+    mean_served_accuracy: float = float("nan")
+    model_swaps: int = 0
+    model_timeline: Optional[List[tuple]] = None
 
     def __getitem__(self, key: str):
         return getattr(self, key)
+
+    def get(self, key: str, default=None):
+        return getattr(self, key, default)
+
+    def keys(self):
+        return [f.name for f in dataclasses.fields(self)]
+
+    def as_dict(self) -> dict:
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)}
 
 
 
@@ -451,11 +479,11 @@ def build_array_report(policy, backend: str, batch, finish: np.ndarray,
                        horizon: float, slots, core_samples,
                        bucket_log, n_cancelled: int = 0) -> RunReport:
     """The ONE report aggregation of the struct-of-arrays engines
-    (``fastpath.FastSimRunner`` and its column session): served mask
-    over the ``finish`` column, violations strictly past ``deadline +
-    1e-9``, end-to-end latency from client send time, the nearest-rank
-    percentile rule, and the per-slot core-seconds integral clamped to
-    each slot's release point.  Centralized so the acceptance metrics
+    (``fastpath.FastSimRunner``, the vector engine and both ``fleet``
+    runners): served mask over the ``finish`` column, violations
+    strictly past ``deadline + 1e-9``, end-to-end latency from client
+    send time, the nearest-rank percentile rule, and the per-slot
+    core-seconds integral clamped to each slot's release point.  Centralized so the acceptance metrics
     (the violation epsilon, the percentile indexing) cannot drift
     between engines."""
     served = ~np.isnan(finish)

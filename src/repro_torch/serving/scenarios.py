@@ -1,7 +1,8 @@
 """Scenario registry: named workload scripts and the scenario runner.
 
-Copy of ``repro.serving.scenarios`` cut to the single-instance
-scenarios.  Each scenario is a *vectorized* workload generator --
+Copy of ``repro.serving.scenarios`` cut to the single-instance, fleet
+and degradation scenarios (the multi-tenant ``mixed-zoo`` pair is not
+ported yet).  Each scenario is a *vectorized* workload generator --
 arrival pattern, network/dynamic-SLO model, request mix -- returning a
 ``RequestBatch`` plus the metadata policies need (nominal SLO, expected
 rate); the same seed gives the same batch as the reference:
@@ -22,6 +23,14 @@ rate); the same seed gives the same batch as the reference:
   whose decode lengths follow a declared distribution
   (``meta["decode_dist"]``, ``core.uncertainty``): quantile admission
   and speculative cancel-on-overrun.
+* ``replica-failure`` / ``rolling-restart`` / ``fleet-flash-crowd`` --
+  fleet scenarios (``meta["fleet"]``): joint horizontal + vertical
+  scaling over several replicas (``serving.fleet``), with kill / restart
+  disruptions and arrival spikes.
+* ``degrade-sustained-overload`` / ``degrade-flash-overload`` /
+  ``degrade-fade-overload`` -- fleet scenarios with a model ladder
+  (``meta["ladder"]``, ``core.degradation``): the (m, n, c, b) planner
+  sheds accuracy, never below the floor, when no (n, c, b) is feasible.
 * ``slo-renegotiation`` / ``cancel-storm`` -- online-session scenarios
   (``meta["session_events"]`` routes the run through the session API,
   ``serving.session``): network telemetry re-keys queued requests'
@@ -30,9 +39,11 @@ rate); the same seed gives the same batch as the reference:
 
 :func:`run_scenario` runs one on the struct-of-arrays fast engine (the
 default: ``serving.fastpath`` and its column sessions, with the
-quantized memo solver) or on the object-based exact engine
+quantized memo solver), on the object-based exact engine
 (``ScenarioRunner`` over ``SimBackend``, ``TokenSimBackend`` or a
-session).  The reference's ``vector`` engine is not ported yet;
+session), or, for the plain single-instance scenarios, on the
+batched-tick vector engine (``serving.vectorpath``).  Fleet scenarios
+run the fleet engines on either ``fast`` or ``exact``.
 ``token_backend.run_token_scenario`` serves a token scenario on the
 card.
 """
@@ -46,6 +57,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 
 from repro_torch.core.cost_model import TokenCostModel
+from repro_torch.core.degradation import ModelLadder, resolve_ladder
 from repro_torch.core.perf_model import PerfModel, yolov5s_like
 from repro_torch.core.scaler import TokenSpongeScaler
 from repro_torch.core.solver import DEFAULT_B, DEFAULT_C
@@ -56,7 +68,11 @@ from repro_torch.network.traces import synth_4g_trace, synth_5g_trace
 from repro_torch.serving.api import (ScenarioRunner, TokenSimBackend,
                                      make_policy, make_sim_server)
 from repro_torch.serving.fastpath import FastSimRunner, TokenFastSimRunner
+from repro_torch.serving.fleet import (DegradingFleetScaler,
+                                       FleetExactRunner, FleetFastSimRunner,
+                                       FleetSpongeScaler, StaticFleetPolicy)
 from repro_torch.serving.session import drive_session_events
+from repro_torch.serving.vectorpath import VectorSimRunner
 from repro_torch.serving.workload import RequestBatch, lognormal_lengths
 
 
@@ -391,6 +407,181 @@ register(Scenario(
     default_duration=600.0))
 
 
+# --------------------------------------------------------------------------
+# fleet scenarios (joint horizontal + vertical scaling)
+# --------------------------------------------------------------------------
+def _fleet_meta(rps: float, trace, *, n0: int, c0: int = 16,
+                events=(), router: str = "least-loaded",
+                tick: float = 0.5) -> dict:
+    """Shared meta for fleet scenarios: ``fleet=True`` routes the run
+    through the fleet engines (``serving.fleet``); ``n0``/``c0``
+    size the deploy-time fleet, ``fleet_events`` inject disruptions."""
+    return {"slo": 1.0, "expected_rps": rps, "trace": trace,
+            "fleet": True, "n0": n0, "c0": c0, "router": router,
+            "fleet_events": tuple(events), "tick": tick}
+
+
+def _build_replica_failure(duration, rps, rng):
+    seed = int(rng.integers(2**31))
+    trace = synth_4g_trace(_trace_seconds(duration), seed=seed)
+    send = poisson_times(rps, duration, rng)
+    cl = comm_latency_many(np.full(send.shape, 200.0), trace, send)
+    batch = RequestBatch.from_send(send, cl, slo=1.0, size_kb=200.0)
+    events = ((0.45 * duration, "kill", 1),)
+    return batch, _fleet_meta(rps, trace, n0=4, events=events)
+
+
+register(Scenario(
+    name="replica-failure",
+    summary="steady fleet load; one replica fails mid-run — the joint "
+            "scaler must re-target n and absorb the re-routed queue",
+    build=_build_replica_failure, default_rps=60.0,
+    default_duration=600.0))
+
+
+def _build_rolling_restart(duration, rps, rng):
+    seed = int(rng.integers(2**31))
+    trace = synth_4g_trace(_trace_seconds(duration), seed=seed)
+    send = poisson_times(rps, duration, rng)
+    cl = comm_latency_many(np.full(send.shape, 200.0), trace, send)
+    batch = RequestBatch.from_send(send, cl, slo=1.0, size_kb=200.0)
+    # restart each deploy-time replica in turn, 4 s cold start apiece
+    events = tuple((frac * duration, "restart", 0, 4.0)
+                   for frac in (0.30, 0.45, 0.60, 0.75))
+    return batch, _fleet_meta(rps, trace, n0=4, events=events)
+
+
+register(Scenario(
+    name="rolling-restart",
+    summary="each replica is drained and replaced in sequence (4 s cold "
+            "start) — a deploy rollout under live traffic",
+    build=_build_rolling_restart, default_rps=60.0,
+    default_duration=600.0))
+
+
+def _build_fleet_flash_crowd(duration, rps, rng):
+    seed = int(rng.integers(2**31))
+    trace = synth_4g_trace(_trace_seconds(duration), seed=seed)
+    spikes = ((0.40, 0.03, 3.0), (0.70, 0.04, 2.0))   # (start, len, x-rate)
+
+    def rate(t):
+        r = np.full(t.shape, float(rps))
+        for frac, width, mult in spikes:
+            s = frac * duration
+            r = np.where((t >= s) & (t < s + width * duration),
+                         rps * mult, r)
+        return r
+
+    send = inhomogeneous_poisson_times(rate, rps * 3.0, duration, rng)
+    cl = comm_latency_many(np.full(send.shape, 200.0), trace, send)
+    batch = RequestBatch.from_send(send, cl, slo=1.0, size_kb=200.0)
+    return batch, _fleet_meta(rps, trace, n0=8)
+
+
+register(Scenario(
+    name="fleet-flash-crowd",
+    summary="fleet-scale base load with 3x/2x arrival spikes — joint "
+            "(n, c, b) scaling vs a peak-provisioned static fleet",
+    build=_build_fleet_flash_crowd, default_rps=120.0,
+    default_duration=600.0,
+    mean_rate_factor=1.10))   # 1 + 0.03*(3-1) + 0.04*(2-1)
+
+
+# --------------------------------------------------------------------------
+# degrade-under-pressure scenarios (model ladder)
+# --------------------------------------------------------------------------
+def _degrade_meta(rps: float, trace, *, n0: int,
+                  accuracy_floor: float = 0.60, events=()) -> dict:
+    """Fleet meta plus the model-ladder keys: ``ladder`` is a *spec*
+    (resolved by :func:`core.degradation.resolve_ladder` at run
+    time, so the meta stays JSON-serializable) and ``accuracy_floor``
+    bounds how far the (m, n, c, b) solver may shed.  The 0.60 default
+    admits smollm-360m (0.64) but fences off smollm-135m (0.58) — the
+    floor does real work in every degrade scenario."""
+    meta = _fleet_meta(rps, trace, n0=n0, events=events)
+    meta.update(ladder="default", accuracy_floor=accuracy_floor)
+    return meta
+
+
+def _build_degrade_sustained(duration, rps, rng):
+    seed = int(rng.integers(2**31))
+    trace = synth_4g_trace(_trace_seconds(duration), seed=seed)
+    send = poisson_times(rps, duration, rng)
+    cl = comm_latency_many(np.full(send.shape, 200.0), trace, send)
+    batch = RequestBatch.from_send(send, cl, slo=1.0, size_kb=200.0)
+    return batch, _degrade_meta(rps, trace, n0=8)
+
+
+register(Scenario(
+    name="degrade-sustained-overload",
+    summary="arrivals hold well above the top rung's full-fleet ceiling "
+            "for the whole run — the (m, n, c, b) planner must shed "
+            "accuracy (never below the floor) to keep the SLO",
+    build=_build_degrade_sustained, default_rps=180.0,
+    default_duration=600.0))
+
+
+def _build_degrade_flash(duration, rps, rng):
+    seed = int(rng.integers(2**31))
+    trace = synth_4g_trace(_trace_seconds(duration), seed=seed)
+    start, width, mult = 0.35, 0.15, 3.2     # one long over-capacity spike
+
+    def rate(t):
+        s = start * duration
+        return np.where((t >= s) & (t < s + width * duration),
+                        rps * mult, float(rps))
+
+    send = inhomogeneous_poisson_times(rate, rps * mult, duration, rng)
+    cl = comm_latency_many(np.full(send.shape, 200.0), trace, send)
+    batch = RequestBatch.from_send(send, cl, slo=1.0, size_kb=200.0)
+    return batch, _degrade_meta(rps, trace, n0=8)
+
+
+register(Scenario(
+    name="degrade-flash-overload",
+    summary="comfortable base load, then a 3.2x flash crowd beyond the "
+            "top rung's capacity — shed for the spike, recover "
+            "(hysteretic swap-back) once it passes",
+    build=_build_degrade_flash, default_rps=55.0,
+    default_duration=600.0,
+    mean_rate_factor=1.33))    # 1 + 0.15*(3.2-1)
+
+
+def _build_degrade_fade(duration, rps, rng):
+    seed = int(rng.integers(2**31))
+    trace = synth_4g_trace(_trace_seconds(duration), seed=seed)
+
+    lo, hi, surge = 0.40 * duration, 0.70 * duration, 2.4
+
+    def rate(t):
+        return np.where((t >= lo) & (t < hi), rps * surge, float(rps))
+
+    send = inhomogeneous_poisson_times(rate, rps * surge, duration, rng)
+    cl = comm_latency_many(np.full(send.shape, 200.0), trace, send)
+    # a mid-run network fade stretches comm latency 4x, capped at
+    # 0.8 s, while the arrival rate surges 2.4x inside the same
+    # window: the surviving 0.2 s compute budget caps the top rung at
+    # single-item batches, whose fleet-wide ceiling sits well below
+    # the surged rate — only a smaller rung clears both the deadline
+    # and the rate at once
+    fade = (send >= lo) & (send < hi)
+    cl = np.where(fade, np.minimum(cl * 4.0, 0.80), cl)
+    batch = RequestBatch.from_send(send, cl, slo=1.0, size_kb=200.0)
+    return batch, _degrade_meta(rps, trace, n0=8)
+
+
+register(Scenario(
+    name="degrade-fade-overload",
+    summary="a network fade stretches comm latency 4x (deadlines "
+            "tighten to the top rung's single-item latency) while "
+            "the arrival rate surges 2.4x inside the fade window — "
+            "overload arrives through the SLO budget and the rate "
+            "at once",
+    build=_build_degrade_fade, default_rps=55.0,
+    default_duration=600.0,
+    mean_rate_factor=1.42))    # 1 + 0.3*(2.4-1)
+
+
 def _build_slo_renegotiation(duration, rps, rng):
     """Live telemetry renegotiates queued budgets as the network moves.
 
@@ -498,18 +689,18 @@ def build_scenario(name: str, *, duration: Optional[float] = None,
     return batch, meta
 
 
-ENGINES = ("fast", "exact")
+ENGINES = ("fast", "exact", "vector")
 
 
 def check_engine(engine: str) -> None:
     """Refuse an engine the port does not run, naming what it runs."""
     if engine not in ENGINES:
         raise ValueError(
-            f"engine={engine!r} is not ported: the port runs "
-            "engine='fast' (the struct-of-arrays engines, the default) "
-            "and engine='exact'; the vector engine comes with ROADMAP.md "
-            "Queue 1 item 6c, and token_backend.run_token_scenario "
-            "serves a token scenario on the card")
+            f"engine={engine!r} is not an engine of the port: it runs "
+            "engine='fast' (the struct-of-arrays engines, the default), "
+            "engine='exact' and engine='vector' (plain single-instance "
+            "scenarios); token_backend.run_token_scenario serves a token "
+            "scenario on the card, in place of the reference's 'jax'")
 
 
 def run_scenario(name: str, *, policy: str = "sponge",
@@ -521,9 +712,13 @@ def run_scenario(name: str, *, policy: str = "sponge",
                  tick: Optional[float] = None,
                  horizon: Optional[float] = None,
                  budget_quantum: float = 0.01, lam_quantum: float = 0.5,
+                 replicas: Optional[int] = None,
+                 router: Optional[str] = None,
                  mid_flight: bool = True,
                  admission_quantile: Optional[float] = None,
                  speculative: bool = True,
+                 model_ladder=None,
+                 accuracy_floor: Optional[float] = None,
                  **policy_kw):
     """Run a registered scenario end to end; returns ``(RunReport,
     stats)`` where ``stats`` carries engine/meta/solver-cache info.
@@ -550,9 +745,21 @@ def run_scenario(name: str, *, policy: str = "sponge",
     ``speculative=False`` turns off over-admission with
     cancel-on-overrun while keeping quantile drag.
 
-    ``engine`` is ``"fast"`` or ``"exact"``; the reference's
-    ``"vector"`` engine is not ported yet (ROADMAP.md Queue 1 item 6c)
-    and raises ``ValueError``, as does any other name.  ``sponge-pred``
+    Fleet scenarios (``meta["fleet"]``) run the joint engines
+    (``replicas`` overrides the deploy-time fleet size, ``router`` the
+    arrival router -- see ``serving.fleet``), and accept
+    ``model_ladder`` (a ladder spec -- see
+    ``core.degradation.resolve_ladder``; overrides ``meta["ladder"]``)
+    and ``accuracy_floor``: with a ladder attached, ``policy="sponge"``
+    runs the (m, n, c, b) ``DegradingFleetScaler`` and
+    ``policy="fixed-<arch>"`` the same machinery pinned to one rung (the
+    accuracy-reporting fixed-model baseline).  A ladder on any other
+    scenario raises ``ValueError``.
+
+    ``engine`` is ``"fast"``, ``"exact"`` or ``"vector"`` (the
+    batched-tick replay of the plain single-instance scenarios; token,
+    fleet and session scenarios raise ``ValueError`` on it, as in the
+    reference); any other name raises ``ValueError``.  ``sponge-pred``
     inspects ``Request`` objects and runs on the exact engine only.
     """
     check_engine(engine)
@@ -561,10 +768,20 @@ def run_scenario(name: str, *, policy: str = "sponge",
                                  seed=seed, requests=requests)
     # a scenario with sub-second SLOs recommends its adaptation cadence
     tick = tick if tick is not None else meta.get("tick", 1.0)
+    if engine == "vector" and (meta.get("token") or meta.get("fleet")
+                               or meta.get("session_events") is not None):
+        raise ValueError(
+            "engine='vector' replays plain single-instance scenarios "
+            f"only ({name!r} needs the fast or exact engine)")
     if admission_quantile is not None and not meta.get("token"):
         raise ValueError(
             "admission_quantile applies to token scenarios only "
             f"(scenario {name!r} is not token-based)")
+    if ((model_ladder is not None or accuracy_floor is not None)
+            and not meta.get("fleet")):
+        raise ValueError(
+            "model_ladder/accuracy_floor apply to fleet scenarios only "
+            f"(scenario {name!r} is not fleet-based)")
     if meta.get("token"):
         return _run_token_scenario(batch, meta, policy=policy,
                                    engine=engine, c_set=c_set, b_set=b_set,
@@ -573,6 +790,16 @@ def run_scenario(name: str, *, policy: str = "sponge",
                                    lam_quantum=lam_quantum,
                                    admission_quantile=admission_quantile,
                                    speculative=speculative, **policy_kw)
+    if meta.get("fleet"):
+        return _run_fleet_scenario(batch, meta, policy=policy,
+                                   engine=engine, perf=perf, c_set=c_set,
+                                   b_set=b_set, tick=tick, horizon=horizon,
+                                   budget_quantum=budget_quantum,
+                                   lam_quantum=lam_quantum,
+                                   replicas=replicas, router=router,
+                                   model_ladder=model_ladder,
+                                   accuracy_floor=accuracy_floor,
+                                   **policy_kw)
     if meta.get("session_events") is not None:
         return _run_session_scenario(batch, meta, policy=policy,
                                      engine=engine, perf=perf,
@@ -583,7 +810,7 @@ def run_scenario(name: str, *, policy: str = "sponge",
                                      mid_flight=mid_flight, **policy_kw)
     common = dict(slo=meta["slo"], expected_rps=meta["expected_rps"],
                   adaptation_interval=tick)
-    if engine == "fast":
+    if engine in ("fast", "vector"):
         if policy.startswith("sponge-pred"):
             raise ValueError("sponge-pred inspects Request objects; "
                              "run it with engine='exact'")
@@ -592,8 +819,9 @@ def run_scenario(name: str, *, policy: str = "sponge",
             kw.update(solver="memo", budget_quantum=budget_quantum,
                       lam_quantum=lam_quantum)
         pol = make_policy(policy, perf, c_set=c_set, b_set=b_set, **kw)
-        runner = FastSimRunner(pol, perf, c_set, b_set, c0=c0, tick=tick,
-                               prior_rps=meta["expected_rps"])
+        cls = VectorSimRunner if engine == "vector" else FastSimRunner
+        runner = cls(pol, perf, c_set, b_set, c0=c0, tick=tick,
+                     prior_rps=meta["expected_rps"])
         t0 = time.perf_counter()
         report = runner.run(batch, horizon)
         stats = {"engine": engine, "events": runner.events_processed,
@@ -664,6 +892,97 @@ def _run_session_scenario(batch: RequestBatch, meta: dict, *, policy: str,
              "session": applied}
     if scaler is not None and hasattr(scaler, "solver_stats"):
         stats["solver"] = scaler.solver_stats()
+    return report, stats
+
+
+def _run_fleet_scenario(batch: RequestBatch, meta: dict, *, policy: str,
+                        engine: str, perf: PerfModel, c_set, b_set,
+                        tick: float, horizon,
+                        budget_quantum: float, lam_quantum: float,
+                        replicas: Optional[int], router: Optional[str],
+                        model_ladder=None,
+                        accuracy_floor: Optional[float] = None,
+                        **policy_kw):
+    """Fleet-scenario execution: the joint horizontal + vertical engines.
+
+    ``engine="fast"`` — :class:`serving.fleet.FleetFastSimRunner`
+    (struct-of-arrays, the ≥500k-request path) with the quantized joint
+    memoized solver; ``engine="exact"`` — the pre-heaped
+    :class:`serving.fleet.FleetExactRunner` gang loop at quanta 0 (the
+    decision-identity oracle).  ``policy="sponge"`` runs the joint
+    :class:`~serving.fleet.FleetSpongeScaler`; ``policy="static-<cores>"``
+    pins a :class:`~serving.fleet.StaticFleetPolicy` at the deploy fleet
+    size (the static baseline of the reference's fleet benchmark).
+
+    With a model ladder attached (``model_ladder`` argument or
+    ``meta["ladder"]`` — the degrade-under-pressure family),
+    ``policy="sponge"`` runs the (m, n, c, b)
+    :class:`~serving.fleet.DegradingFleetScaler` over the full ladder
+    and ``policy="fixed-<arch>"`` runs the identical machinery over a
+    single-rung ladder — the fixed-model baseline whose report still
+    carries accuracy-weighted goodput, so the two compare like with
+    like.
+    """
+    n0 = int(replicas if replicas is not None else meta.get("n0", 1))
+    c0 = int(meta.get("c0", max(c_set)))
+    router = router if router is not None else meta.get("router",
+                                                        "least-loaded")
+    bq, lq = (budget_quantum, lam_quantum) if engine == "fast" else (0.0,
+                                                                     0.0)
+    spec = model_ladder if model_ladder is not None else meta.get("ladder")
+    ladder = resolve_ladder(spec)
+    afloor = (float(accuracy_floor) if accuracy_floor is not None
+              else float(meta.get("accuracy_floor", 0.0)))
+    run_ladder = None
+    if ladder is not None and (policy == "sponge"
+                               or policy.startswith("fixed-")):
+        run_ladder = ladder
+        if policy.startswith("fixed-"):
+            # one-rung ladder: the same scaler/runner machinery pinned
+            # to a single model, so accuracy reporting stays comparable
+            run_ladder = ModelLadder([ladder.rung(policy[len("fixed-"):])])
+            afloor = 0.0
+        pol = DegradingFleetScaler(perf, c_set=tuple(c_set),
+                                   b_set=tuple(b_set),
+                                   adaptation_interval=tick,
+                                   budget_quantum=bq, lam_quantum=lq,
+                                   ladder=run_ladder,
+                                   accuracy_floor=afloor,
+                                   name=policy if policy != "sponge"
+                                   else "sponge-degrade",
+                                   **policy_kw)
+    elif policy == "sponge":
+        pol = FleetSpongeScaler(perf, c_set=tuple(c_set),
+                                b_set=tuple(b_set),
+                                adaptation_interval=tick,
+                                budget_quantum=bq, lam_quantum=lq,
+                                **policy_kw)
+    elif policy == "static" or (policy.startswith("static-")
+                                and policy.split("-", 1)[1].isdigit()):
+        cores = int(policy.split("-", 1)[1]) if "-" in policy else c0
+        pol = StaticFleetPolicy(perf, replicas=n0, cores=cores,
+                                b_set=tuple(b_set), interval=tick,
+                                budget_quantum=bq, lam_quantum=lq,
+                                **policy_kw)
+        c0 = cores
+    else:
+        raise ValueError(
+            "fleet scenarios run 'sponge', 'static-<cores>' or (with a "
+            f"model ladder) 'fixed-<arch>' policies (got {policy!r})")
+    cls = FleetFastSimRunner if engine == "fast" else FleetExactRunner
+    lkw = ({} if run_ladder is None
+           else dict(ladder=run_ladder, m0=pol.model))
+    runner = cls(pol, perf, c_set, b_set, n0=n0, c0=c0, tick=tick,
+                 prior_rps=meta["expected_rps"], router=router, **lkw)
+    t0 = time.perf_counter()
+    report = runner.run(batch, horizon, events=meta.get("fleet_events", ()))
+    stats = {"engine": engine, "events": runner.events_processed,
+             "run_wall_s": time.perf_counter() - t0, "meta": meta,
+             "max_replicas": runner.max_replicas, "router": router,
+             "solver": pol.solver_stats()}
+    if run_ladder is not None:
+        stats["ladder"] = [r.name for r in run_ladder]
+        stats["accuracy_floor"] = afloor
     return report, stats
 
 

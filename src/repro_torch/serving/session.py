@@ -1,13 +1,15 @@
 """The online session API: submit / update_slo / cancel, any engine.
 
-Copy of ``repro.serving.session`` cut to the single-instance engines:
-the ``SpongeSession`` protocol, ``SessionTranscript``,
-``replay_transcript``, ``drive_session_events``, ``ExactSession`` over
-the object-based ``ScenarioRunner``, and the struct-of-arrays sessions
-``FastSession`` (over ``fastpath.FastSimRunner``) and
-``TokenFastSession`` (over the continuous-batching
-``fastpath.TokenFastSimRunner``).  A session is a live handle on a
-serving engine through which a client (or a network-telemetry feed) can
+Copy of ``repro.serving.session``: the ``SpongeSession`` protocol,
+``SessionTranscript``, ``replay_transcript``, ``drive_session_events``,
+``ExactSession`` over the object-based ``ScenarioRunner``, and the
+struct-of-arrays sessions ``FastSession`` (over
+``fastpath.FastSimRunner``), ``TokenFastSession`` (over the
+continuous-batching ``fastpath.TokenFastSimRunner``) and
+``FleetSession`` (over ``fleet.FleetFastSimRunner``: a tightened budget
+re-routes through the fleet's arrival router).  A session is a live
+handle on a serving engine through which a client (or a
+network-telemetry feed) can
 
 * ``submit(...)`` a request and receive a **handle**,
 * ``update_slo(handle, ...)`` -- renegotiate a *queued* request's
@@ -36,7 +38,7 @@ from __future__ import annotations
 
 import heapq
 import itertools
-from bisect import insort
+from bisect import bisect_left, insort
 from typing import (Any, Dict, List, Optional, Protocol, Sequence,
                     runtime_checkable)
 
@@ -48,6 +50,7 @@ from repro_torch.core.monitor import (array_window_rate,
                                       tick_window_rate)
 from repro_torch.core.slo import Request
 from repro_torch.serving.api import RunReport, build_array_report
+from repro_torch.serving.fleet import normalize_fleet_events, route_request
 from repro_torch.serving.workload import RequestBatch
 
 INF = float("inf")
@@ -1050,3 +1053,202 @@ class TokenFastSession(_ColumnSession):
             self._tokens_served, self._decode_tokens_served,
             self._tbt_viol_tokens, horizon,
             n_cancelled=self._n_cancelled)
+
+
+class FleetSession(_ColumnSession):
+    """Online session over the struct-of-arrays
+    :class:`~repro_torch.serving.fleet.FleetFastSimRunner`.
+
+    Mid-flight semantics on a fleet add one twist: **a tightened budget
+    re-routes**.  The replica a request was originally routed to was
+    chosen under the old deadline; when the budget tightens the request
+    is pulled and re-offered to the configured router under its new
+    deadline (cold-start aware, same tie-breaks as arrivals), while a
+    relaxed budget re-keys in place.  Fleet disruptions
+    (kill / restart events) flow through the same event cursor in the
+    canonical tie order (arrivals, ticks, fleet events, completions).
+    """
+
+    def __init__(self, runner, fleet_events=()):
+        super().__init__(runner)
+        self._events: List[tuple] = []
+        self._seq = itertools.count()
+        self._busy_wake: Dict[int, float] = {}
+        self._slack_wake: Dict[int, float] = {}
+        self._fev = normalize_fleet_events(fleet_events)
+        self._fi = 0
+
+    # -- fleet-specific renegotiation --------------------------------------
+    def _holding_replica(self, handle: int):
+        for rep in self.runner.replicas:
+            if handle in rep.queue._live:
+                return rep
+        return None
+
+    def _requeue_update(self, handle: int, new_dl: float) -> bool:
+        r = self.runner
+        rep = self._holding_replica(handle)
+        if rep is None:
+            return False
+        old = rep.queue._live[handle]
+        track = r._track_dls
+        if new_dl < old:
+            # tightened: pull and re-offer through the arrival router
+            rep.queue.cancel(handle)
+            if track:
+                del rep.dls[bisect_left(rep.dls, old)]
+            j = route_request(r.router, r.replicas, new_dl, self.now,
+                              cold_load=r._cold_load(self.now))
+            tgt = r.replicas[j]
+            tgt.queue.push(new_dl, handle)
+            if track:
+                insort(tgt.dls, new_dl)
+        else:
+            rep.queue.update_deadline(handle, new_dl)
+            if track:
+                del rep.dls[bisect_left(rep.dls, old)]
+                insort(rep.dls, new_dl)
+        return True
+
+    def _requeue_cancel(self, handle: int) -> bool:
+        rep = self._holding_replica(handle)
+        if rep is None:
+            return False
+        old = rep.queue._live[handle]
+        rep.queue.cancel(handle)
+        if self.runner._track_dls:
+            del rep.dls[bisect_left(rep.dls, old)]
+        return True
+
+    def _drive(self, t: float) -> None:
+        """One adaptation step through the runner's single drive rule,
+        with the session's cancel-aware λ."""
+        r = self.runner
+        pol = r.policy
+        if hasattr(pol, "due") and not pol.due(t):
+            return
+        r._drive(t, lam=self._rate(t))
+
+    def step_until(self, t: float) -> None:
+        """Advance virtual time, processing every event with time ≤ t
+        (arrivals, ticks, fleet events, completions — canonical order)."""
+        _check_step_target(t)
+        r = self.runner
+        pend = self._pending
+        events = self._events
+        dl = self._dl
+        arr = None if self._tick_lam else self._arr
+        state = self._state
+        fev = self._fev
+        tick = r.tick
+        track_dls = r._track_dls
+        pop = heapq.heappop
+        n_events = 0
+        while True:
+            ta = pend[0][0] if pend else INF
+            tt = self._next_tick
+            tf = fev[self._fi][0] if self._fi < len(fev) else INF
+            td = events[0][0] if events else INF
+            if ta <= tt and ta <= tf and ta <= td:
+                et, kind = ta, 0
+            elif tt <= tf and tt <= td:
+                et, kind = tt, 1
+            elif tf <= td:
+                et, kind = tf, 2
+            else:
+                et, kind = td, 3
+            if et == INF or et > t:
+                break
+            n_events += 1
+            self.now = et
+            if kind == 0:                        # arrival: route + enqueue
+                _, h = pop(pend)
+                if state[h] == CANCELLED:
+                    n_events -= 1
+                    continue
+                state[h] = QUEUED
+                j = route_request(r.router, r.replicas, dl[h], et,
+                                  cold_load=r._cold_load(et))
+                tgt = r.replicas[j]
+                tgt.queue.push(dl[h], h)
+                if track_dls:
+                    insort(tgt.dls, dl[h])
+                if arr is not None:
+                    arr.append(et)
+            elif kind == 1:                      # adaptation tick
+                self._next_tick += tick
+                self._drive(et)
+                r.core_samples.append((et, r.allocated_cores))
+            elif kind == 2:                      # fleet event
+                _, ev_kind, ev_args = fev[self._fi]
+                self._fi += 1
+                r._fleet_event(ev_kind, ev_args, et)
+            else:                                # completion / wake-up
+                pop(events)
+            self._dispatch(et)
+        self.events_processed += n_events
+        self.now = max(self.now, t)
+
+    # spongelint: inline-of repro_torch.serving.session.FastSession._dispatch pin=4a61b16de14b
+    def _dispatch(self, t: float) -> None:
+        """Per-replica slack-aware EDF dispatch (FleetFastSimRunner
+        rules, verbatim)."""
+        r = self.runner
+        b_now = r.b
+        lat = r._lat
+        bucket_arr = r._bucket_arr
+        margin = r.dispatch_margin
+        tick = r.tick
+        track_dls = r._track_dls
+        events = self._events
+        seq = self._seq
+        busy_wake = self._busy_wake
+        slack_wake = self._slack_wake
+        finish = self._finish
+        state = self._state
+        push = heapq.heappush
+        for rep in r.replicas:
+            q = rep.queue._heap
+            if not q:
+                continue
+            if rep.ready_at > t or rep.busy_until > t:
+                wake_t = (rep.ready_at if rep.ready_at > rep.busy_until
+                          else rep.busy_until)
+                if busy_wake.get(rep.id) != wake_t:
+                    busy_wake[rep.id] = wake_t
+                    push(events, (wake_t, next(seq), rep.id))
+                continue
+            live = rep.queue._live
+            while q and rep.busy_until <= t:
+                if len(live) < b_now:
+                    head_dl = q[0][0]
+                    l_full = lat[(rep.c, r._bucket(b_now))]
+                    t_force = head_dl - l_full - margin
+                    if t < t_force:
+                        tw = min(t_force, t + tick)
+                        if slack_wake.get(rep.id) != tw:
+                            slack_wake[rep.id] = tw
+                            push(events, (tw, next(seq), rep.id))
+                        break
+                idxs = rep.queue.pop_batch(b_now)
+                m = len(idxs)
+                if track_dls:
+                    del rep.dls[:m]   # pop_batch took the m earliest
+                bucket = int(bucket_arr[m])
+                fin = t + lat[(rep.c, bucket)]
+                rep.busy_until = fin
+                r.bucket_log.append((t, rep.c, bucket, m))
+                for i in idxs:
+                    finish[i] = fin
+                    state[i] = DONE
+                push(events, (fin, next(seq), rep.id))
+
+    def _report(self, horizon: float) -> RunReport:
+        r = self.runner
+        batch = self._columns_batch()
+        finish = np.asarray(self._finish, np.float64)
+        rep = build_array_report(
+            r.policy, r.backend_name, batch, finish, horizon,
+            r.replicas + r.dead, r.core_samples, r.bucket_log,
+            n_cancelled=self._n_cancelled)
+        return r._enrich_report(rep, finish, batch.deadline, horizon)

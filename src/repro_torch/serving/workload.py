@@ -101,6 +101,11 @@ class RequestBatch:
     def __len__(self) -> int:
         return int(self.arrival.size)
 
+    @property
+    def total_tokens(self) -> int:
+        """Generated tokens this workload asks for (first + decode)."""
+        return int(self.decode_tokens.sum()) + len(self)
+
     def head(self, k: int) -> "RequestBatch":
         """The first ``k`` arrivals — a true prefix of the scenario (used
         to benchmark baseline runners on a slice of the same workload)."""

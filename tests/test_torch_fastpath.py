@@ -263,9 +263,13 @@ def test_fastpath_accepts_only_decide_policies():
 
 
 def test_vectorized_is_not_ported_yet():
+    """``FastSimRunner.vectorized()`` was refused until the vector
+    engine was ported; it now hands over the runner's configuration."""
     runner = FastSimRunner(_policy("sponge"), PERF, DEFAULT_C, DEFAULT_B)
-    with pytest.raises(NotImplementedError, match="6c"):
-        runner.vectorized()
+    vec = runner.vectorized()
+    assert type(vec).__name__ == "VectorSimRunner"
+    assert (vec.tick, vec.c_set, vec.b_set, vec.policy) == \
+        (runner.tick, runner.c_set, runner.b_set, runner.policy)
 
 
 @pytest.mark.parametrize("solver", ["bruteforce", "memo"])

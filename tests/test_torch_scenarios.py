@@ -28,10 +28,15 @@ SESSION = ("slo-renegotiation", "cancel-storm")
 TOKEN = ("llm-chat", "llm-mixed-len", "llm-heavy-tail",
          "retrieve-then-generate")
 ALL = PLAIN + TOKEN + SESSION
-# the reference's registration order of the single-instance scenarios
+FLEET = ("replica-failure", "rolling-restart", "fleet-flash-crowd")
+DEGRADE = ("degrade-sustained-overload", "degrade-flash-overload",
+           "degrade-fade-overload")
+# the reference's registration order of the scenarios the port runs (all
+# but the multi-tenant mixed-zoo pair)
 ORDER = ("steady", "diurnal", "flash-crowd", "network-replay", "mixed-slo",
          "llm-chat", "llm-mixed-len", "llm-heavy-tail",
-         "retrieve-then-generate", "slo-renegotiation", "cancel-storm")
+         "retrieve-then-generate") + FLEET + DEGRADE + (
+         "slo-renegotiation", "cancel-storm")
 
 
 def report_sig(rep):
@@ -63,8 +68,9 @@ def test_registry_holds_the_single_instance_scenarios_in_order():
                                          ref[name].mean_rate_factor), name
     assert scenarios.list_scenarios() == {
         k: v for k, v in jax_scenarios.list_scenarios().items() if k in ORDER}
+    assert tuple(k for k in ref if not k.startswith("mixed-zoo")) == ORDER
     with pytest.raises(KeyError):
-        scenarios.get_scenario("replica-failure")
+        scenarios.get_scenario("mixed-zoo")
 
 
 @pytest.mark.parametrize("seed", [0, 7])
@@ -137,18 +143,24 @@ def test_run_scenario_baselines_equal_reference(name, policy):
 
 @pytest.mark.parametrize("engine", ["fast", "vector", "jax"])
 def test_unported_engines_raise(engine):
-    """``vector`` (ROADMAP.md Queue 1 item 6c) and ``jax`` are refused;
-    ``fast`` is ported and gives the reference's fast-engine run."""
-    if engine == "fast":
-        rep, stats = scenarios.run_scenario("steady", engine=engine,
-                                            duration=10)
-        jrep, jstats = jax_scenarios.run_scenario("steady", engine=engine,
-                                                  duration=10)
-        assert report_sig(rep) == report_sig(jrep)
-        assert stats["solver"] == jstats["solver"]
+    """``jax`` is refused; ``fast`` and ``vector`` are ported and give
+    the reference's runs, and ``vector`` refuses what the reference's
+    refuses (a session scenario)."""
+    if engine == "jax":
+        with pytest.raises(ValueError, match="jax"):
+            scenarios.run_scenario("steady", engine=engine, duration=10)
         return
-    with pytest.raises(ValueError, match="6c"):
-        scenarios.run_scenario("steady", engine=engine, duration=10)
+    rep, stats = scenarios.run_scenario("steady", engine=engine,
+                                        duration=10)
+    jrep, jstats = jax_scenarios.run_scenario("steady", engine=engine,
+                                              duration=10)
+    assert report_sig(rep) == report_sig(jrep)
+    assert stats["solver"] == jstats["solver"]
+    assert stats["events"] == jstats["events"] > 0
+    if engine == "vector":
+        for run in (scenarios.run_scenario, jax_scenarios.run_scenario):
+            with pytest.raises(ValueError, match="vector"):
+                run("slo-renegotiation", engine=engine, duration=10)
 
 
 @pytest.mark.parametrize("kw", [dict(name="steady", admission_quantile=0.9),
@@ -337,9 +349,13 @@ def test_launcher_fast_json_equals_reference(argv, capsys):
 
 
 def test_launcher_refuses_the_vector_engine():
-    with pytest.raises(SystemExit, match="6c"):
-        launcher.main(["--scenario", "steady", "--duration", "10",
-                       "--engine", "vector"])
+    """``--engine vector`` replays the plain scenarios only; on any
+    other scenario the launcher raises as the reference's does."""
+    argv = ["--scenario", "llm-chat", "--duration", "10",
+            "--engine", "vector"]
+    for main in (launcher.main, jax_launcher.main):
+        with pytest.raises(ValueError, match="vector"):
+            main(argv)
 
 
 @pytest.mark.parametrize("argv", [
