@@ -30,7 +30,9 @@ code is non-zero:
    G 6, lengths 1/100/321/352) under ``d128_*`` keys, and
    ``decode_attention`` at whisper-large-v3's cross-attention (B 4, 1,500
    encoder rows, 20 heads of 64, every row valid) under ``cross_*``
-   keys.
+   keys; at kimi-k2's 64 query heads of 128 over 8 KV heads (prefill
+   B 4, S 256, causal; decode B 4, S 321, G 8, lengths 1/100/257/321)
+   under ``k2_*`` keys.
    ``rwkv6_scan`` is checked at the prefill shape (B 4, T 256, H 32,
    D 64), at decode (T 1), at ragged T (77, 300) and at D 16 and 32, with
    bf16 r/k/v beside an f32 decay, for state continuation ([0:T]
@@ -78,6 +80,26 @@ code is non-zero:
    generation at b 1, 2 and 4, eager and through one captured decode
    graph (ids equal), with host wall per step and tokens per wall
    second (prefill included);
+   moe    -- kimi-k2-1t-a32b and deepseek-v3-671b at their published
+   widths, each cut in depth to one dense and one MoE layer (the cuts on
+   the phase's ``reduced`` field), weights from seeds.  f32 on an expert
+   share: every MoE layer (deepseek's MTP block too) holds a quarter of
+   the experts (96 / 64), routes over all of them and carries the shared
+   expert, at the no-drop capacity factor E / k: prefill (batch 2,
+   prompt 32) and 8 teacher-forced decode steps against the no-cache
+   forward (within 1e-4 of the logits' scale: the experts sum in
+   another order there), and kimi-k2's kernel route against its plain
+   route (within 2e-5 of the scale, ids identical).  Then bf16 with
+   every expert held, both kernel routes on, the served factor 1.25:
+   eager against replayed steps as in the capture check below, the
+   llm-chat serve as below (its counts reset before and read after:
+   kimi-k2 launches both attention kernels, a multiple of its 2
+   layers; deepseek-v3's MLA and the experts run in plain PyTorch, no
+   kernel), the b = 4 entry's prefill wall, decode-step host wall eager
+   and captured beside the floor of reading every expert once per step
+   at the card's memory rate, the idle share (as in phase 7), peak
+   memory, and deepseek-v3's ``mtp_logits`` once (finite, (B, S - 1,
+   padded vocab));
 5. capture -- per model, in bfloat16 at the serving shape (batch 4,
    prompt 256, 10 decode steps): the prefill and decode steps of one
    static gang run eagerly and as replayed CUDA graphs
@@ -167,7 +189,16 @@ code is non-zero:
    the static fleet at the largest core count; the ladder's fast engine
    equals its exact one, model swaps included, on the three
    ``degrade-*`` scenarios at 60 s, and ``degrade-flash-overload`` runs
-   at 300 s with the whole ladder and with fixed ``smollm-360m``.
+   at 300 s with the whole ladder and with fixed ``smollm-360m``.  Leg
+   8, the multi-tenant pool (``tenant_legs``): the tenant fast engine
+   (quanta 0) equals the exact pre-heaped oracle on ``mixed-zoo`` and
+   ``mixed-zoo-rush`` under each pool policy at 60 s (pool stats,
+   per-tenant reports), then ``mixed-zoo`` runs at 100,000 requests
+   (the reference bench's 200,000, cut for the script's time) on the
+   fast engine with the bench's policy, on the reference's tenant
+   surfaces and with the chat tenant priced by the ``TokenCostModel``
+   fitted on the card in this run, each printing its pool swaps and
+   every tenant's violation rate and core-seconds.
    Their events per wall second are host figures.  No kernel launches
    here: the phase fails if any count is above 0.
 
@@ -300,6 +331,28 @@ DECODE128 = dict(B=4, S=352, KV=2, G=6, D=128, lengths=(1, 100, 321, 352))
 # whisper-large-v3's decode cross-attention: 20 heads of 64 over every one
 # of the 1,500 encoder rows
 CROSS = dict(B=4, S=1500, KV=20, G=1, D=64, lengths=(1500,) * 4)
+# the MoE family at published widths, cut in depth to one dense and one
+# MoE layer (leading dense layers count once): f32 parity on an expert
+# share (E / share experts per MoE layer, routed over all E, the shared
+# expert counted once, the no-drop capacity factor E / k) over prefill
+# of parity_prompt tokens and parity_steps teacher-forced decode steps at
+# batch parity_batch; then bf16 with every expert held, captured and
+# served like the other models; deepseek-v3's MTP head once over
+# mtp_tokens tokens
+MOE = dict(archs=("kimi-k2-1t-a32b", "deepseek-v3-671b"), share=4,
+           parity_batch=2, parity_prompt=32, parity_steps=8, mtp_tokens=16)
+# kimi-k2: 64 query heads of 128 over 8 KV heads (G 8); prefill over the
+# 256-token prompt, decode over its served cache (256 + 64 + 1 rows)
+K2_PREFILL = dict(B=4, S=256, H=64, KV=8, D=128)
+K2_DECODE = dict(B=4, S=321, KV=8, G=8, D=128, lengths=(1, 100, 257, 321))
+# phase "engines" leg 8: the multi-tenant pool, fast == exact on both
+# zoo scenarios x the three pool policies at tenant_s, then mixed-zoo at
+# tenant_requests on the fast engine (the reference bench's 200,000, cut
+# for the script's time) with the bench's policy, on the reference's
+# surfaces and with the chat tenant priced by the card-fit cost model
+TENANT = dict(scenarios=("mixed-zoo", "mixed-zoo-rush"), tenant_s=60.0,
+              seed=7, tenant_requests=100_000, bench_seed=1,
+              bench_policy="greedy-marginal")
 
 
 def ptxas_start():
@@ -515,6 +568,8 @@ def kernel_phase(dev):
     attn_shape_phase(dev, gen, rows, "d128", prefill=PREFILL128,
                      decode=DECODE128)
     attn_shape_phase(dev, gen, rows, "cross", decode=CROSS)
+    attn_shape_phase(dev, gen, rows, "k2", prefill=K2_PREFILL,
+                     decode=K2_DECODE)
     rows["rwkv6_scan"] = wkv_kernel_phase(dev, gen)
     rows["ssd_scan"] = ssd_kernel_phase(dev, gen)
     for r in rows.values():
@@ -1275,6 +1330,189 @@ def vlm_audio_phase(dev, arch: str, profile: bool):
     return launches
 
 
+def moe_cut(arch: str):
+    """``arch`` at its published widths, cut in depth to one whole period
+    of its layer pattern: its first (dense) block and its last (MoE)
+    block, ``first_k_dense`` 1.  Returns the config and the cuts."""
+    from repro_torch.configs import get_config
+
+    base = get_config(arch)
+    cfg = dataclasses.replace(
+        base, name=f"{base.name}-2layer", num_layers=2,
+        blocks=base.blocks[:1] + base.blocks[-1:],
+        first_k_dense=min(base.first_k_dense, 1))
+    reduced = {"num_layers": [base.num_layers, 2],
+               "blocks": [f"{base.blocks[0]} x {base.first_k_dense} + "
+                          f"{base.blocks[-1]} x "
+                          f"{base.num_layers - base.first_k_dense}",
+                          " + ".join(cfg.blocks)],
+               "first_k_dense": [base.first_k_dense, 1]}
+    return cfg, reduced
+
+
+def expert_bytes(cfg) -> int:
+    """Bytes of the routed experts' weights of the served MoE layers
+    (the MTP head's block is not served), in the config's type."""
+    elt = 2 if cfg.param_dtype == "bfloat16" else 4
+    moe_layers = sum(b.endswith("+moe") for b in cfg.blocks)
+    return moe_layers * cfg.num_experts * 3 * cfg.d_model * cfg.moe_d_ff * elt
+
+
+def moe_parity(dev, cfg, arch_reduced) -> None:
+    """f32 on an expert share: every MoE layer (the MTP block's too)
+    holds E / share experts, routes over all E and carries the shared
+    expert; the capacity factor is the no-drop E / k.  Prefill then
+    teacher-forced decode steps against the no-cache forward (the
+    experts sum in another order there: held at the reference's MoE
+    tolerance, 1e-4 of the logits' scale), and for an attention stack
+    the kernel route against the plain route (the same expert products:
+    held at 2e-5 of the scale, ids identical)."""
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    cfg32 = dataclasses.replace(cfg, moe_capacity_factor=e / k)
+    plain, kern = route_pair(cfg32, dev, "float32")
+    share = e // MOE["share"]
+    torch.cuda.reset_peak_memory_stats()
+    params = kern.init(kern.generator(0), experts=(0, share))
+    b, s, steps = MOE["parity_batch"], MOE["parity_prompt"], MOE["parity_steps"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (b, s + steps), generator=gen,
+                         device=dev, dtype=torch.int32)
+    attention = "mla" not in cfg.mixer_kinds
+    with torch.inference_mode():
+        full, aux = plain.forward(params, {"tokens": toks})
+        scale = float(full.abs().max())
+        runs = {}
+        for route, model in (("plain", plain), ("kernel", kern)):
+            if route == "kernel" and not attention:
+                break
+            lg, cache = model.prefill(params, {"tokens": toks[:, :s]},
+                                      cache_len=s + steps + 1)
+            out = [lg]
+            for i in range(s, s + steps):
+                lg, cache = model.decode_step(params, cache, toks[:, i:i + 1])
+                out.append(lg)
+            runs[route] = torch.stack(out, 1)       # positions s-1 .. s+steps-1
+            del cache
+        ref = full[:, s - 1:]
+        err_fwd = float((runs["plain"] - ref).abs().max())
+        checks = {"logits finite": bool(torch.isfinite(full).all()),
+                  "aux finite and positive": math.isfinite(float(aux))
+                  and float(aux) > 0,
+                  "prefill + decode == forward (1e-4 of the scale)":
+                      err_fwd <= 1e-4 * scale,
+                  "greedy ids == forward's": torch.equal(
+                      runs["plain"].argmax(-1), ref.argmax(-1))}
+        err_route = None
+        if attention:
+            err_route = float((runs["kernel"] - runs["plain"]).abs().max())
+            checks["kernel route == plain route (2e-5 of the scale)"] = \
+                err_route <= 2e-5 * scale
+            checks["kernel route ids identical"] = torch.equal(
+                runs["kernel"].argmax(-1), runs["plain"].argmax(-1))
+    failed = [c for c, ok in checks.items() if not ok]
+    say("moe", arch=cfg.name, dtype="float32", experts_held=share,
+        experts_routed=e, shared_expert="held", capacity_factor=e / k,
+        batch=b, prompt=s, decode_steps=steps, logit_scale=scale,
+        max_abs_diff_vs_forward=err_fwd,
+        rel_diff_vs_forward=err_fwd / scale,
+        max_abs_diff_kernel_vs_plain=err_route,
+        rel_diff_kernel_vs_plain=None if err_route is None
+        else err_route / scale, aux=float(aux),
+        tolerance="forward 1e-4 of the scale (experts sum), kernel vs "
+                  "plain 2e-5 of the scale",
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        reduced=json.dumps(arch_reduced))
+    if failed:
+        raise AssertionError(f"{cfg.name} f32 share parity failed: {failed}")
+
+
+def moe_phase(dev, arch: str) -> dict:
+    """Phase ``moe``: ``arch`` at published widths, cut to two layers
+    (``moe_cut``).  f32 parity on an expert share (``moe_parity``); then
+    bf16 with every expert held and both kernel routes on: eager against
+    replayed steps (ids identical, ``capture_phase``), the llm-chat
+    serve through the captured tables with its counts reset before and
+    read after (``serve_phase``: the main path), the b = 4 entry's
+    prefill wall, decode-step host wall eager and captured and idle
+    share (``profile_phase``) beside the expert-bytes floor of a decode
+    step, peak memory, and for deepseek-v3 one ``mtp_logits`` call.
+    Returns the serve's launches."""
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    cfg, cuts = moe_cut(arch)
+    moe_parity(dev, cfg, cuts)
+    gc_cuda()
+    kcfg = dataclasses.replace(cfg, use_pallas_prefill=True,
+                               use_pallas_decode=True)
+    model = build_model(kcfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t_init = time.perf_counter()
+    params = model.init(model.generator(0))
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in tensors_of(params))
+    say("moe", arch=cfg.name, dtype="bfloat16", experts_held=cfg.num_experts,
+        weight_gib=weights / 2**30, init_s=time.perf_counter() - t_init,
+        init_peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        capacity_factor=cfg.moe_capacity_factor)
+    capture_phase(dev, cfg.name, model, params)
+    gc_cuda()
+    launches, _ = serve_phase(dev, kcfg, params=params)
+    gc_cuda()
+    prof = profile_phase(dev, cfg.name, model, params)
+    gc_cuda()
+    floor_ms = expert_bytes(cfg) / HBM_BYTES_PER_S * 1e3
+    if cfg.mtp_depth:
+        gen = torch.Generator(device=dev).manual_seed(7)
+        toks = torch.randint(0, cfg.vocab_size, (1, MOE["mtp_tokens"]),
+                             generator=gen, device=dev, dtype=torch.int32)
+        with torch.inference_mode():
+            hidden, _ = model.forward_hidden(params, {"tokens": toks})
+            logits, aux = model.mtp_logits(params, hidden, toks)
+        want = (1, MOE["mtp_tokens"] - 1, cfg.padded_vocab)
+        ok = tuple(logits.shape) == want and bool(torch.isfinite(logits).all())
+        say("moe", arch=cfg.name, mtp_logits_shape=list(logits.shape),
+            expected=list(want), finite=ok, mtp_aux=float(aux))
+        if not ok:
+            raise AssertionError(f"{cfg.name} mtp_logits: shape "
+                                 f"{tuple(logits.shape)} (want {want}) or "
+                                 "not finite")
+    say("moe", arch=cfg.name, dtype="bfloat16", batch=4,
+        prefill_wall_ms=prof["captured"]["prefill_wall_ms"],
+        prefill_wall_eager_ms=prof["eager"]["prefill_wall_ms"],
+        decode_step_wall_eager_ms=prof["eager"]["decode_step_wall_ms"],
+        decode_step_wall_captured_ms=prof["captured"]["decode_step_wall_ms"],
+        expert_bytes_floor_ms=floor_ms,
+        expert_gib_per_step=expert_bytes(cfg) / 2**30,
+        device_idle_share_captured=prof["captured"]["device_idle_share"],
+        device_idle_share_eager=prof["eager"]["device_idle_share"],
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        seconds=time.perf_counter() - t0)
+    del model, params
+    gc_cuda()
+    return launches
+
+
+def tensors_of(tree):
+    """Every tensor of a nested dict / list of tensors."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensors_of(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tensors_of(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def gc_cuda() -> None:
+    """Collect what went out of scope (graphs, tables, caches) and hand
+    the cached blocks back, before the next large model is built."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def logit_steps(model, params, b, prompt_len, cache_len, capture):
     """The served prefill and decode steps of one static gang (as
     ``build_token_step_fns`` builds them), each also returning its
@@ -1301,18 +1539,22 @@ def logit_steps(model, params, b, prompt_len, cache_len, capture):
             CapturedStep(decode, (ids,), capture), ids)
 
 
-def capture_phase(dev, arch: str) -> None:
+def capture_phase(dev, arch: str, model=None, params=None) -> None:
     """Eager steps against replayed CUDA graphs on the served path: bf16,
     b 4, prompt 256, 10 decode steps, the served cache length, both
     routes warmed first as the tables are (which captures the graphs);
-    ids must be identical, the largest logit difference is printed."""
+    ids must be identical, the largest logit difference is printed.
+    ``model`` and ``params`` (both kernel routes on) are built from
+    ``arch`` unless given."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_config(arch), use_pallas_prefill=True,
-                              use_pallas_decode=True)
-    model = build_model(cfg, device=dev)
-    params = model.init(model.generator(0))
+    if model is None:
+        cfg = dataclasses.replace(get_config(arch), use_pallas_prefill=True,
+                                  use_pallas_decode=True)
+        model = build_model(cfg, device=dev)
+        params = model.init(model.generator(0))
+    cfg = model.cfg
     b, pl, steps = 4, SERVE["prompt_len"], 10
     cache_len = pl + SERVE["max_decode"] + 1
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1342,19 +1584,24 @@ def capture_phase(dev, arch: str) -> None:
         ids="identical", max_abs_logit_diff=diff)
 
 
-def serve_phase(dev, arch: str, scenario: str = "llm-chat",
-                sets=(1, 2, 4)):
+def serve_phase(dev, arch, scenario: str = "llm-chat", sets=(1, 2, 4),
+                params=None):
+    """``run_token_scenario`` on ``arch`` (a registry id, or a
+    ``ModelConfig`` such as an MoE model cut in depth) with random
+    weights, or ``params``; the served checks; returns the launches and
+    the warm-up cost model."""
     from repro_torch.configs import get_config
     from repro_torch.serving.capture import launch_counts
     from repro_torch.serving.token_backend import run_token_scenario
 
-    cfg = get_config(arch)
+    cfg = get_config(arch) if isinstance(arch, str) else arch
     vocab = cfg.vocab_size
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     report, stats = run_token_scenario(scenario, arch=arch, device=dev,
-                                       c_set=sets, b_set=sets, **SERVE)
+                                       c_set=sets, b_set=sets, params=params,
+                                       **SERVE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
@@ -1379,6 +1626,10 @@ def serve_phase(dev, arch: str, scenario: str = "llm-chat",
             "applications": launches["decode_attention"] > 0
                 and launches["decode_attention"] % apps == 0,
             "rwkv6_scan not launched": launches["rwkv6_scan"] == 0}
+    elif "mla" in cfg.mixer_kinds:
+        # MLA (two head dims) and the experts run in plain PyTorch, as in
+        # the reference: no kernel is on this path
+        kernel_checks = {"no kernel launched": not any(launches.values())}
     else:
         layers = cfg.num_layers
         kernel_checks = {
@@ -1406,12 +1657,14 @@ def serve_phase(dev, arch: str, scenario: str = "llm-chat",
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"{arch} {scenario} serve checks failed: {failed} "
+        raise AssertionError(f"{cfg.name} {scenario} serve checks failed: {failed} "
                              f"(launches {launches})")
     say("serve", arch=stats["arch"], scenario=scenario, b_set=list(sets),
         dtype="bfloat16", **SERVE,
         n_requests=report.n_requests, tokens_served=report.tokens_served,
-        tokens_per_s=report.tokens_per_s, ttft_p50=report.ttft_p50,
+        tokens_per_s=report.tokens_per_s,
+        tokens_per_wall_s=report.tokens_served / stats["run_wall_s"],
+        ttft_p50=report.ttft_p50,
         ttft_p99=report.ttft_p99, tbt_violation_rate=report.tbt_violation_rate,
         violation_rate=report.violation_rate, p99=report.p99,
         dispatches=len(report.buckets), step_calls=stats["step_calls"],
@@ -1977,14 +2230,100 @@ def engines_phase(dev, perf, cost):
     # 5-7. the vector engine, the joint fleet and the degradation ladder
     t_legs = time.perf_counter()
     scale_out_legs(perf)
+    t_leg8 = time.perf_counter()
+    # 8. the multi-tenant pool
+    tenant_legs(cost)
     now = time.perf_counter()
     launches = launch_counts()
     say("engines", launches=json.dumps(launches),
-        legs_5_7_seconds=now - t_legs, seconds=now - t_phase)
+        legs_5_7_seconds=t_leg8 - t_legs, leg_8_seconds=now - t_leg8,
+        seconds=now - t_phase)
     if any(launches.values()):
         raise AssertionError(f"the engines phase launched kernels: "
                              f"{launches}")
     return launches
+
+
+def tenant_legs(cost) -> None:
+    """Phase ``engines`` leg 8, NumPy (no kernel launches): the tenant
+    pool's fast engine (quanta 0) equals its exact pre-heaped oracle on
+    both zoo scenarios under every pool policy at ``TENANT["tenant_s"]``
+    (pool stats, per-tenant reports, aggregate); then ``mixed-zoo`` at
+    ``TENANT["tenant_requests"]`` on the fast engine at the bench's
+    quanta and policy, once on the reference's tenant surfaces and once
+    with the chat tenant (smollm-135m) priced by ``cost``, the
+    ``TokenCostModel`` fitted on the card in this run.  Prints each
+    run's pool swaps and every tenant's violation rate and
+    core-seconds."""
+    from repro_torch.serving.scenarios import build_scenario, run_scenario
+    from repro_torch.serving.tenancy import POOL_POLICIES, TenantFastRunner
+
+    x = TENANT
+
+    def tenants_of(stats):
+        return json.dumps({n: [t["violation_rate"], t["core_seconds"]]
+                           for n, t in stats["tenants"].items()})
+
+    for name in x["scenarios"]:
+        for policy in POOL_POLICIES:
+            kw = dict(duration=x["tenant_s"], seed=x["seed"],
+                      tenant_policy=policy)
+            t0 = time.perf_counter()
+            fast, sf = run_scenario(name, engine="fast", budget_quantum=0.0,
+                                    lam_quantum=0.0, **kw)
+            t1 = time.perf_counter()
+            exact, se = run_scenario(name, engine="exact", **kw)
+            t2 = time.perf_counter()
+            same = (decision_stream(fast) == decision_stream(exact)
+                    and fast.buckets == exact.buckets
+                    and report_floats(fast) == report_floats(exact)
+                    and sf["pool"] == se["pool"]
+                    and sf["tenants"] == se["tenants"]
+                    and all(decision_stream(a) == decision_stream(b)
+                            and a.buckets == b.buckets
+                            and report_floats(a) == report_floats(b)
+                            for a, b in zip(sf["tenant_reports"],
+                                            se["tenant_reports"])))
+            if not same:
+                raise AssertionError(f"tenant fast != exact on {name} "
+                                     f"({policy})")
+            say("engines", leg=8, scenario=name, policy=policy,
+                duration_s=x["tenant_s"], fast_equals_exact=True,
+                n=fast.n_requests, swaps=sf["pool"]["swaps"],
+                caps=list(sf["pool"]["caps"]),
+                violation_rate=fast.violation_rate,
+                core_seconds=fast.core_seconds,
+                tenants_violation_rate_core_seconds=tenants_of(sf),
+                fast_s=t1 - t0, exact_s=t2 - t1,
+                host_events_per_s_fast=sf["events"] / (t1 - t0))
+    batch, meta = build_scenario("mixed-zoo", requests=x["tenant_requests"],
+                                 seed=x["bench_seed"])
+    specs = list(meta["tenants"])
+    horizon = max(float(s.batch.arrival[-1]) for s in specs) + 60.0
+    card = [dataclasses.replace(s, cost=cost) if s.name == "smollm-135m"
+            else s for s in specs]
+    for surfaces, tenants in (("reference", specs), ("card-fit chat", card)):
+        runner = TenantFastRunner(tenants, budget=int(meta["pool_cores"]),
+                                  policy=x["bench_policy"], tick=meta["tick"],
+                                  budget_quantum=0.01, lam_quantum=0.5)
+        caps0 = list(runner.pool.caps)
+        t0 = time.perf_counter()
+        rep = runner.run(horizon)
+        wall = time.perf_counter() - t0
+        if rep.n_requests != len(batch):
+            raise AssertionError(f"mixed-zoo ({surfaces}) served "
+                                 f"{rep.n_requests} of {len(batch)}")
+        say("engines", leg=8, scenario="mixed-zoo", surfaces=surfaces,
+            policy=x["bench_policy"], requests=len(batch),
+            n=rep.n_requests, swaps=len(runner.pool.swaps),
+            caps=f"{caps0}->{list(runner.pool.caps)}",
+            violation_rate=rep.violation_rate,
+            core_seconds=rep.core_seconds,
+            tenants_violation_rate_core_seconds=json.dumps({
+                s.name: [r.violation_rate, r.core_seconds]
+                for s, r in zip(tenants, runner.tenant_reports)}),
+            events=runner.events_processed, wall_s=wall,
+            host_events_per_s=runner.events_processed / wall)
 
 
 def report_floats(rep) -> str:
@@ -2305,20 +2644,23 @@ def profiled(fn, setup=lambda: None) -> dict:
                              "count": n} for t, n, k in kernels[:12]]}
 
 
-def profile_phase(dev, arch: str) -> None:
+def profile_phase(dev, arch: str, model=None, params=None) -> dict:
     """The served b = 4 table entry, eager and replayed from CUDA graphs:
     one prefill and ten decode steps, each step's ids copied to the host
     as ``TokenTorchBackend`` does, timed without the profiler and then
-    traced with it."""
+    traced with it.  ``model`` and ``params`` are built from ``arch``
+    unless given.  Returns the two routes' figures."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serving.token_backend import (build_token_step_fns,
                                                    warmup_token_fns)
 
-    cfg = dataclasses.replace(get_config(arch),
-                              use_pallas_prefill=True, use_pallas_decode=True)
-    model = build_model(cfg, device=dev)
-    params = model.init(model.generator(0))
+    if model is None:
+        cfg = dataclasses.replace(get_config(arch), use_pallas_prefill=True,
+                                  use_pallas_decode=True)
+        model = build_model(cfg, device=dev)
+        params = model.init(model.generator(0))
+    cfg = model.cfg
     b, s, steps = 4, SERVE["prompt_len"], 10
     tokens = np.random.default_rng(2).integers(
         0, cfg.vocab_size, (b, s)).astype(np.int32)
@@ -2384,7 +2726,8 @@ def profile_phase(dev, arch: str) -> None:
         torch.cuda.empty_cache()
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)
-    (dest / f"profile-{arch}.json").write_text(json.dumps(out, indent=1))
+    (dest / f"profile-{cfg.name}.json").write_text(json.dumps(out, indent=1))
+    return out
 
 
 def main() -> int:
@@ -2447,6 +2790,10 @@ def main() -> int:
         for name, n in vlm_audio_phase(dev, arch, args.profile).items():
             rows[name]["launches"] += n
         torch.cuda.empty_cache()
+    for arch in MOE["archs"]:
+        for name, n in moe_phase(dev, arch).items():
+            rows[name]["launches"] += n
+        gc_cuda()
     for name, n in serve_phase(dev, "smollm-135m", "llm-mixed-len",
                                sets=(1, 2, 4, 8))[0].items():
         rows[name]["launches"] += n

@@ -3,8 +3,9 @@
 Copy of ``repro.configs.base.ModelConfig`` with the same field names and
 defaults, so a config maps one to one between the packages, cut to the
 fields' declaration, ``padded_vocab``, ``d_inner``, ``ssm_num_heads``,
-``rwkv_num_heads``, ``mixer_kinds``, ``param_count()``,
-``active_param_count()`` and ``reduced()``.  The port's models run only
+``rwkv_num_heads``, ``uses_moe``, ``mixer_kinds``, ``param_count()``,
+``active_param_count()`` and ``reduced()`` (with its MoE branch, the
+no-drop capacity factor, and its MLA widths).  The port's models run only
 what they implement (``models.api.build_model`` refuses the rest).
 
 ``use_pallas_prefill`` / ``use_pallas_decode`` keep the reference's
@@ -250,6 +251,8 @@ class ModelConfig:
                 moe_d_ff=min(self.moe_d_ff, 128),
                 first_k_dense=min(self.first_k_dense, 1),
                 mtp_depth=min(self.mtp_depth, 1),
+                # no-drop capacity so prefill+decode == forward exactly in
+                # the smoke/equivalence tests
                 moe_capacity_factor=float(min(self.num_experts, 4)),
             )
         if self.rope_kind == "mrope":

@@ -3,10 +3,10 @@
 Copy of ``repro.configs.registry``: ``get_config`` (with ``-reduced``
 resolution) over every architecture of the reference, and the accuracy
 scores of the model-ladder solver (``MODEL_ACCURACY`` /
-``model_accuracy``).  ``deepseek-v3-671b`` and ``kimi-k2-1t-a32b`` are
-configuration data only here: the ``"full"`` model ladder prices them
-(``core.degradation``), and ``models.build_model`` refuses to build
-them until their MoE and MLA stacks are ported (ROADMAP.md).
+``model_accuracy``).  ``deepseek-v3-671b`` and ``kimi-k2-1t-a32b``
+build like the others (``models.build_model``); at full size they do
+not fit one card, and ``chip_smoke.py`` cuts them in depth to one dense
+and one MoE layer at their published widths.
 """
 from __future__ import annotations
 

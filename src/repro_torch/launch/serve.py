@@ -33,6 +33,10 @@ Three modes, one control plane:
   (m, n, c, b) planner over a model ladder; ``--model-ladder`` attaches
   (or overrides) the ladder, ``--accuracy-floor`` bounds the shed and
   ``--policy fixed-<arch>`` pins one rung (the fixed-model baseline).
+  Multi-tenant scenarios (``mixed-zoo``, ``mixed-zoo-rush``) run the
+  shared-pool engines (``serving.tenancy``): ``--tenants`` picks the
+  pool's reallocation policy (``greedy-marginal`` / ``fair-share`` /
+  ``priority``) and ``--pool-cores`` its core budget.
   ``--engine torch`` serves a token scenario on the real kernels through
   ``TokenTorchBackend``.  The default is ``torch`` for token scenarios
   and ``fast`` for the rest.
@@ -52,10 +56,18 @@ Three modes, one control plane:
         --scenario fleet-flash-crowd --router edf-deadline --duration 120
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --scenario degrade-flash-overload --duration 120
+    PYTHONPATH=src python -m repro_torch.launch.serve --scenario mixed-zoo \\
+        --duration 60 --tenants fair-share --pool-cores 128
+    PYTHONPATH=src python -m repro_torch.launch.serve --scenario llm-chat \\
+        --arch kimi-k2-1t-a32b-reduced --device cpu --requests 6 \\
+        --prompt-len 8 --gen-tokens 2
 
 ``--arch`` takes any id of ``repro_torch.configs.registry`` that serves
 prompts of token ids (``smollm-135m``, ``smollm-360m``, ``gemma-2b``,
-``h2o-danube-1.8b``, ``rwkv6-1.6b``, ``zamba2-2.7b``, and their
+``h2o-danube-1.8b``, ``rwkv6-1.6b``, ``zamba2-2.7b``,
+``kimi-k2-1t-a32b``, ``deepseek-v3-671b``, and their ``-reduced``
+cuts; the two MoE models fit one card only cut in depth, as
+``chip_smoke.py`` builds them, so the launcher serves their
 ``-reduced`` cuts).  ``qwen2-vl-2b`` and ``whisper-large-v3`` need
 patch or frame embeddings beside the tokens and run through the model
 API (``models.build_model``) only, as in the reference, whose serving
@@ -76,6 +88,7 @@ from repro_torch.serving.api import make_live_server, make_sim_server
 from repro_torch.serving.fleet import ROUTERS
 from repro_torch.serving.scenarios import (ENGINES, build_scenario,
                                            list_scenarios, run_scenario)
+from repro_torch.serving.tenancy import POOL_POLICIES
 from repro_torch.serving.token_backend import run_token_scenario
 from repro_torch.serving.workload import WorkloadGenerator
 
@@ -178,7 +191,8 @@ def run_scenario_mode(args) -> dict:
             args.scenario, policy=args.policy, engine=args.engine,
             duration=args.duration, rps=args.rps, seed=args.seed,
             requests=args.requests, replicas=args.replicas,
-            router=args.router, mid_flight=not args.no_mid_flight,
+            router=args.router, tenant_policy=args.tenants,
+            pool_cores=args.pool_cores, mid_flight=not args.no_mid_flight,
             admission_quantile=q, speculative=not args.no_speculative,
             model_ladder=args.model_ladder,
             accuracy_floor=args.accuracy_floor)
@@ -210,6 +224,14 @@ def run_scenario_mode(args) -> dict:
     if "session" in stats:              # session scenarios
         out.update(n_cancelled=report.n_cancelled, **{
             f"mid_flight_{k}": v for k, v in stats["session"].items()})
+    if "pool" in stats:                 # multi-tenant scenarios
+        p = stats["pool"]
+        out.update(pool_policy=p["policy"], pool_cores=p["budget"],
+                   pool_caps=list(p["caps"]), pool_swaps=p["swaps"],
+                   tenants={name: {"n": t["n_requests"],
+                                   "violation_rate": t["violation_rate"],
+                                   "core_seconds": t["core_seconds"]}
+                            for name, t in stats["tenants"].items()})
     if "uncertainty" in stats:          # distribution-aware runs
         u = stats["uncertainty"]
         out.update(n_cancelled=report.n_cancelled,
@@ -247,6 +269,12 @@ def main(argv=None):
                          "(overrides the scenario's n0)")
     ap.add_argument("--router", default=None, choices=ROUTERS,
                     help="fleet scenarios: arrival router across replicas")
+    ap.add_argument("--tenants", default=None, choices=POOL_POLICIES,
+                    help="multi-tenant scenarios (mixed-zoo*): the pool "
+                         "reallocation policy (default greedy-marginal)")
+    ap.add_argument("--pool-cores", type=int, default=None,
+                    help="multi-tenant scenarios: total core budget of "
+                         "the shared pool (default: the scenario's, 128)")
     ap.add_argument("--no-mid-flight", action="store_true",
                     help="session scenarios: suppress the mid-flight "
                          "update_slo/cancel stream (the closed-world "
@@ -275,7 +303,9 @@ def main(argv=None):
     ap.add_argument("--arch", default="smollm-135m-reduced",
                     help="a registered arch id (smollm-135m, smollm-360m, "
                          "gemma-2b, h2o-danube-1.8b, rwkv6-1.6b, "
-                         "zamba2-2.7b, or any of them with -reduced)")
+                         "zamba2-2.7b, or any of them with -reduced; "
+                         "kimi-k2-1t-a32b-reduced, "
+                         "deepseek-v3-671b-reduced)")
     ap.add_argument("--policy", default="sponge",
                     help="live mode and the fast/exact engines: sponge, "
                          "sponge-pred (exact engine), fa2 or "

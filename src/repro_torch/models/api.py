@@ -1,32 +1,41 @@
 """Public model API: ``build_model(cfg) -> Model`` with init, forward,
-prefill and decode.
+prefill, decode and the MTP head.
 
-Counterpart of the dense, VLM, audio, RWKV-6 and Mamba2 / zamba2 parts
-of ``repro.models.api``, for homogeneous stacks (``attn+mlp`` or
-``swa+mlp`` with standard RoPE and a SwiGLU or GeGLU MLP; Qwen2-VL's
-``attn+mlp`` with M-RoPE, SwiGLU and a prefix of patch embeddings;
-whisper's ``attn+mlp`` encoder-decoder with learned positions and a
-GELU MLP; ``rwkv6+rwkv_cm`` with no positions; or ``mamba2+none``,
-with or without zamba2's shared attention block).  ``forward`` is the
-reference's no-cache path over the whole sequence (no remat, no mesh,
-no MTP head).  A batch is the reference's dict: ``"tokens"`` (B, S),
+Counterpart of ``repro.models.api``, without its mesh: the dense stacks
+(``attn+mlp`` or ``swa+mlp`` with standard RoPE and a SwiGLU or GeGLU
+MLP), the MoE family (kimi-k2's ``attn+mlp`` then ``attn+moe`` groups
+and deepseek-v3's ``mla+mlp`` then ``mla+moe``, standard RoPE, SwiGLU,
+an MTP head of depth 1), Qwen2-VL's ``attn+mlp`` with M-RoPE, SwiGLU
+and a prefix of patch embeddings, whisper's ``attn+mlp``
+encoder-decoder with learned positions and a GELU MLP,
+``rwkv6+rwkv_cm`` with no positions, or ``mamba2+none``, with or
+without zamba2's shared attention block.  ``forward`` is the
+reference's no-cache path over the whole sequence (no remat, no mesh)
+and returns the MoE layers' auxiliary loss beside the logits;
+``mtp_logits`` is DeepSeek-V3's multi-token-prediction head, forward
+only.  A batch is the reference's dict: ``"tokens"`` (B, S),
 and for Qwen2-VL ``"prefix_embeds"`` (B, P, d_model) before them with
 ``"mrope_positions"`` (3, B, P + S), for whisper ``"enc_embeds"`` (B,
 encoder_seq_len, d_model); the frontends that make them are stubs in
 the reference too.  Parameters are plain dicts of tensors: ``{"embed",
 "final_norm", ["head",] ["pos_emb",] "layers": [per-layer dict, ...],
-["shared_attn"], ["encoder": {"layers", "pos_emb", "final_norm"}]}`` —
-the reference's stacked ``params["groups"][0]`` (and
-``params["encoder"]["groups"][0]``) with its leading layer axis
-unstacked into a list (a Python loop over layers takes the place of
-``lax.scan``).  The
-decode cache is the reference's ``cache["groups"][0]`` with its leading
-layer axis, plus ``"index"`` (a 0-dim int32 tensor on the cache's
-device, as the reference's traced scalar): ``{"k", "v"}`` of shape (L, B, cache_len,
+["shared_attn"], ["encoder": {"layers", "pos_emb", "final_norm"}],
+["mtp": {"proj", "norm_h", "norm_e", "block"}]}`` -- the reference's
+stacked groups ``params["groups"][g]`` (and
+``params["encoder"]["groups"][0]``) with their leading layer axes
+unstacked into one list in layer order (a Python loop over layers, each
+of its own block kind ``cfg.blocks[i]``, takes the place of
+``lax.scan`` per group).  An ``moe`` layer may hold a share of its
+experts (``init_params(experts=...)``, ``models.moe``).  The
+decode cache is the reference's ``cache["groups"]`` with the groups'
+leading layer axes concatenated (every admitted stack has one mixer
+kind over all its groups), plus ``"index"`` (a 0-dim int32 tensor on
+the cache's device, as the reference's traced scalar): ``{"k", "v"}`` of shape (L, B, cache_len,
 KV, D) for attention (for ``swa`` a ring buffer of ``min(cache_len,
 window)`` slots), with whisper's ``"cross": {"k", "v"}`` of shape (L,
 B, encoder_seq_len, KV, D), the encoder K/V each layer's
-cross-attention reads;
+cross-attention reads; ``{"c_kv", "k_rope"}`` of shape (L, B,
+cache_len, kv_lora_rank / qk_rope_dim) for MLA;
 ``{"tmix": {"shift", "wkv"}, "cmix": {"shift"}}``
 for RWKV-6 (shifts (L, B, d) in the compute dtype, WKV state (L, B, H,
 D, D) in f32); ``{"ssm": {"conv_x", "conv_bc", "h"}}`` for Mamba2 (conv
@@ -48,7 +57,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,6 +93,17 @@ def _is_mamba(cfg: ModelConfig) -> bool:
     return cfg.blocks[0] == "mamba2+none"
 
 
+def _moe_shape_ok(cfg: ModelConfig) -> bool:
+    """The MoE and MLA widths a grouped stack needs are set."""
+    moe = (not cfg.uses_moe
+           or (cfg.num_experts > 0 and cfg.moe_d_ff > 0
+               and 0 < cfg.num_experts_per_tok <= cfg.num_experts))
+    mla = ("mla" not in cfg.mixer_kinds
+           or min(cfg.q_lora_rank, cfg.kv_lora_rank, cfg.qk_nope_dim,
+                  cfg.qk_rope_dim, cfg.v_head_dim) > 0)
+    return moe and mla
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     kinds = set(cfg.blocks)
     gated = cfg.mlp_kind in ("swiglu", "geglu")
@@ -92,6 +112,12 @@ def _check_supported(cfg: ModelConfig) -> None:
     decoder_only = not (cfg.is_encoder_decoder or cfg.num_patch_tokens)
     dense = (kinds in ({"attn+mlp"}, {"swa+mlp"}) and attention
              and not cfg.shared_attn_every and decoder_only)
+    # the MoE family: dense then MoE groups over one attention mixer
+    grouped = (kinds - {"attn+mlp"} == {"attn+moe"}
+               or kinds <= {"mla+mlp", "mla+moe"}) and (
+        cfg.rope_kind == "standard" and cfg.mlp_kind == "swiglu"
+        and not cfg.shared_attn_every and decoder_only
+        and _moe_shape_ok(cfg))
     vlm = (kinds == {"attn+mlp"} and cfg.rope_kind == "mrope" and gated
            and cfg.num_patch_tokens > 0 and not cfg.is_encoder_decoder
            and not cfg.shared_attn_every)
@@ -103,15 +129,19 @@ def _check_supported(cfg: ModelConfig) -> None:
             and not cfg.shared_attn_every and decoder_only)
     mamba = (kinds == {"mamba2+none"} and decoder_only
              and (attention or not cfg.shared_attn_every))
-    if (not (dense or vlm or audio or rwkv or mamba) or cfg.logit_softcap
-            or cfg.mtp_depth):
+    mtp = cfg.mtp_depth == 0 or (cfg.mtp_depth == 1 and (dense or grouped))
+    if (not (dense or grouped or vlm or audio or rwkv or mamba)
+            or cfg.logit_softcap or not mtp):
         raise NotImplementedError(
             f"{cfg.name}: only homogeneous stacks of dense attn+mlp or "
-            "swa+mlp blocks (standard RoPE, SwiGLU or GeGLU), Qwen2-VL's "
-            "attn+mlp (M-RoPE, SwiGLU, patch prefix), whisper's attn+mlp "
-            "encoder-decoder (learned positions, GELU), rwkv6+rwkv_cm "
-            "blocks (no RoPE) or mamba2+none blocks (a shared attention "
-            "block with standard RoPE and SwiGLU or GeGLU) are ported yet")
+            "swa+mlp blocks (standard RoPE, SwiGLU or GeGLU), the MoE "
+            "family (attn+mlp / attn+moe or mla+mlp / mla+moe groups, "
+            "standard RoPE, SwiGLU; an MTP head of depth 1 on these and "
+            "the dense stacks), Qwen2-VL's attn+mlp (M-RoPE, SwiGLU, "
+            "patch prefix), whisper's attn+mlp encoder-decoder (learned "
+            "positions, GELU), rwkv6+rwkv_cm blocks (no RoPE) or "
+            "mamba2+none blocks (a shared attention block with standard "
+            "RoPE and SwiGLU or GeGLU) are ported yet")
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,11 +163,16 @@ def _shared_apps(cfg: ModelConfig) -> int:
 # parameters
 # ---------------------------------------------------------------------------
 
-def init_params(gen: torch.Generator, cfg: ModelConfig):
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                experts: Optional[Tuple[int, int]] = None):
     """Random parameters drawn from ``gen`` on its device, each leaf in
     the reference's dtype: ``cfg.param_dtype`` except the leaves the
     reference keeps in f32 (RWKV-6's decay base, bonus and group-norm
-    affine)."""
+    affine, the MoE router).  Every ``moe`` block (the MTP head's too)
+    holds the experts ``experts = (e_lo, e_local)`` of its router's
+    ``cfg.num_experts`` (all when None), and the shared expert when they
+    start at expert 0: one rank's share of expert parallelism
+    (``models.moe``)."""
     dtype = to_dtype(cfg.param_dtype)
     dev = gen.device
     p = {"embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dtype),
@@ -146,7 +181,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
         p["head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab), dtype)
     if cfg.rope_kind == "learned":
         p["pos_emb"] = embed_init(gen, (MAX_LEARNED_POS, cfg.d_model), dtype)
-    p["layers"] = [tfm.init_block(gen, cfg, kind, dtype, dev)
+    p["layers"] = [tfm.init_block(gen, cfg, kind, dtype, dev, experts)
                    for kind in cfg.blocks]
     if cfg.shared_attn_every:
         p["shared_attn"] = tfm.init_shared_attn(gen, cfg, dtype, dev)
@@ -158,18 +193,27 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
             "pos_emb": embed_init(gen, (cfg.encoder_seq_len, cfg.d_model),
                                   dtype),
             "final_norm": torch.zeros(cfg.d_model, dtype=dtype, device=dev)}
+    if cfg.mtp_depth:
+        p["mtp"] = {
+            "proj": dense_init(gen, (2 * cfg.d_model, cfg.d_model), dtype),
+            "norm_h": torch.zeros(cfg.d_model, dtype=dtype, device=dev),
+            "norm_e": torch.zeros(cfg.d_model, dtype=dtype, device=dev),
+            "block": tfm.init_block(gen, cfg, cfg.blocks[-1], dtype, dev,
+                                    experts)}
     return p
 
 
 def params_from_jax(tree, cfg: ModelConfig, device=None):
     """The reference's ``Model.init`` pytree, already converted to numpy
     arrays by the caller, as this package's parameters on ``device``.
-    The leading layer axis of ``tree["groups"][0]`` is unstacked into
-    ``params["layers"]``, and that of whisper's
+    The leading layer axis of each group of ``tree["groups"]`` is
+    unstacked into ``params["layers"]``, group after group, and that of
+    whisper's
     ``tree["encoder"]["groups"][0]`` into ``params["encoder"]["layers"]``
     (the encoder's own stack, not a second decoder group);
     ``tree["shared_attn"]`` (one weight set, no layer axis) is taken as
-    it is; every weight keeps its (in, out) layout.  A leaf that is f32 in the tree stays f32 (the reference
+    it is, and so is the MTP head ``tree["mtp"]``; every weight keeps
+    its (in, out) layout.  A leaf that is f32 in the tree stays f32 (the reference
     keeps some in f32 at every param dtype); the others go to
     ``cfg.param_dtype``."""
     dev = resolve_device(device)
@@ -185,10 +229,10 @@ def params_from_jax(tree, cfg: ModelConfig, device=None):
         return torch.from_numpy(np.array(a, copy=True)).to(dev, target)
 
     groups = tree["groups"]
-    if len(groups) != 1:
-        raise NotImplementedError("only single-group (homogeneous) stacks "
-                                  "are ported yet")
-    stacked = groups[0]
+    spec = tfm.layer_groups(cfg)
+    if len(groups) != len(spec):
+        raise ValueError(f"{cfg.name}: {len(groups)} stacked groups for "
+                         f"the config's {len(spec)}")
 
     def each(tr, fn):
         return {k: each(v, fn) if isinstance(v, dict) else fn(v)
@@ -196,13 +240,16 @@ def params_from_jax(tree, cfg: ModelConfig, device=None):
 
     p = {"embed": conv(tree["embed"]), "final_norm": conv(tree["final_norm"]),
          "layers": [each(stacked, lambda a, i=i: conv(a[i]))
-                    for i in range(cfg.num_layers)]}
+                    for (_, n), stacked in zip(spec, groups)
+                    for i in range(n)]}
     if not cfg.tie_embeddings:
         p["head"] = conv(tree["head"])
     if cfg.rope_kind == "learned":
         p["pos_emb"] = conv(tree["pos_emb"])
     if cfg.shared_attn_every:
         p["shared_attn"] = each(tree["shared_attn"], conv)
+    if cfg.mtp_depth:
+        p["mtp"] = each(tree["mtp"], conv)
     if cfg.is_encoder_decoder:
         enc = tree["encoder"]
         (stacked,) = enc["groups"]
@@ -237,7 +284,8 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
     """A zero decode cache; an RWKV-6 or Mamba2 state does not depend on
     ``cache_len`` (the shared block's ring buffers do).  An ``swa``
     stack's K/V hold ``min(cache_len, window)`` slots, whisper's cross
-    K/V ``encoder_seq_len`` rows."""
+    K/V ``encoder_seq_len`` rows, an MLA stack's latent and rope keys
+    ``cache_len``."""
     dtype = to_dtype(cfg.dtype)
     if _is_rwkv(cfg):
         cache = rk.init_rwkv6_state(cfg, batch, dtype, device,
@@ -245,6 +293,9 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
     elif _is_mamba(cfg):
         cache = {"ssm": m2.init_mamba2_state(cfg, batch, dtype, device,
                                              layers=cfg.num_layers)}
+    elif "mla" in cfg.mixer_kinds:
+        cache = attn_mod.init_mla_cache(cfg, batch, cache_len, dtype, device,
+                                        layers=cfg.num_layers)
     else:
         window = cfg.window_size if "swa" in cfg.mixer_kinds else 0
         cache = attn_mod.init_attention_cache(cfg, batch, cache_len, dtype,
@@ -307,7 +358,8 @@ def _encoder_fwd(params, cfg: ModelConfig, enc_embeds):
     positions = torch.arange(s, device=x.device).expand(b, s)
     ecfg = _encoder_cfg(cfg)
     for p in enc["layers"]:
-        x = tfm.block_fwd(p, x, positions, "attn+mlp", ecfg, causal=False)
+        x, _ = tfm.block_fwd(p, x, positions, "attn+mlp", ecfg,
+                             causal=False)
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -340,15 +392,17 @@ def _assemble_inputs(params, cfg: ModelConfig, batch: dict):
 
 def forward_hidden(params, batch: dict, cfg: ModelConfig):
     """Like ``forward`` but returns the hidden states before the final
-    norm, ``(x (B, S, d_model), aux)``."""
+    norm, ``(x (B, S, d_model), aux)`` (the input of ``mtp_logits``)."""
     x, positions, enc_out, _ = _assemble_inputs(params, cfg, batch)
     shared, every = params.get("shared_attn"), cfg.shared_attn_every
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["layers"]):
         if shared is not None and i % every == 0:
             x = tfm.shared_attn_fwd(shared, x, positions, cfg)
-        x = tfm.block_fwd(p, x, positions, cfg.blocks[i], cfg,
-                          enc_out=enc_out)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, a = tfm.block_fwd(p, x, positions, cfg.blocks[i], cfg,
+                             enc_out=enc_out)
+        aux = aux + a
+    return x, aux
 
 
 def forward(params, batch: dict, cfg: ModelConfig):
@@ -359,6 +413,23 @@ def forward(params, batch: dict, cfg: ModelConfig):
     x, aux = forward_hidden(params, batch, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _head(params, cfg, x), aux
+
+
+def mtp_logits(params, hidden, tokens, cfg: ModelConfig):
+    """DeepSeek-V3 multi-token prediction head (depth 1): from hidden state
+    h_t and the embedding of token t+1, predict token t+2.  ``hidden``:
+    (B, S, d_model) from ``forward_hidden``; ``tokens``: (B, S).  Returns
+    ``(logits (B, S - 1, V), aux)``."""
+    p = params["mtp"]
+    h = rms_norm(hidden[:, :-1], p["norm_h"], cfg.norm_eps)
+    e = rms_norm(_embed(params, cfg, tokens[:, 1:].long()), p["norm_e"],
+                 cfg.norm_eps)
+    z = linear(torch.cat([h, e], dim=-1), p["proj"])
+    b, s, _ = z.shape
+    positions = torch.arange(s, device=z.device).expand(b, s)
+    z, aux = tfm.block_fwd(p["block"], z, positions, cfg.blocks[-1], cfg)
+    z = rms_norm(z, params["final_norm"], cfg.norm_eps)
+    return _head(params, cfg, z), aux
 
 
 # ---------------------------------------------------------------------------
@@ -439,8 +510,9 @@ class Model:
     cfg: ModelConfig
     device: torch.device
 
-    def init(self, gen: torch.Generator):
-        return init_params(gen, self.cfg)
+    def init(self, gen: torch.Generator,
+             experts: Optional[Tuple[int, int]] = None):
+        return init_params(gen, self.cfg, experts)
 
     def generator(self, seed: int) -> torch.Generator:
         """A seeded generator on the model's device, for ``init``."""
@@ -451,6 +523,9 @@ class Model:
 
     def forward_hidden(self, params, batch):
         return forward_hidden(params, batch, self.cfg)
+
+    def mtp_logits(self, params, hidden, tokens):
+        return mtp_logits(params, hidden, tokens, self.cfg)
 
     def prefill(self, params, batch, cache_len=None, cache=None):
         return prefill(params, batch, self.cfg, cache_len, cache)

@@ -1,8 +1,8 @@
-"""GQA attention: init, RoPE and M-RoPE, the no-cache forward (self-
-and cross-attention), single-token decode against a KV cache.
+"""Attention mixers: GQA with RoPE and M-RoPE, the no-cache forward
+(self- and cross-attention), single-token decode against a KV cache,
+and DeepSeek's multi-head latent attention (MLA).
 
-Counterpart of the GQA part of ``repro.models.attention`` (MLA is still
-to be ported).  ``attention_fwd`` is the forward over a whole sequence
+Counterpart of ``repro.models.attention``.  ``attention_fwd`` is the forward over a whole sequence
 with no cache, through ``blocked_attention``: the reference computes it
 in plain array code outside any Pallas kernel, and so does this
 counterpart; with ``kv_x`` it is cross-attention (no RoPE, not causal,
@@ -25,6 +25,16 @@ slot of the given cache tensors.  The cache index is a 0-dim int32
 tensor on the device: the slot, the mask and the kernel's ``lengths``
 are computed from it there, so a decode step reads nothing back to the
 host and one captured step serves every position.
+
+MLA (``init_mla``, ``mla_fwd``, ``mla_decode``, ``init_mla_cache``)
+keeps the reference's forms: the forward materialises per-head K/V
+from the latent and runs ``blocked_attention`` (q and k of
+``qk_nope_dim + qk_rope_dim``, v of ``v_head_dim``: neither Hopper
+kernel takes two head dims, and the reference computes it outside any
+Pallas kernel too); decode attends in the compressed latent space with
+``w_uk`` absorbed into the query, in plain PyTorch as the reference's
+einsums.  Its cache, ``{"c_kv": (B, S, kv_lora_rank), "k_rope": (B, S,
+qk_rope_dim)}``, is written in place at the device index.
 """
 from __future__ import annotations
 
@@ -34,7 +44,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.models.common import (apply_mrope, apply_rope, dense_init,
-                                       linear, softcap)
+                                       linear, rms_norm, softcap)
 
 NEG_INF = -1e30
 
@@ -235,3 +245,109 @@ def init_attention_cache(cfg: ModelConfig, batch: int, seq: int, dtype,
     shape = (layers, batch, s, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA -- DeepSeek multi-head latent attention
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype):
+    dm, h = cfg.d_model, cfg.num_heads
+    nope, rope_d = cfg.qk_nope_dim, cfg.qk_rope_dim
+    vd = cfg.v_head_dim
+    dev = gen.device
+    return {
+        "w_dq": dense_init(gen, (dm, cfg.q_lora_rank), dtype),
+        "q_norm": torch.zeros(cfg.q_lora_rank, dtype=dtype, device=dev),
+        "w_uq": dense_init(gen, (cfg.q_lora_rank, h * (nope + rope_d)), dtype),
+        "w_dkv": dense_init(gen, (dm, cfg.kv_lora_rank + rope_d), dtype),
+        "kv_norm": torch.zeros(cfg.kv_lora_rank, dtype=dtype, device=dev),
+        "w_uk": dense_init(gen, (cfg.kv_lora_rank, h * nope), dtype),
+        "w_uv": dense_init(gen, (cfg.kv_lora_rank, h * vd), dtype),
+        "wo": dense_init(gen, (h * vd, dm), dtype, fan_in=h * vd),
+    }
+
+
+def _mla_qkv(params, x, positions, cfg: ModelConfig):
+    """Shared projection logic. Returns q_nope, q_rope, c_kv, k_rope."""
+    b, s, _ = x.shape
+    h, nope, rope_d = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    cq = rms_norm(linear(x, params["w_dq"]), params["q_norm"], cfg.norm_eps)
+    q = linear(cq, params["w_uq"]).reshape(b, s, h, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv = linear(x, params["w_dkv"])
+    c_kv = rms_norm(ckv[..., :cfg.kv_lora_rank], params["kv_norm"],
+                    cfg.norm_eps)
+    k_rope = ckv[..., cfg.kv_lora_rank:][:, :, None, :]      # (B,S,1,rope)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_attend(params, q_nope, q_rope, c_kv, k_rope, positions,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Causal attention over a whole sequence with per-head K/V
+    materialised from the latent ``c_kv``, through the output
+    projection."""
+    b, s = q_nope.shape[:2]
+    h, nope, rope_d = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    vd = cfg.v_head_dim
+    k_nope = linear(c_kv, params["w_uk"]).reshape(b, s, h, nope)
+    v = linear(c_kv, params["w_uv"]).reshape(b, s, h, vd)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, rope_d)], dim=-1)
+    out = blocked_attention(q, k, v, positions, positions, causal=True,
+                            window=0, scale=(nope + rope_d) ** -0.5)
+    return linear(out.reshape(b, s, h * vd), params["wo"])
+
+
+def mla_fwd(params, x: torch.Tensor, positions, cfg: ModelConfig
+            ) -> torch.Tensor:
+    """Train/prefill MLA: materialize per-head K/V from the latent."""
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, positions, cfg)
+    return mla_attend(params, q_nope, q_rope, c_kv, k_rope, positions, cfg)
+
+
+def mla_decode(params, x: torch.Tensor, cache: dict, cache_index, positions,
+               cfg: ModelConfig):
+    """Absorbed-matrix MLA decode: attend in the compressed latent space.
+
+    cache: {"c_kv": (B, S, kv_lora), "k_rope": (B, S, rope_d)}; this
+    token's latent and rope key go into slot ``cache_index`` in place.
+    Returns ``(y, cache)``.
+    """
+    b = x.shape[0]
+    h, nope, rope_d = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    vd, r = cfg.v_head_dim, cfg.kv_lora_rank
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, positions, cfg)
+    c_kv_cache, k_rope_cache = cache["c_kv"], cache["k_rope"]
+    index = torch.as_tensor(cache_index, device=x.device).long()
+    c_kv_cache.index_copy_(1, index.view(1), c_kv.to(c_kv_cache.dtype))
+    k_rope_cache.index_copy_(1, index.view(1),
+                             k_rope[:, :, 0].to(k_rope_cache.dtype))
+    # absorb W_uk into q: q_eff (B,H,r)
+    w_uk = params["w_uk"].reshape(r, h, nope)
+    q_eff = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(), w_uk.float())
+    scale = (nope + rope_d) ** -0.5
+    s_lat = torch.einsum("bhr,bsr->bhs", q_eff, c_kv_cache.float()) * scale
+    s_rope = torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
+                          k_rope_cache.float()) * scale
+    scores = s_lat + s_rope
+    valid = torch.arange(scores.shape[-1], device=x.device) <= index
+    scores = scores.masked_fill(~valid[None, None, :], NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", p, c_kv_cache.float())
+    w_uv = params["w_uv"].reshape(r, h, vd)
+    out = torch.einsum("bhr,rhv->bhv", o_lat, w_uv.float())
+    out = out.reshape(b, 1, h * vd).to(x.dtype)
+    return linear(out, params["wo"]), cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, seq: int, dtype, device, *,
+                   layers: int = 1):
+    """Zeroed MLA cache of ``layers`` stacked latent and rope-key
+    buffers."""
+    return {"c_kv": torch.zeros((layers, batch, seq, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((layers, batch, seq, cfg.qk_rope_dim),
+                                  dtype=dtype, device=device)}

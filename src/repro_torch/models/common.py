@@ -20,13 +20,14 @@ def to_dtype(name: str) -> torch.dtype:
 def dense_init(gen: torch.Generator, shape, dtype, fan_in: int | None = None
                ) -> torch.Tensor:
     """Truncated-normal init in [-2, 2] scaled by 1/sqrt(fan_in), drawn
-    on the generator's device."""
+    on the generator's device.  The draw is scaled in place, so a tensor
+    costs its f32 draw and its result beside each other, no more."""
     if fan_in is None:
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = 1.0 / np.sqrt(max(fan_in, 1))
-    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    w = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * std).to(dtype)
+    return w.mul_(std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:

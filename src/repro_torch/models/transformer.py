@@ -1,14 +1,20 @@
-"""Block assembly for the ``attn+mlp``, ``swa+mlp``, ``rwkv6+rwkv_cm``
-and ``mamba2+none`` stacks, zamba2's shared attention block and
-whisper's cross-attention: the no-cache forward, prefill and decode.
+"""Block assembly for the ``attn+mlp``, ``swa+mlp``, ``attn+moe``,
+``mla+mlp``, ``mla+moe``, ``rwkv6+rwkv_cm`` and ``mamba2+none`` stacks,
+zamba2's shared attention block and whisper's cross-attention: the
+no-cache forward, prefill and decode.
 
-Counterpart of those parts of ``repro.models.transformer``.  An ``swa``
+Counterpart of ``repro.models.transformer``.  A model is a sequence of
+homogeneous groups of blocks (``layer_groups``: kimi-k2 is one
+``attn+mlp`` layer then ``attn+moe`` layers, deepseek-v3 ``mla+mlp``
+then ``mla+moe``); the port runs them as one Python loop over layers,
+each with its own kind.  An ``swa``
 mixer is attention over the last ``cfg.window_size`` positions (its
 cache a ring buffer), an ``attn`` mixer full causal attention (or, for
 whisper's encoder, bidirectional: ``causal=False``).  The
 forward (``block_fwd``) runs the reference's plain paths: attention
 through ``attention.blocked_attention``, the Mamba2 and RWKV-6 mixers
-through their kernels' plain versions.  Prefill
+through their kernels' plain versions; it returns the block's MoE
+auxiliary loss beside its output, as the reference's does.  Prefill
 attention runs the Hopper ``swa_prefill`` kernel when
 ``cfg.use_pallas_prefill`` is set (full causal attention is the case
 ``window = S``; the kernel masks ragged tiles itself, so the reference's
@@ -17,8 +23,11 @@ PyTorch version otherwise.  The kernel, as the reference's Pallas
 kernel, is causal in sequence order; the reference's plain route masks
 by the positions, which under M-RoPE are the temporal ids and may
 repeat (all patches of one image share t = 0), so the plain route of an
-M-RoPE stack is ``blocked_attention`` over those ids, as there.  The
-RWKV-6 time mix runs its WKV6 recurrence
+M-RoPE stack is ``blocked_attention`` over those ids, as there.  An MLA
+mixer runs the reference's forms on every route (``blocked_attention``
+over the materialised K/V in prefill, the absorbed latent attention at
+decode: ``attention.mla_*``), an ``moe`` feed-forward the single-shard
+``moe.moe_fwd``.  The RWKV-6 time mix runs its WKV6 recurrence
 on the ``rwkv6_scan`` kernel and the Mamba2 mixer its SSD recurrence on
 the ``ssd_scan`` kernel, under ``cfg.use_pallas_prefill`` in prefill and
 ``cfg.use_pallas_decode`` in decode.  Whisper's cross-attention reads
@@ -28,13 +37,17 @@ reference's), and at decode over the encoder K/V that the prefill wrote
 into the layer's ``cache["cross"]``, through ``decode_attention`` with
 every row valid under ``cfg.use_pallas_decode`` (the reference computes
 it as a dense softmax, the plain route here).  ``cache`` is one layer's views
-into the decode cache (``{"k", "v"[, "cross"]}``, ``{"tmix", "cmix"}`` or
-``{"ssm"}``), or one shared-block application's ``{"k", "v"}`` ring
+into the decode cache (``{"k", "v"[, "cross"]}``, ``{"c_kv",
+"k_rope"}``, ``{"tmix", "cmix"}`` or ``{"ssm"}``), or one shared-block
+application's ``{"k", "v"}`` ring
 buffer: prefill fills it and decode updates it, in place.  A decode
 step's ``index`` is the cache's 0-dim int32 index tensor, passed on to
 the attention as it is.
 """
 from __future__ import annotations
+
+from itertools import groupby
+from typing import Optional, Tuple
 
 import torch
 
@@ -47,15 +60,25 @@ from repro_torch.models import mamba2 as m2
 from repro_torch.models import rwkv6 as rk
 from repro_torch.models.common import linear, rms_norm
 from repro_torch.models.mlp import init_mlp, mlp_fwd
+from repro_torch.models.moe import init_moe, moe_fwd
+
+
+def layer_groups(cfg: ModelConfig) -> list[tuple[str, int]]:
+    return [(kind, len(list(g))) for kind, g in groupby(cfg.blocks)]
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype,
-               device):
+               device, experts: Optional[Tuple[int, int]] = None):
+    """One block's parameters; an ``moe`` block holds the experts
+    ``experts = (e_lo, e_local)`` (all when None) and, when they start
+    at expert 0, the shared expert (``moe.init_moe``)."""
     mixer, ffn = kind.split("+")
     d = cfg.d_model
     p = {"norm1": torch.zeros(d, dtype=dtype, device=device)}
     if mixer in ("attn", "swa"):
         p["attn"] = attn.init_attention(gen, cfg, dtype)
+    elif mixer == "mla":
+        p["mla"] = attn.init_mla(gen, cfg, dtype)
     elif mixer == "mamba2":
         p["mamba"] = m2.init_mamba2(gen, cfg, dtype)
     elif mixer == "rwkv6":
@@ -64,6 +87,8 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype,
         p["norm2"] = torch.zeros(d, dtype=dtype, device=device)
     if ffn == "mlp":
         p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dtype)
+    elif ffn == "moe":
+        p["moe"] = init_moe(gen, cfg, dtype, experts)
     elif ffn == "rwkv_cm":
         p["cmix"] = rk.init_rwkv6_cmix(gen, cfg, dtype)
     if cfg.is_encoder_decoder:
@@ -131,13 +156,16 @@ def _window(cfg: ModelConfig, mixer: str) -> int:
 
 
 def _ffn(p, h, cfg: ModelConfig, cache, state):
-    """The feed-forward half on the normed ``h``; RWKV-6's channel mix
-    keeps its token shift in ``cache["cmix"]`` (None: no cache)."""
+    """The feed-forward half on the normed ``h``, ``(y, aux)`` (aux the
+    MoE auxiliary loss, else 0.0); RWKV-6's channel mix keeps its token
+    shift in ``cache["cmix"]`` (None: no cache)."""
     if "mlp" in p:
-        return mlp_fwd(p["mlp"], h, cfg.mlp_kind)
+        return mlp_fwd(p["mlp"], h, cfg.mlp_kind), 0.0
+    if "moe" in p:
+        return moe_fwd(p["moe"], h, cfg)
     y, _ = rk.rwkv6_cmix_fwd(p["cmix"], h, cfg, state,
                              out=None if cache is None else cache["cmix"])
-    return y
+    return y, 0.0
 
 
 def _cross_fwd(p, x, positions, enc_out, cfg: ModelConfig, kv=None):
@@ -174,14 +202,17 @@ def _cross_decode(p, x, cache: dict, cfg: ModelConfig):
 
 def block_fwd(p, x, positions, kind: str, cfg: ModelConfig, *,
               causal: bool = True, enc_out=None):
-    """One block over the whole sequence, no cache (the reference's
-    ``block_fwd`` without MoE or MLA); cross-attention over ``enc_out``
-    when the stack is an encoder-decoder's and it is given."""
+    """One block over the whole sequence, no cache; cross-attention over
+    ``enc_out`` when the stack is an encoder-decoder's and it is given.
+    Returns ``(x, aux)``, aux the block's MoE auxiliary loss (0.0
+    without one)."""
     mixer = kind.split("+")[0]
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if mixer in ("attn", "swa"):
         y = attn.attention_fwd(p["attn"], h, positions, cfg,
                                window=_window(cfg, mixer), causal=causal)
+    elif mixer == "mla":
+        y = attn.mla_fwd(p["mla"], h, positions, cfg)
     elif mixer == "mamba2":
         y, _ = m2.mamba2_fwd(p["mamba"], h, cfg, None)
     else:
@@ -190,12 +221,24 @@ def block_fwd(p, x, positions, kind: str, cfg: ModelConfig, *,
     if cfg.is_encoder_decoder and enc_out is not None:
         x = x + _cross_fwd(p, x, positions, enc_out, cfg)
     if "norm2" not in p:                     # ffn "none"
-        return x
+        return x, 0.0
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + _ffn(p, h, cfg, None, None)
+    y, aux = _ffn(p, h, cfg, None, None)
+    return x + y, aux
 
 
 # -- prefill and decode --------------------------------------------------------
+
+def _mla_prefill(p, h, positions, cfg: ModelConfig, cache: dict):
+    """MLA forward over the prompt that also writes its latent and rope
+    keys into ``cache`` (rows 0..S-1)."""
+    q_nope, q_rope, c_kv, k_rope = attn._mla_qkv(p, h, positions, cfg)
+    y = attn.mla_attend(p, q_nope, q_rope, c_kv, k_rope, positions, cfg)
+    s = h.shape[1]
+    cache["c_kv"][:, :s] = c_kv.to(cache["c_kv"].dtype)
+    cache["k_rope"][:, :s] = k_rope[:, :, 0].to(cache["k_rope"].dtype)
+    return y
+
 
 def block_prefill(p, x, positions, kind: str, cfg: ModelConfig, cache: dict,
                   enc_out=None):
@@ -206,6 +249,8 @@ def block_prefill(p, x, positions, kind: str, cfg: ModelConfig, cache: dict,
     if mixer in ("attn", "swa"):
         y = _attn_prefill(p["attn"], h, positions, cfg, _window(cfg, mixer),
                           cache)
+    elif mixer == "mla":
+        y = _mla_prefill(p["mla"], h, positions, cfg, cache)
     elif mixer == "mamba2":
         y, _ = m2.mamba2_fwd(p["mamba"], h, cfg, None,
                              kernel=cfg.use_pallas_prefill, out=cache["ssm"])
@@ -222,7 +267,7 @@ def block_prefill(p, x, positions, kind: str, cfg: ModelConfig, cache: dict,
     if "norm2" not in p:                     # ffn "none"
         return x
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + _ffn(p, h, cfg, cache, None)
+    return x + _ffn(p, h, cfg, cache, None)[0]
 
 
 def block_decode(p, x, cache: dict, index: torch.Tensor, positions,
@@ -232,6 +277,8 @@ def block_decode(p, x, cache: dict, index: torch.Tensor, positions,
     if mixer in ("attn", "swa"):
         y, _ = attn.attention_decode(p["attn"], h, cache, index, positions,
                                      cfg, window=_window(cfg, mixer))
+    elif mixer == "mla":
+        y, _ = attn.mla_decode(p["mla"], h, cache, index, positions, cfg)
     elif mixer == "mamba2":
         y, _ = m2.mamba2_decode(p["mamba"], h, cfg, cache["ssm"],
                                 kernel=cfg.use_pallas_decode,
@@ -246,7 +293,7 @@ def block_decode(p, x, cache: dict, index: torch.Tensor, positions,
     if "norm2" not in p:                     # ffn "none"
         return x
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + _ffn(p, h, cfg, cache, cache.get("cmix"))
+    return x + _ffn(p, h, cfg, cache, cache.get("cmix"))[0]
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Scenario registry: named workload scripts and the scenario runner.
 
-Copy of ``repro.serving.scenarios`` cut to the single-instance, fleet
-and degradation scenarios (the multi-tenant ``mixed-zoo`` pair is not
-ported yet).  Each scenario is a *vectorized* workload generator --
+Copy of ``repro.serving.scenarios``: the single-instance, fleet,
+degradation, multi-tenant and session scenarios, registered in the
+reference's order.  Each scenario is a *vectorized* workload generator --
 arrival pattern, network/dynamic-SLO model, request mix -- returning a
 ``RequestBatch`` plus the metadata policies need (nominal SLO, expected
 rate); the same seed gives the same batch as the reference:
@@ -31,6 +31,10 @@ rate); the same seed gives the same batch as the reference:
   ``degrade-fade-overload`` -- fleet scenarios with a model ladder
   (``meta["ladder"]``, ``core.degradation``): the (m, n, c, b) planner
   sheds accuracy, never below the floor, when no (n, c, b) is feasible.
+* ``mixed-zoo`` / ``mixed-zoo-rush`` -- multi-tenant scenarios
+  (``meta["tenants"]``): whisper, a chat LLM and rwkv6 share one
+  128-core pool (``serving.tenancy``), under flash crowds on the
+  tight-SLO tenant or staggered ones on the chat tenant.
 * ``slo-renegotiation`` / ``cancel-storm`` -- online-session scenarios
   (``meta["session_events"]`` routes the run through the session API,
   ``serving.session``): network telemetry re-keys queued requests'
@@ -43,7 +47,8 @@ quantized memo solver), on the object-based exact engine
 (``ScenarioRunner`` over ``SimBackend``, ``TokenSimBackend`` or a
 session), or, for the plain single-instance scenarios, on the
 batched-tick vector engine (``serving.vectorpath``).  Fleet scenarios
-run the fleet engines on either ``fast`` or ``exact``.
+run the fleet engines on either ``fast`` or ``exact``, multi-tenant
+scenarios the shared-pool engines.
 ``token_backend.run_token_scenario`` serves a token scenario on the
 card.
 """
@@ -72,6 +77,8 @@ from repro_torch.serving.fleet import (DegradingFleetScaler,
                                        FleetExactRunner, FleetFastSimRunner,
                                        FleetSpongeScaler, StaticFleetPolicy)
 from repro_torch.serving.session import drive_session_events
+from repro_torch.serving.tenancy import (TenantExactRunner, TenantFastRunner,
+                                         TenantSpec)
 from repro_torch.serving.vectorpath import VectorSimRunner
 from repro_torch.serving.workload import RequestBatch, lognormal_lengths
 
@@ -582,6 +589,176 @@ register(Scenario(
     mean_rate_factor=1.42))    # 1 + 0.3*(2.4-1)
 
 
+# --------------------------------------------------------------------------
+# multi-tenant scenarios (shared core pool)
+# --------------------------------------------------------------------------
+def _whisper_like() -> PerfModel:
+    """A heavier fixed-work profile (speech encoder shape): ~2.4x the
+    yolov5s per-item work, served under a looser 2 s SLO."""
+    return PerfModel(gamma=0.36, eps=0.10, delta=0.055, eta=0.05)
+
+
+def _rwkv_like() -> PerfModel:
+    """A light recurrent profile: cheap per-item work under a tight
+    0.8 s SLO — the tenant most sensitive to pool starvation."""
+    return PerfModel(gamma=0.08, eps=0.03, delta=0.018, eta=0.02)
+
+
+def _tenant_batch(send: np.ndarray, trace, slo: float,
+                  size_kb: float) -> RequestBatch:
+    cl = comm_latency_many(np.full(send.shape, size_kb), trace, send)
+    return RequestBatch.from_send(send, cl, slo=slo, size_kb=size_kb)
+
+
+def _merge_batches(batches) -> RequestBatch:
+    """Arrival-sorted concatenation of per-tenant batches (the sanity
+    view ``build_scenario`` returns; the engines run the per-tenant
+    columns carried in ``meta['tenants']``)."""
+    cols = {}
+    order = np.argsort(np.concatenate([b.arrival for b in batches]),
+                       kind="stable")
+    for f in dataclasses.fields(RequestBatch):
+        vals = [getattr(b, f.name) for b in batches]
+        if not isinstance(vals[0], np.ndarray):
+            continue                 # object attachments (decode_dist)
+        cols[f.name] = np.concatenate(vals)[order]
+    return RequestBatch(**cols)
+
+
+def _zoo_specs(duration, rps, rng, trace, *, spikes=(),
+               spike_tenant="rwkv6-1.6b"):
+    """The three heterogeneous tenants sharing the 128-core pool:
+    ``whisper-large-v3`` (heavy fixed-work, diurnal), ``smollm-135m``
+    (a chat LLM priced through the token cost model's fixed-work
+    surface, diurnal in antiphase) and ``rwkv6-1.6b`` (light
+    fixed-work, tight SLO, steady base).  ``spikes`` overlays flash
+    crowds on ``spike_tenant``'s base rate (replacing its diurnal
+    shape); tenant names are registry arch ids
+    (``repro_torch.configs.registry``)."""
+
+    def diurnal(peak, phase):
+        def rate(t):
+            return peak * (0.25 + 0.75 * 0.5 *
+                           (1 - np.cos(2 * np.pi * t / duration + phase)))
+        return rate
+
+    def steady(base):
+        def rate(t):
+            return np.full(t.shape, float(base))
+        return rate
+
+    def spiked(base):
+        def rate(t):
+            r = np.full(t.shape, float(base))
+            for frac, width, mult in spikes:
+                s = frac * duration
+                r = np.where((t >= s) & (t < s + width * duration),
+                             base * mult, r)
+            return r
+        return rate
+
+    shares = {"whisper-large-v3": 0.25, "smollm-135m": 0.55,
+              "rwkv6-1.6b": 0.20}
+    peak_mult = max((m for _, _, m in spikes), default=1.0)
+    rates = {}
+    for name, share in shares.items():
+        base = rps * share
+        if name == spike_tenant:
+            rates[name] = (spiked(base), base * peak_mult)
+        elif name == "whisper-large-v3":
+            rates[name] = (diurnal(base, 0.0), base)
+        elif name == "smollm-135m":
+            rates[name] = (diurnal(base, np.pi), base)
+        else:
+            rates[name] = (steady(base), base)
+    chat_cost = TokenCostModel.smollm_like(mean_prompt=64.0,
+                                           mean_decode=24.0)
+    shape = {
+        "whisper-large-v3": dict(cost=_whisper_like(), slo=2.0,
+                                 size_kb=600.0, weight=1.0, priority=1,
+                                 n0=2),
+        # antiphase diurnal => smollm *starts* at peak rate: deploy-time
+        # provisioning (n0) matches, like any operator would
+        "smollm-135m": dict(cost=chat_cost, slo=1.2, size_kb=2.0,
+                            weight=2.0, priority=0, n0=8),
+        "rwkv6-1.6b": dict(cost=_rwkv_like(), slo=0.8, size_kb=50.0,
+                           weight=1.0, priority=2, n0=2),
+    }
+    specs = []
+    for name in ("whisper-large-v3", "smollm-135m", "rwkv6-1.6b"):
+        rate_fn, rate_max = rates[name]
+        send = inhomogeneous_poisson_times(rate_fn, rate_max, duration,
+                                           rng)
+        sh = shape[name]
+        batch = _tenant_batch(send, trace, sh["slo"], sh["size_kb"])
+        mean_rate = len(batch) / duration if duration else 0.0
+        specs.append(TenantSpec(
+            name=name, cost=sh["cost"], batch=batch,
+            expected_rps=mean_rate, weight=sh["weight"],
+            priority=sh["priority"], n0=sh["n0"]))
+    return specs
+
+
+def _tenant_meta(specs, rps, trace, *, pool_cores: int = 128,
+                 tick: float = 0.5) -> dict:
+    """Shared meta for multi-tenant scenarios: ``tenants`` routes the
+    run through the pool engines (``serving.tenancy``)."""
+    return {"slo": min(float(s.batch.slo.min()) for s in specs),
+            "expected_rps": sum(s.expected_rps for s in specs),
+            "trace": trace, "tenants": tuple(specs),
+            "pool_cores": pool_cores, "tick": tick}
+
+
+def _build_mixed_zoo(duration, rps, rng):
+    seed = int(rng.integers(2**31))
+    trace = synth_4g_trace(_trace_seconds(duration), seed=seed)
+    # sustained flash crowds on the tight-SLO tenant: the 6x crowd
+    # (288 rps at the default 240 rps zoo load) exceeds rwkv6's ~262 rps
+    # sustainable rate under its 32-core slice, so its capped solver
+    # stays λ-infeasible round after round — the frontier prices the
+    # extra cores, hysteresis clears, swaps fire.  The 4x crowd fits
+    # in-slice: only reaction violations, no swap (the contrast case).
+    spikes = ((0.40, 0.07, 6.0), (0.70, 0.05, 4.0))   # on rwkv6
+    specs = _zoo_specs(duration, rps, rng, trace, spikes=spikes)
+    return _merge_batches([s.batch for s in specs]), \
+        _tenant_meta(specs, rps, trace)
+
+
+register(Scenario(
+    name="mixed-zoo",
+    summary="whisper + chat LLM + rwkv6 sharing a 128-core pool: "
+            "antiphase diurnal cross-traffic with 6x/4x flash crowds "
+            "on the tight-SLO tenant — marginal-value core swapping",
+    build=_build_mixed_zoo, default_rps=240.0, default_duration=600.0,
+    mean_rate_factor=0.80))   # 0.8*0.625 (diurnal) + 0.2*1.50 (spiked)
+
+
+def _build_mixed_zoo_rush(duration, rps, rng):
+    seed = int(rng.integers(2**31))
+    trace = synth_4g_trace(_trace_seconds(duration), seed=seed)
+    # staggered flash crowds on the chat tenant: the 5x crowds (660 rps
+    # at the default 240 rps zoo load) exceed smollm's ~602 rps
+    # sustainable rate under its 64-core slice — the pool must lend the
+    # same cores out and claw them back through swap hysteresis three
+    # times in one run
+    specs = _zoo_specs(duration, rps, rng, trace,
+                       spike_tenant="smollm-135m",
+                       spikes=((0.30, 0.05, 5.0), (0.55, 0.05, 5.0),
+                               (0.80, 0.04, 4.0)))
+    return _merge_batches([s.batch for s in specs]), \
+        _tenant_meta(specs, rps, trace)
+
+
+register(Scenario(
+    name="mixed-zoo-rush",
+    summary="the zoo under staggered flash crowds on the chat tenant — "
+            "cores must cycle donor -> receiver -> donor through "
+            "swap hysteresis",
+    build=_build_mixed_zoo_rush, default_rps=240.0,
+    default_duration=600.0,
+    mean_rate_factor=1.19))   # 0.25*0.625 + 0.55*1.52 + 0.20*1.0
+
+
 def _build_slo_renegotiation(duration, rps, rng):
     """Live telemetry renegotiates queued budgets as the network moves.
 
@@ -715,6 +892,8 @@ def run_scenario(name: str, *, policy: str = "sponge",
                  replicas: Optional[int] = None,
                  router: Optional[str] = None,
                  mid_flight: bool = True,
+                 tenant_policy: Optional[str] = None,
+                 pool_cores: Optional[int] = None,
                  admission_quantile: Optional[float] = None,
                  speculative: bool = True,
                  model_ladder=None,
@@ -754,12 +933,16 @@ def run_scenario(name: str, *, policy: str = "sponge",
     runs the (m, n, c, b) ``DegradingFleetScaler`` and
     ``policy="fixed-<arch>"`` the same machinery pinned to one rung (the
     accuracy-reporting fixed-model baseline).  A ladder on any other
-    scenario raises ``ValueError``.
+    scenario raises ``ValueError``.  Multi-tenant scenarios
+    (``meta["tenants"]``: ``mixed-zoo`` / ``mixed-zoo-rush``) run
+    through the shared-pool engines (``serving.tenancy``);
+    ``tenant_policy`` picks the pool's reallocation policy,
+    ``pool_cores`` overrides the core budget.
 
     ``engine`` is ``"fast"``, ``"exact"`` or ``"vector"`` (the
     batched-tick replay of the plain single-instance scenarios; token,
-    fleet and session scenarios raise ``ValueError`` on it, as in the
-    reference); any other name raises ``ValueError``.  ``sponge-pred``
+    multi-tenant, fleet and session scenarios raise ``ValueError`` on
+    it, as in the reference); any other name raises ``ValueError``.  ``sponge-pred``
     inspects ``Request`` objects and runs on the exact engine only.
     """
     check_engine(engine)
@@ -768,7 +951,8 @@ def run_scenario(name: str, *, policy: str = "sponge",
                                  seed=seed, requests=requests)
     # a scenario with sub-second SLOs recommends its adaptation cadence
     tick = tick if tick is not None else meta.get("tick", 1.0)
-    if engine == "vector" and (meta.get("token") or meta.get("fleet")
+    if engine == "vector" and (meta.get("token") or meta.get("tenants")
+                               or meta.get("fleet")
                                or meta.get("session_events") is not None):
         raise ValueError(
             "engine='vector' replays plain single-instance scenarios "
@@ -790,6 +974,14 @@ def run_scenario(name: str, *, policy: str = "sponge",
                                    lam_quantum=lam_quantum,
                                    admission_quantile=admission_quantile,
                                    speculative=speculative, **policy_kw)
+    if meta.get("tenants"):
+        return _run_tenant_scenario(meta, policy=policy, engine=engine,
+                                    tick=tick, horizon=horizon,
+                                    budget_quantum=budget_quantum,
+                                    lam_quantum=lam_quantum,
+                                    tenant_policy=tenant_policy,
+                                    pool_cores=pool_cores, router=router,
+                                    **policy_kw)
     if meta.get("fleet"):
         return _run_fleet_scenario(batch, meta, policy=policy,
                                    engine=engine, perf=perf, c_set=c_set,
@@ -983,6 +1175,61 @@ def _run_fleet_scenario(batch: RequestBatch, meta: dict, *, policy: str,
     if run_ladder is not None:
         stats["ladder"] = [r.name for r in run_ladder]
         stats["accuracy_floor"] = afloor
+    return report, stats
+
+
+def _run_tenant_scenario(meta: dict, *, policy: str, engine: str,
+                         tick: float, horizon,
+                         budget_quantum: float, lam_quantum: float,
+                         tenant_policy: Optional[str],
+                         pool_cores: Optional[int],
+                         router: Optional[str], **policy_kw):
+    """Multi-tenant-scenario execution: the shared-pool engines.
+
+    ``engine="fast"`` -- :class:`serving.tenancy.TenantFastRunner`
+    (every tenant's struct-of-arrays stream interleaved in one event
+    loop, the ≥200k-request path) with quantized per-tenant joint
+    solvers; ``engine="exact"`` -- the pre-heaped
+    :class:`serving.tenancy.TenantExactRunner` oracle at quanta 0
+    (the decision-identity configuration).  ``stats["pool"]`` carries
+    the final caps and swap count, ``stats["tenants"]`` the per-tenant
+    violation/core-second split (the full per-tenant
+    :class:`~repro_torch.serving.api.RunReport` list is on
+    ``stats["tenant_reports"]``).
+    """
+    if policy != "sponge":
+        raise ValueError("multi-tenant scenarios run the sponge policy "
+                         f"per tenant (got {policy!r}); the *pool* "
+                         "policy is tenant_policy=...")
+    pool_policy = (tenant_policy if tenant_policy is not None
+                   else meta.get("pool_policy", "greedy-marginal"))
+    budget = int(pool_cores if pool_cores is not None
+                 else meta.get("pool_cores", 128))
+    router = router if router is not None else meta.get("router",
+                                                        "least-loaded")
+    bq, lq = (budget_quantum, lam_quantum) if engine == "fast" else (0.0,
+                                                                     0.0)
+    cls = TenantFastRunner if engine == "fast" else TenantExactRunner
+    runner = cls(meta["tenants"], budget=budget, policy=pool_policy,
+                 tick=tick, router=router, budget_quantum=bq,
+                 lam_quantum=lq, **policy_kw)
+    t0 = time.perf_counter()
+    report = runner.run(horizon)
+    stats = {"engine": engine, "events": runner.events_processed,
+             "run_wall_s": time.perf_counter() - t0, "meta": meta,
+             "router": router,
+             "pool": {"policy": pool_policy, "budget": budget,
+                      "caps": tuple(runner.pool.caps),
+                      "swaps": len(runner.pool.swaps),
+                      "realloc_rounds": len(runner.pool.cap_log)},
+             "tenants": {
+                 spec.name: {"n_requests": rep.n_requests,
+                             "n_violations": rep.n_violations,
+                             "violation_rate": rep.violation_rate,
+                             "core_seconds": rep.core_seconds}
+                 for spec, rep in zip(runner.specs,
+                                      runner.tenant_reports)},
+             "tenant_reports": runner.tenant_reports}
     return report, stats
 
 

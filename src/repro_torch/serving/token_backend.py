@@ -14,7 +14,10 @@ dispatched gang runs phase-aware:
   ``rwkv6_scan`` or ``ssd_scan`` with T = 1, one token per running slot.
 
 The gang cache's batch axis is the slot pool: for attention each slot
-holds a request's KV cache; for RWKV-6 its recurrent state (token
+holds a request's KV cache (for deepseek-v3's MLA its latent and rope
+keys, attended in plain PyTorch as in the reference; the MoE layers
+route each step's tokens through the single-shard ``moe_fwd`` at a
+capacity fixed by the step's static shape); for RWKV-6 its recurrent state (token
 shifts and the f32 WKV state, a fixed size whatever the length); for
 zamba2 its Mamba2 state (conv windows and the f32 SSD state, a fixed
 size) and the shared attention block's KV, one ring buffer per
@@ -43,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cost_model import TokenCostModel
 from repro_torch.core.scaler import TokenSpongeScaler
 from repro_torch.core.slo import Request
@@ -285,7 +289,7 @@ class TokenTorchBackend(_PooledBackend):
         return t
 
 
-def make_token_live_server(arch: str = "smollm-135m-reduced", *,
+def make_token_live_server(arch="smollm-135m-reduced", *,
                            c_set: Sequence[int] = (1, 2, 4),
                            b_set: Sequence[int] = (1, 2, 4),
                            prompt_len: int = 16, max_decode: int = 8,
@@ -296,8 +300,9 @@ def make_token_live_server(arch: str = "smollm-135m-reduced", *,
                            device=None):
     """Build the full real-kernel token serving stack.
 
-    Resolves ``arch`` through ``configs.registry`` with both Hopper
-    kernel routes on, builds the model on ``device`` (``cuda`` unless
+    Resolves ``arch`` through ``configs.registry`` (or takes it as it
+    is when it is a ``ModelConfig``, e.g. a model cut in depth) with
+    both Hopper kernel routes on, builds the model on ``device`` (``cuda`` unless
     named) with ``params`` (e.g. from ``params_from_jax``) or random
     weights drawn from ``seed``, builds and warms the two (c, b) step
     tables, calibrates a :class:`TokenCostModel` from them unless
@@ -305,7 +310,8 @@ def make_token_live_server(arch: str = "smollm-135m-reduced", *,
     :class:`TokenTorchBackend` behind the ``ScenarioRunner``.  Returns
     ``(runner, backend, cfg, cost)``.
     """
-    cfg = dataclasses.replace(get_config(arch), use_pallas_prefill=True,
+    base = arch if isinstance(arch, ModelConfig) else get_config(arch)
+    cfg = dataclasses.replace(base, use_pallas_prefill=True,
                               use_pallas_decode=True)
     model = build_model(cfg, device=device)
     if params is None:
@@ -348,7 +354,7 @@ def scenario_arrivals(batch, requests: int, seed: int, prompt_len: int,
 
 
 def run_token_scenario(name: str, *, requests: int = 24, seed: int = 0,
-                       arch: str = "smollm-135m-reduced",
+                       arch="smollm-135m-reduced",
                        prompt_len: int = 16, max_decode: int = 8,
                        clock: str = "measured", rps: Optional[float] = None,
                        c_set: Sequence[int] = (1, 2, 4),
@@ -357,8 +363,9 @@ def run_token_scenario(name: str, *, requests: int = 24, seed: int = 0,
     """Serve a slice of a registered token scenario on the real kernels.
 
     Materializes ``requests`` arrivals from the scenario's workload,
-    serves them through :func:`make_token_live_server` (tables over
-    ``c_set`` x ``b_set``, with ``params`` or random weights) on
+    serves them through :func:`make_token_live_server` (``arch`` a
+    registry id or a ``ModelConfig``; tables over ``c_set`` x ``b_set``,
+    with ``params`` or random weights) on
     ``device`` (``cuda`` unless named) and returns ``(RunReport,
     stats)``.
     """

@@ -67,7 +67,8 @@ def cuda_device():
                                           (2, 77, 4, 4, 80, 16),
                                           (4, 256, 8, 1, 256, 256),
                                           (2, 77, 8, 1, 256, 16),
-                                          (4, 320, 12, 2, 128, 320)])
+                                          (4, 320, 12, 2, 128, 320),
+                                          (4, 256, 64, 8, 128, 256)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_swa_prefill_kernel_matches_plain_on_card(b, s, h, kv, d, w, dtype,
                                                   cuda_device):
@@ -91,6 +92,7 @@ def test_swa_prefill_kernel_matches_plain_on_card(b, s, h, kv, d, w, dtype,
                                              (2, 4, 1, 80, 16, [16, 9]),
                                              (4, 1, 8, 256, 321, [0, 1, 160, 321]),
                                              (4, 2, 6, 128, 352, [1, 100, 321, 352]),
+                                             (4, 8, 8, 128, 321, [1, 100, 257, 321]),
                                              (4, 20, 1, 64, 1500, [1500] * 4)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_kernel_matches_plain_on_card(b, kv, g, d, s, lens,
@@ -446,7 +448,8 @@ def test_fixed_work_entry_on_card(arch, b, prompt, fixed_routes):
 # --------------------------------------------------------------------------
 CAPTURE_ARCHS = ("smollm-135m-reduced", "rwkv6-1.6b-reduced",
                  "zamba2-2.7b-reduced", "gemma-2b-reduced",
-                 "h2o-danube-1.8b-reduced")
+                 "h2o-danube-1.8b-reduced", "kimi-k2-1t-a32b-reduced",
+                 "deepseek-v3-671b-reduced")
 
 
 @pytest.fixture(scope="module")
@@ -562,6 +565,8 @@ def test_replays_count_their_launches_on_card(arch, reduced_models):
         apps = -(-layers // cfg.shared_attn_every)
         want_pre = {"ssd_scan": layers, "swa_prefill": apps}
         want_dec = {"ssd_scan": layers, "decode_attention": apps}
+    elif "mla" in cfg.mixer_kinds:      # MLA and the experts: plain PyTorch
+        want_pre = want_dec = {}
     else:
         want_pre, want_dec = ({"swa_prefill": layers},
                               {"decode_attention": layers})
@@ -882,3 +887,47 @@ def test_vlm_audio_captured_decode_equals_eager_on_card(arch, cuda_device):
     (le, ie), (lc, ic) = runs[False], runs[True]
     assert torch.equal(ic, ie)
     np.testing.assert_allclose(as_np(lc), as_np(le), **tol("float32"))
+
+
+# --------------------------------------------------------------------------
+# on the card: the MoE layer, eager and replayed
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tokens", [4, 1024])
+def test_moe_layer_replay_equals_eager_on_card(tokens, dtype, cuda_device):
+    """The single-shard MoE layer (sort dispatch, capacity clamp, batched
+    expert products, the deterministic combine) at a decode (4 tokens)
+    and a prefill (1,024 tokens, pairs dropped at the served factor
+    1.25) size: two eager calls give the same bits, a captured call's
+    replay gives them too, and the replay reads nothing back to the
+    host."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.serving.capture import CapturedStep
+
+    cfg = dataclasses.replace(get_config("kimi-k2-1t-a32b-reduced"),
+                              num_experts=64, num_experts_per_tok=8,
+                              d_model=256, moe_d_ff=128,
+                              moe_capacity_factor=1.25)
+    tdt = DTYPES[dtype]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = moe.init_moe(gen, cfg, tdt)
+    x = torch.randn(2, tokens // 2, 256, generator=gen,
+                    device=cuda_device).to(tdt)
+    a, _ = moe.moe_fwd(params, x, cfg)
+    b, _ = moe.moe_fwd(params, x, cfg)
+    assert torch.equal(a, b)
+    static = x.clone()
+    step = CapturedStep(lambda: moe.moe_fwd(params, static, cfg)[0],
+                        (static,))
+    step(torch.zeros_like(x))                    # warm-up: the capture
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = step(x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert step.replays == 1 and torch.equal(got, a)

@@ -114,10 +114,10 @@ def test_full_width_smollm_is_the_published_shape():
     assert cfg.dtype == cfg.param_dtype == "bfloat16"
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    # the MoE configs are data only (the model ladder prices them): the
-    # model API still refuses to build them
-    with pytest.raises(NotImplementedError):
-        build_model(get_config("deepseek-v3-671b"), device="cpu")
+    # the MoE configs build too (tests/test_torch_mla_moe_models.py holds
+    # their reduced cuts to the reference); no weights are drawn here
+    assert build_model(get_config("deepseek-v3-671b"), device="cpu").cfg \
+        .mixer_kinds[0] == "mla"
 
 
 def test_full_width_gemma_and_danube_are_the_published_shapes():
@@ -620,12 +620,30 @@ def test_build_model_without_a_card_raises(monkeypatch):
     assert build_model(get_config(ARCH), device="cpu").device.type == "cpu"
 
 
+def test_moe_blocks_on_the_dense_stack_are_admitted():
+    """An ``attn+moe`` stack (the MoE family's blocks) builds once its
+    experts are set, and runs; without experts it is refused."""
+    cfg = get_config(ARCH)
+    n = cfg.num_layers
+    moe = dataclasses.replace(cfg, blocks=("attn+moe",) * n, num_experts=4,
+                              num_experts_per_tok=2, moe_d_ff=32,
+                              moe_capacity_factor=4.0)
+    model = build_model(moe, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, moe.vocab_size, (2, 5)).astype(np.int32))
+    logits, aux = model.forward(params, {"tokens": toks})
+    assert logits.shape == (2, 5, moe.padded_vocab) and float(aux) > 0
+    with pytest.raises(NotImplementedError):
+        build_model(dataclasses.replace(cfg, blocks=("attn+moe",) * n),
+                    device="cpu")
+
+
 def test_unported_configs_are_refused():
     cfg = get_config(ARCH)
     n = cfg.num_layers
     for change in (dict(rope_kind="mrope"), dict(logit_softcap=30.0),
                    dict(mlp_kind="gelu"),
-                   dict(blocks=("attn+moe",) * n),
                    dict(blocks=("rwkv6+mlp",) * n, rope_kind="none"),
                    dict(blocks=("attn+mlp", "rwkv6+rwkv_cm")),
                    dict(blocks=("attn+mlp", "swa+mlp"), window_size=8),

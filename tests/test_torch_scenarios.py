@@ -31,12 +31,12 @@ ALL = PLAIN + TOKEN + SESSION
 FLEET = ("replica-failure", "rolling-restart", "fleet-flash-crowd")
 DEGRADE = ("degrade-sustained-overload", "degrade-flash-overload",
            "degrade-fade-overload")
-# the reference's registration order of the scenarios the port runs (all
-# but the multi-tenant mixed-zoo pair)
+# the reference's registration order of the scenarios (all of them,
+# the multi-tenant mixed-zoo pair included)
 ORDER = ("steady", "diurnal", "flash-crowd", "network-replay", "mixed-slo",
          "llm-chat", "llm-mixed-len", "llm-heavy-tail",
          "retrieve-then-generate") + FLEET + DEGRADE + (
-         "slo-renegotiation", "cancel-storm")
+         "mixed-zoo", "mixed-zoo-rush", "slo-renegotiation", "cancel-storm")
 
 
 def report_sig(rep):
@@ -68,9 +68,10 @@ def test_registry_holds_the_single_instance_scenarios_in_order():
                                          ref[name].mean_rate_factor), name
     assert scenarios.list_scenarios() == {
         k: v for k, v in jax_scenarios.list_scenarios().items() if k in ORDER}
-    assert tuple(k for k in ref if not k.startswith("mixed-zoo")) == ORDER
+    assert tuple(ref) == ORDER
+    assert scenarios.get_scenario("mixed-zoo").name == "mixed-zoo"
     with pytest.raises(KeyError):
-        scenarios.get_scenario("mixed-zoo")
+        scenarios.get_scenario("no-such-scenario")
 
 
 @pytest.mark.parametrize("seed", [0, 7])

@@ -136,11 +136,11 @@ def test_two_runs_identical_and_engine_routing():
 
 
 @pytest.mark.parametrize("name", ["llm-chat", "fleet-flash-crowd",
-                                  "slo-renegotiation"])
+                                  "slo-renegotiation", "mixed-zoo"])
 def test_vector_engine_rejects_non_plain_scenarios(name):
-    """Token, fleet and session scenarios need their own engines —
-    engine='vector' must refuse loudly, not silently misreplay (the
-    reference's third case, mixed-zoo, is not ported)."""
+    """Token, fleet, session and multi-tenant scenarios need their own
+    engines — engine='vector' must refuse loudly, not silently
+    misreplay, as the reference's does."""
     with pytest.raises(ValueError, match="vector"):
         run_scenario(name, engine="vector", duration=30, seed=1)
     with pytest.raises(ValueError, match="vector"):
