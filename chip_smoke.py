@@ -168,7 +168,7 @@ code is non-zero:
    chunk) and ``backend="numpy"``, the plain version, give bit for bit
    the same decisions, first-token and finish columns, TBT-violation
    counts, core-seconds, steps and served count on ``llm-chat`` at
-   ``ENGINES["parity_s"]`` (240 s: the NumPy leg's wall); the torch
+   ``ENGINES["parity_s"]`` (120 s: the NumPy leg's wall); the torch
    route then serves ``llm-chat``'s default 600 s (about 15,000
    requests), every chunk after the first a replay, and a few chunks of
    it run under ``torch.profiler`` (device busy, idle share, kernels per
@@ -184,7 +184,7 @@ code is non-zero:
    and replays ``steady`` at 1,000,000 requests; the fleet's fast engine
    (quanta 0) equals its exact gang loop on ``replica-failure``,
    ``rolling-restart`` and ``fleet-flash-crowd`` at 90 s under each
-   router, and ``fleet-flash-crowd`` runs at 300,000 requests on the
+   router, and ``fleet-flash-crowd`` runs at 120,000 requests on the
    reference's ``yolov5s_like`` surface and on the card fit, each beside
    the static fleet at the largest core count; the ladder's fast engine
    equals its exact one, model swaps included, on the three
@@ -193,7 +193,7 @@ code is non-zero:
    8, the multi-tenant pool (``tenant_legs``): the tenant fast engine
    (quanta 0) equals the exact pre-heaped oracle on ``mixed-zoo`` and
    ``mixed-zoo-rush`` under each pool policy at 60 s (pool stats,
-   per-tenant reports), then ``mixed-zoo`` runs at 100,000 requests
+   per-tenant reports), then ``mixed-zoo`` runs at 40,000 requests
    (the reference bench's 200,000, cut for the script's time) on the
    fast engine with the bench's policy, on the reference's tenant
    surfaces and with the chat tenant priced by the ``TokenCostModel``
@@ -201,6 +201,37 @@ code is non-zero:
    every tenant's violation rate and core-seconds.
    Their events per wall second are host figures.  No kernel launches
    here: the phase fails if any count is above 0.
+
+   train  -- the training path (``repro_torch.train``), which launches
+   none of the four kernels (the reference's training forward reaches
+   no Pallas call): every leg resets the counts before it and fails if
+   any is above 0 after it.  Leg 1: f32, the reduced smollm-135m,
+   rwkv6-1.6b (``rwkv_chunked``), zamba2-2.7b and deepseek-v3-671b
+   (MoE, MLA, MTP): three ``make_train_step`` steps on the card and on
+   the CPU from one ``init_state`` on the same ``make_batch`` batches
+   (TF32 off): per-step loss, gradient norm and MTP loss within 1e-4
+   relative, the final parameters within atol 1e-5 / rtol 1e-4.  Leg
+   2: on the card, one gradient with ``remat`` on against off: the
+   loss and every leaf within 1e-6 relative.  Leg 3, the main path:
+   full-width smollm-135m (30 layers, bf16 weights, f32 moments, remat
+   on), batch 8 x seq 2048, 20 steps at the launcher's ``OptConfig``
+   (lr 3e-4, warmup 1) on ``synthetic_batches(seed=0)``: the first and
+   last loss (the last must be lower), the median synchronised step
+   wall over steps 4-20, tokens per second, the model FLOPs per step
+   (the formula on its line) and their share of the bf16 dense peak,
+   the peak memory; then one step profiled (device busy, idle share,
+   kernels per step, the top kernels) beside CUDA-event times of the
+   attention core's forward and backward at the leg's shape and of one
+   AdamW update.  Leg 6: the whole state saved after step 10, restored
+   into fresh tensors (every leaf ``torch.equal``, bf16 included), and
+   steps 11-12 from it: losses within 1e-6 relative of the
+   uninterrupted run's.  Leg 4: rwkv6-1.6b (``rwkv_chunked``) and
+   zamba2-2.7b (``ssd_chunked``) at full width, bf16, remat on, batch
+   2 x seq 1024, 4 steps: finite losses and norms, the median step wall,
+   the peak memory.  Leg 5, f32 at full width: ``ssd_chunked`` against
+   the ``ssd_scan`` kernel (B 2, T 1024, H 80, P 64, N 64, a carried
+   state; 2e-4) and ``wkv6_chunked`` against the ``rwkv6_scan`` kernel
+   (B 2, T 1024, H 32, D 64; 1e-4 of max |y|).
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Without a CUDA device, or outside a checkout, it prints no result
@@ -279,10 +310,11 @@ SESSION_SCENARIOS = ("slo-renegotiation", "cancel-storm")
 SCENARIO_REQUESTS = 120
 # the struct-of-arrays engines: the scan engine over llm-chat's default
 # 600 s (its NumPy plain version at parity_s, the cut that keeps the
-# phase near 90 s), the fast engines over the card-fit cost models
+# script near half its time limit), the fast engines over the card-fit
+# cost models
 ENGINES = dict(arch="smollm-135m", scenario="llm-chat", seed=0,
                sets=(1, 2, 4, 8), chunk_steps=64, scan_s=600.0,
-               parity_s=240.0, profile_horizon_s=3.0,
+               parity_s=120.0, profile_horizon_s=3.0,
                pairs=("steady", "mixed-slo", "slo-renegotiation",
                       "cancel-storm"), token_requests=100_000)
 PLAIN_SCENARIOS = ("steady", "diurnal", "flash-crowd", "network-replay",
@@ -296,12 +328,14 @@ PLAIN_SCENARIOS = ("steady", "diurnal", "flash-crowd", "network-replay",
 # beside the static fleet at the largest core count; degrade fast ==
 # exact at degrade_s, then degrade-flash-overload at degrade_compare_s
 # with the whole ladder and with one fixed rung.  The request counts are
-# cut so that the three legs add about a minute to the phase (PERF.md).
+# cut so that the three legs add under a minute to the phase, and the
+# whole script stays near half its time limit beside phase "train"
+# (PERF.md).
 SCALE_OUT = dict(vector_s=600.0, vector_requests=1_000_000,
                  fleet=("replica-failure", "rolling-restart",
                         "fleet-flash-crowd"),
                  routers=("least-loaded", "jsq", "edf-deadline"),
-                 fleet_s=90.0, fleet_requests=300_000, fleet_seed=1,
+                 fleet_s=90.0, fleet_requests=120_000, fleet_seed=1,
                  degrade=("degrade-sustained-overload",
                           "degrade-flash-overload",
                           "degrade-fade-overload"),
@@ -350,8 +384,22 @@ K2_DECODE = dict(B=4, S=321, KV=8, G=8, D=128, lengths=(1, 100, 257, 321))
 # tenant_requests on the fast engine (the reference bench's 200,000, cut
 # for the script's time) with the bench's policy, on the reference's
 # surfaces and with the chat tenant priced by the card-fit cost model
+# phase "train": legs 1-2 on the reduced stacks in f32 (card against CPU,
+# remat on against off), leg 3 full-width smollm-135m at 8 x 2048 for 20
+# steps with the state saved after step 10 (leg 6), leg 4 rwkv6-1.6b and
+# zamba2-2.7b at 2 x 1024 for 4 steps, leg 5 the chunked forms against
+# the scan kernels at full width
+TRAIN = dict(parity_archs=("smollm-135m-reduced", "rwkv6-1.6b-reduced",
+                           "zamba2-2.7b-reduced", "deepseek-v3-671b-reduced"),
+             parity_batch=2, parity_seq=32, parity_steps=3,
+             main_arch="smollm-135m", main_batch=8, main_seq=2048,
+             main_steps=20, ckpt_after=10,
+             other_archs=("rwkv6-1.6b", "zamba2-2.7b"), other_batch=2,
+             other_seq=1024, other_steps=4,
+             ssd=dict(B=2, T=1024, H=80, P=64, N=64),
+             wkv=dict(B=2, T=1024, H=32, D=64))
 TENANT = dict(scenarios=("mixed-zoo", "mixed-zoo-rush"), tenant_s=60.0,
-              seed=7, tenant_requests=100_000, bench_seed=1,
+              seed=7, tenant_requests=40_000, bench_seed=1,
               bench_policy="greedy-marginal")
 
 
@@ -2557,6 +2605,450 @@ def scale_out_legs(perf) -> None:
             host_events_per_s=runner.events_processed / wall)
 
 
+# ---------------------------------------------------------------------------
+# training (phase "train")
+# ---------------------------------------------------------------------------
+
+def train_launches(leg: str) -> None:
+    """The four kernels' launch counts since the last reset, printed; the
+    training path runs no kernel (the reference's reaches no Pallas
+    call), so each must be 0."""
+    from repro_torch.serving.capture import KERNELS
+
+    counts = {name: mod.launches for name, mod in KERNELS.items()}
+    say("train", leg=leg, launches=json.dumps(counts))
+    if any(counts.values()):
+        raise AssertionError(f"train leg {leg}: kernel launches {counts}")
+
+
+def train_state_on(state, dev):
+    """A copy of a train state on ``dev``."""
+    from repro_torch.utils.tree import tree_map_with_path
+
+    return tree_map_with_path(lambda _, t: t.detach().to(dev, copy=True),
+                              state)
+
+
+def rel_err(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def train_parity_legs(dev) -> None:
+    """Legs 1 and 2, f32 on the reduced stacks: three ``make_train_step``
+    steps on the card against the same steps on the CPU from one
+    ``init_state`` (drawn on the CPU, copied to the card) on the same
+    ``make_batch`` batches; then, on the card, one gradient with
+    ``remat`` on against off."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import init_state, make_train_step, to_device
+    from repro_torch.train.losses import train_loss
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.utils.tree import tree_leaves, tree_paths
+
+    oc = OptConfig()
+    for arch in TRAIN["parity_archs"]:
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, rwkv_chunked=base.blocks[0].startswith(
+            "rwkv6"))
+        b, s = TRAIN["parity_batch"], TRAIN["parity_seq"]
+        batches = [make_batch(cfg, b, s + cfg.num_patch_tokens, i)
+                   for i in range(TRAIN["parity_steps"])]
+        reset_launches()
+        cpu = build_model(cfg, device="cpu")
+        cpu_state = init_state(cpu, cpu.generator(0), oc).as_dict()
+        card = build_model(cfg, device=dev)
+        card_state = train_state_on(cpu_state, dev)
+        worst = {}
+        for name, model, st in (("cpu", cpu, cpu_state),
+                                ("cuda", card, card_state)):
+            step = make_train_step(model, oc)
+            for i, batch in enumerate(batches):
+                st, m = step(st, batch)
+                worst.setdefault(i, {})[name] = {k: float(v)
+                                                 for k, v in m.items()}
+        keys = [k for k in ("loss", "grad_norm", "mtp_ce")
+                if k in worst[0]["cpu"]]
+        errs = {k: max(rel_err(w["cuda"][k], w["cpu"][k])
+                       for w in worst.values()) for k in keys}
+        p_err = 0.0
+        for path, x, y in zip(tree_paths(cpu_state["params"]),
+                              tree_leaves(card_state["params"]),
+                              tree_leaves(cpu_state["params"])):
+            x = x.float().cpu()
+            bad = (x - y).abs() > 1e-5 + 1e-4 * y.abs()
+            p_err = max(p_err, float((x - y).abs().max()))
+            if bad.any():
+                raise AssertionError(f"train parity {arch}: {path} off by "
+                                     f"{float((x - y).abs().max())}")
+        say("train", leg=1, arch=arch, dtype="float32",
+            rwkv_chunked=cfg.rwkv_chunked, batch=b, seq=s,
+            steps=TRAIN["parity_steps"],
+            losses=json.dumps([w["cuda"]["loss"] for w in worst.values()]),
+            **{f"max_rel_err_{k}": v for k, v in errs.items()},
+            params_max_abs_err=p_err)
+        if any(v > 1e-4 for v in errs.values()):
+            raise AssertionError(f"train parity {arch}: {errs}")
+        train_launches(f"1 {arch}")
+
+        # leg 2: remat on and off on the card, one gradient each
+        grads = {}
+        for remat in (False, True):
+            model = build_model(dataclasses.replace(cfg, remat=remat),
+                                device=dev)
+            params = train_state_on(card_state["params"], dev)
+            leaves = [p.requires_grad_() for p in tree_leaves(params)]
+            loss, _ = train_loss(model, params,
+                                 to_device(batches[0], dev), model.cfg)
+            gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads[remat] = (float(loss.detach()), [
+                torch.zeros_like(p) if g is None else g
+                for p, g in zip(leaves, gs)])
+        (l0, g0), (l1, g1) = grads[False], grads[True]
+        g_err = max(float(((a - c).abs() / c.abs().clamp(min=1e-30)).max())
+                    if bool((a != c).any()) else 0.0 for a, c in zip(g1, g0))
+        say("train", leg=2, arch=arch, loss_rel_err=rel_err(l1, l0),
+            grad_max_rel_err=g_err, leaves=len(g0))
+        if rel_err(l1, l0) > 1e-6 or any(
+                bool(((a - c).abs() > 1e-6 * c.abs()).any())
+                for a, c in zip(g1, g0)):
+            raise AssertionError(f"train remat {arch}: loss {l1} vs {l0}, "
+                                 f"grad rel err {g_err}")
+        train_launches(f"2 {arch}")
+        del cpu_state, card_state, grads
+        gc_cuda()
+
+
+def model_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6 P T for the weights (forward 2,
+    backward 4; P counts the tied embedding once, as the head's
+    matmul) plus 6 L H D S T for causal attention (QK^T and PV over S / 2
+    keys on average, 2 x 2 H D each, times 3); recompute not counted."""
+    attn = 6.0 * cfg.num_layers * cfg.num_heads * cfg.head_dim * seq * tokens
+    return 6.0 * cfg.param_count() * tokens + attn
+
+
+def profiled_once(fn):
+    """``fn`` once without the profiler and once under it
+    (``profile_window``, one run each way): its host wall (ms), its
+    device busy time (ms) and the profile's ``device_events``."""
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    walls, busys, _, kernels, api = profile_window(run, runs=1)
+    return walls[0] * 1e3, busys[0] * 1e3, kernels, api
+
+
+GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "cublas", "Gemm")
+
+
+def train_step_breakdown(dev, cfg, holder, batch, step, walls) -> tuple:
+    """The main leg's step once under ``torch.profiler``: its device busy
+    time, the idle share against ``walls`` (the same step's synchronised
+    walls without the profiler), kernels per step, the GEMMs by kernel
+    name (bf16: the weights'; f32: the attention core's products, TF32
+    being off) and the top kernels.  Beside it, each profiled once on
+    its own: the attention core's forward and its forward and backward
+    (``blocked_attention`` at the leg's shape: per step the forward runs
+    twice a layer, once more in the recompute, the backward once), and
+    one AdamW update on a copy of the state.  ``rest_ms`` is the step's
+    busy time less the weights' GEMMs, the attention core and AdamW.
+    ``holder["state"]`` trains on through the profiled steps."""
+    from repro_torch.models.attention import blocked_attention
+    from repro_torch.train.optimizer import OptConfig, adamw_update
+    from repro_torch.utils.tree import tree_map_with_path
+
+    def one_step():
+        holder["state"], _ = step(holder["state"], batch)
+
+    _, busy, kernels, api = profiled_once(one_step)
+    share, raw, spread = idle_share([busy / 1e3], walls)
+    gemms = [(t, k) for t, _, k in kernels if any(g in k for g in GEMM_NAMES)]
+    f32_gemm = sum(t for t, k in gemms if "f32f32" in k)
+    weight_gemm = sum(t for t, _ in gemms) - f32_gemm
+    b, s = TRAIN["main_batch"], TRAIN["main_seq"]
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).bfloat16()
+    k = torch.randn(b, s, kv, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, s, kv, d, generator=gen, device=dev).bfloat16()
+    pos = torch.arange(s, device=dev).expand(b, s)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    gout = torch.randn(b, s, h, d, generator=gen, device=dev).bfloat16()
+
+    def attn():
+        return blocked_attention(q, k, v, pos, pos, causal=True, window=0,
+                                 scale=d ** -0.5)
+
+    _, fwd, _, _ = profiled_once(attn)
+    _, both, _, _ = profiled_once(
+        lambda: torch.autograd.grad(attn(), (q, k, v), gout))
+    copy = tree_map_with_path(lambda _, t: t.clone(), holder["state"])
+    grads = tree_map_with_path(lambda _, t: torch.randn_like(t),
+                               copy["params"])
+    adamw_wall, adamw_busy, adamw_kernels, _ = profiled_once(
+        lambda: adamw_update(copy["params"], grads, copy["opt"],
+                             OptConfig(lr=1e-12)))
+    del copy, grads
+    layers = cfg.num_layers
+    out = {"step_wall_ms": float(np.median(walls)) * 1e3,
+           "device_busy_ms": busy, "device_idle_share": share,
+           "raw_idle_share": raw, "spread": spread,
+           "kernels_per_step": sum(r[1] for r in kernels),
+           "host_kernel_launch_calls": sum(n for key, n in api.items()
+                                           if "LaunchKernel" in key),
+           "weight_gemm_ms": weight_gemm / 1e3,
+           "f32_gemm_ms": f32_gemm / 1e3,
+           "attention_fwd_ms": 2 * layers * fwd,
+           "attention_bwd_ms": layers * (both - fwd),
+           "adamw_wall_ms": adamw_wall, "adamw_device_busy_ms": adamw_busy,
+           "adamw_kernels": sum(r[1] for r in adamw_kernels),
+           "attention_core_one_layer_fwd_busy_ms": fwd,
+           "attention_core_one_layer_fwd_bwd_busy_ms": both}
+    out["rest_ms"] = busy - out["weight_gemm_ms"] - out["attention_fwd_ms"] \
+        - out["attention_bwd_ms"] - adamw_busy
+    top = [{"kernel": key[:120], "device_ms": t / 1e3, "count": n}
+           for t, n, key in kernels[:12]]
+    return out, top
+
+
+def train_main_leg(dev) -> None:
+    """Legs 3 and 6: full-width smollm-135m (bf16 weights, f32 moments,
+    remat on) over ``synthetic_batches(seed=0)`` at the launcher's
+    ``OptConfig``; the state saved after step 10, restored into fresh
+    tensors and run for steps 11-12 against the uninterrupted run."""
+    import tempfile
+
+    from repro_torch.checkpoint.checkpoint import (restore_checkpoint,
+                                                   save_checkpoint)
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batches
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import init_state, make_train_step
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.utils.tree import tree_leaves, tree_paths
+
+    cfg = get_config(TRAIN["main_arch"])
+    assert cfg.remat and cfg.param_dtype == "bfloat16"
+    steps, b, s = TRAIN["main_steps"], TRAIN["main_batch"], TRAIN["main_seq"]
+    oc = OptConfig(lr=3e-4, warmup_steps=max(steps // 20, 1),
+                   total_steps=steps)
+    model = build_model(cfg, device=dev)
+    batches = list(synthetic_batches(cfg, b, s, steps, seed=0))
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state = init_state(model, model.generator(0), oc).as_dict()
+    step = make_train_step(model, oc)
+    losses, walls, metrics = [], [], []
+    restored = None
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        metrics.append(m)
+        if i + 1 == TRAIN["ckpt_after"]:
+            t1 = time.perf_counter()
+            (ROOT / "build").mkdir(exist_ok=True)
+            with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+                f = save_checkpoint(tmp, state, step=i + 1,
+                                    metadata={"arch": cfg.name})
+                nbytes = Path(f).stat().st_size
+                fresh = init_state(model, model.generator(1), oc).as_dict()
+                restored, meta = restore_checkpoint(f, fresh)
+                del fresh
+            same = all(torch.equal(x, y) and x.dtype == y.dtype
+                       for x, y in zip(tree_leaves(restored),
+                                       tree_leaves(state)))
+            say("train", leg=6, saved_after_step=i + 1, file_bytes=nbytes,
+                leaves=len(tree_paths(state)),
+                bf16_keys=len(meta["bf16_keys"]),
+                all_leaves_equal=same,
+                save_restore_s=time.perf_counter() - t1)
+            if not same or meta["step"] != i + 1:
+                raise AssertionError("train checkpoint: restored state "
+                                     "differs from the saved one")
+    losses = [float(m["loss"]) for m in metrics]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    train_launches("3 smollm-135m")
+    tokens = b * s
+    wall = float(np.median(walls[3:]))
+    flops = model_flops(cfg, tokens, s)
+    say("train", leg=3, arch=cfg.name, dtype="bfloat16", moments="float32",
+        remat=cfg.remat, batch=b, seq=s, tokens_per_step=tokens, steps=steps,
+        lr=oc.lr, warmup=oc.warmup_steps, loss_first=losses[0],
+        loss_last=losses[-1],
+        improved=losses[-1] < losses[0],
+        grad_norm_first=float(metrics[0]["grad_norm"]),
+        grad_norm_last=float(metrics[-1]["grad_norm"]),
+        first_step_wall_s=walls[0], median_step_wall_s_steps_4_20=wall,
+        tokens_per_s=tokens / wall, peak_mem_gib=peak)
+    say("train", leg=3, model_flops_per_step=flops,
+        formula=json.dumps("6 P T + 6 L H D S T (P params, T tokens, "
+                           "causal attention; recompute not counted)"),
+        params=cfg.param_count(),
+        model_flops_share=flops / wall / PEAK_FLOPS[torch.bfloat16],
+        peak_assumed=json.dumps("989e12 bf16 dense, H100 SXM data sheet"),
+        card=json.dumps(torch.cuda.get_device_name(0)))
+    say("train", leg=3, losses=json.dumps([round(x, 5) for x in losses]))
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"train main leg: loss {losses[0]} -> "
+                             f"{losses[-1]} (NO IMPROVEMENT)")
+
+    # leg 6, the second half: steps 11-12 from the restored state
+    k = TRAIN["ckpt_after"]
+    rstep = make_train_step(model, oc)
+    resumed = []
+    for batch in batches[k:k + 2]:
+        restored, m = rstep(restored, batch)
+        resumed.append(float(m["loss"]))
+    err = max(rel_err(a, c) for a, c in zip(resumed, losses[k:k + 2]))
+    say("train", leg=6, resumed_losses=json.dumps(resumed),
+        uninterrupted=json.dumps(losses[k:k + 2]), max_rel_err=err)
+    if err > 1e-6:
+        raise AssertionError(f"train checkpoint: resumed losses {resumed} "
+                             f"vs {losses[k:k + 2]}")
+    del restored
+    gc_cuda()
+
+    # the step profiled (after the 20 steps: it trains on)
+    reset_launches()
+    holder = {"state": state}
+    del state
+    br, top = train_step_breakdown(dev, cfg, holder, batches[0], step,
+                                   walls[3:])
+    train_launches("3 profile")
+    say("train", leg=3, profile="one step", **br)
+    for r in top:
+        say("train", leg=3, top_kernel=json.dumps(r["kernel"]),
+            device_ms=r["device_ms"], count=r["count"])
+    del holder
+    gc_cuda()
+
+
+def train_other_legs(dev) -> None:
+    """Leg 4: rwkv6-1.6b (``rwkv_chunked``) and zamba2-2.7b at full width,
+    bf16, remat on, a few steps: finite loss and gradient norm, the
+    median step wall and the peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batches
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import init_state, make_train_step
+    from repro_torch.train.optimizer import OptConfig
+
+    b, s = TRAIN["other_batch"], TRAIN["other_seq"]
+    steps = TRAIN["other_steps"]
+    for arch in TRAIN["other_archs"]:
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, rwkv_chunked=arch.startswith("rwkv6"))
+        assert cfg.remat and cfg.param_dtype == "bfloat16"
+        oc = OptConfig(lr=3e-4, warmup_steps=1, total_steps=steps)
+        model = build_model(cfg, device=dev)
+        gc_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        state = init_state(model, model.generator(0), oc).as_dict()
+        step = make_train_step(model, oc)
+        walls, ms = [], []
+        for batch in synthetic_batches(cfg, b, s, steps, seed=0):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            ms.append({k: float(v) for k, v in m.items()})
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        train_launches(f"4 {arch}")
+        say("train", leg=4, arch=cfg.name, dtype="bfloat16", remat=cfg.remat,
+            rwkv_chunked=cfg.rwkv_chunked, batch=b, seq=s, steps=steps,
+            losses=json.dumps([m["loss"] for m in ms]),
+            grad_norms=json.dumps([m["grad_norm"] for m in ms]),
+            first_step_wall_s=walls[0],
+            median_step_wall_s=float(np.median(walls[1:])),
+            tokens_per_s=b * s / float(np.median(walls[1:])),
+            params=cfg.param_count(), peak_mem_gib=peak)
+        if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                   for m in ms):
+            raise AssertionError(f"train {arch}: non-finite loss or norm {ms}")
+        del state, step, model
+        gc_cuda()
+
+
+def train_forms_leg(dev) -> None:
+    """Leg 5, f32 at full width: ``ssd_chunked`` against the ``ssd_scan``
+    kernel (its recurrence body) with a carried state, inputs drawn as
+    ``test_ssd_scan_sweep`` draws them, atol = rtol = 2e-4; and
+    ``wkv6_chunked`` against the ``rwkv6_scan`` kernel, decays uniform
+    in (0.7, 0.999) and r, k, v of std 0.5 as in
+    ``test_wkv6_chunked_matches_scan``, within 1e-4 of max |y|.  These
+    launches compare; they are not the training path's."""
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.models.mamba2 import ssd_chunked
+    from repro_torch.models.rwkv6 import wkv6_chunked
+
+    c = TRAIN["ssd"]
+    b, t, h, p, n = c["B"], c["T"], c["H"], c["P"], c["N"]
+    rng = np.random.default_rng(5)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(dev)
+
+    x, bm, cm = arr(b, t, h, p), arr(b, t, n), arr(b, t, n)
+    dt = torch.nn.functional.softplus(arr(b, t, h))
+    alog, h0 = arr(h, scale=0.3), arr(b, h, p, n, scale=0.1)
+    with torch.no_grad():
+        y1, hf1 = ssd_chunked(x, dt, alog, bm, cm, h0=h0)
+        y2, hf2 = ssd_scan(x, dt, alog, bm, cm, h0)
+    e_y = check_within("train ssd_chunked y", y1, y2, 2e-4)
+    e_h = check_within("train ssd_chunked h", hf1, hf2, 2e-4)
+    say("train", leg=5, form="ssd_chunked", against="ssd_scan kernel",
+        B=b, T=t, H=h, P=p, N=n, chunk=128, y_max_abs_err=e_y,
+        h_max_abs_err=e_h, tol="atol=rtol=2e-4")
+
+    c = TRAIN["wkv"]
+    b, t, h, d = c["B"], c["T"], c["H"], c["D"]
+    r, k, v = (arr(b, t, h, d, scale=0.5) for _ in range(3))
+    w = torch.from_numpy(rng.uniform(0.7, 0.999, (b, t, h, d))
+                         .astype(np.float32)).to(dev)
+    u, s0 = arr(h, d, scale=0.5), arr(b, h, d, d, scale=0.1)
+    with torch.no_grad():
+        y1, s1 = wkv6_chunked(r, k, v, w, u, s0)
+        y2, s2 = rwkv6_scan(r, k, v, w, u, s0)
+    scale = float(y2.abs().max())
+    e_y = float((y1 - y2).abs().max())
+    e_s = float((s1 - s2).abs().max())
+    s_scale = float(s2.abs().max())
+    say("train", leg=5, form="wkv6_chunked", against="rwkv6_scan kernel",
+        B=b, T=t, H=h, D=d, chunk=32, y_max_abs_err=e_y, y_scale=scale,
+        state_max_abs_err=e_s, state_scale=s_scale,
+        tol="1e-4 of max |y| (of max |state| for the state)")
+    if not (e_y <= 1e-4 * scale and e_s <= 1e-4 * s_scale
+            and torch.isfinite(y1).all()):
+        raise AssertionError(f"train wkv6_chunked: y err {e_y} (scale "
+                             f"{scale}), state err {e_s} ({s_scale})")
+
+
+def train_phase(dev) -> None:
+    """Phase ``train``: legs 1-6 (the module docstring)."""
+    t0 = time.perf_counter()
+    for legs, fn in (("1-2", train_parity_legs), ("3,6", train_main_leg),
+                     ("4", train_other_legs), ("5", train_forms_leg)):
+        t1 = time.perf_counter()
+        fn(dev)
+        say("train", legs=legs, seconds=time.perf_counter() - t1)
+    reset_launches()
+    say("train", seconds=time.perf_counter() - t0)
+
+
 def idle_share(busys, walls) -> tuple:
     """The device's idle share of a window, ``1 - busy / wall``: the
     busy time the median of ``busys`` (profiled runs), the wall the
@@ -2808,6 +3300,8 @@ def main() -> int:
     for name, n in engines_phase(dev, perf, token_cost).items():
         rows[name]["launches"] += n
     torch.cuda.empty_cache()
+    train_phase(dev)              # launches no kernel: each leg checks 0
+    gc_cuda()
     if args.profile:
         for arch in ARCHS:
             profile_phase(dev, arch)

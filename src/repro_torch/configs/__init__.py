@@ -1,4 +1,5 @@
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
 from repro_torch.configs.registry import ARCH_IDS, get_config, list_archs
 
-__all__ = ["ARCH_IDS", "ModelConfig", "get_config", "list_archs"]
+__all__ = ["ARCH_IDS", "INPUT_SHAPES", "InputShape", "ModelConfig",
+           "get_config", "list_archs"]

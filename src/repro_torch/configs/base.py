@@ -5,8 +5,9 @@ defaults, so a config maps one to one between the packages, cut to the
 fields' declaration, ``padded_vocab``, ``d_inner``, ``ssm_num_heads``,
 ``rwkv_num_heads``, ``uses_moe``, ``mixer_kinds``, ``param_count()``,
 ``active_param_count()`` and ``reduced()`` (with its MoE branch, the
-no-drop capacity factor, and its MLA widths).  The port's models run only
-what they implement (``models.api.build_model`` refuses the rest).
+no-drop capacity factor, and its MLA widths), and ``InputShape`` /
+``INPUT_SHAPES``.  The port's models run only what they implement
+(``models.api.build_model`` refuses the rest).
 
 ``use_pallas_prefill`` / ``use_pallas_decode`` keep the reference's
 names with a wider meaning: they route the prefill pass and the decode
@@ -103,14 +104,15 @@ class ModelConfig:
                                        # >= S), RWKV-6 WKV6 via rwkv6_scan,
                                        # Mamba2 SSD via ssd_scan (T =
                                        # prompt); serving path only
-    rwkv_chunked: bool = False         # reference only: chunked WKV6
+    rwkv_chunked: bool = False         # chunked-parallel WKV6 in the
+                                       # no-cache forward (training)
     # --- numerics ------------------------------------------------------------
     scale_embed: bool = False          # gemma: multiply embeddings by sqrt(d)
     norm_eps: float = 1e-5
     tie_embeddings: bool = True
     dtype: str = "bfloat16"            # activation/compute dtype
     param_dtype: str = "bfloat16"
-    remat: bool = True                 # reference only (training)
+    remat: bool = True                 # per-layer recompute under grad
     scan_layers: bool = True           # reference only (the port loops)
 
     # citation for the config (paper/model card)
@@ -264,3 +266,20 @@ class ModelConfig:
             changes.update(q_lora_rank=64, kv_lora_rank=32, qk_nope_dim=32,
                            qk_rope_dim=16, v_head_dim=32)
         return dataclasses.replace(self, **changes)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One of the four assigned global input shapes."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

@@ -10,10 +10,12 @@ and a prefix of patch embeddings, whisper's ``attn+mlp``
 encoder-decoder with learned positions and a GELU MLP,
 ``rwkv6+rwkv_cm`` with no positions, or ``mamba2+none``, with or
 without zamba2's shared attention block.  ``forward`` is the
-reference's no-cache path over the whole sequence (no remat, no mesh)
-and returns the MoE layers' auxiliary loss beside the logits;
-``mtp_logits`` is DeepSeek-V3's multi-token-prediction head, forward
-only.  A batch is the reference's dict: ``"tokens"`` (B, S),
+reference's no-cache path over the whole sequence (no mesh; with
+``cfg.remat`` and grad enabled each layer is recomputed in the
+backward, ``torch.utils.checkpoint``, as the reference's
+``jax.checkpoint`` per layer) and returns the MoE layers' auxiliary
+loss beside the logits; ``mtp_logits`` is DeepSeek-V3's
+multi-token-prediction head, forward only.  A batch is the reference's dict: ``"tokens"`` (B, S),
 and for Qwen2-VL ``"prefix_embeds"`` (B, P, d_model) before them with
 ``"mrope_positions"`` (3, B, P + S), for whisper ``"enc_embeds"`` (B,
 encoder_seq_len, d_model); the frontends that make them are stubs in
@@ -61,6 +63,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -349,6 +352,16 @@ def _positions_for(cfg: ModelConfig, batch: dict, b: int, s: int, device):
     return torch.arange(s, device=device).expand(b, s)
 
 
+def _run_layer(layer, x, cfg: ModelConfig):
+    """``layer(x)``, under ``torch.utils.checkpoint`` when ``cfg.remat``
+    is set and grad is enabled: its activations are recomputed in the
+    backward instead of kept (the reference's ``jax.checkpoint`` of each
+    layer's body)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(layer, x, use_reentrant=False)
+    return layer(x)
+
+
 def _encoder_fwd(params, cfg: ModelConfig, enc_embeds):
     """Whisper's encoder: learned positions, bidirectional attention,
     the final norm."""
@@ -358,8 +371,9 @@ def _encoder_fwd(params, cfg: ModelConfig, enc_embeds):
     positions = torch.arange(s, device=x.device).expand(b, s)
     ecfg = _encoder_cfg(cfg)
     for p in enc["layers"]:
-        x, _ = tfm.block_fwd(p, x, positions, "attn+mlp", ecfg,
-                             causal=False)
+        x, _ = _run_layer(functools.partial(
+            tfm.block_fwd, p, positions=positions, kind="attn+mlp",
+            cfg=ecfg, causal=False), x, cfg)
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -397,10 +411,12 @@ def forward_hidden(params, batch: dict, cfg: ModelConfig):
     shared, every = params.get("shared_attn"), cfg.shared_attn_every
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["layers"]):
-        if shared is not None and i % every == 0:
-            x = tfm.shared_attn_fwd(shared, x, positions, cfg)
-        x, a = tfm.block_fwd(p, x, positions, cfg.blocks[i], cfg,
-                             enc_out=enc_out)
+        def layer(x, p=p, i=i):
+            if shared is not None and i % every == 0:
+                x = tfm.shared_attn_fwd(shared, x, positions, cfg)
+            return tfm.block_fwd(p, x, positions, cfg.blocks[i], cfg,
+                                 enc_out=enc_out)
+        x, a = _run_layer(layer, x, cfg)
         aux = aux + a
     return x, aux
 

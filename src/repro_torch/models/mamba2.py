@@ -1,18 +1,22 @@
-"""Mamba2 (SSD) mixer: prefill over the prompt and the recurrent decode step.
+"""Mamba2 (SSD) mixer: the chunked training form, prefill over the
+prompt and the recurrent decode step.
 
-Counterpart of ``repro.models.mamba2`` (its serving parts).  Per SSD
-head, with a (P, N) state h and A = -exp(a_log):
+Counterpart of ``repro.models.mamba2``.  Per SSD head, with a (P, N)
+state h and A = -exp(a_log):
 
     h_t = exp(A dt_t) h_{t-1} + dt_t x_t B_t^T;   y_t = h_t C_t + D x_t
 
-The reference's prefill runs the chunked matmul form ``ssd_chunked`` and
-its decode step the one-step recurrence; here ``ssd`` routes both
-through the Hopper ``ssd_scan`` kernel when asked (the block functions
-ask with ``cfg.use_pallas_prefill`` for the prefill pass, T = prompt,
-and ``cfg.use_pallas_decode`` for a decode step, T = 1) and through the
-kernel's plain version otherwise.  As in the reference, the prefill adds
-the D-skip in x's dtype after y comes back in x's dtype, while a decode
-step keeps y in f32 through the D-skip and casts once after it.
+The no-cache forward (``mamba2_fwd(..., train_form=True)``, the training
+path) runs the reference's chunked matmul form ``ssd_chunked``.  The
+reference's prefill runs that form too and its decode step the one-step
+recurrence; here ``ssd`` routes both through the Hopper ``ssd_scan``
+kernel when asked (the block functions ask with
+``cfg.use_pallas_prefill`` for the prefill pass, T = prompt, and
+``cfg.use_pallas_decode`` for a decode step, T = 1) and through the
+kernel's plain version otherwise.  As in the reference, the prefill and
+the forward add the D-skip in x's dtype after y comes back in x's
+dtype, while a decode step keeps y in f32 through the D-skip and casts
+once after it.
 
 When given ``out`` (a layer's views into the decode cache), the mixer
 writes its new conv windows and SSD state there in place; the SSD state
@@ -66,6 +70,81 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return F.silu(y), xp[:, -(width - 1):]
 
 
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                b: torch.Tensor, c: torch.Tensor, chunk: int = 128,
+                h0: Optional[torch.Tensor] = None):
+    """Chunked SSD scan, the reference's form.
+
+    x: (B, S, H, P); dt: (B, S, H) (post-softplus); b, c: (B, S, N);
+    a_log: (H,).  Returns (y (B,S,H,P) in x's dtype, h_final (B,H,P,N)
+    f32).  A ragged S is padded to whole chunks with zeros.
+
+    The reference's three-operand einsums are contracted pairwise in
+    its operand order (the first two operands' elementwise product, then
+    the contraction with the third), which never makes a (q, q, P)
+    tensor.  The intra-chunk gate masks the decay before the exp, where
+    the reference exponentiates every (i, j) and masks after: the values
+    are the same, but above the diagonal the decay is positive and its
+    exp overflows once a chunk's decay sums past ~88, which makes the
+    reference's gradient NaN there (0 * inf).
+    """
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b = F.pad(b, (0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, pad))
+    nc = (s + pad) // chunk
+    q = chunk
+
+    xc = x.reshape(bsz, nc, q, h, p).float()
+    dtc = dt.reshape(bsz, nc, q, h).float()
+    bc = b.reshape(bsz, nc, q, n).float()
+    cc = c.reshape(bsz, nc, q, n).float()
+
+    loga = -torch.exp(a_log)[None, None, None, :] * dtc    # (B,nc,q,H) <= 0
+    acum = torch.cumsum(loga, dim=2)                        # inclusive
+    dtx = xc * dtc[..., None]                               # (B,nc,q,H,P)
+
+    # intra-chunk: S_ij = (C_i . B_j) * exp(acum_i - acum_j) for i >= j
+    # (h_t = a_t h_{t-1} + dt_t B_t x_t: own-step input is NOT decayed)
+    cb = torch.einsum("bcin,bcjn->bcij", cc, bc)            # (B,nc,q,q)
+    decay = acum[:, :, :, None, :] - acum[:, :, None, :, :]
+    mask = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
+    gate = torch.exp(decay.masked_fill(~mask[None, None, :, :, None],
+                                       float("-inf")))
+    # einsum("bcij,bcijh,bcjhp->bcihp", cb, gate, dtx)
+    y_diag = torch.einsum("bcijh,bcjhp->bcihp", cb[..., None] * gate, dtx)
+
+    # per-chunk outgoing state (before adding incoming):
+    # h_chunk = sum_j exp(acum_Q - acum_j) * dtx_j  (x)  B_j
+    tail = acum[:, :, -1:, :]                               # (B,nc,1,H)
+    sdecay = torch.exp(tail - acum)                         # (B,nc,q,H)
+    # einsum("bcjn,bcjh,bcjhp->bchpn", bc, sdecay, dtx)
+    h_chunk = torch.einsum("bcjnh,bcjhp->bchpn",
+                           bc[..., :, None] * sdecay[..., None, :], dtx)
+    chunk_gain = torch.exp(tail[:, :, 0, :])                # (B,nc,H)
+
+    # inter-chunk recurrence over chunk index
+    hprev = (torch.zeros(bsz, h, p, n, dtype=torch.float32, device=x.device)
+             if h0 is None else h0.float())
+    h_in = []
+    for i in range(nc):
+        h_in.append(hprev)
+        hprev = hprev * chunk_gain[:, i, :, None, None] + h_chunk[:, i]
+    h_in = torch.stack(h_in, dim=1)                         # (B,nc,H,P,N)
+
+    # inter contribution: y_i += exp(acum_i) * C_i . h_in
+    # einsum("bcin,bcih,bchpn->bcihp", cc, exp(acum), h_in)
+    y_inter = torch.einsum("bcinh,bchpn->bcihp",
+                           cc[..., :, None] * torch.exp(acum)[..., None, :],
+                           h_in)
+    y = (y_diag + y_inter).reshape(bsz, nc * q, h, p)[:, :s]
+    return y.to(x.dtype), hprev
+
+
 def ssd(x, dt, a_log, b, c, h0=None, *, kernel: bool = False, out=None,
         y_dtype=None):
     """SSD recurrence.  x: (B,S,H,P); dt: (B,S,H) f32; b, c: (B,S,N).
@@ -87,11 +166,13 @@ def _in_proj(params, x: torch.Tensor, cfg: ModelConfig):
 
 def mamba2_fwd(params, x: torch.Tensor, cfg: ModelConfig,
                state: Optional[dict] = None, *, kernel: bool = False,
-               out: Optional[dict] = None):
+               train_form: bool = False, out: Optional[dict] = None):
     """Full-sequence forward.  x: (B, S, d_model).  state: {"conv_x",
     "conv_bc", "h"} or None (zeros).  Returns ``(y, new_state)``; with
     ``out`` the new state is written into its tensors (which may be
-    ``state``'s)."""
+    ``state``'s).  ``train_form`` (the no-cache forward) runs the SSD as
+    the reference's forward does, ``ssd_chunked``; otherwise through
+    ``ssd`` (``kernel`` as there)."""
     b, s, _ = x.shape
     n, h, p = cfg.ssm_state_dim, cfg.ssm_num_heads, cfg.ssm_head_dim
     z, xin, bcin, dt = _in_proj(params, x, cfg)
@@ -100,9 +181,14 @@ def mamba2_fwd(params, x: torch.Tensor, cfg: ModelConfig,
     bcc, conv_bc = _causal_conv(bcin, params["conv_bc"],
                                 state["conv_bc"] if state else None)
     xh = xc.reshape(b, s, h, p)
-    y, h_final = ssd(xh, dt, params["a_log"], bcc[..., :n], bcc[..., n:],
-                     state["h"] if state else None, kernel=kernel,
-                     out=None if out is None else out["h"])
+    h0 = state["h"] if state else None
+    if train_form:
+        y, h_final = ssd_chunked(xh, dt, params["a_log"], bcc[..., :n],
+                                 bcc[..., n:], h0=h0)
+    else:
+        y, h_final = ssd(xh, dt, params["a_log"], bcc[..., :n],
+                         bcc[..., n:], h0, kernel=kernel,
+                         out=None if out is None else out["h"])
     skip = params["d_skip"][None, None, :, None].to(y.dtype)
     y = y + xh.float().to(y.dtype) * skip
     y = y.reshape(b, s, cfg.d_inner)

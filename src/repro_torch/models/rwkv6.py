@@ -1,16 +1,21 @@
 """RWKV-6 "Finch": attention-free time mix with data-dependent decay.
 
-Counterpart of ``repro.models.rwkv6`` (its serving parts).  Time-mix
-(WKV6) recurrence per head, with a state S in R^{D x D}:
+Counterpart of ``repro.models.rwkv6``.  Time-mix (WKV6) recurrence per
+head, with a state S in R^{D x D}:
 
     y_t = r_t^T (S_{t-1} + u  k_t v_t^T)
     S_t = diag(w_t) S_{t-1} + k_t v_t^T
 
-The reference runs the recurrence as a ``lax.scan`` (``wkv6_scan``);
-here ``wkv6_scan`` routes it through the Hopper ``rwkv6_scan`` kernel
-when asked (the block functions ask with ``cfg.use_pallas_prefill`` for
-the prefill pass and ``cfg.use_pallas_decode`` for a decode step) and
-through the kernel's plain version otherwise.  The decay ``w`` stays f32
+The reference runs the recurrence as a ``lax.scan`` (``wkv6_scan``),
+or, in the no-cache forward under ``cfg.rwkv_chunked`` with S > 1, in
+the chunked form ``wkv6_chunked``.  The port's no-cache forward (the
+training path, ``train_form=True``) runs the same two forms
+(``wkv6_recurrence`` is the reference's ``wkv6_scan`` step for step).
+For prefill and decode, ``wkv6_scan`` routes the recurrence through the
+Hopper ``rwkv6_scan`` kernel when asked (the block functions ask with
+``cfg.use_pallas_prefill`` for the prefill pass and
+``cfg.use_pallas_decode`` for a decode step) and through the kernel's
+plain version otherwise.  The decay ``w`` stays f32
 from the LoRA to the kernel: rounded to bf16, ``1 - w`` near the init
 value 0.9975 would be off by more than half.
 
@@ -86,12 +91,90 @@ def wkv6_scan(r, k, v, w, u, s0=None, *, kernel: bool = False, out=None):
     return scan(r, k, v, w, u, s0, s_out=out)
 
 
+def wkv6_recurrence(r, k, v, w, u, s0=None):
+    """The reference's ``wkv6_scan``, one step at a time with its
+    einsums (the no-cache forward without ``cfg.rwkv_chunked``; the
+    gradients of the reduced stack are sensitive to the recurrence's
+    summation order).  Shapes and returns as ``wkv6_scan``."""
+    b, t, h, d = r.shape
+    state = (torch.zeros(b, h, d, d, dtype=torch.float32, device=r.device)
+             if s0 is None else s0.float())
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    ys = []
+    for i in range(t):
+        kv = torch.einsum("bhi,bhj->bhij", kf[:, i], vf[:, i])
+        ys.append(torch.einsum("bhi,bhij->bhj", rf[:, i],
+                               state + u[None, :, :, None] * kv))
+        state = state * wf[:, i][..., None] + kv
+    return torch.stack(ys, dim=1).to(r.dtype), state
+
+
+def wkv6_chunked(r, k, v, w, u, s0=None, chunk: int = 32):
+    """Chunked-parallel WKV6, the reference's training form.
+
+    The within-chunk decay products factorise as
+
+        s_{t,j} = (r_t * e^{L_{t-1}}) . (k_j * e^{-L_j}),  j < t
+
+    so intra-chunk work is two masked matmuls and the state is carried
+    once per chunk.  Per-step log-decays are clamped to >= -2 (w >=
+    0.135) to bound e^{-L_j} within f32 for chunk <= 32, as in the
+    reference; a ragged T is padded with r = k = v = 0 and w = 1.
+    Shapes and returns as ``wkv6_scan``."""
+    b, t, h, d = r.shape
+    if s0 is None:
+        s0 = torch.zeros(b, h, d, d, dtype=torch.float32, device=r.device)
+    pad = (-t) % chunk
+    if pad:
+        r, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v))
+        w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
+    nc = (t + pad) // chunk
+    q = chunk
+    rs = r.reshape(b, nc, q, h, d).float()
+    ks = k.reshape(b, nc, q, h, d).float()
+    vs = v.reshape(b, nc, q, h, d).float()
+    ws = w.reshape(b, nc, q, h, d).float()
+
+    lw = torch.clamp(torch.log(torch.clamp(ws, min=1e-12)), min=-2.0)
+    lcum = torch.cumsum(lw, dim=2)                           # inclusive L_t
+    lprev = lcum - lw                                        # L_{t-1}
+    r_t = rs * torch.exp(lprev)                              # r~ (B,nc,q,H,D)
+    k_t = ks * torch.exp(-lcum)                              # k~
+    # intra: strict-causal (t > j) masked matmul + u-diagonal
+    scores = torch.einsum("bcthd,bcjhd->bchtj", r_t, k_t)
+    qi = torch.arange(q, device=r.device)
+    strict = qi[:, None] > qi[None, :]
+    scores = torch.where(strict[None, None, None], scores, 0.0)
+    # einsum("bcthd,hd,bcthd->bcth", rs, u, ks), pairwise in that order
+    diag = torch.einsum("bcthd,bcthd->bcth", rs * u.float(), ks)
+    y = torch.einsum("bchtj,bcjhd->bcthd", scores, vs)
+    y = y + diag[..., None] * vs
+
+    # inter-chunk: carry the state once per chunk
+    ltot = lcum[:, :, -1]                                     # (B,nc,H,D)
+    kw = ks * torch.exp(ltot[:, :, None] - lcum)              # (B,nc,q,H,D)
+    state = s0.float()
+    y_inter = []
+    for i in range(nc):
+        # r_t already includes the e^{L_{t-1}} factor
+        y_inter.append(torch.einsum("bthd,bhde->bthe", r_t[:, i], state))
+        state = state * torch.exp(ltot[:, i])[..., None] + torch.einsum(
+            "bthd,bthe->bhde", kw[:, i], vs[:, i])
+    y = y + torch.stack(y_inter, dim=1)
+    y = y.reshape(b, nc * q, h, d)[:, :t]
+    return y.to(r.dtype), state
+
+
 def rwkv6_tmix_fwd(params, x: torch.Tensor, cfg: ModelConfig,
                    state: Optional[dict] = None, *, kernel: bool = False,
-                   out: Optional[dict] = None):
+                   train_form: bool = False, out: Optional[dict] = None):
     """Time mix.  x: (B,S,d).  state: {"shift": (B,d), "wkv": (B,H,D,D)}
     or None (zeros).  Returns ``(y, new_state)``; with ``out`` the new
-    state is written into its tensors (which may be ``state``'s)."""
+    state is written into its tensors (which may be ``state``'s).
+    ``train_form`` (the no-cache forward) runs the WKV6 as the
+    reference's forward does: ``wkv6_chunked`` under ``cfg.rwkv_chunked``
+    when S > 1, else ``wkv6_recurrence``; otherwise ``wkv6_scan``
+    (``kernel`` as there)."""
     b, s, d = x.shape
     h = cfg.rwkv_num_heads
     hd = d // h
@@ -116,8 +199,14 @@ def rwkv6_tmix_fwd(params, x: torch.Tensor, cfg: ModelConfig,
     w = w.reshape(b, s, h, hd)                       # f32, in (0, 1)
 
     wkv0 = state["wkv"] if state else None
-    y, wkv = wkv6_scan(r, k, v, w, params["bonus_u"], wkv0, kernel=kernel,
-                       out=None if out is None else out["wkv"])
+    if train_form and cfg.rwkv_chunked and s > 1:
+        y, wkv = wkv6_chunked(r, k, v, w, params["bonus_u"], wkv0)
+    elif train_form:
+        y, wkv = wkv6_recurrence(r, k, v, w, params["bonus_u"], wkv0)
+    else:
+        y, wkv = wkv6_scan(r, k, v, w, params["bonus_u"], wkv0,
+                           kernel=kernel,
+                           out=None if out is None else out["wkv"])
     # per-head group norm (population variance, as jnp.var)
     yh = y.float().reshape(b, s, h, hd)
     mu = yh.mean(-1, keepdim=True)

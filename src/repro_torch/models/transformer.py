@@ -12,9 +12,12 @@ mixer is attention over the last ``cfg.window_size`` positions (its
 cache a ring buffer), an ``attn`` mixer full causal attention (or, for
 whisper's encoder, bidirectional: ``causal=False``).  The
 forward (``block_fwd``) runs the reference's plain paths: attention
-through ``attention.blocked_attention``, the Mamba2 and RWKV-6 mixers
-through their kernels' plain versions; it returns the block's MoE
-auxiliary loss beside its output, as the reference's does.  Prefill
+through ``attention.blocked_attention``, the Mamba2 mixer through the
+chunked form ``mamba2.ssd_chunked`` and the RWKV-6 time mix through
+the reference's WKV6 recurrence (``rwkv6.wkv6_recurrence``), or
+``rwkv6.wkv6_chunked`` under ``cfg.rwkv_chunked``, as the reference's;
+it returns the block's MoE auxiliary loss beside its output, as the
+reference's does.  Prefill
 attention runs the Hopper ``swa_prefill`` kernel when
 ``cfg.use_pallas_prefill`` is set (full causal attention is the case
 ``window = S``; the kernel masks ragged tiles itself, so the reference's
@@ -214,9 +217,9 @@ def block_fwd(p, x, positions, kind: str, cfg: ModelConfig, *,
     elif mixer == "mla":
         y = attn.mla_fwd(p["mla"], h, positions, cfg)
     elif mixer == "mamba2":
-        y, _ = m2.mamba2_fwd(p["mamba"], h, cfg, None)
+        y, _ = m2.mamba2_fwd(p["mamba"], h, cfg, None, train_form=True)
     else:
-        y, _ = rk.rwkv6_tmix_fwd(p["tmix"], h, cfg, None)
+        y, _ = rk.rwkv6_tmix_fwd(p["tmix"], h, cfg, None, train_form=True)
     x = x + y
     if cfg.is_encoder_decoder and enc_out is not None:
         x = x + _cross_fwd(p, x, positions, enc_out, cfg)

@@ -931,3 +931,68 @@ def test_moe_layer_replay_equals_eager_on_card(tokens, dtype, cuda_device):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert step.replays == 1 and torch.equal(got, a)
+
+
+# --------------------------------------------------------------------------
+# training on the card (no kernel: the plain path through autograd)
+# --------------------------------------------------------------------------
+def _train_steps(arch, dev, steps=2):
+    """``steps`` train steps of the reduced ``arch`` in f32 on ``dev``
+    from one CPU-drawn ``init_state``; returns the losses and state."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import init_state, make_train_step
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.utils.tree import tree_map_with_path
+
+    cfg = get_config(arch)
+    oc = OptConfig()
+    cpu = build_model(cfg, device="cpu")
+    state = init_state(cpu, cpu.generator(0), oc).as_dict()
+    state = tree_map_with_path(lambda _, t: t.to(dev, copy=True), state)
+    step = make_train_step(build_model(cfg, device=dev), oc)
+    losses = []
+    for i in range(steps):
+        state, m = step(state, make_batch(cfg, 2, 32, i))
+        losses.append(float(m["loss"]))
+    return losses, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-135m-reduced",
+                                  "zamba2-2.7b-reduced"])
+def test_train_steps_on_card_match_cpu(arch, cuda_device):
+    """f32 with TF32 off: losses within 1e-4 relative, the parameters
+    within atol 1e-5 / rtol 1e-4 of the same steps on the CPU."""
+    from repro_torch.utils.tree import tree_leaves
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card, cs = _train_steps(arch, cuda_device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    cpu, ps = _train_steps(arch, torch.device("cpu"))
+    np.testing.assert_allclose(card, cpu, rtol=1e-4)
+    for a, b in zip(tree_leaves(cs["params"]), tree_leaves(ps["params"])):
+        np.testing.assert_allclose(as_np(a), as_np(b), atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_train_state_checkpoint_round_trip_on_card(cuda_device, tmp_path):
+    """A card state (a bf16 leaf among f32) saved and restored into
+    fresh card tensors: every leaf equal, on the card, in its dtype."""
+    from repro_torch.checkpoint.checkpoint import (restore_checkpoint,
+                                                   save_checkpoint)
+    from repro_torch.utils.tree import tree_leaves, tree_map_with_path
+
+    _, state = _train_steps("smollm-135m-reduced", cuda_device, steps=1)
+    state["params"]["final_norm"] = state["params"]["final_norm"].bfloat16()
+    f = save_checkpoint(str(tmp_path), state, step=1)
+    fresh = tree_map_with_path(lambda _, t: torch.zeros_like(t), state)
+    out, meta = restore_checkpoint(f, fresh)
+    assert meta["bf16_keys"] == ["params::final_norm"]
+    for a, b in zip(tree_leaves(out), tree_leaves(state)):
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a, b)
