@@ -233,6 +233,27 @@ code is non-zero:
    state; 2e-4) and ``wkv6_chunked`` against the ``rwkv6_scan`` kernel
    (B 2, T 1024, H 32, D 64; 1e-4 of max |y|).
 
+   dist  -- distribution on the card's one device: an NCCL process group
+   of one rank and a 1 x 1 ``("data", "model")`` mesh.  Leg 1, a main
+   path: full-width smollm-135m in bf16 with both kernel routes, its
+   parameters and cache DTensors, a prefill (b 4, prompt 256) and 16
+   eager greedy steps: the ids must equal the unsharded run's, and the
+   counts, reset before the sharded run and read after it, must be 30
+   ``swa_prefill`` (one per layer) and 480 ``decode_attention`` (one per
+   layer and step): the sharded path reached the kernels through
+   ``local_map``; they add to the kernels line.  Leg 2: phase ``train``
+   leg 3's shape, 3 steps on the mesh against 3 unsharded from one
+   ``init_state``: losses and gradient norms within 1e-6 relative, both
+   step walls printed.  Leg 3: one more unsharded step counted by
+   ``utils.op_cost.CostMode``: its FLOPs must equal the dry run's
+   per-chip FLOPs of that shape on a 1 x 1 fake mesh; printed beside
+   the H100 roofline's step time, the measured wall and device busy, and
+   the mode's live-bytes peak beside ``max_memory_allocated``.  Leg 4:
+   the records of two dry runs on the 16 x 16 fake mesh (smollm-135m
+   train_4k, kimi-k2 decode_32k tuned).  The three dry runs are CPU
+   processes started after the build, their logs under
+   ``build/dryrun``.
+
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Without a CUDA device, or outside a checkout, it prints no result
 and exits non-zero.
@@ -272,9 +293,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit), taken
+# from src/repro_torch/utils/roofline.py by main() (``set_peaks``)
+HBM_BYTES_PER_S = None
+PEAK_FLOPS = None
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 N_TIMED = 60
 SLEEP_CYCLES = 1_000_000                  # ~0.5 ms at the H100's clocks
@@ -398,6 +420,19 @@ TRAIN = dict(parity_archs=("smollm-135m-reduced", "rwkv6-1.6b-reduced",
              other_seq=1024, other_steps=4,
              ssd=dict(B=2, T=1024, H=80, P=64, N=64),
              wkv=dict(B=2, T=1024, H=32, D=64))
+# phase "dist": distribution on the card's one device, a 1 x 1 ("data",
+# "model") mesh over an NCCL group of one rank.  Leg 1: full-width
+# smollm-135m in bf16 with both kernel routes, a prefill of batch x prompt
+# and decode_steps eager steps under the mesh against the unsharded run;
+# leg 2: TRAIN's main shape, train_steps sharded steps against as many
+# unsharded; leg 3: one unsharded step of leg 2 counted by CostMode
+# against the dry run of that shape on a 1 x 1 fake mesh; leg 4 the dry
+# runs of ``dry`` on the 16 x 16 fake mesh.  The three dry runs are CPU
+# processes, started after the build and read in the phase
+DIST = dict(arch="smollm-135m", batch=4, prompt=256, decode_steps=16,
+            train_steps=3, dry=(("smollm-135m", "train_4k", "baseline"),
+                                ("kimi-k2-1t-a32b", "decode_32k", "tuned")),
+            dry_timeout=900)
 TENANT = dict(scenarios=("mixed-zoo", "mixed-zoo-rush"), tenant_s=60.0,
               seed=7, tenant_requests=40_000, bench_seed=1,
               bench_policy="greedy-marginal")
@@ -459,6 +494,18 @@ def ptxas_report(procs) -> None:
     for e in entries:
         say("ptxas", **{k: json.dumps(v) if k == "kernel" else v
                         for k, v in e.items()})
+
+
+def set_peaks() -> None:
+    """The card's peaks from the port's roofline module: HBM bytes per
+    second, and FLOP/s by dtype (bf16 on the tensor cores, f32 outside
+    them)."""
+    global HBM_BYTES_PER_S, PEAK_FLOPS
+    from repro_torch.utils import roofline
+
+    HBM_BYTES_PER_S = roofline.HBM_BW
+    PEAK_FLOPS = {torch.bfloat16: roofline.PEAK_FLOPS,
+                  torch.float32: roofline.PEAK_FLOPS_F32}
 
 
 def reset_launches() -> None:
@@ -3049,6 +3096,267 @@ def train_phase(dev) -> None:
     say("train", seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# distribution (phase "dist")
+# ---------------------------------------------------------------------------
+
+def dryrun_start() -> dict:
+    """The dry runs of phase "dist", one CPU process each (no card),
+    started at once: leg 3's smollm-135m train step at TRAIN's main
+    shape on a 1 x 1 fake mesh, and leg 4's ``DIST["dry"]`` on the 16 x
+    16 fake mesh.  Each prints its record as one JSON line into its log
+    under ``build/dryrun``."""
+    import os
+
+    out = ROOT / "build" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    runs = {"leg3": ["--arch", DIST["arch"], "--shape", "train_4k",
+                     "--mesh", "1x1", "--global-batch",
+                     str(TRAIN["main_batch"]), "--seq-len",
+                     str(TRAIN["main_seq"])]}
+    for arch, shape, opt in DIST["dry"]:
+        runs[f"{arch}|{shape}|{opt}"] = ["--arch", arch, "--shape", shape,
+                                         "--opt", opt]
+    procs = {}
+    for key, args in runs.items():
+        log = open(out / (key.replace("|", "_") + ".log"), "w")
+        procs[key] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--json", "--out", str(out)], stdout=log,
+            stderr=subprocess.STDOUT, env=env, cwd=ROOT), log,
+            time.perf_counter())
+    return procs
+
+
+def dryrun_read(procs, key: str) -> dict:
+    """The record of one dry run of ``dryrun_start`` (waits for it);
+    its wall from the start (``wall_s``) added."""
+    proc, log, t0 = procs[key]
+    proc.wait(timeout=DIST["dry_timeout"])
+    log.close()
+    text = Path(log.name).read_text()
+    if proc.returncode != 0:
+        raise RuntimeError(f"dry run {key} failed:\n{text[-3000:]}")
+    rec = json.loads([ln for ln in text.splitlines()
+                      if ln.startswith("{")][-1])
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def dryrun_stop(procs) -> None:
+    for proc, log, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def dist_serve_leg(dev, mesh) -> dict:
+    """Leg 1: full-width smollm-135m (bf16, both kernel routes), prefill
+    and ``decode_steps`` eager greedy steps unsharded, then the same on
+    the 1 x 1 mesh (parameters and cache DTensors), counted: the ids must
+    be equal and every layer's attention must have run its kernel
+    through ``local_map`` (one ``swa_prefill`` per layer and prefill, one
+    ``decode_attention`` per layer and step).  Returns the mesh run's
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import sharding as sh
+    from repro_torch.serving.capture import KERNELS
+
+    cfg = dataclasses.replace(get_config(DIST["arch"]),
+                              use_pallas_prefill=True,
+                              use_pallas_decode=True)
+    b, prompt, steps = DIST["batch"], DIST["prompt"], DIST["decode_steps"]
+    tokens = torch.randint(0, cfg.vocab_size, (b, prompt), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(5))
+    ids, walls = {}, {}
+    for name, m in (("unsharded", None), ("mesh", mesh)):
+        model = build_model(cfg, mesh=m, device=dev)
+        params = model.init(model.generator(0))
+        if m is not None:
+            params = sh.distribute(params, sh.param_specs(params, m,
+                                                          fsdp=False), m)
+            reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = []
+        with torch.no_grad():
+            lg, cache = model.prefill(params, {"tokens": tokens},
+                                      cache_len=prompt + steps + 1)
+            for _ in range(steps):
+                nxt = sh.gather({"x": lg})["x"][:, :cfg.vocab_size].argmax(-1)
+                out.append(nxt)
+                lg, cache = model.decode_step(params, cache,
+                                              nxt.to(torch.int32)[:, None])
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        ids[name] = torch.stack(out, 1).cpu()
+        if m is not None:
+            launches = {k: mod.launches for k, mod in KERNELS.items()}
+            dtensor = sh.is_dtensor(cache["k"])
+        del model, params, cache, lg
+        gc_cuda()
+    layers = cfg.num_layers
+    want = {"swa_prefill": layers, "decode_attention": layers * steps}
+    same = torch.equal(ids["mesh"], ids["unsharded"])
+    say("dist", leg=1, arch=cfg.name, dtype=cfg.dtype, batch=b,
+        prompt=prompt, decode_steps=steps, ids_equal=same,
+        cache_is_dtensor=dtensor, launches=json.dumps(launches),
+        expected=json.dumps(want), unsharded_wall_s=walls["unsharded"],
+        mesh_wall_s=walls["mesh"])
+    if not (same and dtensor):
+        raise AssertionError(f"dist leg 1: sharded ids differ or the cache "
+                             f"is not a DTensor ({same}, {dtensor})")
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f"dist leg 1: {k} launched {launches[k]} "
+                                 f"times under the mesh, not {n}")
+    return launches
+
+
+def dist_train_legs(dev, mesh, procs) -> None:
+    """Legs 2 and 3 at TRAIN's main shape (smollm-135m, bf16 weights, f32
+    moments, remat): ``train_steps`` steps on the 1 x 1 mesh against as
+    many unsharded from the same ``init_state`` (one rank runs the same
+    local ops: losses and gradient norms equal within 1e-6 relative);
+    then one more unsharded step counted by ``CostMode``, its FLOPs equal
+    to the dry run's per-chip FLOPs of this shape on a 1 x 1 fake mesh
+    (``procs["leg3"]``), beside its roofline, its wall and device busy time,
+    and the mode's live-bytes peak beside ``max_memory_allocated``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batches
+    from repro_torch.models import build_model
+    from repro_torch.models import sharding as sh
+    from repro_torch.train.loop import init_state, make_train_step
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.utils import roofline as rf
+    from repro_torch.utils.op_cost import CostMode
+
+    cfg = get_config(DIST["arch"])
+    b, s, n = TRAIN["main_batch"], TRAIN["main_seq"], DIST["train_steps"]
+    oc = OptConfig(lr=3e-4, warmup_steps=1, total_steps=n)
+    batches = list(synthetic_batches(cfg, b, s, n + 1, seed=0))
+    res = {}
+    for name, m in (("unsharded", None), ("mesh", mesh)):
+        model = build_model(cfg, mesh=m, device=dev)
+        state = init_state(model, model.generator(0), oc).as_dict()
+        step = make_train_step(model, oc)
+        losses, norms, walls = [], [], []
+        for batch in batches[:n]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            full = sh.gather(met)
+            losses.append(float(full["loss"]))
+            norms.append(float(full["grad_norm"]))
+        res[name] = (losses, norms, walls)
+        if m is None:
+            keep = (model, state, step)
+        else:
+            sharded = sum(1 for x in tensors_of(state) if sh.is_dtensor(x))
+        del model, state, step
+        gc_cuda()
+    (l0, g0, w0), (l1, g1, w1) = res["unsharded"], res["mesh"]
+    err = max(max(rel_err(a, c) for a, c in zip(l1, l0)),
+              max(rel_err(a, c) for a, c in zip(g1, g0)))
+    say("dist", leg=2, arch=cfg.name, batch=b, seq=s, steps=n,
+        losses_unsharded=json.dumps(l0), losses_mesh=json.dumps(l1),
+        grad_norms_unsharded=json.dumps(g0), grad_norms_mesh=json.dumps(g1),
+        max_rel_err=err, dtensor_leaves=sharded,
+        step_walls_unsharded_s=json.dumps(w0),
+        step_walls_mesh_s=json.dumps(w1),
+        mesh_over_unsharded=float(np.median(w1[1:]) / np.median(w0[1:])))
+    if err > 1e-6:
+        raise AssertionError(f"dist leg 2: sharded train differs by {err}")
+
+    # leg 3: the step counted, then profiled
+    model, state, step = keep
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with CostMode(keep_log=False) as mode:
+        state, _ = step(state, batches[n])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    wc = mode.cost
+    holder = {"state": state}
+    del state
+
+    def one_step():
+        holder["state"], _ = step(holder["state"], batches[0])
+
+    wall, busy, _, _ = profiled_once(one_step)
+    roof = rf.analyze(cfg.name, f"train {b}x{s}", "1x1", 1, wc,
+                      model_flops(cfg, b * s, s))
+    dry1x1 = dryrun_read(procs, "leg3")
+    dry = dry1x1["roofline"]
+    say("dist", leg=3, counted_flops=wc.flops,
+        dryrun_flops_per_chip=dry["flops_per_chip"],
+        flops_equal=wc.flops == dry["flops_per_chip"],
+        counted_bytes=wc.bytes_accessed,
+        dryrun_bytes_per_chip=dry["bytes_per_chip"],
+        roofline_step_ms=roof.step_time_s * 1e3, dominant=roof.dominant,
+        compute_ms=roof.compute_s * 1e3, memory_ms=roof.memory_s * 1e3,
+        measured_step_wall_ms=wall, device_busy_ms=busy,
+        wall_over_roofline=wall / 1e3 / roof.step_time_s,
+        live_bytes_peak=wc.peak_live_bytes, cuda_peak_bytes_above_state=peak,
+        dryrun_peak_bytes=dry["memory_analysis"].get("temp_size_in_bytes"),
+        dryrun_trace_s=dry1x1["trace_s"])
+    if wc.flops != dry["flops_per_chip"]:
+        raise AssertionError(f"dist leg 3: counted {wc.flops} FLOPs on the "
+                             f"card, the dry run {dry['flops_per_chip']}")
+    del holder, model, step
+    gc_cuda()
+
+
+def dist_phase(dev, procs) -> dict:
+    """Phase "dist" (legs 1-4, see ``DIST``); returns leg 1's launches."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_small_mesh
+
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.setdefault("MASTER_ADDR", "localhost")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_small_mesh(1, 1, device_type="cuda")
+        launches = dist_serve_leg(dev, mesh)
+        dist_train_legs(dev, mesh, procs)
+        for arch, shape, opt in DIST["dry"]:
+            rec = dryrun_read(procs, f"{arch}|{shape}|{opt}")
+            r = rec["roofline"]
+            say("dist", leg=4, arch=arch, shape=shape, mesh=rec["mesh"],
+                chips=rec["chips"], trace_s=rec["trace_s"],
+                process_wall_s=rec["wall_s"], ops=rec["ops"],
+                flops_per_chip=r["flops_per_chip"],
+                bytes_per_chip=r["bytes_per_chip"],
+                collective_bytes_per_chip=r["collective_bytes_per_chip"],
+                compute_ms=r["compute_s"] * 1e3,
+                memory_ms=r["memory_s"] * 1e3,
+                collective_ms=r["collective_s"] * 1e3,
+                step_time_ms=rec["step_time_s"] * 1e3,
+                dominant=r["dominant"], useful=r["useful_ratio"],
+                collectives=json.dumps(r["collectives"]),
+                memory=json.dumps(r["memory_analysis"]))
+    finally:
+        dist.destroy_process_group()
+    say("dist", seconds=time.perf_counter() - t0)
+    return launches
+
+
 def idle_share(busys, walls) -> tuple:
     """The device's idle share of a window, ``1 - busy / wall``: the
     busy time the median of ``busys`` (profiled runs), the wall the
@@ -3236,6 +3544,7 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    set_peaks()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3255,7 +3564,16 @@ def main() -> int:
     say("build", seconds=time.perf_counter() - t0,
         libraries=json.dumps({k: str(v.relative_to(ROOT)) for k, v in libs.items()}))
     ptxas_report(ptxas)
+    dry = dryrun_start()
+    try:
+        return run_phases(dev, args, t_start, dry)
+    finally:
+        dryrun_stop(dry)
 
+
+def run_phases(dev, args, t_start, dry) -> int:
+    """Every phase after the build, in order; the kernels line and the
+    last line."""
     rows = kernel_phase(dev)
     for row in rows.values():
         row["launches"] = 0
@@ -3301,6 +3619,9 @@ def main() -> int:
         rows[name]["launches"] += n
     torch.cuda.empty_cache()
     train_phase(dev)              # launches no kernel: each leg checks 0
+    gc_cuda()
+    for name, n in dist_phase(dev, dry).items():
+        rows[name]["launches"] += n
     gc_cuda()
     if args.profile:
         for arch in ARCHS:

@@ -1,3 +1,4 @@
-from repro_torch.models.api import Model, build_model, params_from_jax
+from repro_torch.models.api import (Model, build_model, input_specs,
+                                    params_from_jax)
 
-__all__ = ["Model", "build_model", "params_from_jax"]
+__all__ = ["Model", "build_model", "input_specs", "params_from_jax"]

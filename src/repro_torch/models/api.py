@@ -1,7 +1,7 @@
 """Public model API: ``build_model(cfg) -> Model`` with init, forward,
 prefill, decode and the MTP head.
 
-Counterpart of ``repro.models.api``, without its mesh: the dense stacks
+Counterpart of ``repro.models.api``: the dense stacks
 (``attn+mlp`` or ``swa+mlp`` with standard RoPE and a SwiGLU or GeGLU
 MLP), the MoE family (kimi-k2's ``attn+mlp`` then ``attn+moe`` groups
 and deepseek-v3's ``mla+mlp`` then ``mla+moe``, standard RoPE, SwiGLU,
@@ -10,7 +10,7 @@ and a prefix of patch embeddings, whisper's ``attn+mlp``
 encoder-decoder with learned positions and a GELU MLP,
 ``rwkv6+rwkv_cm`` with no positions, or ``mamba2+none``, with or
 without zamba2's shared attention block.  ``forward`` is the
-reference's no-cache path over the whole sequence (no mesh; with
+reference's no-cache path over the whole sequence (with
 ``cfg.remat`` and grad enabled each layer is recomputed in the
 backward, ``torch.utils.checkpoint``, as the reference's
 ``jax.checkpoint`` per layer) and returns the MoE layers' auxiliary
@@ -54,21 +54,31 @@ all three, as the reference does.
 
 Every entry point runs on ``cuda`` unless the caller names another
 device; with no CUDA device and no explicit ``device="cpu"`` it raises.
+
+Every step takes ``mesh`` (a ``DeviceMesh`` over ``("data", "model")``,
+``"pod"`` too; ``build_model(cfg, mesh=...)`` passes it): the
+parameters are then DTensors placed by ``sharding.param_specs``, the
+batch and cache are placed by ``sharding.batch_specs`` /
+``cache_specs``, and the step runs on DTensors (plain tensors it meets
+taken as replicated), with the vocabulary-parallel lookup, the
+attention cores, the scans, the cache writes and the expert-parallel
+MoE per rank through ``local_map``.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import rwkv6 as rk
+from repro_torch.models import sharding as sh
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (dense_init, embed_init, linear,
                                        rms_norm, to_dtype)
@@ -268,8 +278,36 @@ def params_from_jax(tree, cfg: ModelConfig, device=None):
 # embedding / head / cache
 # ---------------------------------------------------------------------------
 
-def _embed(params, cfg: ModelConfig, tokens, positions=None):
-    x = params["embed"][tokens]
+def _lookup(table, tokens, mesh=None):
+    """The rows ``tokens`` of ``table`` (``embedding``).  Under ``mesh``
+    with a DTensor table, per rank (Megatron's vocabulary-parallel
+    lookup): each rank looks up the ids of its own vocabulary rows, the
+    others' rows as zeros, and the ranks that shard the vocabulary sum
+    their rows (exactly one is not zero).  The batch of ids stays over
+    the data axes; the table is whole along d on each rank."""
+    # ``embedding`` on both routes (the rows indexing gives), so that a
+    # step on a mesh takes the unsharded step's backward
+    if mesh is None or not sh.is_dtensor(table):
+        return torch.nn.functional.embedding(tokens, table)
+    names = sh.axis_names(mesh)
+    vocab = tuple(names[m] for m, p in enumerate(table.placements)
+                  if p.is_shard(0))
+
+    def body(tab, tok):
+        rows = tab.shape[0]
+        rel = tok - sh.axis_index(mesh, vocab) * rows
+        inside = (rel >= 0) & (rel < rows)
+        x = torch.nn.functional.embedding(torch.where(inside, rel, 0), tab)
+        return sh.psum(x * inside[..., None].to(x.dtype), mesh, vocab)
+
+    dp = sh.dp_axes(mesh)
+    tok_spec = (dp,) + (None,) * (tokens.ndim - 1)
+    return sh.local_call(body, mesh, ((vocab or None, None), tok_spec),
+                         tok_spec + (None,), table, tokens)
+
+
+def _embed(params, cfg: ModelConfig, tokens, positions=None, mesh=None):
+    x = _lookup(params["embed"], tokens, mesh)
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     if cfg.rope_kind == "learned" and positions is not None:
@@ -283,12 +321,48 @@ def _head(params, cfg: ModelConfig, x):
     return linear(x, params["head"])
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
+def _dp_axes(mesh) -> tuple:
+    if mesh is None:
+        return ("data",)
+    return sh.dp_axes(mesh)
+
+
+def _constrain(x, mesh, spec):
+    """The reference's ``with_sharding_constraint``: ``x`` redistributed
+    to ``spec`` on ``mesh`` (nothing without a mesh)."""
+    return sh.constrain(x, mesh, spec)
+
+
+_mesh_scope = sh.mesh_scope
+
+
+def _on_mesh(batch: dict, mesh) -> dict:
+    """The batch's tensors placed by ``sharding.batch_specs`` (a DTensor
+    stays as it is)."""
+    if mesh is None:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, torch.Tensor) and not sh.is_dtensor(v):
+            spec = sh.batch_specs({k: v}, mesh)[k]
+            v = sh.constrain(v, mesh, spec)
+        out[k] = v
+    return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device,
+               mesh=None, seq_shard: bool = False):
     """A zero decode cache; an RWKV-6 or Mamba2 state does not depend on
     ``cache_len`` (the shared block's ring buffers do).  An ``swa``
     stack's K/V hold ``min(cache_len, window)`` slots, whisper's cross
     K/V ``encoder_seq_len`` rows, an MLA stack's latent and rope keys
-    ``cache_len``."""
+    ``cache_len``.  Under ``mesh`` every leaf is a DTensor placed by
+    ``sharding.cache_specs`` (``seq_shard``: the sequence dim over
+    ``model``), the index replicated."""
+    if mesh is not None:
+        cache = init_cache(cfg, batch, cache_len, device)
+        return sh.distribute(cache, sh.cache_specs(cache, mesh, seq_shard),
+                             mesh)
     dtype = to_dtype(cfg.dtype)
     if _is_rwkv(cfg):
         cache = rk.init_rwkv6_state(cfg, batch, dtype, device,
@@ -362,7 +436,7 @@ def _run_layer(layer, x, cfg: ModelConfig):
     return layer(x)
 
 
-def _encoder_fwd(params, cfg: ModelConfig, enc_embeds):
+def _encoder_fwd(params, cfg: ModelConfig, enc_embeds, mesh=None):
     """Whisper's encoder: learned positions, bidirectional attention,
     the final norm."""
     enc = params["encoder"]
@@ -373,14 +447,15 @@ def _encoder_fwd(params, cfg: ModelConfig, enc_embeds):
     for p in enc["layers"]:
         x, _ = _run_layer(functools.partial(
             tfm.block_fwd, p, positions=positions, kind="attn+mlp",
-            cfg=ecfg, causal=False), x, cfg)
+            cfg=ecfg, causal=False, mesh=mesh), x, cfg)
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
-def _assemble_inputs(params, cfg: ModelConfig, batch: dict):
+def _assemble_inputs(params, cfg: ModelConfig, batch: dict, mesh=None):
     """The decoder's input embeddings, positions and encoder output:
     ``(x (B, S_total, d_model), positions, enc_out, S_total)``, S_total
     counting the prefix of patch embeddings."""
+    batch = _on_mesh(batch, mesh)
     tokens = batch["tokens"].long()
     b, dev = tokens.shape[0], tokens.device
     dtype = to_dtype(cfg.dtype)
@@ -393,59 +468,72 @@ def _assemble_inputs(params, cfg: ModelConfig, batch: dict):
         pe = prefix.to(dev, dtype)
         te = _embed(params, cfg, tokens,
                     None if tok_positions is None else
-                    tok_positions[:, pe.shape[1]:])
+                    tok_positions[:, pe.shape[1]:], mesh)
         x = torch.cat([pe, te], dim=1)
     else:
-        x = _embed(params, cfg, tokens, tok_positions)
+        x = _embed(params, cfg, tokens, tok_positions, mesh)
     enc_out = None
     if cfg.is_encoder_decoder:
         enc_out = _encoder_fwd(params, cfg,
-                               batch["enc_embeds"].to(dev, dtype))
+                               batch["enc_embeds"].to(dev, dtype), mesh)
+    x = _constrain(x, mesh, (sh.FSDP, None, None))
     return x, positions, enc_out, s_total
 
 
-def forward_hidden(params, batch: dict, cfg: ModelConfig):
+def forward_hidden(params, batch: dict, cfg: ModelConfig, mesh=None):
     """Like ``forward`` but returns the hidden states before the final
     norm, ``(x (B, S, d_model), aux)`` (the input of ``mtp_logits``)."""
-    x, positions, enc_out, _ = _assemble_inputs(params, cfg, batch)
-    shared, every = params.get("shared_attn"), cfg.shared_attn_every
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, p in enumerate(params["layers"]):
-        def layer(x, p=p, i=i):
-            if shared is not None and i % every == 0:
-                x = tfm.shared_attn_fwd(shared, x, positions, cfg)
-            return tfm.block_fwd(p, x, positions, cfg.blocks[i], cfg,
-                                 enc_out=enc_out)
-        x, a = _run_layer(layer, x, cfg)
-        aux = aux + a
-    return x, aux
+    with _mesh_scope(mesh):
+        x, positions, enc_out, _ = _assemble_inputs(params, cfg, batch, mesh)
+        shared, every = params.get("shared_attn"), cfg.shared_attn_every
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, p in enumerate(params["layers"]):
+            def layer(x, p=p, i=i):
+                if shared is not None and i % every == 0:
+                    x = tfm.shared_attn_fwd(shared, x, positions, cfg, mesh)
+                return tfm.block_fwd(p, x, positions, cfg.blocks[i], cfg,
+                                     enc_out=enc_out, mesh=mesh)
+            x, a = _run_layer(layer, x, cfg)
+            aux = aux + a
+        return x, aux
 
 
-def forward(params, batch: dict, cfg: ModelConfig):
+def forward(params, batch: dict, cfg: ModelConfig, mesh=None):
     """Full-sequence forward with no cache.  ``batch["tokens"]``: (B, S)
     integer ids (and the prefix or encoder inputs of the stack).  Returns
     ``(logits (B, S_total, V), aux)``; ``aux`` is the reference's
-    auxiliary loss, 0 without MoE layers."""
-    x, aux = forward_hidden(params, batch, cfg)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _head(params, cfg, x), aux
+    auxiliary loss, 0 without MoE layers.  Under ``mesh`` (a
+    ``DeviceMesh``; the parameters DTensors placed by
+    ``sharding.param_specs``) the batch is placed by
+    ``sharding.batch_specs`` and the logits come back as a DTensor, the
+    batch over the data axes and the vocabulary over ``model``."""
+    with _mesh_scope(mesh):
+        x, aux = forward_hidden(params, batch, cfg, mesh)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = _constrain(_head(params, cfg, x), mesh,
+                            (sh.FSDP, None, "model"))
+    return logits, aux
 
 
-def mtp_logits(params, hidden, tokens, cfg: ModelConfig):
+def mtp_logits(params, hidden, tokens, cfg: ModelConfig, mesh=None):
     """DeepSeek-V3 multi-token prediction head (depth 1): from hidden state
     h_t and the embedding of token t+1, predict token t+2.  ``hidden``:
     (B, S, d_model) from ``forward_hidden``; ``tokens``: (B, S).  Returns
     ``(logits (B, S - 1, V), aux)``."""
-    p = params["mtp"]
-    h = rms_norm(hidden[:, :-1], p["norm_h"], cfg.norm_eps)
-    e = rms_norm(_embed(params, cfg, tokens[:, 1:].long()), p["norm_e"],
-                 cfg.norm_eps)
-    z = linear(torch.cat([h, e], dim=-1), p["proj"])
-    b, s, _ = z.shape
-    positions = torch.arange(s, device=z.device).expand(b, s)
-    z, aux = tfm.block_fwd(p["block"], z, positions, cfg.blocks[-1], cfg)
-    z = rms_norm(z, params["final_norm"], cfg.norm_eps)
-    return _head(params, cfg, z), aux
+    with _mesh_scope(mesh):
+        p = params["mtp"]
+        if mesh is not None and not sh.is_dtensor(tokens):
+            tokens = sh.constrain(tokens, mesh, (sh.FSDP, None))
+        h = rms_norm(hidden[:, :-1], p["norm_h"], cfg.norm_eps)
+        e = rms_norm(_embed(params, cfg, tokens[:, 1:].long(), mesh=mesh),
+                     p["norm_e"], cfg.norm_eps)
+        z = linear(torch.cat([h, e], dim=-1), p["proj"])
+        b, s, _ = z.shape
+        positions = torch.arange(s, device=z.device).expand(b, s)
+        z, aux = tfm.block_fwd(p["block"], z, positions, cfg.blocks[-1], cfg,
+                               mesh=mesh)
+        z = rms_norm(z, params["final_norm"], cfg.norm_eps)
+        return _head(params, cfg, z), aux
 
 
 # ---------------------------------------------------------------------------
@@ -453,35 +541,41 @@ def mtp_logits(params, hidden, tokens, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def prefill(params, batch: dict, cfg: ModelConfig,
-            cache_len: Optional[int] = None, cache: Optional[dict] = None):
+            cache_len: Optional[int] = None, cache: Optional[dict] = None,
+            mesh=None):
     """Process the whole prompt; returns ``(last_logits (B, V), cache)``.
     ``batch["tokens"]``: (B, S) integer token ids on the model's device
     (and the prefix or encoder inputs of the stack; S_total counts the
     prefix).  With ``cache`` (an ``init_cache`` of batch B, e.g. a
     captured step's static cache) the prompt fills that cache, zeroed
     first, so that it starts from the fresh state a new cache has;
-    ``cache_len`` is then the given cache's."""
-    x, positions, enc_out, s = _assemble_inputs(params, cfg, batch)
-    b = x.shape[0]
-    if cache is None:
-        cache = init_cache(cfg, b, cache_len or s, x.device)
-    else:
-        _zero_cache(cache)
-    shared, every = params.get("shared_attn"), cfg.shared_attn_every
-    for i, p in enumerate(params["layers"]):
-        if shared is not None and i % every == 0:
-            x = tfm.shared_attn_prefill(shared, x, positions, cfg,
-                                        _shared_cache(cache, i // every))
-        x = tfm.block_prefill(p, x, positions, cfg.blocks[i], cfg,
-                              _layer_cache(cache, i), enc_out=enc_out)
-    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    logits = _head(params, cfg, x)
-    cache["index"].fill_(s)
+    ``cache_len`` is then the given cache's.  Under ``mesh`` a new cache
+    is placed by ``sharding.cache_specs`` and every write lands on the
+    rank that holds the row."""
+    with _mesh_scope(mesh):
+        x, positions, enc_out, s = _assemble_inputs(params, cfg, batch, mesh)
+        b = x.shape[0]
+        if cache is None:
+            cache = init_cache(cfg, b, cache_len or s, x.device, mesh)
+        else:
+            _zero_cache(cache)
+        shared, every = params.get("shared_attn"), cfg.shared_attn_every
+        for i, p in enumerate(params["layers"]):
+            if shared is not None and i % every == 0:
+                x = tfm.shared_attn_prefill(shared, x, positions, cfg,
+                                            _shared_cache(cache, i // every),
+                                            mesh)
+            x = tfm.block_prefill(p, x, positions, cfg.blocks[i], cfg,
+                                  _layer_cache(cache, i), enc_out=enc_out,
+                                  mesh=mesh)
+        x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+        logits = _head(params, cfg, x)
+        cache["index"].fill_(s)
     return logits[:, 0], cache
 
 
 def decode_step(params, cache: dict, token, cfg: ModelConfig,
-                mrope_positions=None):
+                mrope_positions=None, mesh=None):
     """One serve step: one new token per sequence against the cache.
 
     token: (B, 1) integer ids; ``mrope_positions``: (3, B, 1) ids of an
@@ -490,30 +584,35 @@ def decode_step(params, cache: dict, token, cfg: ModelConfig,
     this step updates the cache's tensors (K/V, recurrent state or ring
     buffers, the index) in place, and the index is one further after it.
     Positions, ring slots and attention lengths come from the index on
-    the device."""
-    index = cache["index"]
-    token = token.long()
-    b = token.shape[0]
-    if cfg.rope_kind == "mrope":
-        positions = (index.long().expand(3, b, 1) if mrope_positions is None
-                     else mrope_positions.long())
-    elif _is_rwkv(cfg):
-        positions = None
-    else:
-        positions = index.long().expand(b, 1)
-    x = _embed(params, cfg, token,
-               positions if cfg.rope_kind != "mrope" else None)
-    shared, every = params.get("shared_attn"), cfg.shared_attn_every
-    for i, p in enumerate(params["layers"]):
-        if shared is not None and i % every == 0:
-            x = tfm.shared_attn_decode(shared, x,
-                                       _shared_cache(cache, i // every),
-                                       index, positions, cfg)
-        x = tfm.block_decode(p, x, _layer_cache(cache, i), index, positions,
-                             cfg.blocks[i], cfg)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _head(params, cfg, x)
-    index.add_(1)
+    the device.  Under ``mesh`` the cache is ``init_cache(mesh=)``'s or
+    ``prefill``'s DTensors."""
+    with _mesh_scope(mesh):
+        index = cache["index"]
+        if mesh is not None and not sh.is_dtensor(token):
+            token = sh.constrain(token, mesh, (sh.FSDP, None))
+        token = token.long()
+        b = token.shape[0]
+        if cfg.rope_kind == "mrope":
+            positions = (index.long().expand(3, b, 1)
+                         if mrope_positions is None
+                         else mrope_positions.long())
+        elif _is_rwkv(cfg):
+            positions = None
+        else:
+            positions = index.long().expand(b, 1)
+        x = _embed(params, cfg, token,
+                   positions if cfg.rope_kind != "mrope" else None, mesh)
+        shared, every = params.get("shared_attn"), cfg.shared_attn_every
+        for i, p in enumerate(params["layers"]):
+            if shared is not None and i % every == 0:
+                x = tfm.shared_attn_decode(shared, x,
+                                           _shared_cache(cache, i // every),
+                                           index, positions, cfg, mesh)
+            x = tfm.block_decode(p, x, _layer_cache(cache, i), index,
+                                 positions, cfg.blocks[i], cfg, mesh)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = _head(params, cfg, x)
+        index.add_(1)
     return logits[:, 0], cache
 
 
@@ -525,6 +624,7 @@ def decode_step(params, cache: dict, token, cfg: ModelConfig,
 class Model:
     cfg: ModelConfig
     device: torch.device
+    mesh: Any = None
 
     def init(self, gen: torch.Generator,
              experts: Optional[Tuple[int, int]] = None):
@@ -535,24 +635,69 @@ class Model:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def forward(self, params, batch):
-        return forward(params, batch, self.cfg)
+        return forward(params, batch, self.cfg, self.mesh)
 
     def forward_hidden(self, params, batch):
-        return forward_hidden(params, batch, self.cfg)
+        return forward_hidden(params, batch, self.cfg, self.mesh)
 
     def mtp_logits(self, params, hidden, tokens):
-        return mtp_logits(params, hidden, tokens, self.cfg)
+        return mtp_logits(params, hidden, tokens, self.cfg, self.mesh)
 
     def prefill(self, params, batch, cache_len=None, cache=None):
-        return prefill(params, batch, self.cfg, cache_len, cache)
+        return prefill(params, batch, self.cfg, cache_len, cache, self.mesh)
 
     def decode_step(self, params, cache, token, mrope_positions=None):
-        return decode_step(params, cache, token, self.cfg, mrope_positions)
+        return decode_step(params, cache, token, self.cfg, mrope_positions,
+                           self.mesh)
 
     def init_cache(self, batch: int, cache_len: int):
-        return init_cache(self.cfg, batch, cache_len, self.device)
+        return init_cache(self.cfg, batch, cache_len, self.device, self.mesh)
 
 
-def build_model(cfg: ModelConfig, device=None) -> Model:
+def build_model(cfg: ModelConfig, mesh=None, device=None) -> Model:
+    """The model namespace of ``cfg``.  With ``mesh`` (a ``DeviceMesh``)
+    its steps run sharded over it, on the mesh's device type unless
+    ``device`` names one; a ``cuda`` mesh never runs on the CPU."""
     _check_supported(cfg)
-    return Model(cfg=cfg, device=resolve_device(device))
+    if device is None and mesh is not None:
+        device = mesh.device_type
+    return Model(cfg=cfg, device=resolve_device(device), mesh=mesh)
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape | str) -> dict:
+    """Stand-ins for every model input of a given shape: ``meta``
+    tensors (shape and dtype, no storage), the counterpart of the
+    reference's ``ShapeDtypeStruct``s.
+
+    The modality frontends are stubs per the assignment carve-out: audio
+    supplies (B, encoder_seq_len, d) frame embeddings, VLM supplies
+    (B, num_patch_tokens, d) patch embeddings.
+    """
+    if isinstance(shape, str):
+        shape = INPUT_SHAPES[shape]
+    b, s = shape.global_batch, shape.seq_len
+    f32 = to_dtype(cfg.dtype)
+    i32 = torch.int32
+
+    def sds(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    specs: dict = {}
+    if shape.kind in ("train", "prefill"):
+        s_text = s
+        if cfg.num_patch_tokens:
+            s_text = s - cfg.num_patch_tokens
+            specs["prefix_embeds"] = sds((b, cfg.num_patch_tokens,
+                                          cfg.d_model), f32)
+            specs["mrope_positions"] = sds((3, b, s), i32)
+        specs["tokens"] = sds((b, s_text), i32)
+        if shape.kind == "train":
+            specs["labels"] = sds((b, s_text), i32)
+        if cfg.is_encoder_decoder:
+            specs["enc_embeds"] = sds((b, cfg.encoder_seq_len, cfg.d_model),
+                                      f32)
+    else:  # decode
+        specs["token"] = sds((b, 1), i32)
+        if cfg.rope_kind == "mrope":
+            specs["mrope_positions"] = sds((3, b, 1), i32)
+    return specs

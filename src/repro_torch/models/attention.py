@@ -35,14 +35,31 @@ Pallas kernel too); decode attends in the compressed latent space with
 ``w_uk`` absorbed into the query, in plain PyTorch as the reference's
 einsums.  Its cache, ``{"c_kv": (B, S, kv_lora_rank), "k_rope": (B, S,
 qk_rope_dim)}``, is written in place at the device index.
+
+Under a mesh (``mesh=``, the reference's ``mesh`` and
+``attn_batch_parallel``) the attention core runs per rank through
+``local_map`` (``attention_core``, ``decode_core``): q, k and v (or the
+cache) are placed with their batch over the data axes and their heads
+over ``model`` where both head counts divide it, else replicated over
+``model`` (as the reference's GSPMD runs it), or with the batch over
+every axis under ``cfg.attn_batch_parallel`` (``_bp_spec``), and each
+rank calls the kernel, or its plain version on the CPU, on its local
+tensors: a DTensor never reaches a kernel wrapper.  A cache whose
+sequence dim is sharded (``cache_specs(seq_shard=True)``) takes the
+plain decode, each rank over its own rows, merged with two
+all-reduces.  Cache writes land on the rank that holds the row
+(``sharding.write_rows``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.launch.mesh import axis_names, axis_sizes
+from repro_torch.models import sharding as sh
 from repro_torch.models.common import (apply_mrope, apply_rope, dense_init,
                                        linear, rms_norm, softcap)
 
@@ -152,26 +169,78 @@ def project_kv(params, src: torch.Tensor, cfg: ModelConfig):
     before any RoPE."""
     kvh, d = cfg.num_kv_heads, cfg.head_dim
     b, sk, _ = src.shape
-    return (linear(src, params["wk"]).reshape(b, sk, kvh, d),
-            linear(src, params["wv"]).reshape(b, sk, kvh, d))
+    return (sh.split_last(linear(src, params["wk"]), kvh, d),
+            sh.split_last(linear(src, params["wv"]), kvh, d))
+
+
+def _bp_spec(mesh, batch: int):
+    """Widest mesh-axes tuple that divides the batch (for batch-parallel
+    attention: shard the batch over the model axis too -- archs whose
+    head counts don't divide the model axis otherwise run attention
+    replicated n_model times)."""
+    names = list(axis_names(mesh))
+    sizes = axis_sizes(mesh)
+    for axes in (tuple(names), tuple(a for a in names if a != "pod")):
+        n = 1
+        for a in axes:
+            n *= sizes[a]
+        if axes and batch % n == 0:
+            return axes
+    return None
+
+
+def _bp_constrain(x, mesh, axes):
+    """``x`` with its batch (dim 0) over ``axes``, every other dim whole."""
+    return sh.constrain(x, mesh, (axes,) + (None,) * (x.ndim - 1))
+
+
+def core_specs(mesh, b: int, h: int, kvh: int, bp_axes=None):
+    """Specs of (q (B, S, H, D), k/v (B, S, KV, D), positions (B, S)) for
+    an attention core run per rank: the batch over the data axes and the
+    heads over ``model`` where both head counts divide it, else
+    replicated over ``model`` (the reference's GSPMD runs it so); under
+    ``bp_axes`` the batch over those axes and every head on each rank."""
+    if bp_axes:
+        return ((bp_axes, None, None, None), (bp_axes, None, None, None),
+                (bp_axes, None))
+    dp = tuple(a for a in sh.FSDP if a in axis_names(mesh))
+    n_model = axis_sizes(mesh).get("model", 1)
+    heads = "model" if h % n_model == 0 and kvh % n_model == 0 else None
+    return ((dp, None, heads, None), (dp, None, heads, None), (dp, None))
+
+
+def attention_core(fn, mesh, q, k, v, *rest, bp_axes=None, rest_specs=()):
+    """``fn(q, k, v, *rest)`` -- an attention over (B, S, H, D) queries
+    and (B, Sk, KV, D) keys and values, independent per (batch, head)
+    -- on ``mesh`` through ``local_map`` (``core_specs``; ``rest_specs``
+    place ``rest``), or as it is without a mesh.  A kernel wrapper
+    reached from here gets each rank's local tensors, never a DTensor."""
+    if mesh is None:
+        return fn(q, k, v, *rest)
+    qs, ks, ps = core_specs(mesh, q.shape[0], q.shape[2], k.shape[2],
+                            bp_axes)
+    return sh.local_call(fn, mesh, (qs, ks, ks) + tuple(
+        ps if r == "pos" else r for r in rest_specs), qs, q, k, v, *rest)
 
 
 def attention_fwd(params, x: torch.Tensor, positions: torch.Tensor,
                   cfg: ModelConfig, *, window: int = 0, causal: bool = True,
                   kv_x: torch.Tensor | None = None,
                   kv_positions: torch.Tensor | None = None,
-                  kv=None) -> torch.Tensor:
+                  kv=None, mesh=None) -> torch.Tensor:
     """Attention over a whole sequence, no cache.  x: (B, S, d_model);
     positions: (B, S), or (3, B, S) under M-RoPE.  ``window > 0`` keeps
     the keys of the last ``window`` positions (sliding window).  With
     ``kv_x`` (B, Sk, d_model) it is cross-attention: keys and values
     from ``kv_x``, no RoPE and no causal mask; ``kv`` is
-    ``project_kv(params, kv_x, cfg)`` when the caller has it already."""
+    ``project_kv(params, kv_x, cfg)`` when the caller has it already.
+    Under ``mesh`` the attention core runs per rank (``attention_core``),
+    its batch over every mesh axis under ``cfg.attn_batch_parallel``."""
     h, d = cfg.num_heads, cfg.head_dim
     b, s, _ = x.shape
     src = kv_x if kv_x is not None else x
     sk = src.shape[1]
-    q = linear(x, params["wq"]).reshape(b, s, h, d)
+    q = sh.split_last(linear(x, params["wq"]), h, d)
     k, v = kv if kv is not None else project_kv(params, src, cfg)
     if kv_x is None:
         q, k = _rope_qk(q, k, positions, cfg)
@@ -182,57 +251,155 @@ def attention_fwd(params, x: torch.Tensor, positions: torch.Tensor,
             kp = torch.arange(sk, device=x.device).expand(b, sk)
     else:
         kp = qp
-    out = blocked_attention(q, k, v, qp, kp, causal=causal and kv_x is None,
-                            window=window, scale=d ** -0.5,
-                            cap=cfg.logit_softcap)
+    bp_axes = (_bp_spec(mesh, b)
+               if (mesh is not None and cfg.attn_batch_parallel) else None)
+
+    def core(q, k, v, qp, kp):
+        return blocked_attention(q, k, v, qp, kp,
+                                 causal=causal and kv_x is None,
+                                 window=window, scale=d ** -0.5,
+                                 cap=cfg.logit_softcap)
+
+    out = attention_core(core, mesh, q, k, v, qp, kp, bp_axes=bp_axes,
+                         rest_specs=("pos", "pos"))
     return linear(out.reshape(b, s, h * d), params["wo"])
+
+
+def _seq_sharded(cache_t) -> bool:
+    """A DTensor cache (B, S, KV, D) whose sequence dim a mesh axis
+    shards (``cache_specs(seq_shard=True)``)."""
+    return isinstance(cache_t, DTensor) and any(
+        isinstance(p, Shard) and p.dim == 1 for p in cache_t.placements)
+
+
+def _decode_plain(q, ck, cv, index, slot, window: int, cap: float):
+    """The reference's dense masked softmax of one query per head over
+    the cache.  q: (B, KV, G, D) unscaled; ck, cv: (B, S, KV, D)."""
+    d = q.shape[-1]
+    s_cache = ck.shape[1]
+    j = torch.arange(s_cache, device=q.device)
+    if window > 0:
+        # ring buffer: slot j holds position index - ((slot - j) mod S)
+        valid = (slot - j) % s_cache <= index
+    else:
+        valid = j <= index
+    qf = (q * (d ** -0.5)).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", qf, ck.float())
+    if cap > 0:
+        scores = softcap(scores, cap)
+    scores = scores.masked_fill(~valid[None, None, None, :], NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgs,bskd->bkgd", p, cv.float())
+
+
+def _decode_seq_sharded(q, ck, cv, index, mesh, cap: float):
+    """Full-attention decode over a cache whose sequence dim is sharded:
+    each rank's partial softmax over its own rows (max, sum, weighted
+    values), merged over the sharding axes with two all-reduces."""
+    axes = tuple(axis_names(mesh)[m] for m, p in enumerate(ck.placements)
+                 if isinstance(p, Shard) and p.dim == 1)
+    d = q.shape[-1]
+
+    def body(q, ck, cv, index):
+        n_local = ck.shape[1]
+        j = sh.axis_index(mesh, axes) * n_local + torch.arange(
+            n_local, device=q.device)
+        qf = (q * (d ** -0.5)).float()
+        scores = torch.einsum("bkgd,bskd->bkgs", qf, ck.float())
+        if cap > 0:
+            scores = softcap(scores, cap)
+        scores = scores.masked_fill(~(j <= index)[None, None, None, :],
+                                    NEG_INF)
+        m = sh.pmax(scores.amax(dim=-1), mesh, axes)
+        p = torch.exp(scores - m[..., None])
+        part = torch.cat([p.sum(-1)[..., None],
+                          torch.einsum("bkgs,bskd->bkgd", p, cv.float())],
+                         dim=-1)
+        part = sh.psum(part, mesh, axes)
+        return part[..., 1:] / part[..., :1]
+
+    dp = tuple(a for a in sh.FSDP if a in axis_names(mesh))
+    cspec = (dp, axes, None, None)
+    return sh.local_call(body, mesh, ((dp, None, None, None), cspec, cspec,
+                                      ()), (dp, None, None, None),
+                         q, ck, cv, index)
+
+
+def decode_core(q, ck, cv, index, slot, cfg: ModelConfig, *, window: int,
+                mesh=None, lengths=None):
+    """One query per head against the cache: ``(B, KV, G, D)`` f32 or
+    the kernel's dtype.  The Hopper ``decode_attention`` kernel when
+    ``cfg.use_pallas_decode`` and the guard hold (``lengths`` the valid
+    rows of each sequence; ``None``: ``min(index + 1, S)``), else the
+    dense masked softmax.  Under ``mesh`` per rank through ``local_map``,
+    the batch over the data axes and the KV heads over ``model`` where
+    they divide it; a cache with its sequence dim sharded is merged
+    across its ranks (plain route only)."""
+    b, kvh, g, d = q.shape
+    s_cache = ck.shape[1]
+    kernel = (cfg.use_pallas_decode and cfg.logit_softcap == 0
+              and d % 8 == 0)
+    if mesh is not None and _seq_sharded(ck):
+        if kernel or window > 0:
+            raise NotImplementedError(
+                "a sequence-sharded cache takes the plain full-attention "
+                "decode only")
+        return _decode_seq_sharded(q, ck, cv, index, mesh,
+                                   cfg.logit_softcap)
+    if kernel:
+        if lengths is None:
+            lengths = torch.clamp(index + 1, max=s_cache).to(
+                torch.int32).expand(b)
+        extra = lengths
+
+        def fn(q, ck, cv, lengths):
+            return decode_attention(q, ck, cv, lengths.contiguous())
+    else:
+        extra = index
+
+        def fn(q, ck, cv, index):
+            return _decode_plain(q, ck, cv, index, index % s_cache
+                                 if window > 0 else index, window,
+                                 cfg.logit_softcap)
+    if mesh is None:
+        return fn(q, ck, cv, extra)
+    dp = tuple(a for a in sh.FSDP if a in axis_names(mesh))
+    n_model = axis_sizes(mesh).get("model", 1)
+    heads = "model" if kvh % n_model == 0 else None
+    qs, cs = (dp, heads, None, None), (dp, None, heads, None)
+    return sh.local_call(fn, mesh, (qs, cs, cs, (dp,) if kernel else ()),
+                         qs, q, ck, cv, extra)
 
 
 def attention_decode(params, x: torch.Tensor, cache: dict, cache_index,
                      positions: torch.Tensor, cfg: ModelConfig, *,
-                     window: int = 0):
+                     window: int = 0, mesh=None):
     """Single-token decode.  x: (B, 1, d_model); cache: {"k", "v"} of
     (B, S, KV, D), keys cached post-RoPE; ``cache_index`` (a 0-dim
     integer tensor, or an int) is the position of this token.  Writes
     the token's K/V into the cache in place and returns ``(y, cache)``.
     ``positions``: (B, 1), or (3, B, 1) under M-RoPE.  With ``window >
     0`` the cache is a ring buffer and the token goes to slot
-    ``cache_index % S``."""
+    ``cache_index % S``.  Under ``mesh`` the cache is a DTensor: each
+    rank writes the rows of its own shard and the attention runs per
+    rank (``decode_core``)."""
     h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     b = x.shape[0]
-    q = linear(x, params["wq"]).reshape(b, 1, h, d)
-    k = linear(x, params["wk"]).reshape(b, 1, kvh, d)
-    v = linear(x, params["wv"]).reshape(b, 1, kvh, d)
+    q = sh.split_last(linear(x, params["wq"]), h, d)
+    k = sh.split_last(linear(x, params["wk"]), kvh, d)
+    v = sh.split_last(linear(x, params["wv"]), kvh, d)
     q, k = _rope_qk(q, k, positions, cfg)
 
     ck, cv = cache["k"], cache["v"]
     s_cache = ck.shape[1]
     index = torch.as_tensor(cache_index, device=x.device).long()
     slot = index % s_cache if window > 0 else index
-    ck.index_copy_(1, slot.view(1), k.to(ck.dtype))
-    cv.index_copy_(1, slot.view(1), v.to(cv.dtype))
+    sh.write_rows(ck, 1, slot.view(1), k)
+    sh.write_rows(cv, 1, slot.view(1), v)
 
-    g = h // kvh
-    if cfg.use_pallas_decode and cfg.logit_softcap == 0 and d % 8 == 0:
-        # Hopper flash-decode kernel over the valid slots [0, lengths)
-        lengths = torch.clamp(index + 1, max=s_cache).to(torch.int32)
-        out = decode_attention(q.reshape(b, kvh, g, d), ck, cv,
-                               lengths.expand(b).contiguous())
-        out = out.reshape(b, 1, h * d).to(x.dtype)
-        return linear(out, params["wo"]), cache
-    j = torch.arange(s_cache, device=x.device)
-    if window > 0:
-        # ring buffer: slot j holds position index - ((slot - j) mod S)
-        valid = (slot - j) % s_cache <= index
-    else:
-        valid = j <= index
-    qf = (q.reshape(b, kvh, g, d) * (d ** -0.5)).float()
-    scores = torch.einsum("bkgd,bskd->bkgs", qf, ck.float())
-    if cfg.logit_softcap > 0:
-        scores = softcap(scores, cfg.logit_softcap)
-    scores = scores.masked_fill(~valid[None, None, None, :], NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p, cv.float())
+    q = sh.fit_dim(q, 2, kvh)
+    out = decode_core(q.reshape(b, kvh, h // kvh, d), ck, cv, index, slot,
+                      cfg, window=window, mesh=mesh)
     out = out.reshape(b, 1, h * d).to(x.dtype)
     return linear(out, params["wo"]), cache
 
@@ -273,7 +440,7 @@ def _mla_qkv(params, x, positions, cfg: ModelConfig):
     b, s, _ = x.shape
     h, nope, rope_d = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     cq = rms_norm(linear(x, params["w_dq"]), params["q_norm"], cfg.norm_eps)
-    q = linear(cq, params["w_uq"]).reshape(b, s, h, nope + rope_d)
+    q = sh.split_last(linear(cq, params["w_uq"]), h, nope + rope_d)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     ckv = linear(x, params["w_dkv"])
@@ -285,27 +452,31 @@ def _mla_qkv(params, x, positions, cfg: ModelConfig):
 
 
 def mla_attend(params, q_nope, q_rope, c_kv, k_rope, positions,
-               cfg: ModelConfig) -> torch.Tensor:
+               cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """Causal attention over a whole sequence with per-head K/V
     materialised from the latent ``c_kv``, through the output
     projection."""
     b, s = q_nope.shape[:2]
     h, nope, rope_d = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     vd = cfg.v_head_dim
-    k_nope = linear(c_kv, params["w_uk"]).reshape(b, s, h, nope)
-    v = linear(c_kv, params["w_uv"]).reshape(b, s, h, vd)
+    k_nope = sh.split_last(linear(c_kv, params["w_uk"]), h, nope)
+    v = sh.split_last(linear(c_kv, params["w_uv"]), h, vd)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(b, s, h, rope_d)], dim=-1)
-    out = blocked_attention(q, k, v, positions, positions, causal=True,
-                            window=0, scale=(nope + rope_d) ** -0.5)
+    out = attention_core(
+        lambda q, k, v, qp: blocked_attention(
+            q, k, v, qp, qp, causal=True, window=0,
+            scale=(nope + rope_d) ** -0.5),
+        mesh, q, k, v, positions, rest_specs=("pos",))
     return linear(out.reshape(b, s, h * vd), params["wo"])
 
 
-def mla_fwd(params, x: torch.Tensor, positions, cfg: ModelConfig
-            ) -> torch.Tensor:
+def mla_fwd(params, x: torch.Tensor, positions, cfg: ModelConfig,
+            mesh=None) -> torch.Tensor:
     """Train/prefill MLA: materialize per-head K/V from the latent."""
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, positions, cfg)
-    return mla_attend(params, q_nope, q_rope, c_kv, k_rope, positions, cfg)
+    return mla_attend(params, q_nope, q_rope, c_kv, k_rope, positions, cfg,
+                      mesh)
 
 
 def mla_decode(params, x: torch.Tensor, cache: dict, cache_index, positions,
@@ -322,9 +493,8 @@ def mla_decode(params, x: torch.Tensor, cache: dict, cache_index, positions,
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, positions, cfg)
     c_kv_cache, k_rope_cache = cache["c_kv"], cache["k_rope"]
     index = torch.as_tensor(cache_index, device=x.device).long()
-    c_kv_cache.index_copy_(1, index.view(1), c_kv.to(c_kv_cache.dtype))
-    k_rope_cache.index_copy_(1, index.view(1),
-                             k_rope[:, :, 0].to(k_rope_cache.dtype))
+    sh.write_rows(c_kv_cache, 1, index.view(1), c_kv)
+    sh.write_rows(k_rope_cache, 1, index.view(1), k_rope[:, :, 0])
     # absorb W_uk into q: q_eff (B,H,r)
     w_uk = params["w_uk"].reshape(r, h, nope)
     q_eff = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(), w_uk.float())

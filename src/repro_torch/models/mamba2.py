@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
+from repro_torch.models import sharding as sh
 from repro_torch.models.common import dense_init, keep_in, linear, rms_norm
 
 
@@ -146,14 +147,34 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 def ssd(x, dt, a_log, b, c, h0=None, *, kernel: bool = False, out=None,
-        y_dtype=None):
+        y_dtype=None, mesh=None):
     """SSD recurrence.  x: (B,S,H,P); dt: (B,S,H) f32; b, c: (B,S,N).
     Returns (y (B,S,H,P) in ``y_dtype`` or x's, h_final (B,H,P,N) f32).
     ``kernel`` runs the ``ssd_scan`` kernel, else its plain version;
-    ``out`` receives h_final (it may be ``h0``)."""
+    ``out`` receives h_final (it may be ``h0``).  Under ``mesh`` the scan
+    runs per rank through ``local_map`` (it is independent per (batch,
+    head)): the batch over the data axes, the heads over ``model`` where
+    they divide it."""
     scan = ssd_scan if kernel else ssd_scan_plain
-    return scan(x, dt, a_log, b.contiguous(), c.contiguous(), h0,
-                h_out=out, y_dtype=y_dtype)
+    if mesh is None:
+        return scan(x, dt, a_log, b.contiguous(), c.contiguous(), h0,
+                    h_out=out, y_dtype=y_dtype)
+    dp = sh.dp_axes(mesh)
+    heads = "model" if x.shape[2] % sh.axis_size(mesh, "model") == 0 \
+        else None
+    xs, st = (dp, None, heads, None), (dp, heads, None, None)
+    bs = (dp, None, None)
+    y, h_final = sh.local_call(
+        lambda x, dt, a_log, b, c, h0: scan(
+            x, dt, a_log, b.contiguous(), c.contiguous(), h0,
+            y_dtype=y_dtype),
+        mesh, (xs, (dp, None, heads), (heads,), bs, bs,
+               None if h0 is None else st),
+        [xs, st], x, dt, a_log, b, c, h0)
+    if out is not None:
+        out.copy_(h_final)
+        h_final = out
+    return y, h_final
 
 
 def _in_proj(params, x: torch.Tensor, cfg: ModelConfig):
@@ -166,7 +187,8 @@ def _in_proj(params, x: torch.Tensor, cfg: ModelConfig):
 
 def mamba2_fwd(params, x: torch.Tensor, cfg: ModelConfig,
                state: Optional[dict] = None, *, kernel: bool = False,
-               train_form: bool = False, out: Optional[dict] = None):
+               train_form: bool = False, out: Optional[dict] = None,
+               mesh=None):
     """Full-sequence forward.  x: (B, S, d_model).  state: {"conv_x",
     "conv_bc", "h"} or None (zeros).  Returns ``(y, new_state)``; with
     ``out`` the new state is written into its tensors (which may be
@@ -180,7 +202,7 @@ def mamba2_fwd(params, x: torch.Tensor, cfg: ModelConfig,
                               state["conv_x"] if state else None)
     bcc, conv_bc = _causal_conv(bcin, params["conv_bc"],
                                 state["conv_bc"] if state else None)
-    xh = xc.reshape(b, s, h, p)
+    xh = sh.split_last(xc, h, p)
     h0 = state["h"] if state else None
     if train_form:
         y, h_final = ssd_chunked(xh, dt, params["a_log"], bcc[..., :n],
@@ -188,7 +210,7 @@ def mamba2_fwd(params, x: torch.Tensor, cfg: ModelConfig,
     else:
         y, h_final = ssd(xh, dt, params["a_log"], bcc[..., :n],
                          bcc[..., n:], h0, kernel=kernel,
-                         out=None if out is None else out["h"])
+                         out=None if out is None else out["h"], mesh=mesh)
     skip = params["d_skip"][None, None, :, None].to(y.dtype)
     y = y + xh.float().to(y.dtype) * skip
     y = y.reshape(b, s, cfg.d_inner)
@@ -199,7 +221,8 @@ def mamba2_fwd(params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def mamba2_decode(params, x: torch.Tensor, cfg: ModelConfig, state: dict, *,
-                  kernel: bool = False, out: Optional[dict] = None):
+                  kernel: bool = False, out: Optional[dict] = None,
+                  mesh=None):
     """Single-token recurrent step.  x: (B, 1, d_model); state and
     ``out`` as in :func:`mamba2_fwd`."""
     b = x.shape[0]
@@ -207,11 +230,11 @@ def mamba2_decode(params, x: torch.Tensor, cfg: ModelConfig, state: dict, *,
     z, xin, bcin, dt = _in_proj(params, x, cfg)
     xc, conv_x = _causal_conv(xin, params["conv_x"], state["conv_x"])
     bcc, conv_bc = _causal_conv(bcin, params["conv_bc"], state["conv_bc"])
-    y, h_new = ssd(xc.reshape(b, 1, h, p), dt, params["a_log"], bcc[..., :n],
+    y, h_new = ssd(sh.split_last(xc, h, p), dt, params["a_log"], bcc[..., :n],
                    bcc[..., n:], state["h"], kernel=kernel,
                    out=None if out is None else out["h"],
-                   y_dtype=torch.float32)
-    xh = xc.reshape(b, h, p).float()
+                   y_dtype=torch.float32, mesh=mesh)
+    xh = sh.split_last(xc[:, 0], h, p).float()
     y = y[:, 0] + xh * params["d_skip"][None, :, None]
     y = y.reshape(b, 1, cfg.d_inner).to(x.dtype)
     y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)

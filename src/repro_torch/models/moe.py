@@ -1,10 +1,15 @@
-"""Mixture-of-Experts layer, single shard: routing, sort-based capacity
-dispatch, the batched expert SwiGLU and the weighted combine.
+"""Mixture-of-Experts layer: routing, sort-based capacity dispatch, the
+batched expert SwiGLU and the weighted combine, on one shard
+(``moe_fwd``) or expert-parallel over a mesh (``moe_fwd_ep``, with the
+partial-sum serving path ``_moe_fwd_partial_ep``).
 
 Counterpart of ``repro.models.moe`` (``init_moe``, ``route_topk``,
 ``load_balance_aux``, ``capacity_for``, ``_expert_ffn``,
-``_dispatch_compute_combine`` and ``moe_fwd``), with the reference's
-float expressions term for term.  The reference computes every piece
+``_dispatch_compute_combine``, ``moe_fwd``, ``moe_fwd_ep`` and
+``_moe_fwd_partial_ep``), with the reference's float expressions term
+for term.  The expert-parallel bodies run per rank under ``local_map``
+with functional collectives in the reference's order
+(``models.sharding``).  The reference computes every piece
 outside any Pallas kernel, and so does this counterpart: the expert
 products are batched matrix products (``torch.bmm``).
 
@@ -135,19 +140,15 @@ def _expert_ffn(wg, wu, wd, xb: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a, wd)
 
 
-def _dispatch_compute_combine(x: torch.Tensor, ids: torch.Tensor,
-                              w: torch.Tensor, wg, wu, wd, capacity: int,
-                              e_lo, e_local: int) -> torch.Tensor:
-    """Sort-based capacity dispatch -> expert FFN -> weighted combine.
-
-    x: (T, d); ids/w: (T, k) with GLOBAL expert ids; computes only experts in
-    [e_lo, e_lo + e_local) (pass 0, E for the non-EP path; ``e_lo`` may
-    be a 0-dim tensor).  Returns the partial output (T, d) (zero
-    contribution for non-local / dropped pairs).
-    """
-    t, d = x.shape
-    k = ids.shape[1]
-    dev = x.device
+def _dispatch(ids: torch.Tensor, w: torch.Tensor, capacity: int, e_lo,
+              e_local: int):
+    """The sort-based capacity dispatch of ``_dispatch_compute_combine``:
+    ``(order, slot, s_tok, weight, trash)`` -- the dispatch permutation of
+    the flat (token, slot) pairs, each sorted pair's buffer row (the
+    trash row ``trash`` for dropped and non-local pairs), its token and
+    its f32 combine weight (0 where dropped)."""
+    t, k = ids.shape
+    dev = ids.device
     flat_ids = ids.reshape(-1)
     flat_w = w.reshape(-1).float()
     local = (flat_ids >= e_lo) & (flat_ids < e_lo + e_local)
@@ -167,20 +168,46 @@ def _dispatch_compute_combine(x: torch.Tensor, ids: torch.Tensor,
     keep = s_local & (pos < capacity)
     trash = e_local * capacity
     slot = torch.where(keep, sid * capacity + pos, trash)
+    return order, slot, s_tok, s_w * keep.float(), trash
 
-    buf = torch.zeros((e_local * capacity + 1, d), dtype=x.dtype, device=dev)
+
+def _gather_in(x: torch.Tensor, slot, s_tok, rows: int) -> torch.Tensor:
+    """The dispatch buffer (rows, d) without its trash row: each kept
+    pair's token row at its slot."""
+    buf = torch.zeros((rows + 1, x.shape[1]), dtype=x.dtype, device=x.device)
     buf[slot] = x[s_tok]
-    xb = buf[:-1].reshape(e_local, capacity, d)
+    return buf[:-1]
 
-    yb = _expert_ffn(wg, wu, wd, xb).reshape(e_local * capacity, d)
+
+def _combine(yb: torch.Tensor, order, slot, weight, trash: int, t: int
+             ) -> torch.Tensor:
+    """The deterministic combine (f32, (t, d)): each sorted pair's
+    weighted expert row back to its token-major place through the inverse
+    permutation, then each token's k contributions summed."""
+    tk = order.shape[0]
     contrib = yb[torch.clamp(slot, max=trash - 1)].float()
-    contrib = contrib * (s_w * keep.float())[:, None]
-    # the deterministic combine: back to token-major order through the
-    # inverse permutation, then each token's k contributions summed
+    contrib = contrib * weight[:, None]
     inv = torch.empty_like(order)
-    inv[order] = torch.arange(t * k, device=dev)
-    y = contrib[inv].reshape(t, k, d).sum(dim=1)
-    return y.to(x.dtype)
+    inv[order] = torch.arange(tk, device=order.device)
+    return contrib[inv].reshape(t, tk // t, -1).sum(dim=1)
+
+
+def _dispatch_compute_combine(x: torch.Tensor, ids: torch.Tensor,
+                              w: torch.Tensor, wg, wu, wd, capacity: int,
+                              e_lo, e_local: int) -> torch.Tensor:
+    """Sort-based capacity dispatch -> expert FFN -> weighted combine.
+
+    x: (T, d); ids/w: (T, k) with GLOBAL expert ids; computes only experts in
+    [e_lo, e_lo + e_local) (pass 0, E for the non-EP path; ``e_lo`` may
+    be a 0-dim tensor).  Returns the partial output (T, d) (zero
+    contribution for non-local / dropped pairs).
+    """
+    t, d = x.shape
+    order, slot, s_tok, weight, trash = _dispatch(ids, w, capacity, e_lo,
+                                                  e_local)
+    xb = _gather_in(x, slot, s_tok, trash).reshape(e_local, capacity, d)
+    yb = _expert_ffn(wg, wu, wd, xb).reshape(e_local * capacity, d)
+    return _combine(yb, order, slot, weight, trash, t).to(x.dtype)
 
 
 def moe_fwd(params, x: torch.Tensor, cfg: ModelConfig):
@@ -204,3 +231,158 @@ def moe_fwd(params, x: torch.Tensor, cfg: ModelConfig):
     if "shared" in params:
         y = y + mlp_fwd(params["shared"], xt, "swiglu")
     return y.reshape(b, s, d), aux
+
+
+PARTIAL_EP_MAX_TOKENS = 4096
+
+
+def _global_aux(probs: torch.Tensor, ids: torch.Tensor, num_experts: int,
+                mesh, data_axes) -> torch.Tensor:
+    """``load_balance_aux`` over the tokens of every data rank: the
+    expert counts and the probability sums are summed over the data
+    axes first, so the loss is the single-device one (the reference's
+    ``moe_fwd_ep`` averages each rank's own estimate instead)."""
+    from repro_torch.models import sharding as sh
+
+    t, k = ids.shape
+    flat = ids.reshape(-1)
+    f = torch.zeros(num_experts, dtype=torch.float32, device=probs.device)
+    f = sh.psum(f.index_add(0, flat, torch.ones(
+        flat.shape, dtype=torch.float32, device=probs.device)), mesh,
+        data_axes)
+    n_tok = t * sh.axis_size(mesh, data_axes)
+    f = f / max(n_tok * k, 1)
+    p = sh.psum(probs.sum(dim=0), mesh, data_axes) / n_tok
+    return num_experts * torch.sum(f * p)
+
+
+def _ep_specs(data_axes, model_axis):
+    """Specs of (tokens, router, router_bias, wg, wu, wd) for the EP
+    bodies: tokens over the data axes, experts over ``model_axis``,
+    the expert weights' d_model dim over the data axes."""
+    return ((data_axes, None), (), (), (model_axis, data_axes, None),
+            (model_axis, data_axes, None), (model_axis, None, data_axes))
+
+
+def moe_fwd_ep(params, x: torch.Tensor, cfg: ModelConfig, mesh,
+               data_axes: tuple, model_axis: str):
+    """Expert-parallel MoE under ``local_map``.  x: (B, S, d), its batch
+    over ``data_axes``.  Returns (y, aux_loss).
+
+    Each rank all-gathers its experts' d_model slices over the data
+    axes (ZeRO-3), routes its own tokens, computes the experts
+    ``[e_lo, e_lo + e_local)`` of its ``model`` coordinate and the model
+    ranks' partial outputs are summed.  The capacity is per data rank,
+    as the reference's; the aux loss is over all tokens
+    (``_global_aux``)."""
+    from repro_torch.models import sharding as sh
+
+    b, s, d = x.shape
+    n_data = sh.axis_size(mesh, data_axes)
+    n_model = sh.axis_size(mesh, model_axis)
+    e_local = cfg.num_experts // n_model
+    if (cfg.moe_partial_ep and b * s <= PARTIAL_EP_MAX_TOKENS
+            and d % n_data == 0):
+        return _moe_fwd_partial_ep(params, x, cfg, mesh, data_axes,
+                                   model_axis)
+    t_local = (b * s) // n_data
+    cap = capacity_for(t_local, cfg.num_experts_per_tok, cfg.num_experts,
+                       cfg.moe_capacity_factor)
+
+    def shard_fn(xt, router, router_bias, wg, wu, wd):
+        # xt: (T_local, d); wg/wu/wd: (E_local, d/n_data, f) -> FSDP gather
+        wg = sh.all_gather(wg, mesh, data_axes, 1)
+        wu = sh.all_gather(wu, mesh, data_axes, 1)
+        wd = sh.all_gather(wd, mesh, data_axes, 2)
+        # gradients: each model rank adds its own experts' part to x's and
+        # the router's, each data rank its own tokens' part to the
+        # router's; the aux loss, the same on every model rank, is
+        # counted once over them
+        xt = sh.copy_to(xt, mesh, model_axis)
+        router = sh.copy_to(router, mesh, data_axes + (model_axis,))
+        logits = xt.float() @ router
+        w, ids, probs = route_topk(logits, router_bias,
+                                   cfg.num_experts_per_tok,
+                                   cfg.moe_router_kind)
+        aux = sh.scale_grad(_global_aux(probs, ids, cfg.num_experts, mesh,
+                                        data_axes), 1.0 / n_model)
+        e_lo = sh.axis_index(mesh, model_axis) * e_local
+        y = _dispatch_compute_combine(xt, ids, w, wg, wu, wd, cap, e_lo,
+                                      e_local)
+        return sh.psum(y, mesh, model_axis), aux
+
+    with sh.mesh_scope(mesh):
+        xt = x.reshape(b * s, d)
+        y, aux = sh.local_call(
+            shard_fn, mesh, _ep_specs(data_axes, model_axis),
+            [(data_axes, None), ()], xt, params["router"],
+            params["router_bias"], params["wg"], params["wu"], params["wd"],
+            partial_grads=False)
+        if "shared" in params:
+            y = y + mlp_fwd(params["shared"], xt, "swiglu")
+        return y.reshape(b, s, d), aux
+
+
+def _moe_fwd_partial_ep(params, x: torch.Tensor, cfg: ModelConfig, mesh,
+                        data_axes: tuple, model_axis: str):
+    """Serving-path MoE: d-sliced partial-sum expert compute.
+
+    Every rank keeps its resident (E/n_model, d/n_data, f) weight slice
+    and computes partial products over its d-slice; the token
+    activations move instead:
+
+        all-gather tokens over data
+        partial h/u = x_slice @ w_slice ; psum over data
+        y_slice = a @ wd_slice        ; psum over model + gather d over data
+
+    The combine is the deterministic one of ``_combine`` (the reference
+    adds with a scatter).  A serving path: forward only, as the
+    reference uses it (``moe_fwd_ep`` takes it for at most
+    ``PARTIAL_EP_MAX_TOKENS`` tokens under ``cfg.moe_partial_ep``)."""
+    from repro_torch.models import sharding as sh
+
+    b, s, d = x.shape
+    t = b * s
+    n_data = sh.axis_size(mesh, data_axes)
+    n_model = sh.axis_size(mesh, model_axis)
+    e_local = cfg.num_experts // n_model
+    d_shard = d // n_data
+    t_local = t // n_data
+    cap = capacity_for(t, cfg.num_experts_per_tok, cfg.num_experts,
+                       cfg.moe_capacity_factor)
+
+    def shard_fn(xt_local, router, router_bias, wg, wu, wd):
+        # xt_local: (T_local, d); w*: (E_local, d_shard, f) resident slices
+        xt = sh.all_gather(xt_local, mesh, data_axes, 0)
+        logits = xt.float() @ router
+        w, ids, probs = route_topk(logits, router_bias,
+                                   cfg.num_experts_per_tok,
+                                   cfg.moe_router_kind)
+        aux = load_balance_aux(probs, ids, cfg.num_experts)
+        e_lo = sh.axis_index(mesh, model_axis) * e_local
+        didx = sh.axis_index(mesh, data_axes)
+        order, slot, s_tok, weight, trash = _dispatch(ids, w, cap, e_lo,
+                                                      e_local)
+        x_sliced = xt[:, didx * d_shard:(didx + 1) * d_shard]
+        xb = _gather_in(x_sliced, slot, s_tok, trash).reshape(
+            e_local, cap, d_shard)
+        h = sh.psum(torch.bmm(xb.float(), wg.float()), mesh, data_axes)
+        u = sh.psum(torch.bmm(xb.float(), wu.float()), mesh, data_axes)
+        a = (F.silu(h) * u).to(xt.dtype)
+        # wd stored (E_local, f, d) sharded over data on the LAST dim
+        yb = torch.bmm(a.float(), wd.float()).reshape(e_local * cap, d_shard)
+        y_slice = sh.psum(_combine(yb, order, slot, weight, trash, t), mesh,
+                          model_axis)
+        y_full = sh.all_gather(y_slice, mesh, data_axes, 1)
+        y_mine = y_full[didx * t_local:(didx + 1) * t_local]
+        return y_mine.to(xt.dtype), aux
+
+    with sh.mesh_scope(mesh):
+        xt = x.reshape(t, d)
+        y, aux = sh.local_call(
+            shard_fn, mesh, _ep_specs(data_axes, model_axis),
+            [(data_axes, None), ()], xt, params["router"],
+            params["router_bias"], params["wg"], params["wu"], params["wd"])
+        if "shared" in params:
+            y = y + mlp_fwd(params["shared"], xt, "swiglu")
+        return y.reshape(b, s, d), aux

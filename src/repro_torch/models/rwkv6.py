@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan, rwkv6_scan_plain
+from repro_torch.models import sharding as sh
 from repro_torch.models.common import dense_init, keep_in, linear
 
 LORA_R = 64
@@ -82,13 +83,37 @@ def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]):
     return shifted, x[:, -1, :]
 
 
-def wkv6_scan(r, k, v, w, u, s0=None, *, kernel: bool = False, out=None):
+def wkv6_scan(r, k, v, w, u, s0=None, *, kernel: bool = False, out=None,
+              mesh=None):
     """WKV6 recurrence.  r,k,v: (B,S,H,D); w: (B,S,H,D) f32 decay in
     (0,1); u: (H,D) f32 bonus.  Returns (y (B,S,H,D), s_final (B,H,D,D)).
     ``kernel`` runs the ``rwkv6_scan`` kernel, else its plain version;
-    ``out`` receives s_final (it may be ``s0``)."""
+    ``out`` receives s_final (it may be ``s0``).  Under ``mesh`` the scan
+    runs per rank through ``local_map`` (it is independent per (batch,
+    head)): the batch over the data axes, the heads over ``model`` where
+    they divide it."""
     scan = rwkv6_scan if kernel else rwkv6_scan_plain
-    return scan(r, k, v, w, u, s0, s_out=out)
+    if mesh is None:
+        return scan(r, k, v, w, u, s0, s_out=out)
+    y, s_final = _per_rank_scan(scan, mesh, r, k, v, w, u, s0)
+    if out is not None:
+        out.copy_(s_final)
+        s_final = out
+    return y, s_final
+
+
+def _per_rank_scan(scan, mesh, r, k, v, w, u, s0):
+    """``scan(r, k, v, w, u, s0) -> (y, s_final)`` on each rank's slice
+    through ``local_map``: the batch over the data axes, the heads over
+    ``model`` where they divide it."""
+    dp = sh.dp_axes(mesh)
+    heads = "model" if r.shape[2] % sh.axis_size(mesh, "model") == 0 \
+        else None
+    seq, st = (dp, None, heads, None), (dp, heads, None, None)
+    return sh.local_call(
+        lambda r, k, v, w, u, s0: scan(r, k, v, w, u, s0), mesh,
+        (seq, seq, seq, seq, (heads, None), None if s0 is None else st),
+        [seq, st], r, k, v, w, u, s0)
 
 
 def wkv6_recurrence(r, k, v, w, u, s0=None):
@@ -167,7 +192,8 @@ def wkv6_chunked(r, k, v, w, u, s0=None, chunk: int = 32):
 
 def rwkv6_tmix_fwd(params, x: torch.Tensor, cfg: ModelConfig,
                    state: Optional[dict] = None, *, kernel: bool = False,
-                   train_form: bool = False, out: Optional[dict] = None):
+                   train_form: bool = False, out: Optional[dict] = None,
+                   mesh=None):
     """Time mix.  x: (B,S,d).  state: {"shift": (B,d), "wkv": (B,H,D,D)}
     or None (zeros).  Returns ``(y, new_state)``; with ``out`` the new
     state is written into its tensors (which may be ``state``'s).
@@ -189,26 +215,32 @@ def rwkv6_tmix_fwd(params, x: torch.Tensor, cfg: ModelConfig,
         params["lora_b"].float()).to(x.dtype)
     xr, xk, xv, xw, xg = [x + sx * mix[:, :, i] for i in range(5)]
 
-    r = linear(xr, params["w_r"]).reshape(b, s, h, hd)
-    k = linear(xk, params["w_k"]).reshape(b, s, h, hd)
-    v = linear(xv, params["w_v"]).reshape(b, s, h, hd)
+    r = sh.split_last(linear(xr, params["w_r"]), h, hd)
+    k = sh.split_last(linear(xk, params["w_k"]), h, hd)
+    v = sh.split_last(linear(xv, params["w_v"]), h, hd)
     g = F.silu(linear(xg, params["w_g"]))
     dlora = linear(torch.tanh(linear(xw, params["decay_a"])),
                    params["decay_b"])
     w = torch.exp(-torch.exp(params["decay_base"] + dlora.float()))
-    w = w.reshape(b, s, h, hd)                       # f32, in (0, 1)
+    w = sh.split_last(w, h, hd)                      # f32, in (0, 1)
 
     wkv0 = state["wkv"] if state else None
     if train_form and cfg.rwkv_chunked and s > 1:
         y, wkv = wkv6_chunked(r, k, v, w, params["bonus_u"], wkv0)
+    elif train_form and mesh is not None:
+        # the recurrence is independent per (batch, head): per rank, as
+        # the scan of ``wkv6_scan``
+        y, wkv = _per_rank_scan(wkv6_recurrence, mesh, r, k, v, w,
+                                params["bonus_u"], wkv0)
     elif train_form:
         y, wkv = wkv6_recurrence(r, k, v, w, params["bonus_u"], wkv0)
     else:
         y, wkv = wkv6_scan(r, k, v, w, params["bonus_u"], wkv0,
                            kernel=kernel,
-                           out=None if out is None else out["wkv"])
+                           out=None if out is None else out["wkv"],
+                           mesh=mesh)
     # per-head group norm (population variance, as jnp.var)
-    yh = y.float().reshape(b, s, h, hd)
+    yh = sh.split_last(y.float().reshape(b, s, d), h, hd)
     mu = yh.mean(-1, keepdim=True)
     var = yh.var(-1, keepdim=True, correction=0)
     yh = (yh - mu) * torch.rsqrt(var + 64e-5)

@@ -30,7 +30,7 @@ M-RoPE stack is ``blocked_attention`` over those ids, as there.  An MLA
 mixer runs the reference's forms on every route (``blocked_attention``
 over the materialised K/V in prefill, the absorbed latent attention at
 decode: ``attention.mla_*``), an ``moe`` feed-forward the single-shard
-``moe.moe_fwd``.  The RWKV-6 time mix runs its WKV6 recurrence
+``moe.moe_fwd`` (under a mesh the expert-parallel ``moe.moe_fwd_ep``).  The RWKV-6 time mix runs its WKV6 recurrence
 on the ``rwkv6_scan`` kernel and the Mamba2 mixer its SSD recurrence on
 the ``ssd_scan`` kernel, under ``cfg.use_pallas_prefill`` in prefill and
 ``cfg.use_pallas_decode`` in decode.  Whisper's cross-attention reads
@@ -46,6 +46,10 @@ application's ``{"k", "v"}`` ring
 buffer: prefill fills it and decode updates it, in place.  A decode
 step's ``index`` is the cache's 0-dim int32 index tensor, passed on to
 the attention as it is.
+Every block function takes ``mesh``: the attention cores (the kernels
+too), the scans and the cache writes then run per rank on DTensor
+inputs (``attention.attention_core`` / ``decode_core``,
+``sharding.write_rows``), the rest on DTensors.
 """
 from __future__ import annotations
 
@@ -55,15 +59,15 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.swa_prefill.ops import (swa_prefill_attention,
                                                  swa_prefill_plain)
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import rwkv6 as rk
+from repro_torch.models import sharding as sh
 from repro_torch.models.common import linear, rms_norm
 from repro_torch.models.mlp import init_mlp, mlp_fwd
-from repro_torch.models.moe import init_moe, moe_fwd
+from repro_torch.models.moe import init_moe, moe_fwd, moe_fwd_ep
 
 
 def layer_groups(cfg: ModelConfig) -> list[tuple[str, int]]:
@@ -115,38 +119,54 @@ def _write_kv_cache(k, v, cache: dict, window: int) -> None:
     place.  Full attention: cache[:, :S] (the cache holds at least S
     positions).  Sliding window: a ring buffer of w = min(window, cache
     size) slots, slot p % w holding position p, for the last min(S, w)
-    positions."""
+    positions.  A DTensor cache is written per rank
+    (``sharding.write_rows``)."""
     s = k.shape[1]
     if window > 0:
         w = min(window, cache["k"].shape[1])
         take = min(s, w)
         slots = torch.arange(s - take, s, device=k.device) % w
-        cache["k"].index_copy_(1, slots, k[:, s - take:].to(cache["k"].dtype))
-        cache["v"].index_copy_(1, slots, v[:, s - take:].to(cache["v"].dtype))
+        sh.write_rows(cache["k"], 1, slots, k[:, s - take:])
+        sh.write_rows(cache["v"], 1, slots, v[:, s - take:])
         return
-    cache["k"][:, :s] = k.to(cache["k"].dtype)
-    cache["v"][:, :s] = v.to(cache["v"].dtype)
+    if not sh.is_dtensor(cache["k"]):
+        cache["k"][:, :s] = k.to(cache["k"].dtype)
+        cache["v"][:, :s] = v.to(cache["v"].dtype)
+        return
+    slots = torch.arange(s, device=k.device)
+    sh.write_rows(cache["k"], 1, slots, k)
+    sh.write_rows(cache["v"], 1, slots, v)
 
 
 def _attn_prefill(p, h, positions, cfg: ModelConfig, window: int,
-                  cache: dict):
-    """Attention forward over the prompt that also fills ``cache``."""
+                  cache: dict, mesh=None):
+    """Attention forward over the prompt that also fills ``cache``; under
+    ``mesh`` the attention core runs per rank (``attention_core``), on
+    the kernel too."""
     b, s, _ = h.shape
     hh, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = linear(h, p["wq"]).reshape(b, s, hh, d)
-    k = linear(h, p["wk"]).reshape(b, s, kvh, d)
-    v = linear(h, p["wv"]).reshape(b, s, kvh, d)
+    q = sh.split_last(linear(h, p["wq"]), hh, d)
+    k = sh.split_last(linear(h, p["wk"]), kvh, d)
+    v = sh.split_last(linear(h, p["wv"]), kvh, d)
     q, k = attn._rope_qk(q, k, positions, cfg)
     w = window if window > 0 else s
+    bp_axes = (attn._bp_spec(mesh, b)
+               if (mesh is not None and cfg.attn_batch_parallel) else None)
     if cfg.use_pallas_prefill and cfg.logit_softcap == 0:
-        out = swa_prefill_attention(q, k, v, window=w)
+        out = attn.attention_core(
+            lambda q, k, v: swa_prefill_attention(q, k, v, window=w), mesh,
+            q, k, v, bp_axes=bp_axes)
     elif cfg.rope_kind == "mrope":
         qp = attn.mask_positions(positions, cfg)
-        out = attn.blocked_attention(q, k, v, qp, qp, causal=True,
-                                     window=window, scale=d ** -0.5,
-                                     cap=cfg.logit_softcap)
+        out = attn.attention_core(
+            lambda q, k, v, qp: attn.blocked_attention(
+                q, k, v, qp, qp, causal=True, window=window,
+                scale=d ** -0.5, cap=cfg.logit_softcap),
+            mesh, q, k, v, qp, bp_axes=bp_axes, rest_specs=("pos",))
     else:
-        out = swa_prefill_plain(q, k, v, window=w)
+        out = attn.attention_core(
+            lambda q, k, v: swa_prefill_plain(q, k, v, window=w), mesh,
+            q, k, v, bp_axes=bp_axes)
     y = linear(out.reshape(b, s, hh * d), p["wo"])
     _write_kv_cache(k, v, cache, window)
     return y
@@ -158,45 +178,49 @@ def _window(cfg: ModelConfig, mixer: str) -> int:
     return cfg.window_size if mixer == "swa" else 0
 
 
-def _ffn(p, h, cfg: ModelConfig, cache, state):
+def _ffn(p, h, cfg: ModelConfig, cache, state, mesh=None):
     """The feed-forward half on the normed ``h``, ``(y, aux)`` (aux the
     MoE auxiliary loss, else 0.0); RWKV-6's channel mix keeps its token
-    shift in ``cache["cmix"]`` (None: no cache)."""
+    shift in ``cache["cmix"]`` (None: no cache).  Under ``mesh`` an MoE
+    runs expert-parallel (``moe_fwd_ep``)."""
     if "mlp" in p:
         return mlp_fwd(p["mlp"], h, cfg.mlp_kind), 0.0
     if "moe" in p:
+        if mesh is not None:
+            return moe_fwd_ep(p["moe"], h, cfg, mesh, sh.dp_axes(mesh),
+                              "model")
         return moe_fwd(p["moe"], h, cfg)
     y, _ = rk.rwkv6_cmix_fwd(p["cmix"], h, cfg, state,
                              out=None if cache is None else cache["cmix"])
     return y, 0.0
 
 
-def _cross_fwd(p, x, positions, enc_out, cfg: ModelConfig, kv=None):
+def _cross_fwd(p, x, positions, enc_out, cfg: ModelConfig, kv=None,
+               mesh=None):
     """Cross-attention over the encoder output (``kv``: its keys and
     values, when the caller has projected them already)."""
     h = rms_norm(x, p["norm_cross"], cfg.norm_eps)
     return attn.attention_fwd(p["cross"], h, positions, cfg, causal=False,
-                              kv_x=enc_out, kv=kv)
+                              kv_x=enc_out, kv=kv, mesh=mesh)
 
 
-def _cross_decode(p, x, cache: dict, cfg: ModelConfig):
+def _cross_decode(p, x, cache: dict, cfg: ModelConfig, mesh=None):
     """Cross-attention at decode over the encoder K/V of ``cache``
-    (B, S_enc, KV, D), every row valid."""
+    (B, S_enc, KV, D), every row valid (``attention.decode_core``)."""
     b = x.shape[0]
     hh, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     h = rms_norm(x, p["norm_cross"], cfg.norm_eps)
-    q = linear(h, p["cross"]["wq"]).reshape(b, 1, hh, d)
-    g = hh // kvh
+    q = sh.split_last(linear(h, p["cross"]["wq"]), hh, d)
     ck, cv = cache["k"], cache["v"]
-    if cfg.use_pallas_decode:
-        lengths = torch.full((b,), ck.shape[1], dtype=torch.int32,
-                             device=x.device)
-        out = decode_attention(q.reshape(b, kvh, g, d), ck, cv, lengths)
-    else:
-        qf = (q.reshape(b, kvh, g, d) * (d ** -0.5)).float()
-        scores = torch.einsum("bkgd,bskd->bkgs", qf, ck.float())
-        pr = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bkgs,bskd->bkgd", pr, cv.float())
+    s_enc = ck.shape[1]
+    # a fill on the device, not a copy from the host: a captured step
+    # may hold it
+    last = torch.full((), s_enc - 1, dtype=torch.long, device=x.device)
+    q = sh.fit_dim(q, 2, kvh)
+    out = attn.decode_core(
+        q.reshape(b, kvh, hh // kvh, d), ck, cv, last, last, cfg, window=0,
+        mesh=mesh, lengths=torch.full((b,), s_enc, dtype=torch.int32,
+                                      device=x.device))
     out = out.reshape(b, 1, hh * d).to(x.dtype)
     return linear(out, p["cross"]["wo"])
 
@@ -204,99 +228,109 @@ def _cross_decode(p, x, cache: dict, cfg: ModelConfig):
 # -- forward (no cache) ------------------------------------------------------
 
 def block_fwd(p, x, positions, kind: str, cfg: ModelConfig, *,
-              causal: bool = True, enc_out=None):
+              causal: bool = True, enc_out=None, mesh=None):
     """One block over the whole sequence, no cache; cross-attention over
     ``enc_out`` when the stack is an encoder-decoder's and it is given.
     Returns ``(x, aux)``, aux the block's MoE auxiliary loss (0.0
-    without one)."""
+    without one).  ``mesh``: the attention cores run per rank and an
+    MoE expert-parallel."""
     mixer = kind.split("+")[0]
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if mixer in ("attn", "swa"):
         y = attn.attention_fwd(p["attn"], h, positions, cfg,
-                               window=_window(cfg, mixer), causal=causal)
+                               window=_window(cfg, mixer), causal=causal,
+                               mesh=mesh)
     elif mixer == "mla":
-        y = attn.mla_fwd(p["mla"], h, positions, cfg)
+        y = attn.mla_fwd(p["mla"], h, positions, cfg, mesh=mesh)
     elif mixer == "mamba2":
         y, _ = m2.mamba2_fwd(p["mamba"], h, cfg, None, train_form=True)
     else:
-        y, _ = rk.rwkv6_tmix_fwd(p["tmix"], h, cfg, None, train_form=True)
+        y, _ = rk.rwkv6_tmix_fwd(p["tmix"], h, cfg, None, train_form=True,
+                                 mesh=mesh)
     x = x + y
     if cfg.is_encoder_decoder and enc_out is not None:
-        x = x + _cross_fwd(p, x, positions, enc_out, cfg)
+        x = x + _cross_fwd(p, x, positions, enc_out, cfg, mesh=mesh)
     if "norm2" not in p:                     # ffn "none"
         return x, 0.0
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    y, aux = _ffn(p, h, cfg, None, None)
+    y, aux = _ffn(p, h, cfg, None, None, mesh)
     return x + y, aux
 
 
 # -- prefill and decode --------------------------------------------------------
 
-def _mla_prefill(p, h, positions, cfg: ModelConfig, cache: dict):
+def _mla_prefill(p, h, positions, cfg: ModelConfig, cache: dict,
+                 mesh=None):
     """MLA forward over the prompt that also writes its latent and rope
     keys into ``cache`` (rows 0..S-1)."""
     q_nope, q_rope, c_kv, k_rope = attn._mla_qkv(p, h, positions, cfg)
-    y = attn.mla_attend(p, q_nope, q_rope, c_kv, k_rope, positions, cfg)
-    s = h.shape[1]
-    cache["c_kv"][:, :s] = c_kv.to(cache["c_kv"].dtype)
-    cache["k_rope"][:, :s] = k_rope[:, :, 0].to(cache["k_rope"].dtype)
+    y = attn.mla_attend(p, q_nope, q_rope, c_kv, k_rope, positions, cfg,
+                        mesh=mesh)
+    slots = torch.arange(h.shape[1], device=h.device)
+    sh.write_rows(cache["c_kv"], 1, slots, c_kv)
+    sh.write_rows(cache["k_rope"], 1, slots, k_rope[:, :, 0])
     return y
 
 
 def block_prefill(p, x, positions, kind: str, cfg: ModelConfig, cache: dict,
-                  enc_out=None):
+                  enc_out=None, mesh=None):
     """One block over the prompt, filling the layer's ``cache``; with
-    ``enc_out`` the encoder's K/V go into ``cache["cross"]``."""
+    ``enc_out`` the encoder's K/V go into ``cache["cross"]``.  ``mesh``
+    as in ``block_fwd``; the scans run per rank too."""
     mixer = kind.split("+")[0]
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if mixer in ("attn", "swa"):
         y = _attn_prefill(p["attn"], h, positions, cfg, _window(cfg, mixer),
-                          cache)
+                          cache, mesh)
     elif mixer == "mla":
-        y = _mla_prefill(p["mla"], h, positions, cfg, cache)
+        y = _mla_prefill(p["mla"], h, positions, cfg, cache, mesh)
     elif mixer == "mamba2":
         y, _ = m2.mamba2_fwd(p["mamba"], h, cfg, None,
-                             kernel=cfg.use_pallas_prefill, out=cache["ssm"])
+                             kernel=cfg.use_pallas_prefill, out=cache["ssm"],
+                             mesh=mesh)
     else:
         y, _ = rk.rwkv6_tmix_fwd(p["tmix"], h, cfg, None,
                                  kernel=cfg.use_pallas_prefill,
-                                 out=cache["tmix"])
+                                 out=cache["tmix"], mesh=mesh)
     x = x + y
     if cfg.is_encoder_decoder and enc_out is not None:
         ck, cv = attn.project_kv(p["cross"], enc_out, cfg)
-        cache["cross"]["k"].copy_(ck)
-        cache["cross"]["v"].copy_(cv)
-        x = x + _cross_fwd(p, x, positions, enc_out, cfg, kv=(ck, cv))
+        rows = torch.arange(ck.shape[1], device=x.device)
+        sh.write_rows(cache["cross"]["k"], 1, rows, ck)
+        sh.write_rows(cache["cross"]["v"], 1, rows, cv)
+        x = x + _cross_fwd(p, x, positions, enc_out, cfg, kv=(ck, cv),
+                           mesh=mesh)
     if "norm2" not in p:                     # ffn "none"
         return x
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + _ffn(p, h, cfg, cache, None)[0]
+    return x + _ffn(p, h, cfg, cache, None, mesh)[0]
 
 
 def block_decode(p, x, cache: dict, index: torch.Tensor, positions,
-                 kind: str, cfg: ModelConfig):
+                 kind: str, cfg: ModelConfig, mesh=None):
     mixer = kind.split("+")[0]
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if mixer in ("attn", "swa"):
         y, _ = attn.attention_decode(p["attn"], h, cache, index, positions,
-                                     cfg, window=_window(cfg, mixer))
+                                     cfg, window=_window(cfg, mixer),
+                                     mesh=mesh)
     elif mixer == "mla":
         y, _ = attn.mla_decode(p["mla"], h, cache, index, positions, cfg)
     elif mixer == "mamba2":
         y, _ = m2.mamba2_decode(p["mamba"], h, cfg, cache["ssm"],
                                 kernel=cfg.use_pallas_decode,
-                                out=cache["ssm"])
+                                out=cache["ssm"], mesh=mesh)
     else:
         y, _ = rk.rwkv6_tmix_fwd(p["tmix"], h, cfg, cache["tmix"],
                                  kernel=cfg.use_pallas_decode,
-                                 out=cache["tmix"])
+                                 out=cache["tmix"], mesh=mesh)
     x = x + y
     if cfg.is_encoder_decoder and "cross" in cache:
-        x = x + _cross_decode(p, x, cache["cross"], cfg)
+        x = x + _cross_decode(p, x, cache["cross"], cfg, mesh)
     if "norm2" not in p:                     # ffn "none"
         return x
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + _ffn(p, h, cfg, cache, cache.get("cmix"))[0]
+    return x + _ffn(p, h, cfg, cache, cache.get("cmix"), mesh)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -304,27 +338,28 @@ def block_decode(p, x, cache: dict, index: torch.Tensor, positions,
 # per application (``cache`` is that application's {"k", "v"})
 # ---------------------------------------------------------------------------
 
-def shared_attn_fwd(p, x, positions, cfg: ModelConfig):
+def shared_attn_fwd(p, x, positions, cfg: ModelConfig, mesh=None):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     x = x + attn.attention_fwd(p["attn"], h, positions, cfg,
-                               window=cfg.shared_attn_window)
+                               window=cfg.shared_attn_window, mesh=mesh)
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     return x + mlp_fwd(p["mlp"], h, cfg.mlp_kind)
 
 
-def shared_attn_prefill(p, x, positions, cfg: ModelConfig, cache: dict):
+def shared_attn_prefill(p, x, positions, cfg: ModelConfig, cache: dict,
+                        mesh=None):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     x = x + _attn_prefill(p["attn"], h, positions, cfg,
-                          cfg.shared_attn_window, cache)
+                          cfg.shared_attn_window, cache, mesh)
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     return x + mlp_fwd(p["mlp"], h, cfg.mlp_kind)
 
 
 def shared_attn_decode(p, x, cache: dict, index: torch.Tensor, positions,
-                       cfg: ModelConfig):
+                       cfg: ModelConfig, mesh=None):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     y, _ = attn.attention_decode(p["attn"], h, cache, index, positions, cfg,
-                                 window=cfg.shared_attn_window)
+                                 window=cfg.shared_attn_window, mesh=mesh)
     x = x + y
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     return x + mlp_fwd(p["mlp"], h, cfg.mlp_kind)

@@ -1,6 +1,6 @@
 """Training step and host loop.
 
-Counterpart of ``repro.train.loop`` without its mesh.  The step takes
+Counterpart of ``repro.train.loop``.  The step takes
 the gradient of ``train_loss`` with ``torch.autograd.grad`` (a leaf the
 loss does not reach, such as a router bias that only steers the top-k,
 gets a zero gradient, as ``jax.grad`` gives it) and runs
@@ -17,7 +17,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.models.api import Model
+from repro_torch.models import sharding as sh
+from repro_torch.models.api import Model, _mesh_scope, _on_mesh
 from repro_torch.train.losses import train_loss
 from repro_torch.train.optimizer import OptConfig, adamw_init, adamw_update
 from repro_torch.utils.tree import tree_leaves, tree_map_with_path, tree_paths
@@ -32,10 +33,27 @@ class TrainState:
         return {"params": self.params, "opt": self.opt}
 
 
-def init_state(model: Model, gen: torch.Generator, oc: OptConfig
-               ) -> TrainState:
+def state_specs(params, mesh, fsdp: bool = True) -> dict:
+    """Specs of ``{"params", "opt"}``: the parameters by
+    ``sharding.param_specs``, the moments as their parameters, the step
+    replicated (the reference dry run's)."""
+    pspecs = sh.param_specs(params, mesh, fsdp=fsdp)
+    return {"params": pspecs,
+            "opt": {"mu": pspecs, "nu": pspecs, "step": ()}}
+
+
+def init_state(model: Model, gen: torch.Generator, oc: OptConfig,
+               mesh=None, fsdp: bool = True) -> TrainState:
+    """Parameters drawn from ``gen`` and zero AdamW moments.  Under
+    ``mesh`` (``model.mesh`` when None) every leaf is a DTensor placed
+    by ``state_specs``; every rank draws the same whole tensors and keeps
+    its own shards."""
+    mesh = model.mesh if mesh is None else mesh
     params = model.init(gen)
-    return TrainState(params=params, opt=adamw_init(params, oc))
+    state = {"params": params, "opt": adamw_init(params, oc)}
+    if mesh is not None:
+        state = sh.distribute(state, state_specs(params, mesh, fsdp), mesh)
+    return TrainState(params=state["params"], opt=state["opt"])
 
 
 def to_device(batch: dict, device) -> dict:
@@ -46,6 +64,9 @@ def to_device(batch: dict, device) -> dict:
     device = torch.device(device)
     out = {}
     for k, v in batch.items():
+        if sh.is_dtensor(v):
+            out[k] = v
+            continue
         t = torch.as_tensor(v)
         if device.type == "cuda" and t.device.type == "cpu":
             t = t.pin_memory().to(device, non_blocking=True)
@@ -57,12 +78,18 @@ def make_train_step(model: Model, oc: OptConfig) -> Callable:
     """``step(state, batch) -> (state, metrics)``: ``state`` is
     ``{"params", "opt"}`` (updated in place and returned), ``batch`` a
     ``make_batch`` dict of arrays or tensors (moved to the model's
-    device).  The metrics are 0-dim device tensors: ``loss``, ``ce``,
+    device).  Under ``model.mesh`` the state is ``init_state``'s
+    DTensors, the batch is placed by ``sharding.batch_specs`` and the
+    metrics are replicated DTensors.  The metrics are 0-dim device tensors: ``loss``, ``ce``,
     ``aux``, [``mtp_ce``], ``grad_norm`` and ``lr``."""
     cfg = model.cfg
 
     def step(state: dict, batch: dict):
-        batch = to_device(batch, model.device)
+        with _mesh_scope(model.mesh):
+            return _step(state, _on_mesh(to_device(batch, model.device),
+                                         model.mesh))
+
+    def _step(state: dict, batch: dict):
         params = state["params"]
         live = {path: p.detach().requires_grad_()
                 for path, p in zip(tree_paths(params), tree_leaves(params))}

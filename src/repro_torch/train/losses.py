@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.api import _head
+from repro_torch.models import sharding as sh
 from repro_torch.models.common import rms_norm
 
 IGNORE = -100
@@ -18,7 +19,10 @@ IGNORE = -100
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  vocab_size: int) -> torch.Tensor:
-    """Mean CE over non-ignored labels.  logits: (B,S,Vpad), labels: (B,S)."""
+    """Mean CE over non-ignored labels.  logits: (B,S,Vpad), labels: (B,S).
+    DTensor logits sharded over the vocabulary are gathered along it
+    first (the gold logit is one column)."""
+    logits = sh.unshard_dim(logits, -1)
     mask = (labels != IGNORE) & (labels < vocab_size)
     safe = torch.where(mask, labels, 0).long()
     lg = logits.float()

@@ -8,7 +8,12 @@ weights within 1e-6 (softmax and sigmoid, ties to the lower index);
 ``moe_fwd`` within 1e-5 at the no-drop capacity factor and at the
 served 1.25, where pairs are dropped; the auxiliary loss within 1e-6;
 and the expert share: four shares of E / 4 experts, the shared expert
-in one of them, add up to the whole layer within 1e-5.
+in one of them, add up to the whole layer within 1e-5.  The
+expert-parallel paths (``moe_fwd_ep``'s all-gather path and
+``_moe_fwd_partial_ep``) on 8 gloo ranks equal the single-shard
+``moe_fwd`` within 1e-4 (the reference's bound in ``test_moe.py``), on a
+4 x 2 ``("data", "model")`` mesh and on a 2 x 2 x 2 mesh whose data
+axes are ``("pod", "data")``.
 """
 import dataclasses
 
@@ -23,6 +28,8 @@ from repro.models import moe as jmoe
 from repro_torch.configs import get_config
 from repro_torch.models import moe as tmoe
 from repro_torch.models.mlp import mlp_fwd
+
+from _torch_dist import run_ranks
 
 ATOL = 1e-5
 
@@ -262,3 +269,44 @@ def test_combine_is_deterministic():
     a, _ = tmoe.moe_fwd(p, x, cfg)
     b, _ = tmoe.moe_fwd(p, x, cfg)
     assert torch.equal(a, b)
+
+
+EP_BODY = '''
+import dataclasses
+import torch
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_config
+from repro_torch.models import moe
+
+cfg = get_config("kimi-k2-1t-a32b-reduced")
+cfg = dataclasses.replace(cfg, num_experts=8, num_experts_per_tok=2,
+                          d_model=64, moe_d_ff=32, moe_capacity_factor=8.0)
+gen = torch.Generator().manual_seed(0)
+params = moe.init_moe(gen, cfg, torch.float32)
+x = torch.randn(8, 4, 64, generator=gen) * 0.5
+y_ref, aux_ref = moe.moe_fwd(params, x, cfg)
+out = {}
+for name, shape, names, data in (
+        ("4x2", (4, 2), ("data", "model"), ("data",)),
+        ("2x2x2", (2, 2, 2), ("pod", "data", "model"), ("pod", "data"))):
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+    for partial in (False, True):
+        c = dataclasses.replace(cfg, moe_partial_ep=partial)
+        with torch.no_grad():
+            y, aux = moe.moe_fwd_ep(params, x, c, mesh, data, "model")
+        out[f"{name}-{'partial' if partial else 'gather'}"] = [
+            float((y.full_tensor() - y_ref).abs().max()),
+            float((aux.full_tensor() - aux_ref).abs()),
+            type(y).__name__]
+return out
+'''
+
+
+def test_expert_parallel_paths_match_dense(tmp_path):
+    r = run_ranks(EP_BODY, 8, tmp_path)
+    assert set(r) == {"4x2-gather", "4x2-partial", "2x2x2-gather",
+                      "2x2x2-partial"}
+    for name, (err, aux_err, kind) in r.items():
+        assert kind == "DTensor", name
+        assert err < 1e-4, (name, err)
+        assert aux_err < 1e-6, (name, aux_err)
