@@ -252,7 +252,23 @@ code is non-zero:
    the records of two dry runs on the 16 x 16 fake mesh (smollm-135m
    train_4k, kimi-k2 decode_32k tuned).  The three dry runs are CPU
    processes started after the build, their logs under
-   ``build/dryrun``.
+   ``build/dryrun``.  Leg 5: ``decode_attention``'s log-sum-exp output
+   (``return_lse=True``) at the six decode shapes of the kernels line,
+   f32 and bf16, against the plain version's (out and lse, at ``TOL``),
+   and each cache split into 2 and 4 row ranges whose calls, merged by
+   their lse, give the whole-cache call; the lse variant timed beside
+   the call without it (``<shape>_lse_ms`` on the kernels line).  Leg 6,
+   a main path: phase ``window``'s f32 h2o-danube-1.8b run (prompt 4160
+   past the 4096-token window, 16 steps over the wrapped ring) on the
+   1 x 1 mesh with the cache from ``init_cache(..., seq_shard=True)``,
+   so each decode runs the kernel per rank and merges by the lse: the
+   ids must equal phase ``window``'s, with exactly 24 ``swa_prefill``
+   and 384 ``decode_attention`` launches.  Leg 7: two examples run in
+   this process on the card, ``examples/torch_serve_dynamic_slo.py``
+   for 3 s (both attention kernels launched) and
+   ``examples/torch_train_smollm.py`` for 3 steps (finite losses, its
+   checkpoint under ``build/examples``, no kernel launched).  The phase
+   prints legs 5-7's seconds.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Without a CUDA device, or outside a checkout, it prints no result
@@ -433,6 +449,15 @@ DIST = dict(arch="smollm-135m", batch=4, prompt=256, decode_steps=16,
             train_steps=3, dry=(("smollm-135m", "train_4k", "baseline"),
                                 ("kimi-k2-1t-a32b", "decode_32k", "tuned")),
             dry_timeout=900)
+# phase "dist", legs 5-7: decode_attention's log-sum-exp output at the
+# six decode shapes of the kernels line (each cache also split into
+# ``lse_splits`` row ranges and merged); WINDOW's h2o-danube-1.8b run in
+# f32 over a sequence-sharded cache on the 1 x 1 mesh; two examples on
+# the card, the serve for ``example_serve_s`` seconds and the training
+# for ``example_train_steps`` steps
+DIST_LSE_SHAPES = (("", DECODE), ("d80", DECODE80), ("d256", DECODE256),
+                   ("d128", DECODE128), ("cross", CROSS), ("k2", K2_DECODE))
+DIST.update(lse_splits=(2, 4), example_serve_s=3.0, example_train_steps=3)
 TENANT = dict(scenarios=("mixed-zoo", "mixed-zoo-rush"), tenant_s=60.0,
               seed=7, tenant_requests=40_000, bench_seed=1,
               bench_policy="greedy-marginal")
@@ -1081,7 +1106,7 @@ def route_pair(base, dev, dtype):
     return build_model(cfg, device=dev), build_model(kcfg, device=dev)
 
 
-def window_phase(dev) -> None:
+def window_phase(dev) -> torch.Tensor:
     """Full-width h2o-danube-1.8b past its sliding window: batch 1, a
     prompt of ``WINDOW["prompt"]`` tokens (more than the 4096 of the
     window, so ``swa_prefill`` skips the key tiles outside the band and
@@ -1092,7 +1117,9 @@ def window_phase(dev) -> None:
     ``decode_attention`` per layer and step.  bf16 (the weights rounded):
     both routes, teacher-forced with the f32 plain route's ids, give the
     same greedy id at every step, and the kernel route's logits keep
-    ``bf16_parity``'s rule against the f32 plain route."""
+    ``bf16_parity``'s rule against the f32 plain route.  Returns the f32
+    greedy ids (on the host), which phase ``dist`` leg 6 reproduces over
+    a sequence-sharded cache."""
     from repro_torch.configs import get_config
     from repro_torch.serving.capture import launch_counts
 
@@ -1164,6 +1191,7 @@ def window_phase(dev) -> None:
         raise AssertionError(f"window bf16: max |kernel - f32| {err_k} "
                              f"(limit {limit}), ids {ids_k.tolist()} vs "
                              f"{ids_p.tolist()}")
+    return ids_ref.cpu()
 
 
 def vlm_audio_batch(cfg, b, prompt, dev, seed):
@@ -3315,8 +3343,200 @@ def dist_train_legs(dev, mesh, procs) -> None:
     gc_cuda()
 
 
-def dist_phase(dev, procs) -> dict:
-    """Phase "dist" (legs 1-4, see ``DIST``); returns leg 1's launches."""
+def dist_lse_leg(dev, rows) -> None:
+    """Leg 5: ``decode_attention(..., return_lse=True)`` at the six
+    decode shapes of the kernels line (``DIST_LSE_SHAPES``), f32 and
+    bf16: the output and the log-sum-exp against the plain version's
+    (``TOL``; a length-0 row's lse is about -1e30 on both sides); each
+    cache split into 2 and 4 row ranges, each range called with its
+    local lengths ``clamp(len - start, 0, rows)`` and the calls merged
+    by their lse (``merge_by_lse``), against the whole-cache call on
+    the rows whose length is above 0 (a decode always has row 0).  In
+    bf16 the kernel is timed with and without the lse output, one after
+    the other: ``<shape>_lse_ms`` on the kernels line.  These launches
+    compare and time the kernel: they count on no path."""
+    from repro_torch.kernels.decode_attention import ops as dec
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    r = rows["decode_attention"]
+    worst = {"lse": 0.0, "merge": 0.0}
+    for key, shape in DIST_LSE_SHAPES:
+        b, s, kv, g, d = (shape[k] for k in ("B", "S", "KV", "G", "D"))
+        lengths = torch.tensor(shape["lengths"], dtype=torch.int32,
+                               device=dev)
+        some = lengths > 0
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(b, kv, g, d, generator=gen, device=dev).to(dtype)
+            k, v = (torch.randn(b, s, kv, d, generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            name = f"decode_attention lse {key or 'd64'} {str(dtype)[6:]}"
+            out, lse = dec.decode_attention(q, k, v, lengths,
+                                            return_lse=True)
+            ref, ref_lse = dec.decode_attention_plain(q, k, v, lengths,
+                                                      return_lse=True)
+            err_out = check_close(name + " out", out, ref, dtype)
+            empty = ref_lse <= -1e29
+            if not torch.equal(lse <= -1e29, empty):
+                raise AssertionError(f"{name}: the empty rows' lse differ")
+            err_lse = check_close(name, lse[~empty], ref_lse[~empty], dtype)
+            whole = dec.decode_attention(q, k, v, lengths)
+            errs = {}
+            for n in DIST["lse_splits"]:
+                cuts = [round(i * s / n) for i in range(n + 1)]
+                parts = [dec.decode_attention(
+                    q, k[:, a:c].contiguous(), v[:, a:c].contiguous(),
+                    torch.clamp(lengths - a, 0, c - a).to(torch.int32),
+                    return_lse=True) for a, c in zip(cuts, cuts[1:])]
+                errs[n] = check_close(f"{name} merged over {n}",
+                                      dec.merge_by_lse(parts)[some],
+                                      whole[some].float(), dtype)
+            worst["lse"] = max(worst["lse"], err_lse)
+            worst["merge"] = max(worst["merge"], *errs.values())
+            say("dist", leg=5, kernel="decode_attention", dtype=str(dtype)[6:],
+                B=b, S=s, KV=kv, G=g, D=d, lengths=list(shape["lengths"]),
+                out_max_abs_err=err_out, lse_max_abs_err=err_lse,
+                merged_max_abs_err=json.dumps(errs))
+        pre_ = f"{key}_" if key else ""
+        ms = median_ms(lambda: dec.decode_attention(q, k, v, lengths))
+        r[f"{pre_}lse_ms"] = median_ms(
+            lambda: dec.decode_attention(q, k, v, lengths, return_lse=True))
+        say("dist", leg=5, kernel="decode_attention", timed=f"bf16 {key or 'd64'}",
+            ms_without_lse=ms, **{f"{pre_}lse_ms": r[f"{pre_}lse_ms"]})
+    r["lse_max_abs_err"] = worst["lse"]
+    r["lse_merge_max_abs_err"] = worst["merge"]
+
+
+def dist_window_leg(dev, mesh, window_ids) -> dict:
+    """Leg 6: phase ``window``'s run (full-width h2o-danube-1.8b, f32,
+    both kernel routes, batch 1, a ``WINDOW["prompt"]``-token prompt past
+    the 4096-token window and ``WINDOW["steps"]`` greedy steps) on the
+    1 x 1 mesh, its parameters DTensors and its cache from
+    ``init_cache(..., seq_shard=True)``: the ring's sequence dim sharded
+    over ``model``, so every decode takes the per-rank route with the
+    kernel's lse merge.  The ids must equal phase ``window``'s and the
+    counts, reset before the prefill and read after the last step, must
+    be one ``swa_prefill`` per layer and one ``decode_attention`` per
+    layer and step.  Returns them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.api import init_cache
+    from repro_torch.serving.capture import launch_counts
+
+    arch, s, steps = WINDOW["arch"], WINDOW["prompt"], WINDOW["steps"]
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, dtype="float32", param_dtype="float32",
+                              use_pallas_prefill=True, use_pallas_decode=True)
+    tokens = torch.randint(0, base.vocab_size, (1, s), device=dev,
+                           dtype=torch.int32,
+                           generator=torch.Generator(device=dev).manual_seed(6))
+    model = build_model(cfg, mesh=mesh, device=dev)
+    params = model.init(model.generator(0))
+    params = sh.distribute(params, sh.param_specs(params, mesh, fsdp=False),
+                           mesh)
+    cache = init_cache(cfg, 1, s + steps + 1, dev, mesh, seq_shard=True)
+    seq_sharded = any(p.is_shard(2) for p in cache["k"].placements)
+    ring = cache["k"].shape[2]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    ids = []
+    with torch.no_grad():
+        lg, cache = model.prefill(params, {"tokens": tokens}, cache=cache)
+        for step in range(steps + 1):
+            nxt = sh.gather({"x": lg})["x"][:, :cfg.vocab_size].argmax(-1)
+            ids.append(nxt)
+            if step == steps:
+                break
+            lg, cache = model.decode_step(params, cache,
+                                          nxt.to(torch.int32)[:, None])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    ids = torch.stack(ids).view(-1).cpu()
+    want = {"swa_prefill": cfg.num_layers,
+            "decode_attention": cfg.num_layers * steps}
+    same = torch.equal(ids, window_ids.view(-1))
+    say("dist", leg=6, arch=arch, dtype="float32", batch=1, prompt=s,
+        decode_steps=steps, ring_slots=ring, cache_seq_sharded=seq_sharded,
+        ids_equal_window_phase=same, launches=json.dumps(launches),
+        expected=json.dumps(want), mesh_wall_s=wall)
+    del model, params, cache, lg
+    gc_cuda()
+    if not (same and seq_sharded and ring == base.window_size):
+        raise AssertionError(f"dist leg 6: ids {ids.tolist()} vs "
+                             f"{window_ids.view(-1).tolist()}, seq-sharded "
+                             f"{seq_sharded}, ring {ring}")
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f"dist leg 6: {k} launched {launches[k]} "
+                                 f"times, not {n}")
+    return launches
+
+
+def dist_examples_leg() -> dict:
+    """Leg 7: ``examples/torch_serve_dynamic_slo.py`` (live serving of the
+    reduced smollm-135m on the card for ``example_serve_s`` seconds) and
+    ``examples/torch_train_smollm.py`` (``example_train_steps`` steps,
+    its checkpoint under ``build/examples``), each run in this process
+    through its ``run`` function, its output kept and summed up.  The
+    serve must launch both attention kernels (counts reset before it and
+    read after it, returned), the training none; the training must print
+    a finite loss for each step and write its checkpoint."""
+    import contextlib
+    import io
+    import runpy
+
+    from repro_torch.serving.capture import launch_counts
+
+    out = {}
+    for name, argv in (
+            ("torch_serve_dynamic_slo.py",
+             ["--device", "cuda", "--duration",
+              str(DIST["example_serve_s"])]),
+            ("torch_train_smollm.py",
+             ["--device", "cuda", "--steps", str(DIST["example_train_steps"]),
+              "--ckpt", str(ROOT / "build" / "examples" / "smollm_ckpt")])):
+        run = runpy.run_path(str(ROOT / "examples" / name))["run"]
+        text = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            res = run(argv)
+        torch.cuda.synchronize()
+        out[name] = (res, text.getvalue(), launch_counts(),
+                     time.perf_counter() - t0)
+    res, _, serve_launches, wall = out["torch_serve_dynamic_slo.py"]
+    say("dist", leg=7, example="torch_serve_dynamic_slo.py",
+        served=res["n"], violations=res["violations"],
+        decisions=res["decisions"], launches=json.dumps(serve_launches),
+        wall_s=wall)
+    _, text, train_launches_, wall = out["torch_train_smollm.py"]
+    losses = [float(ln.split()[3]) for ln in text.splitlines()
+              if ln.startswith("step ")]
+    ckpt = sorted((ROOT / "build" / "examples" / "smollm_ckpt").glob(
+        f"ckpt_{DIST['example_train_steps']:08d}.*"))
+    say("dist", leg=7, example="torch_train_smollm.py",
+        losses=json.dumps(losses), checkpoint=len(ckpt) > 0,
+        launches=json.dumps(train_launches_), wall_s=wall)
+    if not (res["n"] > 0 and serve_launches["swa_prefill"] > 0
+            and serve_launches["decode_attention"] > 0):
+        raise AssertionError(f"dist leg 7: the serve example served "
+                             f"{res['n']} requests with launches "
+                             f"{serve_launches}")
+    if not (len(losses) == DIST["example_train_steps"] and ckpt
+            and all(math.isfinite(x) for x in losses)
+            and not any(train_launches_.values())):
+        raise AssertionError(f"dist leg 7: the training example printed "
+                             f"losses {losses}, checkpoint {ckpt}, "
+                             f"launches {train_launches_}")
+    return serve_launches
+
+
+def dist_phase(dev, procs, rows, window_ids) -> dict:
+    """Phase "dist" (legs 1-7, see ``DIST``); returns the launches of
+    legs 1, 6 and 7 (the sharded smollm serve, the sharded h2o-danube
+    run, the serve example) added up."""
     import os
     import socket
 
@@ -3335,6 +3555,14 @@ def dist_phase(dev, procs) -> dict:
         mesh = make_small_mesh(1, 1, device_type="cuda")
         launches = dist_serve_leg(dev, mesh)
         dist_train_legs(dev, mesh, procs)
+        t_new = time.perf_counter()
+        dist_lse_leg(dev, rows)
+        for leg in (dist_window_leg(dev, mesh, window_ids),
+                    dist_examples_leg()):
+            for name, n in leg.items():
+                launches[name] += n
+        gc_cuda()
+        say("dist", legs_5_7_seconds=time.perf_counter() - t_new)
         for arch, shape, opt in DIST["dry"]:
             rec = dryrun_read(procs, f"{arch}|{shape}|{opt}")
             r = rec["roofline"]
@@ -3581,7 +3809,7 @@ def run_phases(dev, args, t_start, dry) -> int:
         parity_phase(dev, arch)
         torch.cuda.empty_cache()          # the f32 weights are freed here
         if arch == WINDOW["arch"]:
-            window_phase(dev)
+            window_ids = window_phase(dev)
             torch.cuda.empty_cache()
         capture_phase(dev, arch)
         torch.cuda.empty_cache()
@@ -3620,7 +3848,7 @@ def run_phases(dev, args, t_start, dry) -> int:
     torch.cuda.empty_cache()
     train_phase(dev)              # launches no kernel: each leg checks 0
     gc_cuda()
-    for name, n in dist_phase(dev, dry).items():
+    for name, n in dist_phase(dev, dry, rows, window_ids).items():
         rows[name]["launches"] += n
     gc_cuda()
     if args.profile:

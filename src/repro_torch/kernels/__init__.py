@@ -1,0 +1,13 @@
+"""Hand-written CUDA kernels for Hopper (``sm_90a``) for the serving hot
+spots: the counterparts of the reference's Pallas TPU kernels.
+
+Each kernel has its source under ``csrc/`` and an ``ops.py`` with the
+public wrapper, its plain PyTorch version (which the wrapper takes for
+tensors on the CPU) and a launch counter.  ``build.py`` compiles a
+source with ``nvcc`` at its first launch; importing this package
+builds nothing.
+"""
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.swa_prefill.ops import swa_prefill_attention

@@ -10,6 +10,15 @@
 // Layouts (row-major, contiguous): q, out (B, KV, G, D); k, v (B, S, KV, D);
 // lengths (B,) int32.  D in {16, 32, 64, 80, 128, 256}, G in 1..8.
 //
+// Optionally (a non-null `lse`) each query row's log-sum-exp of its scores,
+// (B, KV, G) f32 in natural-log units, is written beside the output: the
+// combined softmax state (m, l) that both kernels already hold, as m + log l.
+// A caller that splits the cache rows over several calls (each rank of a
+// sequence-sharded cache) merges their outputs by these: out = sum_r
+// exp(lse_r - M) out_r / sum_r exp(lse_r - M), M = max_r lse_r.  A row of
+// length 0 has every score -1e30 and so lse = -1e30 + log S, whose weight
+// beside any row with a valid position underflows to exactly 0.
+//
 // Two kernels, split by the storage type:
 //
 // bf16 (the served type): the cache rows of one (batch row, KV head) are split
@@ -77,7 +86,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ lengths,
-                        T* __restrict__ out, int S, int KV, int G, float scale) {
+                        T* __restrict__ out, float* __restrict__ lse, int S, int KV,
+                        int G, float scale) {
   constexpr int DPL = (D + 31) / 32;         // output columns per lane
   __shared__ float q_s[kMaxG * D];
   __shared__ float p_s[kWarps][kMaxG][32];
@@ -194,16 +204,18 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       a += part_acc[w][g][d] * e;
     }
     store(out + head + i, a / fmaxf(lsum, 1e-30f));
+    if (lse != nullptr && d == 0) lse[head / D + g] = mx + logf(lsum);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* lengths,
-                   void* out, int B, int S, int KV, int G, cudaStream_t stream) {
+                   void* out, float* lse, int B, int S, int KV, int G,
+                   cudaStream_t stream) {
   const dim3 grid(KV, B);
   decode_attention_kernel<T, D><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(lengths), static_cast<T*>(out), S, KV, G,
+      static_cast<const int*>(lengths), static_cast<T*>(out), lse, S, KV, G,
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))));
   return cudaGetLastError();
 }
@@ -216,6 +228,10 @@ namespace cg = cooperative_groups;
 
 constexpr int kMaxSplit = 8;                 // blocks per cluster: the portable maximum
 constexpr int kDecWarps = 4;
+// the -1e30 of a length-0 row in the kernel's base-2 units, so that its
+// log-sum-exp is the f32 kernel's -1e30 + log S
+constexpr float kNegInfLog2 = static_cast<float>(kNegInf * kLog2e);
+constexpr float kLn2 = 0.69314718055994531f;
 
 // lanes that read one cache row with 16-byte loads: D / 8 rounded up to a
 // power of two, so that a row's dot products reduce with xor shuffles
@@ -236,7 +252,8 @@ decode_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v,
                              const int* __restrict__ lengths,
-                             __nv_bfloat16* __restrict__ out, int S, int KV, int G,
+                             __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ lse, int S, int KV, int G,
                              float scale_log2) {
   constexpr int LPR = lanes_per_row<D>();
   constexpr int NP = kDecWarps * (32 / LPR); // row streams of a block
@@ -326,7 +343,7 @@ decode_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
           for (int u = 0; u < U; ++u) {
             const bool row = r + u * NP + slot < r1;
-            s[u][g] = !row ? neg_inf() : len > 0 ? s[u][g] : kNegInf;
+            s[u][g] = !row ? neg_inf() : len > 0 ? s[u][g] : kNegInfLog2;
             mx = fmaxf(mx, s[u][g]);
           }
           const float alpha = exp2f(m[g] - mx);  // 0 while m = -inf
@@ -396,13 +413,15 @@ decode_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       a += *cluster.map_shared_rank(&blk_acc[g][d], r) * w;
     }
     store(out + head + i, a / fmaxf(ls, 1e-30f));
+    if (lse != nullptr && d == 0) lse[head / D + g] = (mx + log2f(ls)) * kLn2;
   }
   cluster.sync();                            // every block has read the others
 }
 
 template <int D, int GM>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* lengths,
-                        void* out, int B, int S, int KV, int G, cudaStream_t stream) {
+                        void* out, float* lse, int B, int S, int KV, int G,
+                        cudaStream_t stream) {
   static int sms = 0;                        // the card's SM count, read once
   if (sms == 0) {
     int dev = 0;
@@ -429,7 +448,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, decode_attention_bf16_kernel<D, GM>, static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
-      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out), S, KV, G,
+      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out), lse, S, KV, G,
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)) * kLog2e));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
@@ -438,35 +457,37 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
 // G rounded up to 1, 2, 4 or 8 accumulators per lane and column
 template <int D>
 cudaError_t launch_bf16_g(const void* q, const void* k, const void* v, const void* lengths,
-                          void* out, int B, int S, int KV, int G, cudaStream_t stream) {
-  if (G <= 1) return launch_bf16<D, 1>(q, k, v, lengths, out, B, S, KV, G, stream);
-  if (G <= 2) return launch_bf16<D, 2>(q, k, v, lengths, out, B, S, KV, G, stream);
-  if (G <= 4) return launch_bf16<D, 4>(q, k, v, lengths, out, B, S, KV, G, stream);
-  return launch_bf16<D, 8>(q, k, v, lengths, out, B, S, KV, G, stream);
+                          void* out, float* lse, int B, int S, int KV, int G,
+                          cudaStream_t stream) {
+  if (G <= 1) return launch_bf16<D, 1>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
+  if (G <= 2) return launch_bf16<D, 2>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
+  if (G <= 4) return launch_bf16<D, 4>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
+  return launch_bf16<D, 8>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
 }
 
 // the storage type picks the kernel: bf16 the cluster split, f32 the CUDA cores
 template <typename T, int D>
 cudaError_t launch_typed(const void* q, const void* k, const void* v, const void* lengths,
-                         void* out, int B, int S, int KV, int G, cudaStream_t stream) {
+                         void* out, float* lse, int B, int S, int KV, int G,
+                         cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return launch_bf16_g<D>(q, k, v, lengths, out, B, S, KV, G, stream);
+    return launch_bf16_g<D>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
   } else {
-    return launch<T, D>(q, k, v, lengths, out, B, S, KV, G, stream);
+    return launch<T, D>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
   }
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* lengths,
-                       void* out, int B, int S, int KV, int G, int D,
+                       void* out, float* lse, int B, int S, int KV, int G, int D,
                        cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_typed<T, 16>(q, k, v, lengths, out, B, S, KV, G, stream);
-    case 32: return launch_typed<T, 32>(q, k, v, lengths, out, B, S, KV, G, stream);
-    case 64: return launch_typed<T, 64>(q, k, v, lengths, out, B, S, KV, G, stream);
-    case 80: return launch_typed<T, 80>(q, k, v, lengths, out, B, S, KV, G, stream);
-    case 128: return launch_typed<T, 128>(q, k, v, lengths, out, B, S, KV, G, stream);
-    case 256: return launch_typed<T, 256>(q, k, v, lengths, out, B, S, KV, G, stream);
+    case 16: return launch_typed<T, 16>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
+    case 32: return launch_typed<T, 32>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
+    case 64: return launch_typed<T, 64>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
+    case 80: return launch_typed<T, 80>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
+    case 128: return launch_typed<T, 128>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
+    case 256: return launch_typed<T, 256>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -474,16 +495,19 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
 }  // namespace
 }  // namespace repro_torch
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16.  lse: null, or (B, KV, G) f32 receiving
+// each row's log-sum-exp.  Returns the cudaError_t of the launch.
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
-                                      const void* lengths, void* out, int B, int S,
-                                      int KV, int G, int D, int dtype, void* stream) {
+                                      const void* lengths, void* out, void* lse, int B,
+                                      int S, int KV, int G, int D, int dtype,
+                                      void* stream) {
   using namespace repro_torch;
   if (G < 1 || G > kMaxG) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(q, k, v, lengths, out, B, S, KV, G, D, st);
+  float* l = static_cast<float*>(lse);
+  if (dtype == 0) return dispatch_d<float>(q, k, v, lengths, out, l, B, S, KV, G, D, st);
   if (dtype == 1) {
-    return dispatch_d<__nv_bfloat16>(q, k, v, lengths, out, B, S, KV, G, D, st);
+    return dispatch_d<__nv_bfloat16>(q, k, v, lengths, out, l, B, S, KV, G, D, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -19,6 +19,12 @@ port's kernel, unchanged: one block per (batch row, KV head).
 ``chip_smoke.py`` measures it beside its bound, the plain version and a
 masked ``scaled_dot_product_attention``.
 
+``return_lse=True`` also returns each query row's log-sum-exp of its
+scores, (B, KV, G) f32 (the kernel writes it from the softmax state it
+combines anyway): the calls of several row ranges of one cache (the
+ranks of a sequence-sharded cache) are merged by it into the call over
+the whole cache (``merge_by_lse``).
+
 ``decode_attention`` takes the plain version only for tensors on the
 CPU; a CUDA tensor launches the kernel or raises.
 """
@@ -41,10 +47,11 @@ _fn = None
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           lengths: torch.Tensor) -> torch.Tensor:
+                           lengths: torch.Tensor, return_lse: bool = False):
     """Dense masked decode attention (the reference's ``ref.py``).
     q: (B, KV, G, D); k, v: (B, S, KV, D); lengths: (B,).  Positions at
-    or past ``lengths[b]`` get the finite score -1e30."""
+    or past ``lengths[b]`` get the finite score -1e30.  With
+    ``return_lse`` also the (B, KV, G) f32 log-sum-exp of the scores."""
     b, kvh, g, d = q.shape
     s = k.shape[1]
     qf = q.float() * (d ** -0.5)
@@ -52,15 +59,32 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     valid = torch.arange(s, device=q.device)[None, :] < lengths[:, None]
     scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p, v.float())
-    return out.to(q.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v.float()).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(scores, dim=-1)
+    return out
+
+
+def merge_by_lse(parts):
+    """The outputs of calls over disjoint row ranges of one cache, each
+    ``(out, lse)``, merged into the call over all of them: the sum of
+    the outputs weighted by ``exp(lse - max lse)`` over the sum of the
+    weights, in f32.  A range with no valid row (lse about -1e30) weighs
+    exactly 0 beside one that has a valid row."""
+    m = torch.stack([lse for _, lse in parts]).amax(0)
+    num, den = 0, 0
+    for out, lse in parts:
+        w = torch.exp(lse - m)
+        num = num + out.float() * w[..., None]
+        den = den + w
+    return num / den[..., None]
 
 
 def _kernel():
     global _fn
     if _fn is None:
         fn = build.load("decode_attention").repro_decode_attention
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
@@ -91,24 +115,28 @@ def _check(q, k, v, lengths):
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor, return_lse: bool = False):
     """Flash-decode GQA attention.  q: (B, KV, G, D); k/v: (B, S, KV, D);
-    lengths: (B,) int32 valid cache lengths.  Returns (B, KV, G, D)."""
+    lengths: (B,) int32 valid cache lengths.  Returns (B, KV, G, D), and
+    with ``return_lse`` the pair ``(out, lse)``, lse (B, KV, G) f32."""
     global launches
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, lengths)
+        return decode_attention_plain(q, k, v, lengths, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check(q, k, v, lengths)
     b, kvh, g, d = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty((b, kvh, g), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        lengths.data_ptr(), out.data_ptr(), b, k.shape[1],
-                        kvh, g, d, _DTYPES[q.dtype], stream)
+                        lengths.data_ptr(), out.data_ptr(),
+                        None if lse is None else lse.data_ptr(), b,
+                        k.shape[1], kvh, g, d, _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"CUDA error {err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

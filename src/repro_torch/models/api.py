@@ -533,7 +533,8 @@ def mtp_logits(params, hidden, tokens, cfg: ModelConfig, mesh=None):
         z, aux = tfm.block_fwd(p["block"], z, positions, cfg.blocks[-1], cfg,
                                mesh=mesh)
         z = rms_norm(z, params["final_norm"], cfg.norm_eps)
-        return _head(params, cfg, z), aux
+        return _constrain(_head(params, cfg, z), mesh,
+                          (sh.FSDP, None, "model")), aux
 
 
 # ---------------------------------------------------------------------------

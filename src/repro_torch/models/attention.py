@@ -45,9 +45,12 @@ over ``model`` where both head counts divide it, else replicated over
 every axis under ``cfg.attn_batch_parallel`` (``_bp_spec``), and each
 rank calls the kernel, or its plain version on the CPU, on its local
 tensors: a DTensor never reaches a kernel wrapper.  A cache whose
-sequence dim is sharded (``cache_specs(seq_shard=True)``) takes the
-plain decode, each rank over its own rows, merged with two
-all-reduces.  Cache writes land on the rank that holds the row
+sequence dim is sharded (``cache_specs(seq_shard=True)``), a ring
+buffer too, is attended by each rank over its own rows, with the plain
+partial softmax or with the kernel (which also returns each row's
+log-sum-exp), and the ranks' parts are merged with two all-reduces
+(``_decode_seq_sharded``); the reference's GSPMD gathers the cache
+instead.  Cache writes land on the rank that holds the row
 (``sharding.write_rows``).
 """
 from __future__ import annotations
@@ -292,29 +295,51 @@ def _decode_plain(q, ck, cv, index, slot, window: int, cap: float):
     return torch.einsum("bkgs,bskd->bkgd", p, cv.float())
 
 
-def _decode_seq_sharded(q, ck, cv, index, mesh, cap: float):
-    """Full-attention decode over a cache whose sequence dim is sharded:
-    each rank's partial softmax over its own rows (max, sum, weighted
-    values), merged over the sharding axes with two all-reduces."""
+def _decode_seq_sharded(q, ck, cv, index, mesh, cap: float, kernel: bool):
+    """Decode over a cache whose sequence dim is sharded: each rank's
+    partial softmax over its own rows, merged over the sharding axes
+    with two all-reduces.  The valid slots of a cache of S slots are
+    always the prefix ``j < min(index + 1, S)``: for a full cache the
+    rows written so far, and for a ring buffer the reference's mask
+    ``(slot - j) % S <= index`` of ``_decode_plain`` keeps slots
+    ``0..index`` before the first wrap and every slot after it.  Each
+    rank masks its global slots ``j = rank * n_local + arange(n_local)``
+    by that prefix (plain route: the rank's max, sum and weighted values
+    are merged), or calls the kernel on its own shard with the local
+    lengths ``clamp(min(index + 1, S) - rank * n_local, 0, n_local)``
+    and merges the ranks' outputs weighted by ``exp(lse - max lse)``.
+    A rank with local length 0 scores every row -1e30 (the kernel's
+    convention), so its weight underflows to exactly 0: rank 0 always
+    holds slot 0, which is valid."""
     axes = tuple(axis_names(mesh)[m] for m, p in enumerate(ck.placements)
                  if isinstance(p, Shard) and p.dim == 1)
     d = q.shape[-1]
+    s_cache = ck.shape[1]
 
     def body(q, ck, cv, index):
         n_local = ck.shape[1]
-        j = sh.axis_index(mesh, axes) * n_local + torch.arange(
-            n_local, device=q.device)
-        qf = (q * (d ** -0.5)).float()
-        scores = torch.einsum("bkgd,bskd->bkgs", qf, ck.float())
-        if cap > 0:
-            scores = softcap(scores, cap)
-        scores = scores.masked_fill(~(j <= index)[None, None, None, :],
-                                    NEG_INF)
-        m = sh.pmax(scores.amax(dim=-1), mesh, axes)
-        p = torch.exp(scores - m[..., None])
-        part = torch.cat([p.sum(-1)[..., None],
-                          torch.einsum("bkgs,bskd->bkgd", p, cv.float())],
-                         dim=-1)
+        start = sh.axis_index(mesh, axes) * n_local
+        n_valid = torch.clamp(index + 1, max=s_cache)
+        if kernel:
+            lengths = torch.clamp(n_valid - start, 0, n_local).to(
+                torch.int32).expand(q.shape[0]).contiguous()
+            out, lse = decode_attention(q, ck, cv, lengths, return_lse=True)
+            w = torch.exp(lse - sh.pmax(lse, mesh, axes))
+            part = torch.cat([w[..., None], out.float() * w[..., None]],
+                             dim=-1)
+        else:
+            j = start + torch.arange(n_local, device=q.device)
+            qf = (q * (d ** -0.5)).float()
+            scores = torch.einsum("bkgd,bskd->bkgs", qf, ck.float())
+            if cap > 0:
+                scores = softcap(scores, cap)
+            scores = scores.masked_fill(
+                ~(j < n_valid)[None, None, None, :], NEG_INF)
+            m = sh.pmax(scores.amax(dim=-1), mesh, axes)
+            p = torch.exp(scores - m[..., None])
+            part = torch.cat([p.sum(-1)[..., None],
+                              torch.einsum("bkgs,bskd->bkgd", p,
+                                           cv.float())], dim=-1)
         part = sh.psum(part, mesh, axes)
         return part[..., 1:] / part[..., :1]
 
@@ -333,19 +358,16 @@ def decode_core(q, ck, cv, index, slot, cfg: ModelConfig, *, window: int,
     rows of each sequence; ``None``: ``min(index + 1, S)``), else the
     dense masked softmax.  Under ``mesh`` per rank through ``local_map``,
     the batch over the data axes and the KV heads over ``model`` where
-    they divide it; a cache with its sequence dim sharded is merged
-    across its ranks (plain route only)."""
+    they divide it; a cache with its sequence dim sharded (full or a
+    ring buffer) is attended per rank and merged across its ranks
+    (``_decode_seq_sharded``, either route)."""
     b, kvh, g, d = q.shape
     s_cache = ck.shape[1]
     kernel = (cfg.use_pallas_decode and cfg.logit_softcap == 0
               and d % 8 == 0)
     if mesh is not None and _seq_sharded(ck):
-        if kernel or window > 0:
-            raise NotImplementedError(
-                "a sequence-sharded cache takes the plain full-attention "
-                "decode only")
         return _decode_seq_sharded(q, ck, cv, index, mesh,
-                                   cfg.logit_softcap)
+                                   cfg.logit_softcap, kernel)
     if kernel:
         if lengths is None:
             lengths = torch.clamp(index + 1, max=s_cache).to(

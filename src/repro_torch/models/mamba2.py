@@ -146,6 +146,22 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y.to(x.dtype), hprev
 
 
+def _per_rank(form, mesh, x, dt, a_log, b, c, h0):
+    """``form(x, dt, a_log, b, c, h0) -> (y, h_final)`` (the scan or the
+    chunked form, both independent per (batch, head)) on each rank's
+    slice through ``local_map``: the batch over the data axes, the heads
+    over ``model`` where they divide it."""
+    dp = sh.dp_axes(mesh)
+    heads = "model" if x.shape[2] % sh.axis_size(mesh, "model") == 0 \
+        else None
+    xs, st = (dp, None, heads, None), (dp, heads, None, None)
+    bs = (dp, None, None)
+    return sh.local_call(
+        form, mesh, (xs, (dp, None, heads), (heads,), bs, bs,
+                     None if h0 is None else st),
+        [xs, st], x, dt, a_log, b, c, h0)
+
+
 def ssd(x, dt, a_log, b, c, h0=None, *, kernel: bool = False, out=None,
         y_dtype=None, mesh=None):
     """SSD recurrence.  x: (B,S,H,P); dt: (B,S,H) f32; b, c: (B,S,N).
@@ -159,18 +175,10 @@ def ssd(x, dt, a_log, b, c, h0=None, *, kernel: bool = False, out=None,
     if mesh is None:
         return scan(x, dt, a_log, b.contiguous(), c.contiguous(), h0,
                     h_out=out, y_dtype=y_dtype)
-    dp = sh.dp_axes(mesh)
-    heads = "model" if x.shape[2] % sh.axis_size(mesh, "model") == 0 \
-        else None
-    xs, st = (dp, None, heads, None), (dp, heads, None, None)
-    bs = (dp, None, None)
-    y, h_final = sh.local_call(
+    y, h_final = _per_rank(
         lambda x, dt, a_log, b, c, h0: scan(
             x, dt, a_log, b.contiguous(), c.contiguous(), h0,
-            y_dtype=y_dtype),
-        mesh, (xs, (dp, None, heads), (heads,), bs, bs,
-               None if h0 is None else st),
-        [xs, st], x, dt, a_log, b, c, h0)
+            y_dtype=y_dtype), mesh, x, dt, a_log, b, c, h0)
     if out is not None:
         out.copy_(h_final)
         h_final = out
@@ -193,8 +201,9 @@ def mamba2_fwd(params, x: torch.Tensor, cfg: ModelConfig,
     "conv_bc", "h"} or None (zeros).  Returns ``(y, new_state)``; with
     ``out`` the new state is written into its tensors (which may be
     ``state``'s).  ``train_form`` (the no-cache forward) runs the SSD as
-    the reference's forward does, ``ssd_chunked``; otherwise through
-    ``ssd`` (``kernel`` as there)."""
+    the reference's forward does, ``ssd_chunked`` (per rank under
+    ``mesh``, as ``ssd``); otherwise through ``ssd`` (``kernel`` as
+    there)."""
     b, s, _ = x.shape
     n, h, p = cfg.ssm_state_dim, cfg.ssm_num_heads, cfg.ssm_head_dim
     z, xin, bcin, dt = _in_proj(params, x, cfg)
@@ -204,7 +213,12 @@ def mamba2_fwd(params, x: torch.Tensor, cfg: ModelConfig,
                                 state["conv_bc"] if state else None)
     xh = sh.split_last(xc, h, p)
     h0 = state["h"] if state else None
-    if train_form:
+    if train_form and mesh is not None:
+        y, h_final = _per_rank(
+            lambda x, dt, a_log, b, c, h0: ssd_chunked(x, dt, a_log, b, c,
+                                                       h0=h0),
+            mesh, xh, dt, params["a_log"], bcc[..., :n], bcc[..., n:], h0)
+    elif train_form:
         y, h_final = ssd_chunked(xh, dt, params["a_log"], bcc[..., :n],
                                  bcc[..., n:], h0=h0)
     else:

@@ -225,15 +225,16 @@ def rwkv6_tmix_fwd(params, x: torch.Tensor, cfg: ModelConfig,
     w = sh.split_last(w, h, hd)                      # f32, in (0, 1)
 
     wkv0 = state["wkv"] if state else None
-    if train_form and cfg.rwkv_chunked and s > 1:
-        y, wkv = wkv6_chunked(r, k, v, w, params["bonus_u"], wkv0)
-    elif train_form and mesh is not None:
-        # the recurrence is independent per (batch, head): per rank, as
-        # the scan of ``wkv6_scan``
-        y, wkv = _per_rank_scan(wkv6_recurrence, mesh, r, k, v, w,
-                                params["bonus_u"], wkv0)
-    elif train_form:
-        y, wkv = wkv6_recurrence(r, k, v, w, params["bonus_u"], wkv0)
+    if train_form:
+        form = (wkv6_chunked if cfg.rwkv_chunked and s > 1
+                else wkv6_recurrence)
+        if mesh is None:
+            y, wkv = form(r, k, v, w, params["bonus_u"], wkv0)
+        else:
+            # both forms are independent per (batch, head): per rank, as
+            # the scan of ``wkv6_scan``
+            y, wkv = _per_rank_scan(form, mesh, r, k, v, w,
+                                    params["bonus_u"], wkv0)
     else:
         y, wkv = wkv6_scan(r, k, v, w, params["bonus_u"], wkv0,
                            kernel=kernel,

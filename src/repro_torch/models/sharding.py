@@ -143,7 +143,11 @@ def _prod(sizes: dict, axes) -> int:
 
 
 def _fit_spec(spec: tuple, ndim: int, shape, mesh) -> tuple:
-    """Right-align spec to ndim; drop axes that don't divide the dim."""
+    """Right-align spec to ndim; drop axes that don't divide the dim.  A
+    dim of size 1 is never sharded: over axes of size 1 (the only ones
+    that divide it) that is the replicated layout, and DTensor cannot
+    reshape a sharded singleton dim away (the ``view`` of a batch-1
+    matmul on a 1 x 1 mesh)."""
     sizes = axis_sizes(mesh)
     entries = list(spec)
     if len(entries) > ndim:
@@ -151,7 +155,7 @@ def _fit_spec(spec: tuple, ndim: int, shape, mesh) -> tuple:
     entries = [None] * (ndim - len(entries)) + entries
     fixed = []
     for dim, ax in zip(shape, entries):
-        if ax is None:
+        if ax is None or dim == 1:
             fixed.append(None)
             continue
         axes = ax if isinstance(ax, tuple) else (ax,)
@@ -310,7 +314,12 @@ def local_call(fn, mesh, in_specs, out_specs, *args,
     its spec in ``in_specs`` (``None``: the argument passes as it is)
     and ``fn``'s local results become DTensors placed by ``out_specs``
     (a spec, or a list of specs for a tuple of results).  Specs here
-    are full length, one entry per tensor dim.
+    are full length, one entry per tensor dim.  An input dim that its
+    spec's axes do not divide (a batch of 1 or 2 over a data axis of 4)
+    runs replicated there (``_fit_spec``); an out spec entry equal to
+    such an input entry is fitted the same way, so that the results
+    keep the inputs' layout (an entry the inputs fit in two ways is
+    left as it is).
 
     Gradients: an argument replicated over a mesh axis that shards a
     result is used by each rank of that axis for its own slice of the
@@ -321,6 +330,7 @@ def local_call(fn, mesh, in_specs, out_specs, *args,
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
+    out_specs = _fit_out_specs(mesh, in_specs, args, out_specs)
     # local_map reads a tuple as one entry per result, a list as the
     # placements of one result
     if isinstance(out_specs, list):
@@ -348,6 +358,42 @@ def local_call(fn, mesh, in_specs, out_specs, *args,
     return local_map(fn, out_placements=out_pl, in_placements=tuple(in_pl),
                      in_grad_placements=tuple(grad_pl), device_mesh=mesh,
                      redistribute_inputs=True)(*ins)
+
+
+def _entry_key(entry, names) -> tuple:
+    return tuple(a for a in _axes_tuple(entry) if a in names) \
+        if entry is not None else ()
+
+
+def _fit_out_specs(mesh, in_specs, args, out_specs):
+    """``out_specs`` with each entry replaced by what ``_fit_spec`` made
+    of the same entry on the inputs (see ``local_call``)."""
+    names = axis_names(mesh)
+    fitted, clash = {}, set()
+    for a, spec in zip(args, in_specs):
+        if spec is None or not isinstance(a, torch.Tensor):
+            continue
+        entries = ([None] * a.ndim + list(spec))[-a.ndim:] if a.ndim else []
+        for e, f in zip(entries, _fit_spec(spec, a.ndim, a.shape, mesh)):
+            key = _entry_key(e, names)
+            if key:
+                got = _entry_key(f, names)
+                if fitted.setdefault(key, got) != got:
+                    clash.add(key)
+
+    def fit(spec):
+        out = []
+        for e in spec:
+            key = _entry_key(e, names)
+            if key in fitted and key not in clash:
+                f = fitted[key]
+                e = None if not f else f[0] if len(f) == 1 else f
+            out.append(e)
+        return tuple(out)
+
+    if isinstance(out_specs, list):
+        return [fit(sp) for sp in out_specs]
+    return fit(out_specs)
 
 
 def _axes_tuple(axes) -> tuple:
@@ -505,13 +551,15 @@ def all_gather(x, mesh, axes, dim: int):
 
 def unshard_dim(x, dim: int):
     """A DTensor with no mesh axis sharding tensor dim ``dim`` (gathered
-    there); a plain tensor as it is."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    there) and no pending sum (a ``Partial`` placement is reduced
+    first); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     if not isinstance(x, DTensor):
         return x
     dim = dim % x.ndim
-    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+    pl = [Replicate() if isinstance(p, Partial)
+          or (isinstance(p, Shard) and p.dim == dim) else p
           for p in x.placements]
     return x.redistribute(x.device_mesh, pl)
 

@@ -243,7 +243,8 @@ def block_fwd(p, x, positions, kind: str, cfg: ModelConfig, *,
     elif mixer == "mla":
         y = attn.mla_fwd(p["mla"], h, positions, cfg, mesh=mesh)
     elif mixer == "mamba2":
-        y, _ = m2.mamba2_fwd(p["mamba"], h, cfg, None, train_form=True)
+        y, _ = m2.mamba2_fwd(p["mamba"], h, cfg, None, train_form=True,
+                             mesh=mesh)
     else:
         y, _ = rk.rwkv6_tmix_fwd(p["tmix"], h, cfg, None, train_form=True,
                                  mesh=mesh)

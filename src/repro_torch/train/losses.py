@@ -49,7 +49,9 @@ def train_loss(model, params, batch: dict, cfg: ModelConfig,
     if cfg.mtp_depth:
         hidden, aux = model.forward_hidden(params, batch)
         h = rms_norm(hidden, params["final_norm"], cfg.norm_eps)
-        logits = _head(params, cfg, h)
+        # placed as ``forward`` places its logits
+        logits = sh.constrain(_head(params, cfg, h), model.mesh,
+                              (sh.FSDP, None, "model"))
     else:
         logits, aux = model.forward(params, batch)
     if cfg.num_patch_tokens:

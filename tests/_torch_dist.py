@@ -127,10 +127,10 @@ return res
 '''
 
 
-def reference_train(archs, path) -> dict:
+def reference_train(archs, path, b: int = B, s: int = S) -> dict:
     """The reference's ``key(0)`` weights of each reduced arch, saved to
     ``path`` for the ranks, and its jitted single-device step's loss from
-    them on the same batch."""
+    them on the same (b, s) batch."""
     import jax
 
     from repro.configs import get_config as jax_config
@@ -146,7 +146,7 @@ def reference_train(archs, path) -> dict:
         oc = jopt.OptConfig(lr=LR)
         state = jloop.init_state(model, jax.random.key(0), oc).as_dict()
         weights[arch] = jax.tree.map(np.asarray, state["params"])
-        batch = jax_make_batch(cfg, B, S, 0)
+        batch = jax_make_batch(cfg, b, s, 0)
         _, met = jax.jit(jloop.make_train_step(model, oc))(state, batch)
         losses[arch] = float(met["loss"])
     with open(path, "wb") as f:
@@ -154,15 +154,15 @@ def reference_train(archs, path) -> dict:
     return losses
 
 
-def sharded_train(archs, tmp_path) -> dict:
-    """Per arch: the sharded and single-device steps' metrics, the
-    worst parameter excess over 1e-5 + 1e-4 |p| and the reference's
-    loss (``ref``)."""
-    ref = reference_train(archs, tmp_path / "weights.pkl")
+def sharded_train(archs, tmp_path, b: int = B, s: int = S) -> dict:
+    """Per arch: the sharded and single-device steps' metrics at batch
+    (b, s), the worst parameter excess over 1e-5 + 1e-4 |p| and the
+    reference's loss (``ref``)."""
+    ref = reference_train(archs, tmp_path / "weights.pkl", b, s)
     res = run_ranks(TRAIN_BODY, 8, tmp_path,
                     {"archs": list(archs), "weights":
-                     str(tmp_path / "weights.pkl"), "lr": LR, "B": B,
-                     "S": S}, timeout=400)
+                     str(tmp_path / "weights.pkl"), "lr": LR, "B": b,
+                     "S": s}, timeout=400)
     for arch in archs:
         res[arch]["ref"] = ref[arch]
     return res

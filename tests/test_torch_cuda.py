@@ -163,6 +163,59 @@ def test_decode_attention_bf16_split_edges_on_card(s, g, d, cuda_device):
     np.testing.assert_allclose(as_np(out), as_np(ref), **tol("bfloat16"))
 
 
+def assert_lse_close(lse, ref, dtype):
+    """Log-sum-exps within the tolerance where the row has a valid
+    position; a row of length 0 (every score -1e30) at or below -1e29
+    on both sides (its weight in a merge is 0 either way)."""
+    empty = ref <= -1e29
+    assert torch.equal(lse <= -1e29, empty)
+    np.testing.assert_allclose(as_np(lse[~empty]), as_np(ref[~empty]),
+                               **tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,kv,g,d,s,lens", [(4, 3, 3, 64, 320, [0, 1, 160, 320]),
+                                             (4, 32, 1, 80, 321, [1, 160, 320, 321]),
+                                             (2, 8, 4, 80, 16, [16, 9]),
+                                             (4, 1, 8, 256, 320, [0, 1, 33, 320]),
+                                             (4, 2, 6, 128, 352, [1, 100, 321, 352])])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_lse_and_its_merge_on_card(b, kv, g, d, s, lens,
+                                                    dtype, cuda_device):
+    """The kernel's (out, lse) against the plain version's; the calls
+    over 2 and 4 row ranges (local lengths clamped to each range)
+    merged by their lse against the whole-cache call."""
+    tdt = DTYPES[dtype]
+    gen = torch.Generator(device=cuda_device).manual_seed(s + d)
+    q = torch.randn(b, kv, g, d, generator=gen, device=cuda_device).to(tdt)
+    k = torch.randn(b, s, kv, d, generator=gen, device=cuda_device).to(tdt)
+    v = torch.randn(b, s, kv, d, generator=gen, device=cuda_device).to(tdt)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = dec.launches
+    out, lse = dec.decode_attention(q, k, v, ln, return_lse=True)
+    torch.cuda.synchronize()
+    assert dec.launches == before + 1
+    ref, ref_lse = dec.decode_attention_plain(q, k, v, ln, return_lse=True)
+    np.testing.assert_allclose(as_np(out), as_np(ref), **tol(dtype))
+    assert_lse_close(lse, ref_lse, dtype)
+    keep = ln > 0                  # a merge needs a valid row somewhere
+    for n_parts in (2, 4):
+        n_local = s // n_parts
+        parts = []
+        for r in range(n_parts):
+            rows = slice(r * n_local, (r + 1) * n_local)
+            local = torch.clamp(ln - r * n_local, 0, n_local).to(torch.int32)
+            parts.append(dec.decode_attention(
+                q, k[:, rows].contiguous(), v[:, rows].contiguous(), local,
+                return_lse=True))
+        whole = dec.decode_attention(q, k[:, :n_parts * n_local].contiguous(),
+                                     v[:, :n_parts * n_local].contiguous(),
+                                     torch.clamp(ln, max=n_parts * n_local))
+        merged = dec.merge_by_lse(parts)
+        np.testing.assert_allclose(as_np(merged[keep]), as_np(whole[keep]),
+                                   **tol(dtype))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,h,d", [(4, 256, 32, 64), (4, 1, 32, 64),
                                      (2, 77, 3, 32), (1, 300, 2, 16)])

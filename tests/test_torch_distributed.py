@@ -3,7 +3,8 @@
 the CPU.
 
 * One sharded train step of the reduced smollm-135m and deepseek-v3-671b
-  (MoE expert-parallel, MLA, MTP) in f32 at B 4, S 16, from the
+  (MoE expert-parallel, MLA, MTP) in f32 at B 4, S 16 (deepseek-v3 at
+  B 8, S 64 too, where the MTP logits meet the FSDP specs), from the
   reference's ``key(0)`` weights (``params_from_jax``), against the
   port's single-device step: the loss within 1e-5 relative, the
   gradient norm within 1e-4 relative and every parameter within
@@ -12,18 +13,22 @@ the CPU.
   reference's own sharded test is red).  ``test_torch_distributed_ssm.py``
   holds zamba2-2.7b and rwkv6-1.6b.
 * A sharded prefill (B 4, S 16) and 4 greedy decode steps of the reduced
-  smollm-135m and kimi-k2-1t-a32b (``moe_partial_ep``: the partial-sum
-  EP path) with serving specs (``fsdp=False``): the ids equal the
+  smollm-135m, kimi-k2-1t-a32b (``moe_partial_ep``: the partial-sum EP
+  path) and h2o-danube-1.8b (a 16-slot ring buffer, which the decode
+  steps wrap) with serving specs (``fsdp=False``): the ids equal the
   unsharded ones, with the cache's heads over ``model`` and with its
   sequence over ``model`` (``seq_shard``: each rank attends over its own
-  rows and the ranks' softmax parts are merged).
+  rows and the ranks' softmax parts are merged), on the plain route and
+  on the kernel route (``use_pallas_decode``: per rank the kernel's
+  plain version on the CPU with its log-sum-exp, the ranks' outputs
+  merged by it).
 """
 import pytest
 
 from _torch_dist import check_train, run_ranks, sharded_train
 
 TRAIN_ARCHS = ("smollm-135m", "deepseek-v3-671b")
-SERVE_ARCHS = ("smollm-135m", "kimi-k2-1t-a32b")
+SERVE_ARCHS = ("smollm-135m", "kimi-k2-1t-a32b", "h2o-danube-1.8b")
 
 
 @pytest.fixture(scope="module")
@@ -34,6 +39,14 @@ def trained(tmp_path_factory):
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_sharded_train_step_matches_single_device(arch, trained):
     check_train(trained[arch])
+
+
+def test_mtp_train_step_at_b8_s64_matches_single_device(tmp_path):
+    """deepseek-v3's MTP loss under FSDP at B 8 x S 64: the head's
+    logits are placed as ``forward`` places them, so the loss's gather
+    meets no pending sum."""
+    check_train(sharded_train(("deepseek-v3-671b",), tmp_path, 8, 64)
+                ["deepseek-v3-671b"])
 
 
 SERVE_BODY = '''
@@ -54,15 +67,18 @@ for arch in args["archs"]:
     toks = torch.randint(0, cfg.vocab_size, (4, 16),
                          generator=torch.Generator().manual_seed(1))
     out = {}
-    for name, m in (("one", None), ("mesh", mesh), ("seq", mesh)):
-        model = build_model(cfg, mesh=m, device="cpu")
+    for name, m in (("one", None), ("mesh", mesh), ("seq", mesh),
+                    ("seqk", mesh)):
+        # "seqk": the kernel route over the sequence-sharded cache
+        model = build_model(dataclasses.replace(
+            cfg, use_pallas_decode=name == "seqk"), mesh=m, device="cpu")
         params = model.init(model.generator(0))
         if m is not None:
             params = sh.distribute(params, sh.param_specs(params, m,
                                                           fsdp=False), m)
         # "seq": the cache's sequence dim over "model" (seq_shard)
         cache = (init_cache(cfg, 4, 20, "cpu", m, seq_shard=True)
-                 if name == "seq" else None)
+                 if name.startswith("seq") else None)
         ids = []
         with torch.no_grad():
             logits, cache = model.prefill(params, {"tokens": toks},
@@ -94,3 +110,4 @@ def test_sharded_serve_gives_the_unsharded_ids(arch, served):
     assert r["seq_seq_sharded"] and not r["mesh_seq_sharded"]
     assert r["mesh"] == r["one"], r
     assert r["seq"] == r["one"], r
+    assert r["seqk"] == r["one"], r

@@ -165,6 +165,104 @@ def test_decode_attention_plain_ignores_rows_past_length():
 
 
 # --------------------------------------------------------------------------
+# decode_attention's log-sum-exp: calls over row ranges merged
+# --------------------------------------------------------------------------
+def split_calls(q, k, v, lens, n_parts):
+    """``decode_attention(..., return_lse=True)`` over ``n_parts`` equal
+    row ranges of the cache, each with its local lengths
+    ``clamp(len - start, 0, n_local)`` (a sequence-sharded cache's
+    ranks)."""
+    n_local = k.shape[1] // n_parts
+    parts = []
+    for r in range(n_parts):
+        rows = slice(r * n_local, (r + 1) * n_local)
+        local = torch.clamp(lens - r * n_local, 0, n_local).to(torch.int32)
+        parts.append(dec.decode_attention(q, k[:, rows].contiguous(),
+                                          v[:, rows].contiguous(), local,
+                                          return_lse=True))
+    return parts
+
+
+LSE_SHAPES = [                    # (b, kv, g, d, s, lens)
+    (4, 3, 3, 64, 320, [1, 2, 161, 320]),     # smollm's widths
+    (2, 8, 4, 80, 16, [16, 7]),               # h2o-danube's, a 16-slot ring
+    (1, 1, 8, 256, 64, [31]),                 # gemma-2b's D 256, G 8
+]
+
+
+@pytest.mark.parametrize("n_parts", [2, 4])
+@pytest.mark.parametrize("b,kv,g,d,s,lens", LSE_SHAPES)
+def test_decode_attention_lse_merged_over_row_splits_equals_whole_call(
+        b, kv, g, d, s, lens, n_parts):
+    """Every length is at least 1 (row 0 is always valid in a decode),
+    so the ranges past a length, whose local length is 0, weigh exactly
+    0 in the merge."""
+    rng = np.random.default_rng(s + n_parts)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)).float()
+               for shape in ((b, kv, g, d), (b, s, kv, d), (b, s, kv, d)))
+    lens = torch.tensor(lens, dtype=torch.int32)
+    whole, lse = dec.decode_attention(q, k, v, lens, return_lse=True)
+    assert lse.shape == (b, kv, g) and lse.dtype == torch.float32
+    np.testing.assert_array_equal(whole.numpy(),
+                                  dec.decode_attention(q, k, v, lens).numpy())
+    parts = split_calls(q, k, v, lens, n_parts)
+    assert any(float(part_lse.min()) <= -1e29 for _, part_lse in parts)
+    merged = dec.merge_by_lse(parts)
+    np.testing.assert_allclose(merged.numpy(), whole.numpy(), **tol("float32"))
+    np.testing.assert_allclose(
+        torch.logsumexp(torch.stack([x for _, x in parts]), 0).numpy(),
+        lse.numpy(), **tol("float32"))
+
+
+def test_decode_attention_plain_lse_is_the_scores_log_sum_exp():
+    """Over the valid rows, in float64; a length of 0 gives -1e30 + log S
+    (the finite mask), which is -1e30 in f32."""
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((2, 2, 3, 32))
+    k = rng.standard_normal((2, 24, 2, 32))
+    v = rng.standard_normal((2, 24, 2, 32))
+    lens = np.array([0, 17], np.int32)
+    _, lse = dec.decode_attention_plain(
+        *(torch.from_numpy(a).float() for a in (q, k, v)),
+        torch.from_numpy(lens), return_lse=True)
+    scores = np.einsum("bkgd,bskd->bkgs", q, k) / np.sqrt(32)
+    want = np.log(np.exp(scores[1, :, :, :17]).sum(-1))
+    np.testing.assert_allclose(lse[1].numpy(), want, atol=2e-5, rtol=2e-5)
+    assert (lse[0] == -1e30).all()
+
+
+@pytest.mark.parametrize("s_cache", [1, 6, 16])
+def test_ring_decode_mask_is_the_prefix_of_min_index_plus_one(s_cache):
+    """The reference's ring-buffer mask ``(slot - j) % S <= index`` of
+    ``attention._decode_plain`` keeps exactly the slots ``j < min(index
+    + 1, S)`` at every index across the wraps, so the ring decode equals
+    the kernel's plain version at that length, and so does its merge
+    over row ranges (what each rank of a sequence-sharded cache
+    computes)."""
+    from repro_torch.models.attention import _decode_plain
+
+    rng = np.random.default_rng(s_cache)
+    q = torch.from_numpy(rng.standard_normal((2, 2, 2, 16))).float()
+    k = torch.from_numpy(rng.standard_normal((2, s_cache, 2, 16))).float()
+    v = torch.from_numpy(rng.standard_normal((2, s_cache, 2, 16))).float()
+    j = torch.arange(s_cache)
+    for index in range(3 * s_cache + 2):
+        index_t = torch.tensor(index)
+        slot = index_t % s_cache
+        assert torch.equal((slot - j) % s_cache <= index_t,
+                           j < min(index + 1, s_cache))
+        ring = _decode_plain(q, k, v, index_t, slot, s_cache, 0.0)
+        lens = torch.full((2,), min(index + 1, s_cache), dtype=torch.int32)
+        np.testing.assert_allclose(
+            ring.numpy(), dec.decode_attention_plain(q, k, v, lens).numpy(),
+            **tol("float32"))
+        if s_cache % 2 == 0:
+            np.testing.assert_allclose(
+                dec.merge_by_lse(split_calls(q, k, v, lens, 2)).numpy(),
+                ring.numpy(), **tol("float32"))
+
+
+# --------------------------------------------------------------------------
 # wrappers: the plain version only for CPU tensors
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("kernel", ["swa_prefill", "decode_attention"])
