@@ -1,0 +1,8 @@
+"""slo_attainment in the saturated cell, where it swings with the queue and
+is recorded, not judged.
+"""
+from perfbench.harness import stats
+
+
+def read(run):
+    return stats.attainment_pct(run)
