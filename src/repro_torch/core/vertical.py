@@ -9,6 +9,7 @@ latency read without the wait would time only the launches.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Sequence
@@ -16,6 +17,8 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import torch
 
 from repro_torch.core.perf_model import PerfModel
+
+_OFF = contextlib.nullcontext()
 
 
 @dataclass
@@ -88,11 +91,19 @@ class TimedExecutor:
     """Executable table of ready-to-call step functions keyed by (c, b).
 
     Measures the wall latency of each call, from the call until the
-    device has finished its work (``device_sync``).
+    device has finished its work (``device_sync``).  With a ``trace``
+    (``repro_torch.serving.trace.ServeTrace``) each call is also the span
+    ``sponge.<name>`` (``"prefill"`` / ``"decode"`` in the token backend),
+    carrying the open gang's id and the call's index in ``calls``, with
+    the wait for the device inside it as the span ``sponge.sync``.
     """
 
-    def __init__(self, fns: Dict[tuple[int, int], Callable]):
+    trace = None
+
+    def __init__(self, fns: Dict[tuple[int, int], Callable],
+                 name: str = "step"):
         self.fns = dict(fns)
+        self.name = name
         self.calls: list[tuple[float, int, int, float]] = []
 
     def warmup(self, args_for: Callable[[int, int], tuple]) -> None:
@@ -108,9 +119,13 @@ class TimedExecutor:
         device_sync()
 
     def __call__(self, c: int, b: int, *args) -> Any:
+        tr = self.trace
         t0 = time.perf_counter()
-        out = self.fns[(c, b)](*args)
-        device_sync()
+        with (_OFF if tr is None else
+              tr.span(self.name, gang=tr.gang, step=len(self.calls))):
+            out = self.fns[(c, b)](*args)
+            with (_OFF if tr is None else tr.span("sync")):
+                device_sync()
         dt = time.perf_counter() - t0
         self.calls.append((t0, c, b, dt))
         return out

@@ -53,6 +53,7 @@ from repro_torch.core.vertical import TimedExecutor, VerticalScaledInstance
 from repro_torch.models import build_model
 from repro_torch.models.api import resolve_device
 from repro_torch.serving.capture import CapturedStep
+from repro_torch.serving.trace import span
 from repro_torch.serving.workload import WorkloadGenerator
 
 _sid = itertools.count()
@@ -544,7 +545,13 @@ class ScenarioRunner:
     policies receive this runner as ``sim`` and may mutate the pool
     through ``add_server`` / ``remove_servers`` / ``set_batch``;
     decide-protocol policies are driven through :meth:`drive`.
+
+    With a ``trace`` (``serving/trace.py``) each ``decide`` is the span
+    ``sponge.decide``, and its session marks ``sponge.admit`` as each
+    request enters the queue.
     """
+
+    trace = None
 
     def __init__(self, policy, backend, tick: float = 1.0,
                  dispatch_margin: float = 0.02):
@@ -599,7 +606,11 @@ class ScenarioRunner:
             return
         lam = self.monitor.rate.rate(now)
         wait0 = max(self.pool[0].busy_until - now, 0.0)
-        d = policy.decide(now, self.queue, lam, initial_wait=wait0)
+        with span(self.trace, "decide") as rec:
+            d = policy.decide(now, self.queue, lam, initial_wait=wait0)
+        if rec is not None:
+            rec.attrs["c"], rec.attrs["b"] = resolve_decision(
+                self.backend.c_set, d)
         self.apply_decision(d, now)
 
     def submit(self, req: Request, payload: Any = None) -> None:

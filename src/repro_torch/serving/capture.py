@@ -41,6 +41,7 @@ from repro_torch.kernels.decode_attention import ops as _dec
 from repro_torch.kernels.rwkv6_scan import ops as _wkv
 from repro_torch.kernels.ssd_scan import ops as _ssd
 from repro_torch.kernels.swa_prefill import ops as _pre
+from repro_torch.serving.trace import span
 
 # every kernel wrapper's module, by kernel name (each keeps ``launches``)
 KERNELS = {"swa_prefill": _pre, "decode_attention": _dec,
@@ -66,8 +67,12 @@ class CapturedStep:
     argument that is that static tensor itself is not copied), runs the
     step (the first call, eagerly) or replays its graph, and returns its
     outputs.  ``replays`` counts the graph's replays and ``deltas`` holds
-    the kernel launches one replay makes.
+    the kernel launches one replay makes.  With a ``trace``
+    (``serving/trace.py``) the copy of the arguments is the span
+    ``sponge.copy_in`` and each replay the span ``sponge.replay``.
     """
+
+    trace = None
 
     def __init__(self, body: Callable[[], Any],
                  inputs: Sequence[torch.Tensor],
@@ -101,16 +106,18 @@ class CapturedStep:
         if len(args) != len(self.inputs):
             raise TypeError(f"{len(self.inputs)} inputs expected, got "
                             f"{len(args)}")
-        for dst, src in zip(self.inputs, args):
-            if src is not dst:
-                dst.copy_(torch.as_tensor(src))
+        with span(self.trace, "copy_in"):
+            for dst, src in zip(self.inputs, args):
+                if src is not dst:
+                    dst.copy_(torch.as_tensor(src))
         if not self.capture:
             return self.body()
         if self.graph is None:
             outputs = self.body()               # the warm-up, eagerly
             self._capture()
             return outputs
-        self.graph.replay()
+        with span(self.trace, "replay"):
+            self.graph.replay()
         self.replays += 1
         _add_launches(self.deltas)
         return self.outputs

@@ -317,6 +317,7 @@ class ExactSession:
         """Advance virtual time, processing every event with time ≤ t."""
         _check_step_target(t)
         r = self.runner
+        tr = r.trace
         pend = self._pending
         events = self._events
         while True:
@@ -341,6 +342,8 @@ class ExactSession:
                     continue
                 self._status[req.id] = QUEUED
                 r.submit(req, payload)
+                if tr is not None:
+                    tr.mark("admit", req=req.id)
             elif kind == 1:
                 self._next_tick += r.tick
                 if hasattr(r.policy, "on_tick"):

@@ -56,6 +56,7 @@ from repro_torch.models.api import resolve_device
 from repro_torch.serving.api import ScenarioRunner, _PooledBackend
 from repro_torch.serving.capture import CapturedStep, table_replays
 from repro_torch.serving.scenarios import build_scenario
+from repro_torch.serving.trace import ServeTrace, span
 
 
 def _host(x) -> np.ndarray:
@@ -214,9 +215,17 @@ class TokenTorchBackend(_PooledBackend):
     (:func:`build_token_step_fns`); ``execute`` runs each gang to its
     end before it returns, so no prefill overwrites a live gang, and it
     copies each step's ids to the host.
+
+    With a ``trace`` (``serving/trace.py``) each ``execute`` is the span
+    ``sponge.gang`` (its id, ``c``, ``b`` and request ids); inside it the
+    step calls are ``sponge.prefill`` / ``sponge.decode`` (each with its
+    ``sponge.sync``), each copy of ids to the host is
+    ``sponge.ids_to_host``, and each request's first and last token are
+    marked ``sponge.first_token`` / ``sponge.finish``.
     """
 
     name = "token-torch"
+    trace = None
 
     def __init__(self, prefill_fns: Dict[tuple[int, int], Callable],
                  decode_fns: Dict[tuple[int, int], Callable],
@@ -226,8 +235,8 @@ class TokenTorchBackend(_PooledBackend):
         if clock not in ("measured", "modeled"):
             raise ValueError(f"clock must be 'measured' or 'modeled', "
                              f"got {clock!r}")
-        self.pre_table = TimedExecutor(prefill_fns)
-        self.dec_table = TimedExecutor(decode_fns)
+        self.pre_table = TimedExecutor(prefill_fns, "prefill")
+        self.dec_table = TimedExecutor(decode_fns, "decode")
         self.cost = cost
         self.prompt_len = prompt_len
         self.max_decode = max_decode
@@ -249,12 +258,30 @@ class TokenTorchBackend(_PooledBackend):
     def on_submit(self, req: Request, payload: Any) -> None:
         self._payloads[req.id] = payload
 
+    def set_trace(self, trace: Optional[ServeTrace]) -> None:
+        """Record into ``trace`` from now on (None: stop recording)."""
+        self.trace = self.pre_table.trace = self.dec_table.trace = trace
+
     def execute(self, batch: List[Request], c: int, b: int,
                 now: float) -> float:
+        tr = self.trace
+        if tr is None:
+            return self._run_gang(batch, c, b, now, None)
+        with tr.gang_span(c=c, b=b, reqs=[r.id for r in batch]):
+            return self._run_gang(batch, c, b, now, tr)
+
+    def _run_gang(self, batch: List[Request], c: int, b: int, now: float,
+                  tr: Optional[ServeTrace]) -> float:
         tokens = pad_prompts([self._payloads.pop(r.id, None)
                               for r in batch], b, self.prompt_len)
         tok, cache = self.pre_table(c, b, tokens)
-        first = _host(tok)
+        if tr is not None:
+            for r in batch:
+                tr.mark("first_token", req=r.id, gang=tr.gang)
+                if min(r.decode_tokens, self.max_decode) == 0:
+                    tr.mark("finish", req=r.id, gang=tr.gang)
+        with span(tr, "ids_to_host"):
+            first = _host(tok)
         dt = self.pre_table.calls[-1][3]
         if self.clock == "modeled":
             total_prompt = sum(r.prompt_tokens for r in batch)
@@ -270,7 +297,11 @@ class TokenTorchBackend(_PooledBackend):
                 r.finish = t
         while (remaining > 0).any():
             tok, cache = self.dec_table(c, b, cache, tok)
-            nxt = _host(tok)            # the ids stay on the device as input
+            if tr is not None:
+                for i in np.flatnonzero(remaining == 1):
+                    tr.mark("finish", req=batch[i].id, gang=tr.gang)
+            with span(tr, "ids_to_host"):
+                nxt = _host(tok)        # the ids stay on the device as input
             dt = self.dec_table.calls[-1][3]
             if self.clock == "modeled":
                 dt = float(self.cost.decode_latency(
@@ -297,7 +328,7 @@ def make_token_live_server(arch="smollm-135m-reduced", *,
                            prior_rps: float = 0.0,
                            cost: Optional[TokenCostModel] = None,
                            params: Optional[dict] = None, seed: int = 0,
-                           device=None):
+                           device=None, trace: Optional[ServeTrace] = None):
     """Build the full real-kernel token serving stack.
 
     Resolves ``arch`` through ``configs.registry`` (or takes it as it
@@ -308,7 +339,10 @@ def make_token_live_server(arch="smollm-135m-reduced", *,
     tables, calibrates a :class:`TokenCostModel` from them unless
     ``cost`` is given, and wires a ``TokenSpongeScaler`` +
     :class:`TokenTorchBackend` behind the ``ScenarioRunner``.  Returns
-    ``(runner, backend, cfg, cost)``.
+    ``(runner, backend, cfg, cost)``.  With a ``trace``
+    (``serving/trace.py``) every captured step, both tables, the backend
+    and the runner record into it, and the warm-up and the calibration
+    are its spans ``sponge.setup.capture`` and ``sponge.setup.calibrate``.
     """
     base = arch if isinstance(arch, ModelConfig) else get_config(arch)
     cfg = dataclasses.replace(base, use_pallas_prefill=True,
@@ -318,16 +352,23 @@ def make_token_live_server(arch="smollm-135m-reduced", *,
         params = model.init(model.generator(seed))
     prefill_fns, decode_fns = build_token_step_fns(
         model, params, c_set, b_set, prompt_len, max_decode=max_decode)
-    warmup_token_fns(prefill_fns, decode_fns, prompt_len)
+    if trace is not None:
+        for fn in [*prefill_fns.values(), *decode_fns.values()]:
+            fn.step.trace = trace
+    with span(trace, "setup.capture"):
+        warmup_token_fns(prefill_fns, decode_fns, prompt_len)
     if cost is None:
-        cost = calibrate_token_fns(prefill_fns, decode_fns, prompt_len,
-                                   mean_decode=max_decode / 2.0)
+        with span(trace, "setup.calibrate"):
+            cost = calibrate_token_fns(prefill_fns, decode_fns, prompt_len,
+                                       mean_decode=max_decode / 2.0)
     scaler = TokenSpongeScaler(cost, c_set=tuple(c_set),
                                b_set=tuple(b_set),
                                adaptation_interval=tick)
     backend = TokenTorchBackend(prefill_fns, decode_fns, cost, prompt_len,
                                 max_decode=max_decode, clock=clock)
+    backend.set_trace(trace)
     runner = ScenarioRunner(scaler, backend, tick=tick)
+    runner.trace = trace
     runner.monitor.rate.prior_rps = prior_rps
     return runner, backend, cfg, cost
 
