@@ -7,7 +7,7 @@ Phases, each printed on its own line; any failure raises and the exit
 code is non-zero:
 
 1. device  -- the card's name and power limit, as ``nvidia-smi`` prints them;
-2. build   -- the four CUDA kernels built from
+2. build   -- the seven CUDA kernels built from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all at once),
    and beside them one more ``nvcc -Xptxas -v`` per source, whose report
    gives each kernel instantiation's registers, spill and static shared
@@ -46,7 +46,15 @@ code is non-zero:
    ``CHUNKED_MIN_T``) is held to ``ssd_scan_plain`` at the tolerances
    above; its chunked form (bf16, T >= ``CHUNKED_MIN_T``) to
    ``ssd_scan_chunked_plain`` (y 2e-2, h_final 2e-4) and to the
-   recurrence at the reference's SSD bf16 tolerance, 5e-2;
+   recurrence at the reference's SSD bf16 tolerance, 5e-2.
+   The decode step's three fused kernels (``add_rms_norm``,
+   ``rope_kv_write``, ``glu_gate``; bf16 only) at h2o-danube-1.8b's,
+   smollm-135m's and gemma-2b's widths (``FUSED_SHAPES``) and b 1, 8,
+   16: each against its plain version at 1e-2 (the residual and the V
+   row exactly), the K/V rows in their slot and no other before and
+   after a 16-slot ring wraps and up to a full cache's last slot, an f32
+   CUDA tensor refused; each timed beside its plain version and its
+   byte bound (``<model>_b<B>_*`` keys, danube b 16 unprefixed);
 4. parity  -- full-width smollm-135m, rwkv6-1.6b, zamba2-2.7b,
    smollm-360m, gemma-2b and h2o-danube-1.8b, in float32: prefill (batch
    2, prompt 256) + 4 decode steps through the kernel routes match the
@@ -75,7 +83,8 @@ code is non-zero:
    ``decode_attention`` per layer per step (whisper two: self- and
    cross-attention); bf16 teacher-forced under the rule above.  Then the
    main path, bf16 on the kernel route, counts reset before and read
-   after (they must be exactly those per prefill and step): the prefill
+   after (they must be exactly those per prefill and step, and the
+   fused kernels ``fused_per_step`` times a step): the prefill
    wall at b 4 (whisper's encoder also alone) and a 64-step greedy
    generation at b 1, 2 and 4, eager and through one captured decode
    graph (ids equal), with host wall per step and tokens per wall
@@ -100,6 +109,12 @@ code is non-zero:
    at the card's memory rate, the idle share (as in phase 7), peak
    memory, and deepseek-v3's ``mtp_logits`` once (finite, (B, S - 1,
    padded vocab));
+   graph  -- one replay of h2o-danube-1.8b's served decode step
+   (``DECODE_GRAPH``: bf16, the captured b 16 entry after a 512-token
+   prompt): its device time (CUDA events, median of 50 replays), then
+   one replay under ``torch.profiler``: kernels per replay and per
+   layer, by family (cuBLAS, each hand-written kernel, PyTorch's own),
+   and the top kernels;
 5. capture -- per model, in bfloat16 at the serving shape (batch 4,
    prompt 256, 10 decode steps): the prefill and decode steps of one
    static gang run eagerly and as replayed CUDA graphs
@@ -116,8 +131,13 @@ code is non-zero:
    must launch ``rwkv6_scan`` (a multiple of its 24 layers) and no other
    kernel; the zamba2 path must launch ``ssd_scan`` (a multiple of its 54
    layers) and both attention kernels (each a multiple of the shared
-   block's 9 applications), and not ``rwkv6_scan``.  Every served step
-   must be a graph replay.  Then ``llm-mixed-len`` (chat prompts beside
+   block's 9 applications), and not ``rwkv6_scan``.  Every path, the
+   MLA one too (which launches no attention kernel or scan), must launch
+   the fused kernels exactly ``fused_per_step`` times a decode step
+   (``add_rms_norm`` 2 L + 1, ``rope_kv_write`` and ``glu_gate`` once
+   per standard-RoPE attention and SwiGLU / GeGLU MLP; zamba2's shared
+   block two norms, one of each per application; whisper a third norm
+   a layer).  Every served step must be a graph replay.  Then ``llm-mixed-len`` (chat prompts beside
    long documents, per-request TTFT and TBT SLOs) on smollm-135m with
    ``b_set = c_set = (1, 2, 4, 8)``, under the same checks.
 
@@ -136,7 +156,8 @@ code is non-zero:
    the same requests served on the measured clock each get a result,
    with ``swa_prefill`` launched 30 times (once per layer) and
    ``decode_attention`` 240 times (per layer per step) for every entry
-   the serve ran, warm-up excluded, and neither scan.  Its launches join
+   the serve ran, warm-up excluded, the fused kernels ``fused_per_step``
+   times a step, and neither scan.  Its launches join
    the kernel rows;
    scenarios -- the dynamic-SLO scenarios on full-width smollm-135m, bf16:
    ``llm-heavy-tail`` and ``retrieve-then-generate`` (decode lengths from
@@ -203,7 +224,7 @@ code is non-zero:
    here: the phase fails if any count is above 0.
 
    train  -- the training path (``repro_torch.train``), which launches
-   none of the four kernels (the reference's training forward reaches
+   none of the kernels (the reference's training forward reaches
    no Pallas call): every leg resets the counts before it and fails if
    any is above 0 after it.  Leg 1: f32, the reduced smollm-135m,
    rwkv6-1.6b (``rwkv_chunked``), zamba2-2.7b and deepseek-v3-671b
@@ -240,7 +261,8 @@ code is non-zero:
    eager greedy steps: the ids must equal the unsharded run's, and the
    counts, reset before the sharded run and read after it, must be 30
    ``swa_prefill`` (one per layer) and 480 ``decode_attention`` (one per
-   layer and step): the sharded path reached the kernels through
+   layer and step), and no fused kernel (a mesh keeps the decode step's
+   plain chains): the sharded path reached the kernels through
    ``local_map``; they add to the kernels line.  Leg 2: phase ``train``
    leg 3's shape, 3 steps on the mesh against 3 unsharded from one
    ``init_state``: losses and gradient norms within 1e-6 relative, both
@@ -331,6 +353,23 @@ LONG_PREFILL = dict(B=1, S=4096, H=32, KV=32, D=80, window=4096)
 # gemma-2b: 8 query heads of 256 over 1 KV head (multi-query, G = 8)
 PREFILL256 = dict(B=4, S=256, H=8, KV=1, D=256, checks=((2, 77, 16),))
 DECODE256 = dict(B=4, S=321, KV=1, G=8, D=256, lengths=(0, 1, 160, 321))
+# the decode step's fused kernels at each model's widths and the served
+# gang sizes: h2o-danube-1.8b (a ring buffer), smollm-135m and gemma-2b
+# (GeGLU; a full cache); timed at every B, the danube B 16 row unprefixed
+FUSED_SHAPES = {
+    "danube": dict(d=2560, H=32, KV=8, D=80, ff=6912, kind="swiglu",
+                   window=16, S=16, index=(5, 21)),
+    "smollm": dict(d=576, H=9, KV=3, D=64, ff=1536, kind="swiglu",
+                   window=0, S=32, index=(5, 31)),
+    "gemma": dict(d=2048, H=8, KV=1, D=256, ff=16384, kind="geglu",
+                  window=0, S=32, index=(5, 31)),
+}
+FUSED_ROWS = (1, 8, 16)
+FUSED_TOL = 1e-2
+# one replay of h2o-danube-1.8b's served decode step at b 16, profiled:
+# its kernels per replay and per layer (chat's bucket of 512 tokens)
+DECODE_GRAPH = dict(arch="h2o-danube-1.8b", b=16, prompt=512, max_decode=128,
+                    replays=50)
 # h2o-danube-1.8b past its 4096-token window
 WINDOW = dict(arch="h2o-danube-1.8b", prompt=4160, steps=16)
 WKV = dict(B=4, T=256, H=32, D=64)        # rwkv6-1.6b prefill at the serve
@@ -692,6 +731,7 @@ def kernel_phase(dev):
                      decode=K2_DECODE)
     rows["rwkv6_scan"] = wkv_kernel_phase(dev, gen)
     rows["ssd_scan"] = ssd_kernel_phase(dev, gen)
+    rows.update(fused_kernel_phase(dev, gen))
     for r in rows.values():
         say("kernels", kernel=r["name"], ms=r["ms"], plain_ms=r["plain_ms"],
             library_ms=r["library_ms"], bound_ms=r["bound_ms"],
@@ -787,6 +827,118 @@ def attn_shape_phase(dev, gen, rows, key, prefill=None, decode=None) -> None:
                             f"lengths={list(decode['lengths'])}"})
         say("kernels", kernel="decode_attention",
             **{pre_ + k_: r[pre_ + k_] for k_ in TIMED_KEYS})
+
+
+def fused_kernel_phase(dev, gen) -> dict:
+    """The decode step's three fused kernels against their plain versions
+    in bf16 (``FUSED_TOL`` relative and absolute; the residual and the V
+    row exactly) at each of ``FUSED_SHAPES`` and ``FUSED_ROWS``, the K/V
+    rows in their slot before and after the ring buffer wraps, a CUDA
+    tensor in f32 refused; then each timed beside its plain version and
+    its byte bound.  Returns their rows of the kernels line."""
+    from repro_torch.kernels.add_rms_norm import ops as norm
+    from repro_torch.kernels.glu_gate import ops as gate
+    from repro_torch.kernels.rope_kv_write import ops as rope
+
+    bf = torch.bfloat16
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf)
+
+    rows = {name: {"name": name, "route": "cuda",
+                   "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                   "replaces": f"none: the reference leaves {what} to XLA",
+                   "launches": None, "max_abs_err": 0.0, "library_ms": None}
+            for name, what in (
+                ("add_rms_norm", "the residual add and rms_norm "
+                 "(src/repro/models/common.py)"),
+                ("rope_kv_write", "apply_rope and the cache update "
+                 "(src/repro/models/attention.py attention_decode)"),
+                ("glu_gate", "the SwiGLU / GeGLU gate "
+                 "(src/repro/models/mlp.py)"))}
+
+    def check(name, out, ref):
+        err = check_within(name, out, ref, FUSED_TOL)
+        r = rows[name.split()[0]]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        return err
+
+    for model, m in FUSED_SHAPES.items():
+        d, h, kv, hd, ff, s = (m[k] for k in ("d", "H", "KV", "D", "ff", "S"))
+        for b in FUSED_ROWS:
+            tag = f"{model} B={b}"
+            x, y = rand(b, 1, d), rand(b, 1, d)
+            scale = rand(d, scale=0.1)
+            for with_y in (True, False):
+                yy = y if with_y else None
+                x_new, hn = norm.add_rms_norm(x, yy, scale, 1e-5)
+                rx, rh = norm.add_rms_norm_plain(x, yy, scale, 1e-5)
+                if not torch.equal(x_new, rx):
+                    raise AssertionError(f"add_rms_norm {tag}: residual "
+                                         f"differs from x + y")
+                check(f"add_rms_norm {tag} y={with_y}", hn, rh)
+            g, u = rand(b, 1, ff, scale=2.0), rand(b, 1, ff)
+            check(f"glu_gate {tag} {m['kind']}",
+                  gate.glu_gate(g, u, m["kind"]),
+                  gate.glu_gate_plain(g, u, m["kind"]))
+            q, k, v = rand(b, 1, h, hd), rand(b, 1, kv, hd), rand(b, 1, kv, hd)
+            ck0, cv0 = rand(b, s, kv, hd), rand(b, s, kv, hd)
+            for index in m["index"]:
+                idx = torch.tensor(index, dtype=torch.int32, device=dev)
+                ck, cv, pk, pv = (t.clone() for t in (ck0, cv0, ck0, cv0))
+                qo = rope.rope_kv_write(q, k, v, idx, ck, cv, 1e4,
+                                        m["window"])
+                qp = rope.rope_kv_write_plain(q, k, v, idx, pk, pv, 1e4,
+                                              m["window"])
+                slot = index % s if m["window"] else index
+                rest = torch.arange(s, device=dev) != slot
+                if not (torch.equal(cv, pv) and torch.equal(ck[:, rest],
+                                                            ck0[:, rest])):
+                    raise AssertionError(f"rope_kv_write {tag} index "
+                                         f"{index}: V or another slot "
+                                         f"differs")
+                err = check(f"rope_kv_write {tag} index={index}", qo, qp)
+                err = max(err, check(f"rope_kv_write {tag} K slot {slot}",
+                                     ck[:, slot], pk[:, slot]))
+                say("kernels", kernel="rope_kv_write", model=model, B=b,
+                    S=s, window=m["window"], index=index, slot=slot,
+                    max_abs_err=err)
+            elt = 2
+            times = {
+                "add_rms_norm": (
+                    lambda: norm.add_rms_norm(x, y, scale, 1e-5),
+                    lambda: norm.add_rms_norm_plain(x, y, scale, 1e-5),
+                    elt * (4 * b * d + d)),
+                "rope_kv_write": (
+                    lambda: rope.rope_kv_write(q, k, v, idx, ck, cv, 1e4,
+                                               m["window"]),
+                    lambda: rope.rope_kv_write_plain(q, k, v, idx, pk, pv,
+                                                     1e4, m["window"]),
+                    2 * elt * b * (h + 2 * kv) * hd + 4 * hd // 2 + 4),
+                "glu_gate": (
+                    lambda: gate.glu_gate(g, u, m["kind"]),
+                    lambda: gate.glu_gate_plain(g, u, m["kind"]),
+                    3 * elt * b * ff)}
+            for name, (kern, plain, nbytes) in times.items():
+                bms, by = bound_ms(nbytes, 0.0, bf)
+                res = {"ms": median_ms(kern), "plain_ms": median_ms(plain),
+                       "bound_ms": bms, "bound_by": by}
+                key = f"{model}_b{b}_"
+                rows[name].update({key + k_: v_ for k_, v_ in res.items()})
+                if model == "danube" and b == FUSED_ROWS[-1]:
+                    rows[name].update(res, timed=f"bf16 {tag}")
+                say("kernels", kernel=name, model=model, B=b, **res)
+    f32 = torch.zeros(2, 1, 64, device=dev)
+    for name, call in (
+            ("add_rms_norm", lambda: norm.add_rms_norm(
+                f32, None, torch.zeros(64, device=dev), 1e-5)),
+            ("glu_gate", lambda: gate.glu_gate(f32, f32, "swiglu"))):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError(f"{name} took an f32 CUDA tensor")
+    return rows
 
 
 def wkv_inputs(gen, dev, b, t, h, d, dtype):
@@ -1288,10 +1440,13 @@ def vlm_audio_phase(dev, arch: str, profile: bool):
     per_step = layers * (2 if base.is_encoder_decoder else 1)
     s_total = base.num_patch_tokens + prompt
 
-    def expect(launches, prefills, steps):
+    def expect(launches, prefills, steps, fused=False):
+        """Exact counts; ``fused``: bf16 steps, with the fused kernels."""
         want = {"swa_prefill": prefills * layers,
                 "decode_attention": steps * per_step,
-                "rwkv6_scan": 0, "ssd_scan": 0}
+                "rwkv6_scan": 0, "ssd_scan": 0,
+                **{k: steps * n if fused else 0
+                   for k, n in fused_per_step(base).items()}}
         if launches != want:
             raise AssertionError(f"{arch}: launches {launches}, expected "
                                  f"{want}")
@@ -1434,7 +1589,7 @@ def vlm_audio_phase(dev, arch: str, profile: bool):
             raise AssertionError(f"{arch} b={b}: ids out of the vocabulary")
     torch.cuda.synchronize()
     launches = launch_counts()
-    expect(launches, prefills, steps)
+    expect(launches, prefills, steps, fused=True)
     say("models", arch=arch, dtype="bfloat16", route="kernel",
         gen_steps=GEN_STEPS, b_set=list(GEN_SETS), cache_len=cache_len,
         ids="replayed == eager", **res)
@@ -1707,6 +1862,45 @@ def capture_phase(dev, arch: str, model=None, params=None) -> None:
         ids="identical", max_abs_logit_diff=diff)
 
 
+FUSED = ("add_rms_norm", "rope_kv_write", "glu_gate")
+
+
+def fused_per_step(cfg) -> dict:
+    """The fused kernels' launches in one bf16 decode step of ``cfg`` on
+    the card's kernel route (``transformer.fused_decode``): a norm
+    before each mixer, cross-attention and feed-forward, and the final
+    norm; the RoPE + KV write of each standard-RoPE attention; the gate
+    of each SwiGLU / GeGLU MLP; zamba2's shared block adds two norms,
+    its attention and its MLP per application."""
+    glu = cfg.mlp_kind in ("swiglu", "geglu")
+    rope = cfg.rope_kind == "standard"
+    n = {"add_rms_norm": 1, "rope_kv_write": 0, "glu_gate": 0}
+    for kind in cfg.blocks:
+        mixer, ffn = kind.split("+")
+        n["add_rms_norm"] += (1 + (ffn != "none")
+                              + int(cfg.is_encoder_decoder))
+        n["rope_kv_write"] += int(rope and mixer in ("attn", "swa"))
+        n["glu_gate"] += int(glu and ffn == "mlp")
+    if cfg.shared_attn_every:
+        apps = -(-cfg.num_layers // cfg.shared_attn_every)
+        n["add_rms_norm"] += 2 * apps
+        n["rope_kv_write"] += apps * rope
+        n["glu_gate"] += apps * glu
+    return n
+
+
+def fused_checks(cfg, launches, steps=None) -> dict:
+    """Checks that the bf16 decode steps since the counts' reset (``steps``
+    of them; None: as many as ``add_rms_norm``'s count gives) launched
+    exactly ``fused_per_step`` of each fused kernel a step."""
+    per = fused_per_step(cfg)
+    if steps is None:
+        steps = launches["add_rms_norm"] // per["add_rms_norm"]
+    return {f"{name} launched {n} times a decode step":
+                steps > 0 and launches[name] == n * steps
+            for name, n in per.items()}
+
+
 def serve_phase(dev, arch, scenario: str = "llm-chat", sets=(1, 2, 4),
                 params=None):
     """``run_token_scenario`` on ``arch`` (a registry id, or a
@@ -1751,8 +1945,9 @@ def serve_phase(dev, arch, scenario: str = "llm-chat", sets=(1, 2, 4),
             "rwkv6_scan not launched": launches["rwkv6_scan"] == 0}
     elif "mla" in cfg.mixer_kinds:
         # MLA (two head dims) and the experts run in plain PyTorch, as in
-        # the reference: no kernel is on this path
-        kernel_checks = {"no kernel launched": not any(launches.values())}
+        # the reference: no attention kernel or scan is on this path
+        kernel_checks = {"no attention kernel or scan launched": not any(
+            n for k, n in launches.items() if k not in FUSED)}
     else:
         layers = cfg.num_layers
         kernel_checks = {
@@ -1777,6 +1972,7 @@ def serve_phase(dev, arch, scenario: str = "llm-chat", sets=(1, 2, 4),
         "every served step a graph replay":
             stats["graph_replays"] >= stats["step_calls"] > 0,
         **kernel_checks,
+        **fused_checks(cfg, launches),
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -1981,6 +2177,7 @@ def fixed_phase(dev, rows):
             launches["decode_attention"] == layers * gen * entries,
         "no scan launched":
             launches["rwkv6_scan"] == launches["ssd_scan"] == 0,
+        **fused_checks(cfg, launches, gen * entries),
         "every entry a graph replay": replays == entries,
     }
     failed = [k for k, ok in checks.items() if not ok]
@@ -2083,6 +2280,7 @@ def scenarios_phase(dev, perf):
                 == layers * f["gen_tokens"] * entries,
             "no scan launched":
                 launches["rwkv6_scan"] == launches["ssd_scan"] == 0,
+            **fused_checks(cfg, launches, f["gen_tokens"] * entries),
         }
         failed = [k for k, ok in checks.items() if not ok]
         if failed:
@@ -3229,7 +3427,9 @@ def dist_serve_leg(dev, mesh) -> dict:
         del model, params, cache, lg
         gc_cuda()
     layers = cfg.num_layers
-    want = {"swa_prefill": layers, "decode_attention": layers * steps}
+    # under the mesh the decode step keeps its plain chains
+    want = {"swa_prefill": layers, "decode_attention": layers * steps,
+            **dict.fromkeys(FUSED, 0)}
     same = torch.equal(ids["mesh"], ids["unsharded"])
     say("dist", leg=1, arch=cfg.name, dtype=cfg.dtype, batch=b,
         prompt=prompt, decode_steps=steps, ids_equal=same,
@@ -3672,6 +3872,85 @@ def profiled(fn, setup=lambda: None) -> dict:
                              "count": n} for t, n, k in kernels[:12]]}
 
 
+def kernel_family(name: str) -> str:
+    """The family of a device kernel by its profiler name: a hand-written
+    kernel by its name, cuBLAS's GEMMs, or PyTorch's own kernels."""
+    for k in ("decode_attention", "swa_prefill", "add_rms_norm",
+              "rope_kv_write", "glu_gate", "rwkv6_scan", "ssd_scan"):
+        if k in name:
+            return k
+    if any(t in name for t in ("nvjet", "gemm", "Kernel2", "splitK")):
+        return "gemm"
+    return "pytorch"
+
+
+def decode_graph_phase(dev) -> dict:
+    """One replay of ``DECODE_GRAPH``'s served decode step (bf16, the
+    kernel route, its captured graph at b 16 after a prompt of the chat
+    bucket): the device time of a replay (CUDA events, median of
+    ``replays``), then one replay under ``torch.profiler``: its kernels
+    per replay and per layer, by family, and its device busy time."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.token_backend import (build_token_step_fns,
+                                                   warmup_token_fns)
+    from torch.profiler import ProfilerActivity, profile
+
+    g = DECODE_GRAPH
+    cfg = dataclasses.replace(get_config(g["arch"]), use_pallas_prefill=True,
+                              use_pallas_decode=True)
+    model = build_model(cfg, device=dev)
+    params = model.init(model.generator(0))
+    b, pl = g["b"], g["prompt"]
+    pre, dec = build_token_step_fns(model, params, (1,), (b,), pl,
+                                    max_decode=g["max_decode"])
+    warmup_token_fns(pre, dec, pl)
+    prefill, decode = pre[(1, b)], dec[(1, b)]
+    tokens = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (b, pl)).astype(np.int32)
+    tok, cache = prefill(tokens)
+    for _ in range(5):
+        tok, cache = decode(cache, tok)
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(g["replays"])]
+    for start, end in ev:
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        tok, cache = decode(cache, tok)
+        end.record()
+    torch.cuda.synchronize()
+    step_ms = float(np.median([a.elapsed_time(e) for a, e in ev]))
+    tok, cache = prefill(tokens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tok, cache = decode(cache, tok)
+        torch.cuda.synchronize()
+    kernels, _ = device_events(prof)
+    families: dict = {}
+    for t, n, name in kernels:
+        f = families.setdefault(kernel_family(name), [0, 0.0])
+        f[0] += n
+        f[1] += t / 1e3
+    count = sum(n for _, n, _ in kernels)
+    out = {"arch": cfg.name, "batch": b, "prompt": pl,
+           "decode_step_device_ms": step_ms,
+           "kernels_per_replay": count,
+           "kernels_per_layer": count / cfg.num_layers,
+           "busy_ms": sum(t for t, _, _ in kernels) / 1e3,
+           "by_family": {k: {"kernels": n, "device_ms": ms}
+                         for k, (n, ms) in sorted(families.items())},
+           "top_kernels": [{"kernel": k[:120], "device_ms": t / 1e3,
+                            "count": n} for t, n, k in kernels[:16]]}
+    say("graph", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                    for k, v in out.items() if k != "top_kernels"})
+    for r in out["top_kernels"]:
+        say("graph", **r)
+    del pre, dec, prefill, decode, model, params, cache
+    gc_cuda()
+    return out
+
+
 def profile_phase(dev, arch: str, model=None, params=None) -> dict:
     """The served b = 4 table entry, eager and replayed from CUDA graphs:
     one prefill and ten decode steps, each step's ids copied to the host
@@ -3824,6 +4103,7 @@ def run_phases(dev, args, t_start, dry) -> int:
     for arch in PARITY_ONLY:
         parity_phase(dev, arch)
         torch.cuda.empty_cache()
+    decode_graph_phase(dev)
     for arch in VLM_AUDIO:
         for name, n in vlm_audio_phase(dev, arch, args.profile).items():
             rows[name]["launches"] += n

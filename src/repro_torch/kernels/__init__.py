@@ -1,5 +1,7 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``) for the serving hot
-spots: the counterparts of the reference's Pallas TPU kernels.
+spots: the counterparts of the reference's Pallas TPU kernels, and three
+that fuse the decode step's elementwise chains (``add_rms_norm``,
+``rope_kv_write``, ``glu_gate``), which the reference leaves to XLA.
 
 Each kernel has its source under ``csrc/`` and an ``ops.py`` with the
 public wrapper, its plain PyTorch version (which the wrapper takes for
@@ -7,7 +9,10 @@ tensors on the CPU) and a launch counter.  ``build.py`` compiles a
 source with ``nvcc`` at its first launch; importing this package
 builds nothing.
 """
+from repro_torch.kernels.add_rms_norm.ops import add_rms_norm
 from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.glu_gate.ops import glu_gate
+from repro_torch.kernels.rope_kv_write.ops import rope_kv_write
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.swa_prefill.ops import swa_prefill_attention

@@ -49,6 +49,19 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
   unpack8(*reinterpret_cast<const uint4*>(p), out);
 }
 
+// eight f32 rounded to bf16 and stored with one 16-byte store
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* in) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));

@@ -207,7 +207,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
     shape = dataclasses.replace(
         shape, global_batch=global_batch or shape.global_batch,
         seq_len=seq_len or shape.seq_len)
-    from repro_torch.models import common
+    from repro_torch.kernels.rope_kv_write import ops as rope
 
     mesh = make_mesh(multi_pod, mesh_shape)
     mname = mesh_name(mesh) if opt == "baseline" else \
@@ -215,7 +215,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
     t0 = time.perf_counter()
     # RoPE's frequency tables are cached per device: a real table must
     # not meet fake tensors, nor a fake one outlive its mode
-    common._FREQS.clear()
+    rope._FREQS.clear()
     with FakeTensorMode():
         fn, args = build_step(arch, shape, mesh, opt=opt, cfg=cfg)
         t_build = time.perf_counter() - t0
@@ -225,7 +225,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
         with CostMode() as mode:
             out = fn(*args)
         out_bytes = _local_bytes(out)
-    common._FREQS.clear()
+    rope._FREQS.clear()
     t_trace = time.perf_counter() - t0
     wc = mode.cost
     mem = {"argument_size_in_bytes": arg_bytes,

@@ -575,6 +575,20 @@ def prefill(params, batch: dict, cfg: ModelConfig,
     return logits[:, 0], cache
 
 
+def _decode_lengths(cfg: ModelConfig, cache: dict, index, b: int,
+                    mesh) -> dict:
+    """``decode_attention``'s valid rows of the step, once a step and not
+    once a layer: under ``"k"`` for the layers' K/V cache, under
+    ``"shared"`` for the shared block's ring buffers, each where the
+    cache has it; empty off the kernel route or under a mesh (there
+    ``attention.decode_core`` computes them per rank)."""
+    if not cfg.use_pallas_decode or mesh is not None:
+        return {}
+    return {name: attn_mod.decode_lengths(index, kv["k"].shape[2], b)
+            for name, kv in (("k", cache), ("shared", cache.get("shared")))
+            if kv is not None and "k" in kv}
+
+
 def decode_step(params, cache: dict, token, cfg: ModelConfig,
                 mrope_positions=None, mesh=None):
     """One serve step: one new token per sequence against the cache.
@@ -585,8 +599,11 @@ def decode_step(params, cache: dict, token, cfg: ModelConfig,
     this step updates the cache's tensors (K/V, recurrent state or ring
     buffers, the index) in place, and the index is one further after it.
     Positions, ring slots and attention lengths come from the index on
-    the device.  Under ``mesh`` the cache is ``init_cache(mesh=)``'s or
-    ``prefill``'s DTensors."""
+    the device.  Each block hands its output to the next block's first
+    norm, which adds it to the residual (``transformer.block_decode``);
+    bf16 on the card takes the fused kernels
+    (``transformer.fused_decode``).  Under ``mesh`` the cache is
+    ``init_cache(mesh=)``'s or ``prefill``'s DTensors."""
     with _mesh_scope(mesh):
         index = cache["index"]
         if mesh is not None and not sh.is_dtensor(token):
@@ -603,15 +620,19 @@ def decode_step(params, cache: dict, token, cfg: ModelConfig,
             positions = index.long().expand(b, 1)
         x = _embed(params, cfg, token,
                    positions if cfg.rope_kind != "mrope" else None, mesh)
+        fused = tfm.fused_decode(cfg, x, mesh)
+        lengths = _decode_lengths(cfg, cache, index, b, mesh)
         shared, every = params.get("shared_attn"), cfg.shared_attn_every
+        y = None
         for i, p in enumerate(params["layers"]):
             if shared is not None and i % every == 0:
-                x = tfm.shared_attn_decode(shared, x,
-                                           _shared_cache(cache, i // every),
-                                           index, positions, cfg, mesh)
-            x = tfm.block_decode(p, x, _layer_cache(cache, i), index,
-                                 positions, cfg.blocks[i], cfg, mesh)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+                x, y = tfm.shared_attn_decode(
+                    shared, x, _shared_cache(cache, i // every), index,
+                    positions, cfg, mesh, y, fused, lengths.get("shared"))
+            x, y = tfm.block_decode(p, x, _layer_cache(cache, i), index,
+                                    positions, cfg.blocks[i], cfg, mesh, y,
+                                    fused, lengths.get("k"))
+        _, x = tfm.add_norm(x, y, params["final_norm"], cfg, fused)
         logits = _head(params, cfg, x)
         index.add_(1)
     return logits[:, 0], cache

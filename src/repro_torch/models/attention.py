@@ -61,6 +61,7 @@ from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.rope_kv_write.ops import rope_kv_write
 from repro_torch.launch.mesh import axis_names, axis_sizes
 from repro_torch.models import sharding as sh
 from repro_torch.models.common import (apply_mrope, apply_rope, dense_init,
@@ -350,12 +351,20 @@ def _decode_seq_sharded(q, ck, cv, index, mesh, cap: float, kernel: bool):
                          q, ck, cv, index)
 
 
-def decode_core(q, ck, cv, index, slot, cfg: ModelConfig, *, window: int,
+def decode_lengths(index, s_cache: int, b: int) -> torch.Tensor:
+    """``decode_attention``'s valid rows of each of ``b`` sequences over a
+    cache of ``s_cache`` slots at the 0-dim ``index``: ``min(index + 1,
+    S)`` as (B,) int32, computed on the device."""
+    return torch.clamp(index + 1, max=s_cache).to(torch.int32).expand(
+        b).contiguous()
+
+
+def decode_core(q, ck, cv, index, cfg: ModelConfig, *, window: int,
                 mesh=None, lengths=None):
     """One query per head against the cache: ``(B, KV, G, D)`` f32 or
     the kernel's dtype.  The Hopper ``decode_attention`` kernel when
     ``cfg.use_pallas_decode`` and the guard hold (``lengths`` the valid
-    rows of each sequence; ``None``: ``min(index + 1, S)``), else the
+    rows of each sequence; ``None``: ``decode_lengths``), else the
     dense masked softmax.  Under ``mesh`` per rank through ``local_map``,
     the batch over the data axes and the KV heads over ``model`` where
     they divide it; a cache with its sequence dim sharded (full or a
@@ -370,8 +379,7 @@ def decode_core(q, ck, cv, index, slot, cfg: ModelConfig, *, window: int,
                                    cfg.logit_softcap, kernel)
     if kernel:
         if lengths is None:
-            lengths = torch.clamp(index + 1, max=s_cache).to(
-                torch.int32).expand(b)
+            lengths = decode_lengths(index, s_cache, b)
         extra = lengths
 
         def fn(q, ck, cv, lengths):
@@ -395,33 +403,39 @@ def decode_core(q, ck, cv, index, slot, cfg: ModelConfig, *, window: int,
 
 def attention_decode(params, x: torch.Tensor, cache: dict, cache_index,
                      positions: torch.Tensor, cfg: ModelConfig, *,
-                     window: int = 0, mesh=None):
+                     window: int = 0, mesh=None, fused: bool = False,
+                     lengths=None):
     """Single-token decode.  x: (B, 1, d_model); cache: {"k", "v"} of
     (B, S, KV, D), keys cached post-RoPE; ``cache_index`` (a 0-dim
     integer tensor, or an int) is the position of this token.  Writes
     the token's K/V into the cache in place and returns ``(y, cache)``.
     ``positions``: (B, 1), or (3, B, 1) under M-RoPE.  With ``window >
     0`` the cache is a ring buffer and the token goes to slot
-    ``cache_index % S``.  Under ``mesh`` the cache is a DTensor: each
-    rank writes the rows of its own shard and the attention runs per
-    rank (``decode_core``)."""
+    ``cache_index % S``.  Under ``fused`` (``transformer.fused_decode``)
+    standard RoPE and the cache write are the ``rope_kv_write`` kernel,
+    which reads the position from the index on the device.  ``lengths``:
+    the kernel's valid rows, when the caller has them (``decode_core``).
+    Under ``mesh`` the cache is a DTensor: each rank writes the rows of
+    its own shard and the attention runs per rank (``decode_core``)."""
     h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     b = x.shape[0]
     q = sh.split_last(linear(x, params["wq"]), h, d)
     k = sh.split_last(linear(x, params["wk"]), kvh, d)
     v = sh.split_last(linear(x, params["wv"]), kvh, d)
-    q, k = _rope_qk(q, k, positions, cfg)
-
     ck, cv = cache["k"], cache["v"]
-    s_cache = ck.shape[1]
-    index = torch.as_tensor(cache_index, device=x.device).long()
-    slot = index % s_cache if window > 0 else index
-    sh.write_rows(ck, 1, slot.view(1), k)
-    sh.write_rows(cv, 1, slot.view(1), v)
-
-    q = sh.fit_dim(q, 2, kvh)
-    out = decode_core(q.reshape(b, kvh, h // kvh, d), ck, cv, index, slot,
-                      cfg, window=window, mesh=mesh)
+    if fused and cfg.rope_kind == "standard":
+        index = torch.as_tensor(cache_index, dtype=torch.int32,
+                                device=x.device)
+        q = rope_kv_write(q, k, v, index, ck, cv, cfg.rope_theta, window)
+    else:
+        q, k = _rope_qk(q, k, positions, cfg)
+        index = torch.as_tensor(cache_index, device=x.device).long()
+        slot = index % ck.shape[1] if window > 0 else index
+        sh.write_rows(ck, 1, slot.view(1), k)
+        sh.write_rows(cv, 1, slot.view(1), v)
+        q = sh.fit_dim(q, 2, kvh).reshape(b, kvh, h // kvh, d)
+    out = decode_core(q, ck, cv, index, cfg, window=window, mesh=mesh,
+                      lengths=lengths)
     out = out.reshape(b, 1, h * d).to(x.dtype)
     return linear(out, params["wo"]), cache
 

@@ -11,6 +11,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# the plain halves of the decode step's fused kernels, which live there
+from repro_torch.kernels.add_rms_norm.ops import rms_norm  # noqa: F401
+from repro_torch.kernels.rope_kv_write.ops import (apply_rope,  # noqa: F401
+                                                   freqs_on, rope_freqs)
+
 
 def to_dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -44,14 +49,6 @@ def keep_in(out, name: str, value: torch.Tensor) -> torch.Tensor:
     return out[name].copy_(value)
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    dt = x.dtype
-    x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
-    y = x * torch.rsqrt(var + eps)
-    return (y * (1.0 + scale.float())).to(dt)
-
-
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float) -> torch.Tensor:
     dt = x.dtype
@@ -76,36 +73,6 @@ def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(logits / cap)
 
 
-def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
-    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
-
-
-_FREQS: dict = {}
-
-
-def _freqs_on(d: int, theta: float, device: torch.device) -> torch.Tensor:
-    """``rope_freqs`` as a tensor on ``device``, copied there once: a
-    copy from host memory on every call would wait for the device."""
-    key = (d, theta, device)
-    if key not in _FREQS:
-        _FREQS[key] = torch.from_numpy(rope_freqs(d, theta)).to(device)
-    return _FREQS[key]
-
-
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
-               ) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S) int.  Split-halves RoPE (not
-    interleaved pairs), computed in f32."""
-    d = x.shape[-1]
-    freqs = _freqs_on(d, theta, x.device)                            # (d/2,)
-    angles = positions[..., None].float() * freqs                   # (B,S,d/2)
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
-
-
 def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
                 sections: tuple[int, int, int]) -> torch.Tensor:
     """Qwen2-VL's M-RoPE.  x: (B, S, H, D); positions_3d: (3, B, S)
@@ -115,7 +82,7 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
     d = x.shape[-1]
     half = d // 2
     assert sum(sections) == half, (sections, half)
-    freqs = _freqs_on(d, theta, x.device)                            # (half,)
+    freqs = freqs_on(d, theta, x.device)                            # (half,)
     parts, start = [], 0
     for i, sec in enumerate(sections):
         f = freqs[start:start + sec]

@@ -1,10 +1,14 @@
 """Feed-forward block: SwiGLU, GeGLU and the plain GELU MLP (counterpart
-of ``repro.models.mlp``; GELU is the tanh approximation, as there)."""
+of ``repro.models.mlp``; GELU is the tanh approximation, as there).  The
+gate of SwiGLU and GeGLU is ``glu_gate_plain``, or under ``fused`` (the
+decode step's kernel route, ``transformer.fused_decode``) the
+``glu_gate`` kernel."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.glu_gate.ops import glu_gate, glu_gate_plain
 from repro_torch.models.common import dense_init, linear
 
 _KINDS = ("swiglu", "geglu", "gelu")
@@ -21,14 +25,14 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, kind: str, dtype):
     return p
 
 
-def mlp_fwd(params, x: torch.Tensor, kind: str) -> torch.Tensor:
+def mlp_fwd(params, x: torch.Tensor, kind: str, fused: bool = False
+            ) -> torch.Tensor:
     up = linear(x, params["w_up"])
-    if kind == "swiglu":
-        act = F.silu(linear(x, params["w_gate"])) * up
-    elif kind == "geglu":
-        act = F.gelu(linear(x, params["w_gate"]), approximate="tanh") * up
-    elif kind == "gelu":
+    if kind == "gelu":
         act = F.gelu(up, approximate="tanh")
+    elif kind in _KINDS:
+        gate = glu_gate if fused else glu_gate_plain
+        act = gate(linear(x, params["w_gate"]), up, kind)
     else:
         raise ValueError(kind)
     return linear(act, params["w_down"])

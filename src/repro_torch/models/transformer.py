@@ -45,7 +45,13 @@ into the decode cache (``{"k", "v"[, "cross"]}``, ``{"c_kv",
 application's ``{"k", "v"}`` ring
 buffer: prefill fills it and decode updates it, in place.  A decode
 step's ``index`` is the cache's 0-dim int32 index tensor, passed on to
-the attention as it is.
+the attention as it is.  At decode a block does not add its last
+output to the residual: it returns ``(x, y)`` and the next block's
+first norm (or the final norm) adds them, so that each add is one pass
+with its norm.  bf16 decode on the card without a mesh
+(``fused_decode``) runs those norms as the ``add_rms_norm`` kernel,
+standard RoPE with the K/V write as ``rope_kv_write`` and a SwiGLU /
+GeGLU gate as ``glu_gate``; every other step runs their plain chains.
 Every block function takes ``mesh``: the attention cores (the kernels
 too), the scans and the cache writes then run per rank on DTensor
 inputs (``attention.attention_core`` / ``decode_core``,
@@ -59,6 +65,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.add_rms_norm.ops import (add_rms_norm,
+                                                  add_rms_norm_plain)
 from repro_torch.kernels.swa_prefill.ops import (swa_prefill_attention,
                                                  swa_prefill_plain)
 from repro_torch.models import attention as attn
@@ -178,13 +186,15 @@ def _window(cfg: ModelConfig, mixer: str) -> int:
     return cfg.window_size if mixer == "swa" else 0
 
 
-def _ffn(p, h, cfg: ModelConfig, cache, state, mesh=None):
+def _ffn(p, h, cfg: ModelConfig, cache, state, mesh=None,
+         fused: bool = False):
     """The feed-forward half on the normed ``h``, ``(y, aux)`` (aux the
     MoE auxiliary loss, else 0.0); RWKV-6's channel mix keeps its token
     shift in ``cache["cmix"]`` (None: no cache).  Under ``mesh`` an MoE
-    runs expert-parallel (``moe_fwd_ep``)."""
+    runs expert-parallel (``moe_fwd_ep``); under ``fused`` an MLP's gate
+    is the ``glu_gate`` kernel."""
     if "mlp" in p:
-        return mlp_fwd(p["mlp"], h, cfg.mlp_kind), 0.0
+        return mlp_fwd(p["mlp"], h, cfg.mlp_kind, fused), 0.0
     if "moe" in p:
         if mesh is not None:
             return moe_fwd_ep(p["moe"], h, cfg, mesh, sh.dp_axes(mesh),
@@ -204,24 +214,24 @@ def _cross_fwd(p, x, positions, enc_out, cfg: ModelConfig, kv=None,
                               kv_x=enc_out, kv=kv, mesh=mesh)
 
 
-def _cross_decode(p, x, cache: dict, cfg: ModelConfig, mesh=None):
-    """Cross-attention at decode over the encoder K/V of ``cache``
-    (B, S_enc, KV, D), every row valid (``attention.decode_core``)."""
-    b = x.shape[0]
+def _cross_decode(p, h, cache: dict, cfg: ModelConfig, mesh=None):
+    """Cross-attention at decode of the normed ``h`` over the encoder K/V
+    of ``cache`` (B, S_enc, KV, D), every row valid
+    (``attention.decode_core``)."""
+    b = h.shape[0]
     hh, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    h = rms_norm(x, p["norm_cross"], cfg.norm_eps)
     q = sh.split_last(linear(h, p["cross"]["wq"]), hh, d)
     ck, cv = cache["k"], cache["v"]
     s_enc = ck.shape[1]
     # a fill on the device, not a copy from the host: a captured step
     # may hold it
-    last = torch.full((), s_enc - 1, dtype=torch.long, device=x.device)
+    last = torch.full((), s_enc - 1, dtype=torch.long, device=h.device)
     q = sh.fit_dim(q, 2, kvh)
     out = attn.decode_core(
-        q.reshape(b, kvh, hh // kvh, d), ck, cv, last, last, cfg, window=0,
+        q.reshape(b, kvh, hh // kvh, d), ck, cv, last, cfg, window=0,
         mesh=mesh, lengths=torch.full((b,), s_enc, dtype=torch.int32,
-                                      device=x.device))
-    out = out.reshape(b, 1, hh * d).to(x.dtype)
+                                      device=h.device))
+    out = out.reshape(b, 1, hh * d).to(h.dtype)
     return linear(out, p["cross"]["wo"])
 
 
@@ -307,14 +317,40 @@ def block_prefill(p, x, positions, kind: str, cfg: ModelConfig, cache: dict,
     return x + _ffn(p, h, cfg, cache, None, mesh)[0]
 
 
+def fused_decode(cfg: ModelConfig, x: torch.Tensor, mesh=None) -> bool:
+    """Whether a decode step over the residual ``x`` takes the fused
+    kernels (``add_rms_norm`` for its norms, ``rope_kv_write`` for
+    standard RoPE and the KV write, ``glu_gate`` for a SwiGLU / GeGLU
+    gate): on the kernel route (``cfg.use_pallas_decode``), bf16 on a
+    CUDA device, no mesh (no DTensor).  Everything else (the CPU, f32,
+    a mesh, prefill, the forward) runs the plain chains."""
+    return (cfg.use_pallas_decode and mesh is None
+            and x.device.type == "cuda" and x.dtype == torch.bfloat16)
+
+
+def add_norm(x, y, scale, cfg: ModelConfig, fused: bool):
+    """``(x + y, rms_norm(x + y))`` (``y`` None: no add): the
+    ``add_rms_norm`` kernel under ``fused``, else its plain chain."""
+    norm = add_rms_norm if fused else add_rms_norm_plain
+    return norm(x, y, scale, cfg.norm_eps)
+
+
 def block_decode(p, x, cache: dict, index: torch.Tensor, positions,
-                 kind: str, cfg: ModelConfig, mesh=None):
+                 kind: str, cfg: ModelConfig, mesh=None, y=None,
+                 fused: bool = False, lengths=None):
+    """One block at one decode token.  The residual arrives as ``x`` and
+    the previous block's output ``y`` not yet added to it (None: ``x`` is
+    all of it), so that the add is the first norm's; the block returns
+    its own ``(x, y)`` likewise, and the next block's first norm, or the
+    final norm, adds them.  ``fused``: ``fused_decode``'s route;
+    ``lengths``: ``decode_attention``'s valid rows, computed once a
+    step."""
     mixer = kind.split("+")[0]
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    x, h = add_norm(x, y, p["norm1"], cfg, fused)
     if mixer in ("attn", "swa"):
         y, _ = attn.attention_decode(p["attn"], h, cache, index, positions,
                                      cfg, window=_window(cfg, mixer),
-                                     mesh=mesh)
+                                     mesh=mesh, fused=fused, lengths=lengths)
     elif mixer == "mla":
         y, _ = attn.mla_decode(p["mla"], h, cache, index, positions, cfg)
     elif mixer == "mamba2":
@@ -325,13 +361,13 @@ def block_decode(p, x, cache: dict, index: torch.Tensor, positions,
         y, _ = rk.rwkv6_tmix_fwd(p["tmix"], h, cfg, cache["tmix"],
                                  kernel=cfg.use_pallas_decode,
                                  out=cache["tmix"], mesh=mesh)
-    x = x + y
     if cfg.is_encoder_decoder and "cross" in cache:
-        x = x + _cross_decode(p, x, cache["cross"], cfg, mesh)
+        x, h = add_norm(x, y, p["norm_cross"], cfg, fused)
+        y = _cross_decode(p, h, cache["cross"], cfg, mesh)
     if "norm2" not in p:                     # ffn "none"
-        return x
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + _ffn(p, h, cfg, cache, cache.get("cmix"), mesh)[0]
+        return x, y
+    x, h = add_norm(x, y, p["norm2"], cfg, fused)
+    return x, _ffn(p, h, cfg, cache, cache.get("cmix"), mesh, fused)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -357,10 +393,13 @@ def shared_attn_prefill(p, x, positions, cfg: ModelConfig, cache: dict,
 
 
 def shared_attn_decode(p, x, cache: dict, index: torch.Tensor, positions,
-                       cfg: ModelConfig, mesh=None):
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+                       cfg: ModelConfig, mesh=None, y=None,
+                       fused: bool = False, lengths=None):
+    """The shared block at one decode token: ``(x, y)`` in and out, as
+    ``block_decode``."""
+    x, h = add_norm(x, y, p["norm1"], cfg, fused)
     y, _ = attn.attention_decode(p["attn"], h, cache, index, positions, cfg,
-                                 window=cfg.shared_attn_window, mesh=mesh)
-    x = x + y
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + mlp_fwd(p["mlp"], h, cfg.mlp_kind)
+                                 window=cfg.shared_attn_window, mesh=mesh,
+                                 fused=fused, lengths=lengths)
+    x, h = add_norm(x, y, p["norm2"], cfg, fused)
+    return x, mlp_fwd(p["mlp"], h, cfg.mlp_kind, fused)

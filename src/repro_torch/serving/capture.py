@@ -37,7 +37,10 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
+from repro_torch.kernels.add_rms_norm import ops as _norm
 from repro_torch.kernels.decode_attention import ops as _dec
+from repro_torch.kernels.glu_gate import ops as _gate
+from repro_torch.kernels.rope_kv_write import ops as _rope
 from repro_torch.kernels.rwkv6_scan import ops as _wkv
 from repro_torch.kernels.ssd_scan import ops as _ssd
 from repro_torch.kernels.swa_prefill import ops as _pre
@@ -45,7 +48,8 @@ from repro_torch.serving.trace import span
 
 # every kernel wrapper's module, by kernel name (each keeps ``launches``)
 KERNELS = {"swa_prefill": _pre, "decode_attention": _dec,
-           "rwkv6_scan": _wkv, "ssd_scan": _ssd}
+           "rwkv6_scan": _wkv, "ssd_scan": _ssd, "add_rms_norm": _norm,
+           "rope_kv_write": _rope, "glu_gate": _gate}
 
 
 def launch_counts() -> Dict[str, int]:

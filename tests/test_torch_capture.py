@@ -238,7 +238,8 @@ def test_captured_step_runs_eagerly_on_the_cpu():
     with pytest.raises(ValueError, match="no CUDA graph"):
         CapturedStep(lambda: x, (x,), capture=True)
     assert set(launch_counts()) == {"swa_prefill", "decode_attention",
-                                    "rwkv6_scan", "ssd_scan"}
+                                    "rwkv6_scan", "ssd_scan", "add_rms_norm",
+                                    "rope_kv_write", "glu_gate"}
 
 
 def test_token_backend_warmup_runs_every_entry():

@@ -13,7 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.add_rms_norm import ops as norm
 from repro_torch.kernels.decode_attention import ops as dec
+from repro_torch.kernels.glu_gate import ops as gate
+from repro_torch.kernels.rope_kv_write import ops as rope
 from repro_torch.kernels.rwkv6_scan import ops as wkv
 from repro_torch.kernels.ssd_scan import ops as ssd
 from repro_torch.kernels.swa_prefill import ops as pre
@@ -426,6 +429,143 @@ def test_window_ring_wrap_on_card(dtype, cuda_device):
     else:
         scale = float(ref.abs().max())
         assert float((got - ref).abs().max()) <= 2e-2 * scale
+
+
+# --------------------------------------------------------------------------
+# on the card: the decode step's fused kernels (bf16 only)
+# --------------------------------------------------------------------------
+FUSED_TOL = dict(atol=1e-2, rtol=1e-2)
+
+
+def bf16_randn(gen, *shape, scale=1.0):
+    return (torch.randn(*shape, generator=gen, device=gen.device)
+            * scale).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 16])
+@pytest.mark.parametrize("d", [576, 960, 2048, 2560, 7168])
+@pytest.mark.parametrize("with_y", [True, False])
+def test_add_rms_norm_kernel_matches_plain_on_card(rows, d, with_y,
+                                                   cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x, y = bf16_randn(gen, rows, 1, d), bf16_randn(gen, rows, 1, d)
+    scale = bf16_randn(gen, d, scale=0.1)
+    y = y if with_y else None
+    before = norm.launches
+    x_new, h = norm.add_rms_norm(x, y, scale, 1e-5)
+    torch.cuda.synchronize()
+    assert norm.launches == before + 1
+    ref_x, ref_h = norm.add_rms_norm_plain(x, y, scale, 1e-5)
+    assert torch.equal(x_new, ref_x)
+    np.testing.assert_allclose(as_np(h), as_np(ref_h), **FUSED_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 16])
+@pytest.mark.parametrize("ff", [1536, 6912, 16384])
+@pytest.mark.parametrize("kind", ["swiglu", "geglu"])
+def test_glu_gate_kernel_matches_plain_on_card(rows, ff, kind, cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    g, u = bf16_randn(gen, rows, 1, ff, scale=3.0), bf16_randn(gen, rows, 1, ff)
+    before = gate.launches
+    out = gate.glu_gate(g, u, kind)
+    torch.cuda.synchronize()
+    assert gate.launches == before + 1
+    np.testing.assert_allclose(as_np(out), as_np(gate.glu_gate_plain(g, u, kind)),
+                               **FUSED_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,d", [(1, 32, 8, 80), (16, 32, 8, 80),
+                                      (8, 9, 3, 64), (4, 8, 1, 256),
+                                      (4, 32, 32, 80)])
+@pytest.mark.parametrize("window,s,index", [(16, 16, 5), (16, 16, 16),
+                                            (16, 16, 4100), (0, 32, 5),
+                                            (0, 32, 31)])
+def test_rope_kv_write_kernel_matches_plain_on_card(b, h, kv, d, window, s,
+                                                    index, cuda_device):
+    """q and the K row within the bf16 tolerance, the V row exactly, each
+    in its slot (a ring buffer before and past its wrap, a full cache up
+    to its last slot) and no other slot touched."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v = (bf16_randn(gen, b, 1, n, d) for n in (h, kv, kv))
+    ck0, cv0 = bf16_randn(gen, b, s, kv, d), bf16_randn(gen, b, s, kv, d)
+    idx = torch.tensor(index, dtype=torch.int32, device=cuda_device)
+    ck, cv, pk, pv = (t.clone() for t in (ck0, cv0, ck0, cv0))
+    before = rope.launches
+    out = rope.rope_kv_write(q, k, v, idx, ck, cv, 1e4, window)
+    torch.cuda.synchronize()
+    assert rope.launches == before + 1
+    ref = rope.rope_kv_write_plain(q, k, v, idx, pk, pv, 1e4, window)
+    assert out.shape == (b, kv, h // kv, d)
+    np.testing.assert_allclose(as_np(out), as_np(ref), **FUSED_TOL)
+    slot = index % s if window else index
+    rest = torch.arange(s, device=cuda_device) != slot
+    assert torch.equal(cv, pv)
+    assert torch.equal(ck[:, rest], ck0[:, rest])
+    np.testing.assert_allclose(as_np(ck[:, slot]), as_np(pk[:, slot]),
+                               **FUSED_TOL)
+
+
+@pytest.mark.cuda
+def test_fused_kernels_refuse_f32_on_card(cuda_device):
+    """A CUDA tensor never falls back to the plain version."""
+    x = torch.zeros(2, 1, 64, device=cuda_device)
+    idx = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        norm.add_rms_norm(x, None, torch.zeros(64, device=cuda_device), 1e-5)
+    with pytest.raises(ValueError, match="bfloat16"):
+        gate.glu_gate(x, x, "swiglu")
+    q = torch.zeros(2, 1, 4, 16, device=cuda_device)
+    c = torch.zeros(2, 8, 4, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        rope.rope_kv_write(q, q, q, idx, c, c, 1e4, 0)
+
+
+@pytest.mark.cuda
+def test_bf16_decode_replay_counts_the_fused_kernels_on_card(cuda_device):
+    """h2o-danube-1.8b's stack cut to 2 layers in bf16: the captured
+    decode entry holds 2 L + 1 ``add_rms_norm``, L ``rope_kv_write``,
+    L ``glu_gate`` and L ``decode_attention`` launches, every replay adds
+    them, and its ids equal the eager entry's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import token_backend as tb
+    from repro_torch.serving.capture import launch_counts
+
+    cfg = get_config("h2o-danube-1.8b")
+    cfg = dataclasses.replace(cfg, num_layers=2, blocks=cfg.blocks[:2],
+                              use_pallas_prefill=True, use_pallas_decode=True)
+    model = build_model(cfg, device=cuda_device)
+    params = model.init(model.generator(0))
+    layers, b, pl, steps = 2, 4, 32, 6
+    want = {"decode_attention": layers, "add_rms_norm": 2 * layers + 1,
+            "rope_kv_write": layers, "glu_gate": layers}
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, pl)).astype(np.int32)
+    ids = {}
+    for capture in (True, False):
+        pre_fns, dec_fns = tb.build_token_step_fns(
+            model, params, (1,), (b,), pl, max_decode=steps, capture=capture)
+        tb.warmup_token_fns(pre_fns, dec_fns, pl)
+        if capture:
+            assert dec_fns[(1, b)].step.deltas == want
+            before = launch_counts()
+        tok, cache = pre_fns[(1, b)](prompt)
+        out = [tok.clone()]
+        for _ in range(steps):
+            tok, cache = dec_fns[(1, b)](cache, tok)
+            out.append(tok.clone())
+        torch.cuda.synchronize()
+        if capture:
+            after = launch_counts()
+            assert {k: after[k] - before[k] for k in want} == \
+                {k: n * steps for k, n in want.items()}
+        ids[capture] = torch.stack(out)
+    assert torch.equal(ids[True], ids[False])
 
 
 # --------------------------------------------------------------------------

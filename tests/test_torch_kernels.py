@@ -338,8 +338,9 @@ def test_build_targets_name_each_source_by_content():
     build directory; nothing is built at import."""
     targets = {n: build._target(n) for n in build.SOURCES}
     assert set(targets) == {"swa_prefill", "decode_attention", "rwkv6_scan",
-                            "ssd_scan"}
-    assert len({t.name for t in targets.values()}) == 4
+                            "ssd_scan", "add_rms_norm", "rope_kv_write",
+                            "glu_gate"}
+    assert len({t.name for t in targets.values()}) == 7
     for name, t in targets.items():
         assert t.parent == build.BUILD_DIR
         assert t.name.startswith(f"lib{name}-") and t.suffix == ".so"

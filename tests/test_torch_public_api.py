@@ -59,8 +59,12 @@ NETWORK_EXPORTS = {"BandwidthTrace", "synth_4g_trace", "comm_latency"}
 
 KERNEL_EXPORTS = {
     "kernels": {"decode_attention", "rwkv6_scan", "ssd_scan",
-                "swa_prefill_attention"},
+                "swa_prefill_attention", "add_rms_norm", "rope_kv_write",
+                "glu_gate"},
+    "kernels.add_rms_norm": {"add_rms_norm"},
     "kernels.decode_attention": {"decode_attention"},
+    "kernels.glu_gate": {"glu_gate"},
+    "kernels.rope_kv_write": {"rope_kv_write"},
     "kernels.rwkv6_scan": {"rwkv6_scan"},
     "kernels.ssd_scan": {"ssd_scan"},
     "kernels.swa_prefill": {"swa_prefill_attention"},

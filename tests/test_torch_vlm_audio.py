@@ -306,7 +306,8 @@ def test_cross_attention_fwd_matches_reference(arch, kv_positions):
 
 @pytest.mark.parametrize("kernel_route", [True, False])
 def test_cross_decode_matches_reference(kernel_route):
-    """``_cross_decode`` over the encoder K/V: the kernel route
+    """``_cross_decode`` over the encoder K/V (the port's of the normed
+    input, the reference's of the residual): the kernel route
     (``decode_attention`` with lengths = S_enc, its plain version on the
     CPU) and the dense softmax, each against the reference's dense
     softmax."""
@@ -325,7 +326,10 @@ def test_cross_decode_matches_reference(kernel_route):
                              {}, jcfg)
     tp = {"norm_cross": t(p["norm_cross"]),
           "cross": {k: t(v) for k, v in p["cross"].items()}}
-    out = ttfm._cross_decode(tp, t(x), {"k": t(ck), "v": t(cv)}, cfg)
+    # the port's takes the normed input: the norm is the decode step's
+    # add_norm, fused with the residual add
+    h = tcommon.rms_norm(t(x), tp["norm_cross"], cfg.norm_eps)
+    out = ttfm._cross_decode(tp, h, {"k": t(ck), "v": t(cv)}, cfg)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5)
 
 
