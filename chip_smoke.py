@@ -366,6 +366,19 @@ FUSED_SHAPES = {
 }
 FUSED_ROWS = (1, 8, 16)
 FUSED_TOL = 1e-2
+# published Zamba2 (zamba2-7b) at its widths: the SSD with two groups of B
+# and C (a decode step at B 16, a prefill of the chat bucket at B 4), the
+# shared blocks' attention (32 heads of 224, the softmax scale (224/2)^-1/2)
+# over the chat cell's full-length cache of 512 + 128 + 1 rows, their
+# erf-GELU gate and the RoPE + K/V write at head_dim 224; then the model
+# served through the token backend in bf16 (phase "zamba2", --only zamba2)
+ZAMBA2 = dict(arch="zamba2-7b", ssd=((16, 1), (4, 512)), H=112, P=64, N=64,
+              G=2, decode=dict(B=16, S=641, KV=32, G=1, D=224,
+                               lengths=(1, 200, 512, 641)),
+              prefill=dict(B=4, S=512, H=32, KV=32, D=224), ff=14336,
+              rows=(1, 8, 16), serve=dict(requests=24, prompt_len=512,
+                                          max_decode=32, seed=0),
+              sets=(1, 4, 16))
 # one replay of h2o-danube-1.8b's served decode step at b 16, profiled:
 # its kernels per replay and per layer (chat's bucket of 512 tokens)
 DECODE_GRAPH = dict(arch="h2o-danube-1.8b", b=16, prompt=512, max_decode=128,
@@ -1156,6 +1169,214 @@ def ssd_kernel_phase(dev, gen):
 # ---------------------------------------------------------------------------
 # model parity and serving
 # ---------------------------------------------------------------------------
+
+def zamba2_phase(dev) -> None:
+    """Published Zamba2's kernel cases at zamba2-7b's shapes against their
+    plain versions (``ZAMBA2``): ``ssd_scan`` with G 2 (the recurrence bit
+    for bit, the chunked form as ``check_ssd``), and with G 1 as
+    (B, T, 1, N) equal to the shared (B, T, N) call bit for bit;
+    ``decode_attention`` and ``swa_prefill`` at D 224 with the scale (bf16
+    tolerance), and at the default scale the same as passing D^-1/2 bit for
+    bit; ``glu_gate``'s erf GeGLU and ``rope_kv_write`` at D 224 (bf16, as
+    the fused kernels are checked); each timed beside its plain version and
+    its bound.  Then zamba2-7b served through the token backend in bf16
+    with a trace: every served step a replay, per decode step 81 ssd_scan
+    recurrences, 13 decode_attention, 13 shared-block applications and the
+    fused kernels' counts, per prefill 81 chunked ssd_scan and 13
+    swa_prefill, and the gang caches' bytes by kind."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.glu_gate import ops as gate
+    from repro_torch.kernels.rope_kv_write import ops as rope
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.kernels.swa_prefill import ops as pre
+    from repro_torch.serving.capture import launch_counts, table_replays
+    from repro_torch.serving.token_backend import (make_token_live_server,
+                                                   scenario_arrivals)
+    from repro_torch.serving.scenarios import build_scenario
+    from repro_torch.serving.trace import ServeTrace
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    bf = torch.bfloat16
+    z = ZAMBA2
+    h, p, n, g = z["H"], z["P"], z["N"], z["G"]
+    for b, t in z["ssd"]:
+        x, dt, a_log, _, _, h0 = ssd_inputs(gen, dev, b, t, h, p, n, bf)
+        bm, cm = (torch.randn(b, t, g, n, generator=gen, device=dev).to(bf)
+                  for _ in range(2))
+        y_dtype = torch.float32 if t == 1 else bf
+        args = (x, dt, a_log, bm, cm, h0)
+        err = check_ssd(ssd, f"ssd_scan G={g} B={b} T={t}", args, y_dtype)
+        one = ssd.ssd_scan(x, dt, a_log, bm[:, :, :1].contiguous(),
+                           cm[:, :, :1].contiguous(), h0, y_dtype=y_dtype)
+        shared = ssd.ssd_scan(x, dt, a_log, bm[:, :, 0].contiguous(),
+                              cm[:, :, 0].contiguous(), h0, y_dtype=y_dtype)
+        if not all(torch.equal(u, v) for u, v in zip(one, shared)):
+            raise AssertionError("ssd_scan G=1 as (B, T, 1, N) differs from "
+                                 "the shared (B, T, N) call")
+        state = h0.clone()
+        ms = median_ms(lambda: ssd.ssd_scan(x, dt, a_log, bm, cm, state,
+                                            h_out=state, y_dtype=y_dtype))
+        nbytes = (b * t * h * p * (2 + y_dtype.itemsize) + 4 * b * t * h
+                  + 4 * h + 2 * 2 * b * t * g * n + 2 * 4 * b * h * p * n)
+        bms, by = bound_ms(nbytes, 4.0 * b * t * h * p * n, bf)
+        say("zamba2", kernel="ssd_scan", B=b, T=t, H=h, P=p, N=n, G=g,
+            route="chunked" if ssd.takes_chunked_form(x) else "recurrence",
+            max_abs_err=err, ms=ms, bound_ms=bms, bound_by=by,
+            plain_ms=median_ms(lambda: ssd.ssd_scan_plain(
+                x, dt, a_log, bm, cm, h0, y_dtype=y_dtype)))
+    d224 = z["decode"]
+    scale = 112 ** -0.5
+    b, s_, kv, gq, d = (d224[k] for k in ("B", "S", "KV", "G", "D"))
+    q = torch.randn(b, kv, gq, d, generator=gen, device=dev).to(bf)
+    k, v = (torch.randn(b, s_, kv, d, generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    lengths = torch.tensor([d224["lengths"][i % 4] for i in range(b)],
+                           dtype=torch.int32, device=dev)
+    err = check_close("decode_attention D=224 scale",
+                      dec.decode_attention(q, k, v, lengths, scale=scale),
+                      dec.decode_attention_plain(q, k, v, lengths,
+                                                 scale=scale), bf)
+    if not torch.equal(dec.decode_attention(q, k, v, lengths),
+                       dec.decode_attention(q, k, v, lengths,
+                                            scale=224 ** -0.5)):
+        raise AssertionError("decode_attention: the default scale differs "
+                             "from D^-1/2 passed")
+    nbytes, flops = decode_bound(b, s_, kv, gq, d, lengths.tolist(), bf)
+    bms, by = bound_ms(nbytes, flops, bf)
+    say("zamba2", kernel="decode_attention", B=b, S=s_, KV=kv, G=gq, D=d,
+        max_abs_err=err, bound_ms=bms, bound_by=by,
+        ms=median_ms(lambda: dec.decode_attention(q, k, v, lengths,
+                                                  scale=scale)),
+        plain_ms=median_ms(lambda: dec.decode_attention_plain(
+            q, k, v, lengths, scale=scale)))
+    pf = z["prefill"]
+    b, s_, hq, kv, d = (pf[k] for k in ("B", "S", "H", "KV", "D"))
+    q, k, v = (torch.randn(b, s_, heads, d, generator=gen, device=dev).to(bf)
+               for heads in (hq, kv, kv))
+    err = check_close("swa_prefill D=224 scale",
+                      pre.swa_prefill_attention(q, k, v, s_, scale=scale),
+                      pre.swa_prefill_plain(q, k, v, s_, scale=scale), bf)
+    if not torch.equal(pre.swa_prefill_attention(q, k, v, s_),
+                       pre.swa_prefill_attention(q, k, v, s_,
+                                                 scale=224 ** -0.5)):
+        raise AssertionError("swa_prefill: the default scale differs from "
+                             "D^-1/2 passed")
+    q32, k32, v32 = (t_[:1, :77].float().contiguous() for t_ in (q, k, v))
+    err32 = check_close("swa_prefill D=224 f32",
+                        pre.swa_prefill_attention(q32, k32, v32, 77,
+                                                  scale=scale),
+                        pre.swa_prefill_plain(q32, k32, v32, 77,
+                                              scale=scale), torch.float32)
+    bms, by = bound_ms(*prefill_bound(b, s_, hq, kv, d, s_, bf), bf)
+    say("zamba2", kernel="swa_prefill", B=b, S=s_, H=hq, KV=kv, D=d,
+        max_abs_err=err, f32_max_abs_err=err32, bound_ms=bms, bound_by=by,
+        ms=median_ms(lambda: pre.swa_prefill_attention(q, k, v, s_,
+                                                       scale=scale)),
+        plain_ms=median_ms(lambda: pre.swa_prefill_plain(q, k, v, s_,
+                                                         scale=scale)))
+    for b in z["rows"]:
+        gg, u = (torch.randn(b, 1, z["ff"], generator=gen, device=dev)
+                 .to(bf) for _ in range(2))
+        out = gate.glu_gate(gg, u, "geglu_erf")
+        if not torch.equal(out, gate.glu_gate_plain(gg, u, "geglu_erf")):
+            raise AssertionError(f"glu_gate geglu_erf B={b} differs from "
+                                 f"its plain version")
+        qd = torch.randn(b, 1, 32, 224, generator=gen, device=dev).to(bf)
+        kd, vd = (torch.randn(b, 1, 32, 224, generator=gen, device=dev)
+                  .to(bf) for _ in range(2))
+        ck, cv = (torch.zeros(b, 641, 32, 224, device=dev, dtype=bf)
+                  for _ in range(2))
+        pk, pv = ck.clone(), cv.clone()
+        idx = torch.tensor(600, dtype=torch.int32, device=dev)
+        err = check_within("rope_kv_write D=224",
+                           rope.rope_kv_write(qd, kd, vd, idx, ck, cv, 1e4, 0),
+                           rope.rope_kv_write_plain(qd, kd, vd, idx, pk, pv,
+                                                    1e4, 0), FUSED_TOL)
+        if not (torch.equal(cv, pv) and torch.equal(ck[:, :600], pk[:, :600])):
+            raise AssertionError("rope_kv_write D=224: V or another slot "
+                                 "differs")
+        bms, by = bound_ms(3 * 2 * b * z["ff"], 0.0, bf)
+        say("zamba2", kernel="glu_gate", kind="geglu_erf", B=b, ff=z["ff"],
+            bound_ms=bms, ms=median_ms(lambda: gate.glu_gate(gg, u,
+                                                             "geglu_erf")),
+            plain_ms=median_ms(lambda: gate.glu_gate_plain(gg, u,
+                                                           "geglu_erf")),
+            rope_kv_write_max_abs_err=err)
+    del q, k, v, ck, cv, pk, pv
+    torch.cuda.empty_cache()
+
+    cfg = get_config(z["arch"])
+    sv, sets = z["serve"], z["sets"]
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    tr = ServeTrace()
+    t0 = time.perf_counter()
+    runner, backend, cfg, _ = make_token_live_server(
+        cfg, c_set=sets, b_set=sets, prompt_len=sv["prompt_len"],
+        max_decode=sv["max_decode"], clock="measured", tick=0.25,
+        prior_rps=8.0, device=dev, trace=tr)
+    setup_s = time.perf_counter() - t0
+    batch, _ = build_scenario("llm-chat", requests=sv["requests"],
+                              seed=sv["seed"], rps=8.0)
+    arrivals = scenario_arrivals(batch, sv["requests"], sv["seed"],
+                                 sv["prompt_len"], sv["max_decode"],
+                                 cfg.vocab_size)
+    counted = launch_counts()
+    t0 = time.perf_counter()
+    report = runner.run(arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k_: v_ - counted[k_] for k_, v_ in launch_counts().items()}
+    n_pre, n_dec = len(backend.pre_table.calls), len(backend.dec_table.calls)
+    apps, layers = len(cfg.hybrid_layer_ids), cfg.num_layers
+    marks = tr.named("step_counts")
+    per_dec = [m.attrs for m in marks
+               if tr.records[m.parent].name == "sponge.decode"]
+    per_pre = [m.attrs for m in marks
+               if tr.records[m.parent].name == "sponge.prefill"]
+    served = [rid for rid in backend.generated]
+    checks = {
+        "every request served": len(served) == len(arrivals),
+        "every served step a graph replay":
+            table_replays(backend.pre_table.fns, backend.dec_table.fns)
+            >= n_pre + n_dec > 0,
+        "per decode step 81 ssd_scan recurrences and 13 applications":
+            len(per_dec) == n_dec and all(
+                a == {"ssd_scan.recurrence": layers,
+                      "shared_applications": apps} for a in per_dec),
+        "per prefill 81 chunked ssd_scan and 13 applications":
+            len(per_pre) == n_pre and all(
+                a == {"ssd_scan.chunked": layers,
+                      "shared_applications": apps} for a in per_pre),
+        "ssd_scan launched 81 a step": launches["ssd_scan"]
+            == layers * (n_pre + n_dec),
+        "decode_attention 13 a decode step":
+            launches["decode_attention"] == apps * n_dec,
+        "swa_prefill 13 a prefill": launches["swa_prefill"] == apps * n_pre,
+        "fused kernels a decode step": launches["add_rms_norm"]
+            == (layers + 1 + 2 * apps) * n_dec
+            and launches["rope_kv_write"] == apps * n_dec
+            and launches["glu_gate"] == apps * n_dec,
+    }
+    failed = [k_ for k_, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"zamba2-7b serve checks failed: {failed} "
+                             f"(launches {launches}, prefills {n_pre}, "
+                             f"decode steps {n_dec})")
+    for m in tr.named("setup.state_bytes"):
+        say("zamba2", **{f"state_bytes_{k_}": v_ for k_, v_ in m.attrs.items()})
+    dec_walls = sorted(c_[3] for c_ in backend.dec_table.calls)
+    say("zamba2", arch=cfg.name, scenario="llm-chat", b_set=list(sets),
+        dtype="bfloat16", **sv, setup_s=setup_s, run_wall_s=wall,
+        n_requests=report.n_requests, tokens_served=report.tokens_served,
+        prefills=n_pre, decode_steps=n_dec,
+        decode_step_ms_median=1e3 * dec_walls[len(dec_walls) // 2],
+        launches=json.dumps(launches),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del runner, backend
+    gc_cuda()
+
 
 def parity_phase(dev, arch: str) -> None:
     from repro_torch.configs import get_config
@@ -4041,6 +4262,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile the serving shape (phase 7)")
+    ap.add_argument("--only", choices=("zamba2",),
+                    help="run this phase alone after the build")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4071,6 +4294,10 @@ def main() -> int:
     say("build", seconds=time.perf_counter() - t0,
         libraries=json.dumps({k: str(v.relative_to(ROOT)) for k, v in libs.items()}))
     ptxas_report(ptxas)
+    if args.only == "zamba2":
+        zamba2_phase(dev)
+        say("done", seconds=time.perf_counter() - t_start)
+        return 0
     dry = dryrun_start()
     try:
         return run_phases(dev, args, t_start, dry)
@@ -4103,6 +4330,7 @@ def run_phases(dev, args, t_start, dry) -> int:
     for arch in PARITY_ONLY:
         parity_phase(dev, arch)
         torch.cuda.empty_cache()
+    zamba2_phase(dev)
     decode_graph_phase(dev)
     for arch in VLM_AUDIO:
         for name, n in vlm_audio_phase(dev, arch, args.profile).items():

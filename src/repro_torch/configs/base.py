@@ -6,7 +6,14 @@ fields' declaration, ``padded_vocab``, ``d_inner``, ``ssm_num_heads``,
 ``rwkv_num_heads``, ``uses_moe``, ``mixer_kinds``, ``param_count()``,
 ``active_param_count()`` and ``reduced()`` (with its MoE branch, the
 no-drop capacity factor, and its MLA widths), and ``InputShape`` /
-``INPUT_SHAPES``.  The port's models run only what they implement
+``INPUT_SHAPES``.
+
+``Zamba2Config`` adds the published Zamba2 block (Zyphra's
+``Zamba2ForCausalLM``), which the reference does not have: its fields
+live on a subclass so that ``ModelConfig`` keeps the reference's fields
+one to one.  ``ModelConfig`` answers the questions the model asks of
+both through properties (``ssm_groups``, ``softmax_scale``,
+``published_hybrid``) with the values every other configuration has.  The port's models run only what they implement
 (``models.api.build_model`` refuses the rest).
 
 ``use_pallas_prefill`` / ``use_pallas_decode`` keep the reference's
@@ -151,6 +158,22 @@ class ModelConfig:
         return self.d_model // 64
 
     @property
+    def ssm_groups(self) -> int:
+        """Groups of Mamba2's B and C (one, shared by every head)."""
+        return 1
+
+    @property
+    def softmax_scale(self):
+        """The attention's softmax scale when it is not head_dim^-1/2
+        (None: it is)."""
+        return None
+
+    @property
+    def published_hybrid(self) -> bool:
+        """Whether the stack is published Zamba2's (``Zamba2Config``)."""
+        return False
+
+    @property
     def uses_moe(self) -> bool:
         return any(b.endswith("+moe") for b in self.blocks)
 
@@ -177,7 +200,8 @@ class ModelConfig:
                 n += self.num_heads * self.v_head_dim * d
             elif mixer == "mamba2":
                 di = self.d_inner
-                n += d * (2 * di + 2 * self.ssm_state_dim + self.ssm_num_heads)
+                n += d * (2 * di + 2 * self.ssm_groups * self.ssm_state_dim
+                          + self.ssm_num_heads)
                 n += di * d
             elif mixer == "rwkv6":
                 n += 6 * d * d  # r,k,v,g,o,w(lora) rough
@@ -266,6 +290,72 @@ class ModelConfig:
             changes.update(q_lora_rank=64, kv_lora_rank=32, qk_nope_dim=32,
                            qk_rope_dim=16, v_head_dim=32)
         return dataclasses.replace(self, **changes)
+
+
+@dataclass(frozen=True)
+class Zamba2Config(ModelConfig):
+    """Published Zamba2 (arXiv:2411.15242; Zyphra's ``Zamba2ForCausalLM``).
+
+    ``mamba2+none`` layers, ``x <- x + Mamba2(RMSNorm(x))``; at the
+    layers ``hybrid_layer_ids`` (application j = 0, 1, ... in order) a
+    shared block ``S_{j % num_mem_blocks}`` reads ``cat(x, e0)`` (e0 the
+    token embedding), its output goes through the layer's own d x d
+    linear ``L_j``, and only the Mamba2 input takes it: ``x <- x +
+    Mamba2(RMSNorm(x + L_j(S(x, e0))))``.  A shared block has no residual
+    inside: RMSNorm over 2 d, attention from 2 d (``num_heads`` x
+    ``head_dim``, RoPE, causal, the softmax scale (head_dim /
+    ``attn_scale_divisor``)^-1/2) back to d, RMSNorm, and a gated MLP
+    whose gate and up products add application j's rank-
+    ``adapter_rank`` adapter.  Mamba2 reads B and C in ``ssm_ngroups``
+    groups, its conv has a bias, and its gated norm is taken per group.
+    """
+    hybrid_layer_ids: Tuple[int, ...] = ()
+    num_mem_blocks: int = 2
+    adapter_rank: int = 0
+    ssm_ngroups: int = 1
+    attn_scale_divisor: int = 1
+
+    def __post_init__(self):
+        super().__post_init__()
+        assert self.ssm_num_heads % self.ssm_ngroups == 0
+        assert self.d_inner % self.ssm_ngroups == 0
+
+    @property
+    def ssm_groups(self) -> int:
+        return self.ssm_ngroups
+
+    @property
+    def softmax_scale(self):
+        if self.attn_scale_divisor == 1:
+            return None
+        return (self.head_dim / self.attn_scale_divisor) ** -0.5
+
+    @property
+    def published_hybrid(self) -> bool:
+        return True
+
+    def param_count(self) -> int:
+        """Every parameter, as ``Zamba2ForCausalLM`` holds them: the Mamba2
+        layers (in_proj with G groups of B and C, the conv and its bias,
+        dt bias, A, D, the gated norm, out_proj, the layer norm), the
+        shared blocks (two norms, q/k/v/o, gate/up/down), per application
+        the adapter and ``L_j``, the embedding (and a head when untied)
+        and the final norm."""
+        d, di, n = self.d_model, self.d_inner, self.ssm_state_dim
+        h, g, w = self.ssm_num_heads, self.ssm_groups, self.ssm_conv_width
+        conv = di + 2 * g * n
+        mamba = (d * (di + conv + h) + w * conv + conv + 3 * h + di
+                 + di * d + d)
+        inner = self.num_heads * self.head_dim
+        kv = self.num_kv_heads * self.head_dim
+        block = (2 * d + 2 * d * (inner + 2 * kv) + inner * d + d
+                 + 3 * d * self.d_ff)
+        per_app = d * self.adapter_rank + self.adapter_rank * 2 * self.d_ff \
+            + d * d
+        n_tot = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
+        return (n_tot + d + self.num_layers * mamba
+                + self.num_mem_blocks * block
+                + len(self.hybrid_layer_ids) * per_app)
 
 
 @dataclass(frozen=True)

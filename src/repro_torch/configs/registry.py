@@ -30,6 +30,13 @@ _MODULES = {
 
 ARCH_IDS = tuple(_MODULES)
 
+# configurations the reference does not have: ``get_config`` resolves
+# them, while ``ARCH_IDS``, ``list_archs()`` and ``MODEL_ACCURACY`` keep
+# the reference's set (zamba2-7b: published Zamba2, ``Zamba2Config``)
+_PORT_ONLY = {
+    "zamba2-7b": "zamba2_7b",
+}
+
 # Per-model accuracy score in (0, 1] — the quality axis of the
 # (m, n, c, b) degradation solver (``core.degradation``): the
 # reference's normalized open-eval composite per architecture class,
@@ -66,9 +73,10 @@ def model_accuracy(arch_id: str) -> float:
 def get_config(arch_id: str, reduced: bool = False) -> ModelConfig:
     if arch_id.endswith("-reduced"):
         arch_id, reduced = arch_id[: -len("-reduced")], True
-    if arch_id not in _MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
-    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    modules = {**_MODULES, **_PORT_ONLY}
+    if arch_id not in modules:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(modules)}")
+    mod = importlib.import_module(f"repro_torch.configs.{modules[arch_id]}")
     cfg: ModelConfig = mod.CONFIG
     return cfg.reduced() if reduced else cfg
 

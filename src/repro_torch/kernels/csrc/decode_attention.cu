@@ -3,12 +3,13 @@
 // Replaces the TPU kernel src/repro/kernels/decode_attention/decode_attention.py
 // decode_attention_pallas (wrapper ops.py decode_attention): one query token
 // for each of the G query heads of a KV head against the KV cache,
-// softmax(q . k_j * D^-0.5) applied to V.  Cache positions j >= lengths[b] are
+// softmax(q . k_j * scale) applied to V, scale D^-0.5 unless the caller gives
+// one (zamba2-7b's is (D / 2)^-0.5).  Cache positions j >= lengths[b] are
 // masked with the finite value -1e30 (not -inf), so a length of 0 gives the
 // uniform mean of V over the S cache rows, as on the TPU, and never NaN.
 //
 // Layouts (row-major, contiguous): q, out (B, KV, G, D); k, v (B, S, KV, D);
-// lengths (B,) int32.  D in {16, 32, 64, 80, 128, 256}, G in 1..8.
+// lengths (B,) int32.  D in {16, 32, 64, 80, 128, 224, 256}, G in 1..8.
 //
 // Optionally (a non-null `lse`) each query row's log-sum-exp of its scores,
 // (B, KV, G) f32 in natural-log units, is written beside the output: the
@@ -31,7 +32,8 @@
 // mean of V; a block whose range is empty holds m = -inf, l = 0.  A row is
 // read by D / 8 lanes with 16-byte loads (rounded up to a power of two: 8
 // lanes at D = 64, so a warp load covers 4 rows; 16 at D = 80, of which 10
-// load; a whole warp at D = 256, so a block has 4 streams and its partial
+// load; a whole warp at D = 224, of which 28 load, and at D = 256, so a
+// block has 4 streams and its partial
 // accumulators, 4 x G x D f32, stay within the 48 KB of static shared
 // memory at G = 8), the dot product of each of the G queries is reduced over the row's
 // lanes with xor shuffles, and each lane keeps 8 output columns x G
@@ -208,15 +210,21 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// the softmax scale of a call: the caller's (scale > 0) or D^-0.5
+template <int D>
+double softmax_scale(double scale) {
+  return scale > 0 ? scale : 1.0 / std::sqrt(static_cast<double>(D));
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* lengths,
-                   void* out, float* lse, int B, int S, int KV, int G,
+                   void* out, float* lse, int B, int S, int KV, int G, double scale,
                    cudaStream_t stream) {
   const dim3 grid(KV, B);
   decode_attention_kernel<T, D><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(lengths), static_cast<T*>(out), lse, S, KV, G,
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))));
+      static_cast<float>(softmax_scale<D>(scale)));
   return cudaGetLastError();
 }
 
@@ -420,7 +428,7 @@ decode_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D, int GM>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* lengths,
-                        void* out, float* lse, int B, int S, int KV, int G,
+                        void* out, float* lse, int B, int S, int KV, int G, double scale,
                         cudaStream_t stream) {
   static int sms = 0;                        // the card's SM count, read once
   if (sms == 0) {
@@ -449,7 +457,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
       &cfg, decode_attention_bf16_kernel<D, GM>, static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
       static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out), lse, S, KV, G,
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)) * kLog2e));
+      static_cast<float>(softmax_scale<D>(scale) * kLog2e));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -457,37 +465,38 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
 // G rounded up to 1, 2, 4 or 8 accumulators per lane and column
 template <int D>
 cudaError_t launch_bf16_g(const void* q, const void* k, const void* v, const void* lengths,
-                          void* out, float* lse, int B, int S, int KV, int G,
+                          void* out, float* lse, int B, int S, int KV, int G, double sc,
                           cudaStream_t stream) {
-  if (G <= 1) return launch_bf16<D, 1>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
-  if (G <= 2) return launch_bf16<D, 2>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
-  if (G <= 4) return launch_bf16<D, 4>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
-  return launch_bf16<D, 8>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
+  if (G <= 1) return launch_bf16<D, 1>(q, k, v, lengths, out, lse, B, S, KV, G, sc, stream);
+  if (G <= 2) return launch_bf16<D, 2>(q, k, v, lengths, out, lse, B, S, KV, G, sc, stream);
+  if (G <= 4) return launch_bf16<D, 4>(q, k, v, lengths, out, lse, B, S, KV, G, sc, stream);
+  return launch_bf16<D, 8>(q, k, v, lengths, out, lse, B, S, KV, G, sc, stream);
 }
 
 // the storage type picks the kernel: bf16 the cluster split, f32 the CUDA cores
 template <typename T, int D>
 cudaError_t launch_typed(const void* q, const void* k, const void* v, const void* lengths,
-                         void* out, float* lse, int B, int S, int KV, int G,
+                         void* out, float* lse, int B, int S, int KV, int G, double sc,
                          cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return launch_bf16_g<D>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
+    return launch_bf16_g<D>(q, k, v, lengths, out, lse, B, S, KV, G, sc, stream);
   } else {
-    return launch<T, D>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
+    return launch<T, D>(q, k, v, lengths, out, lse, B, S, KV, G, sc, stream);
   }
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* lengths,
                        void* out, float* lse, int B, int S, int KV, int G, int D,
-                       cudaStream_t stream) {
+                       double sc, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_typed<T, 16>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
-    case 32: return launch_typed<T, 32>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
-    case 64: return launch_typed<T, 64>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
-    case 80: return launch_typed<T, 80>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
-    case 128: return launch_typed<T, 128>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
-    case 256: return launch_typed<T, 256>(q, k, v, lengths, out, lse, B, S, KV, G, stream);
+    case 16: return launch_typed<T, 16>(q, k, v, lengths, out, lse, B, S, KV, G, sc, stream);
+    case 32: return launch_typed<T, 32>(q, k, v, lengths, out, lse, B, S, KV, G, sc, stream);
+    case 64: return launch_typed<T, 64>(q, k, v, lengths, out, lse, B, S, KV, G, sc, stream);
+    case 80: return launch_typed<T, 80>(q, k, v, lengths, out, lse, B, S, KV, G, sc, stream);
+    case 128: return launch_typed<T, 128>(q, k, v, lengths, out, lse, B, S, KV, G, sc, stream);
+    case 224: return launch_typed<T, 224>(q, k, v, lengths, out, lse, B, S, KV, G, sc, stream);
+    case 256: return launch_typed<T, 256>(q, k, v, lengths, out, lse, B, S, KV, G, sc, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -496,18 +505,21 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
 }  // namespace repro_torch
 
 // dtype: 0 = float32, 1 = bfloat16.  lse: null, or (B, KV, G) f32 receiving
-// each row's log-sum-exp.  Returns the cudaError_t of the launch.
+// each row's log-sum-exp.  scale: the softmax scale, or <= 0 for D^-0.5.
+// Returns the cudaError_t of the launch.
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
                                       const void* lengths, void* out, void* lse, int B,
-                                      int S, int KV, int G, int D, int dtype,
+                                      int S, int KV, int G, int D, double scale, int dtype,
                                       void* stream) {
   using namespace repro_torch;
   if (G < 1 || G > kMaxG) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == 0) return dispatch_d<float>(q, k, v, lengths, out, l, B, S, KV, G, D, st);
+  if (dtype == 0) {
+    return dispatch_d<float>(q, k, v, lengths, out, l, B, S, KV, G, D, scale, st);
+  }
   if (dtype == 1) {
-    return dispatch_d<__nv_bfloat16>(q, k, v, lengths, out, l, B, S, KV, G, D, st);
+    return dispatch_d<__nv_bfloat16>(q, k, v, lengths, out, l, B, S, KV, G, D, scale, st);
   }
   return cudaErrorInvalidValue;
 }

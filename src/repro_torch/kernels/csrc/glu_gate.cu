@@ -6,12 +6,14 @@
 // product kernel with a bf16 tensor between them; this kernel is both in one
 // pass (ops.py `glu_gate_plain` is the pair itself).
 //
-//   act = bf16(bf16(f(gate)) * up),  f = SiLU (kind 0) or tanh-GELU (kind 1)
+//   act = bf16(bf16(f(gate)) * up),  f = SiLU (kind 0), tanh-GELU (kind 1) or
+//   the exact erf GELU (kind 2, Zamba2's)
 //
 // computed in f32 with the pair's rounding points: f(gate) is rounded to bf16
 // before the product, as F.silu / F.gelu return it.  SiLU is x / (1 + exp(-x))
-// and tanh-GELU 0.5 x (1 + tanh(sqrt(2 / pi) (x + 0.044715 x^3))), written as
-// PyTorch's CUDA kernels write them, with the precise expf and tanhf.
+// tanh-GELU 0.5 x (1 + tanh(sqrt(2 / pi) (x + 0.044715 x^3))) and erf-GELU
+// x 0.5 (1 + erf(x / sqrt 2)), written as PyTorch's CUDA kernels write them,
+// with the precise expf, tanhf and erff.
 //
 // Layouts (contiguous, bf16): gate, up, act (n,), n a multiple of 8.
 //
@@ -30,6 +32,10 @@ constexpr int kThreads = 256;
 template <int kKind>
 __device__ __forceinline__ float activation(float x) {
   if (kKind == 0) return x / (1.f + expf(-x));
+  if (kKind == 2) {
+    constexpr float kAlpha = 0.70710678118654752f;  // 1 / sqrt(2)
+    return x * 0.5f * (1.f + erff(x * kAlpha));
+  }
   constexpr float kBeta = 0.7978845608028654f;  // sqrt(2 / pi)
   constexpr float kKappa = 0.044715f;
   const float x_cube = x * x * x;
@@ -54,8 +60,8 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 }  // namespace repro_torch
 
-// kind: 0 = SwiGLU (SiLU), 1 = GeGLU (tanh-GELU).  Returns the cudaError_t of
-// the launch.
+// kind: 0 = SwiGLU (SiLU), 1 = GeGLU (tanh-GELU), 2 = GeGLU (erf-GELU).  Returns
+// the cudaError_t of the launch.
 extern "C" int repro_glu_gate(const void* gate, const void* up, void* act, long long n, int kind,
                               void* stream) {
   using namespace repro_torch;
@@ -70,6 +76,8 @@ extern "C" int repro_glu_gate(const void* gate, const void* up, void* act, long 
     glu_gate_kernel<0><<<blocks, kThreads, 0, st>>>(g, u, a, runs);
   } else if (kind == 1) {
     glu_gate_kernel<1><<<blocks, kThreads, 0, st>>>(g, u, a, runs);
+  } else if (kind == 2) {
+    glu_gate_kernel<2><<<blocks, kThreads, 0, st>>>(g, u, a, runs);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -7,8 +7,9 @@
 //   h[p][n] <- a_t * h[p][n] + (dt_t * x_t[p]) * B_t[n]
 //   y_t[p]   = sum_n h[p][n] * C_t[n]
 //
-// Layouts (row-major, contiguous): x (B, T, H, P) and b, c (B, T, N) in f32 or
-// bf16 (one type for the three; B and C are shared by every head); dt (B, T, H)
+// Layouts (row-major, contiguous): x (B, T, H, P) and b, c (B, T, G, N) in f32
+// or bf16 (one type for the three; head h reads group h / (H / G): G = 1 is B
+// and C shared by every head, zamba2-7b has G = 2); dt (B, T, H)
 // f32, after the softplus; a_log (H,) f32; h0, h_out (B, H, P, N) f32; y
 // (B, T, H, P) in f32 or in x's type.  Any T >= 1; P in {32, 64}, N in
 // {16, 64} (zamba2-2.7b and its reduced cut).  h_out may alias h0: each block
@@ -98,7 +99,7 @@ __global__ void __launch_bounds__(P * N / kJ)
 ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ a_log, const T* __restrict__ bm,
                 const T* __restrict__ cm, const float* h0, TY* __restrict__ y,
-                float* h_out, int Tn, int H) {
+                float* h_out, int Tn, int H, int G) {
   constexpr int R = N / kJ;                  // threads per state row
   constexpr int NT = P * R;                  // threads per block
   constexpr int HS = N + 4;                  // padded row of the staged state
@@ -114,6 +115,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int tid = threadIdx.x;
   const int p = tid / R;
   const int q = tid % R;
+  const int g = h / (H / G);                 // the head's group of B and C
   const int64_t state = (static_cast<int64_t>(b) * H + h) * P * N;
 
   // the state, coalesced through shared memory, into registers
@@ -139,7 +141,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     for (int i = tid; i < n * N; i += NT) {
       const int tt = i / N;
       const int nn = i % N;
-      const int64_t src = (static_cast<int64_t>(b) * Tn + t0 + tt) * N + nn;
+      const int64_t src = ((static_cast<int64_t>(b) * Tn + t0 + tt) * G + g) * N + nn;
       const int dst = (nn % R) * kJ + nn / R;
       b_s[tt][dst] = to_f32(bm[src]);
       c_s[tt][dst] = to_f32(cm[src]);
@@ -191,23 +193,23 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 template <typename T, typename TY, int P, int N>
 cudaError_t launch(const void* x, const void* dt, const void* a_log, const void* bm,
                    const void* cm, const void* h0, void* y, void* h_out, int B,
-                   int Tn, int H, cudaStream_t stream) {
+                   int Tn, int H, int G, cudaStream_t stream) {
   const dim3 grid(H, B);
   ssd_scan_kernel<T, TY, P, N><<<grid, P * N / kJ, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(a_log), static_cast<const T*>(bm),
       static_cast<const T*>(cm), static_cast<const float*>(h0), static_cast<TY*>(y),
-      static_cast<float*>(h_out), Tn, H);
+      static_cast<float*>(h_out), Tn, H, G);
   return cudaGetLastError();
 }
 
 template <typename T, typename TY, int P>
 cudaError_t dispatch_n(const void* x, const void* dt, const void* a_log, const void* bm,
                        const void* cm, const void* h0, void* y, void* h_out, int B,
-                       int Tn, int H, int N, cudaStream_t st) {
+                       int Tn, int H, int G, int N, cudaStream_t st) {
   switch (N) {
-    case 16: return launch<T, TY, P, 16>(x, dt, a_log, bm, cm, h0, y, h_out, B, Tn, H, st);
-    case 64: return launch<T, TY, P, 64>(x, dt, a_log, bm, cm, h0, y, h_out, B, Tn, H, st);
+    case 16: return launch<T, TY, P, 16>(x, dt, a_log, bm, cm, h0, y, h_out, B, Tn, H, G, st);
+    case 64: return launch<T, TY, P, 64>(x, dt, a_log, bm, cm, h0, y, h_out, B, Tn, H, G, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -215,10 +217,10 @@ cudaError_t dispatch_n(const void* x, const void* dt, const void* a_log, const v
 template <typename T, typename TY>
 cudaError_t dispatch_p(const void* x, const void* dt, const void* a_log, const void* bm,
                        const void* cm, const void* h0, void* y, void* h_out, int B,
-                       int Tn, int H, int P, int N, cudaStream_t st) {
+                       int Tn, int H, int G, int P, int N, cudaStream_t st) {
   switch (P) {
-    case 32: return dispatch_n<T, TY, 32>(x, dt, a_log, bm, cm, h0, y, h_out, B, Tn, H, N, st);
-    case 64: return dispatch_n<T, TY, 64>(x, dt, a_log, bm, cm, h0, y, h_out, B, Tn, H, N, st);
+    case 32: return dispatch_n<T, TY, 32>(x, dt, a_log, bm, cm, h0, y, h_out, B, Tn, H, G, N, st);
+    case 64: return dispatch_n<T, TY, 64>(x, dt, a_log, bm, cm, h0, y, h_out, B, Tn, H, G, N, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -271,7 +273,7 @@ __global__ void __launch_bounds__(kCWarps * 32)
 ssd_chunked_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                    const float* __restrict__ a_log, const bf16* __restrict__ bm,
                    const bf16* __restrict__ cm, const float* h0, TY* __restrict__ y,
-                   float* h_out, int Tn, int H) {
+                   float* h_out, int Tn, int H, int G) {
   using L = ChunkSmem<P, N>;
   constexpr int XP = L::XP;
   constexpr int NP = L::NP;
@@ -297,6 +299,7 @@ ssd_chunked_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const int lane = tid & 31;
   const int gid = lane >> 2;
   const int tig = lane & 3;
+  const int g = h / (H / G);                 // the head's group of B and C
   const int64_t state = (static_cast<int64_t>(b) * H + h) * P * N;
   const int sp0 = (warp % PW) * 16;
   const int sn0 = (warp / PW) * NTW * 8;
@@ -349,7 +352,7 @@ ssd_chunked_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       const int r = i / (N / 8);
       const int col = (i % (N / 8)) * 8;
       const bool ok = t0 + r < Tn;
-      const int64_t o = (static_cast<int64_t>(b) * Tn + t0 + r) * N + col;
+      const int64_t o = ((static_cast<int64_t>(b) * Tn + t0 + r) * G + g) * N + col;
       cp_async16(bd + r * NP + col, ok ? bm + o : bm, ok ? 16 : 0);
       cp_async16(cd + r * NP + col, ok ? cm + o : cm, ok ? 16 : 0);
     }
@@ -563,7 +566,7 @@ ssd_chunked_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 template <typename TY, int P, int N>
 cudaError_t launch_chunked(const void* x, const void* dt, const void* a_log, const void* bm,
                            const void* cm, const void* h0, void* y, void* h_out, int B,
-                           int Tn, int H, cudaStream_t stream) {
+                           int Tn, int H, int G, cudaStream_t stream) {
   constexpr size_t smem = ChunkSmem<P, N>::bytes;
   static bool configured = false;            // once per instantiation
   if (!configured) {
@@ -578,17 +581,18 @@ cudaError_t launch_chunked(const void* x, const void* dt, const void* a_log, con
       static_cast<const bf16*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(a_log), static_cast<const bf16*>(bm),
       static_cast<const bf16*>(cm), static_cast<const float*>(h0), static_cast<TY*>(y),
-      static_cast<float*>(h_out), Tn, H);
+      static_cast<float*>(h_out), Tn, H, G);
   return cudaGetLastError();
 }
 
 template <typename TY, int P>
 cudaError_t dispatch_chunked_n(const void* x, const void* dt, const void* a_log,
                                const void* bm, const void* cm, const void* h0, void* y,
-                               void* h_out, int B, int Tn, int H, int N, cudaStream_t st) {
+                               void* h_out, int B, int Tn, int H, int G, int N,
+                               cudaStream_t st) {
   switch (N) {
-    case 16: return launch_chunked<TY, P, 16>(x, dt, a_log, bm, cm, h0, y, h_out, B, Tn, H, st);
-    case 64: return launch_chunked<TY, P, 64>(x, dt, a_log, bm, cm, h0, y, h_out, B, Tn, H, st);
+    case 16: return launch_chunked<TY, P, 16>(x, dt, a_log, bm, cm, h0, y, h_out, B, Tn, H, G, st);
+    case 64: return launch_chunked<TY, P, 64>(x, dt, a_log, bm, cm, h0, y, h_out, B, Tn, H, G, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -596,10 +600,12 @@ cudaError_t dispatch_chunked_n(const void* x, const void* dt, const void* a_log,
 template <typename TY>
 cudaError_t dispatch_chunked(const void* x, const void* dt, const void* a_log, const void* bm,
                              const void* cm, const void* h0, void* y, void* h_out, int B,
-                             int Tn, int H, int P, int N, cudaStream_t st) {
+                             int Tn, int H, int G, int P, int N, cudaStream_t st) {
   switch (P) {
-    case 32: return dispatch_chunked_n<TY, 32>(x, dt, a_log, bm, cm, h0, y, h_out, B, Tn, H, N, st);
-    case 64: return dispatch_chunked_n<TY, 64>(x, dt, a_log, bm, cm, h0, y, h_out, B, Tn, H, N, st);
+    case 32:
+      return dispatch_chunked_n<TY, 32>(x, dt, a_log, bm, cm, h0, y, h_out, B, Tn, H, G, N, st);
+    case 64:
+      return dispatch_chunked_n<TY, 64>(x, dt, a_log, bm, cm, h0, y, h_out, B, Tn, H, G, N, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -607,35 +613,36 @@ cudaError_t dispatch_chunked(const void* x, const void* dt, const void* a_log, c
 }  // namespace
 }  // namespace repro_torch
 
-// dtype of x, b, c: 0 = float32, 1 = bfloat16; y_dtype of y: 0 = float32,
+// G: the groups of b and c (H a multiple of G).  dtype of x, b, c: 0 = float32,
+// 1 = bfloat16; y_dtype of y: 0 = float32,
 // 1 = bfloat16 (bf16 only with bf16 x).  bf16 inputs with T >= kChunkedMinT
 // take the chunked form, everything else the recurrence (ops.py
 // CHUNKED_MIN_T is the same number).  Returns the cudaError_t of the launch.
 extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* a_log,
                               const void* bm, const void* cm, const void* h0, void* y,
-                              void* h_out, int B, int T, int H, int P, int N, int dtype,
-                              int y_dtype, void* stream) {
+                              void* h_out, int B, int T, int H, int P, int N, int G,
+                              int dtype, int y_dtype, void* stream) {
   using namespace repro_torch;
   constexpr int kChunkedMinT = 16;
-  if (B < 1 || T < 1 || H < 1) return cudaErrorInvalidValue;
+  if (B < 1 || T < 1 || H < 1 || G < 1 || H % G) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && y_dtype == 0) {
-    return dispatch_p<float, float>(x, dt, a_log, bm, cm, h0, y, h_out, B, T, H, P, N, st);
+    return dispatch_p<float, float>(x, dt, a_log, bm, cm, h0, y, h_out, B, T, H, G, P, N, st);
   }
   if (dtype == 1 && y_dtype == 1) {
     if (T >= kChunkedMinT) {
-      return dispatch_chunked<__nv_bfloat16>(x, dt, a_log, bm, cm, h0, y, h_out, B, T, H, P,
-                                             N, st);
+      return dispatch_chunked<__nv_bfloat16>(x, dt, a_log, bm, cm, h0, y, h_out, B, T, H,
+                                             G, P, N, st);
     }
     return dispatch_p<__nv_bfloat16, __nv_bfloat16>(x, dt, a_log, bm, cm, h0, y, h_out, B,
-                                                    T, H, P, N, st);
+                                                    T, H, G, P, N, st);
   }
   if (dtype == 1 && y_dtype == 0) {
     if (T >= kChunkedMinT) {
-      return dispatch_chunked<float>(x, dt, a_log, bm, cm, h0, y, h_out, B, T, H, P, N, st);
+      return dispatch_chunked<float>(x, dt, a_log, bm, cm, h0, y, h_out, B, T, H, G, P, N, st);
     }
-    return dispatch_p<__nv_bfloat16, float>(x, dt, a_log, bm, cm, h0, y, h_out, B, T, H, P,
-                                            N, st);
+    return dispatch_p<__nv_bfloat16, float>(x, dt, a_log, bm, cm, h0, y, h_out, B, T, H,
+                                            G, P, N, st);
   }
   return cudaErrorInvalidValue;
 }

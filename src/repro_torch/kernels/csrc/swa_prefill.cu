@@ -2,13 +2,15 @@
 //
 // Replaces the TPU kernel src/repro/kernels/swa_prefill/swa_prefill.py
 // swa_prefill_pallas (wrapper ops.py swa_prefill_attention): for each query
-// position p, softmax(q_p . k_j * D^-0.5) over keys j with 0 <= p - j < window,
+// position p, softmax(q_p . k_j * scale) over keys j with 0 <= p - j < window
+// (scale D^-0.5 unless the caller gives one: zamba2-7b's is (D / 2)^-0.5),
 // applied to V, with the online softmax in f32, masked probabilities set to
 // zero, and out = acc / max(l, 1e-30).  Full causal attention is window >= S.
 //
 // Layouts (row-major, contiguous): q, out (B, S, H, D); k, v (B, S, KV, D);
 // query head h reads KV head h / (H / KV) directly (the TPU wrapper repeats
-// K/V over the GQA groups instead).  D in {16, 32, 64, 80, 128, 256}, any S.
+// K/V over the GQA groups instead).  D in {16, 32, 64, 80, 128, 224, 256}, any
+// S.
 //
 // Two kernels, split by the storage type:
 //
@@ -27,7 +29,8 @@
 // each warp reads its Q rows once from global memory straight into A
 // fragments; at D = 256 those fragments (64 registers a thread beside the
 // 128 of the O accumulator) would not fit, so the block's 64 Q rows come
-// into shared memory with the first K/V tile and each 16-wide k-step of
+// into shared memory with the first K/V tile (at D = 224 too: 148,480 bytes in
+// all, 14 k-steps and 28 output tiles) and each 16-wide k-step of
 // Q K^T reads its A fragment there with ldmatrix; S =
 // Q K^T reads K with ldmatrix; the row max is taken on the f32 scores and
 // each score is scaled (D^-0.5 log2 e, never a bf16 q) in the multiply-add
@@ -220,9 +223,15 @@ swa_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// the softmax scale of a call: the caller's (scale > 0) or D^-0.5
+template <int D>
+double softmax_scale(double scale) {
+  return scale > 0 ? scale : 1.0 / std::sqrt(static_cast<double>(D));
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B,
-                   int S, int H, int KV, int window, cudaStream_t stream) {
+                   int S, int H, int KV, int window, double scale, cudaStream_t stream) {
   constexpr size_t smem = prefill_smem_bytes<D>();
   static bool configured = false;            // once per instantiation
   if (!configured) {
@@ -235,8 +244,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   const dim3 grid((S + kTile - 1) / kTile, H, B);
   swa_prefill_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, H, KV, window,
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))));
+      static_cast<T*>(out), S, H, KV, window, static_cast<float>(softmax_scale<D>(scale)));
   return cudaGetLastError();
 }
 
@@ -510,7 +518,8 @@ swa_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
-                        int S, int H, int KV, int window, cudaStream_t stream) {
+                        int S, int H, int KV, int window, double scale,
+                        cudaStream_t stream) {
   constexpr size_t smem = bf16_smem_bytes<D>();
   static bool configured = false;            // once per instantiation
   if (!configured) {
@@ -524,31 +533,34 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, 
   swa_prefill_bf16_kernel<D><<<grid, kBfWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), S, H, KV,
-      window, static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)) * kLog2e));
+      window, static_cast<float>(softmax_scale<D>(scale) * kLog2e));
   return cudaGetLastError();
 }
 
 // the storage type picks the kernel: bf16 the tensor cores, f32 the CUDA cores
 template <typename T, int D>
 cudaError_t launch_typed(const void* q, const void* k, const void* v, void* out, int B,
-                         int S, int H, int KV, int window, cudaStream_t stream) {
+                         int S, int H, int KV, int window, double scale,
+                         cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return launch_bf16<D>(q, k, v, out, B, S, H, KV, window, stream);
+    return launch_bf16<D>(q, k, v, out, B, S, H, KV, window, scale, stream);
   } else {
-    return launch<T, D>(q, k, v, out, B, S, H, KV, window, stream);
+    return launch<T, D>(q, k, v, out, B, S, H, KV, window, scale, stream);
   }
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
-                       int S, int H, int KV, int D, int window, cudaStream_t stream) {
+                       int S, int H, int KV, int D, int window, double sc,
+                       cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_typed<T, 16>(q, k, v, out, B, S, H, KV, window, stream);
-    case 32: return launch_typed<T, 32>(q, k, v, out, B, S, H, KV, window, stream);
-    case 64: return launch_typed<T, 64>(q, k, v, out, B, S, H, KV, window, stream);
-    case 80: return launch_typed<T, 80>(q, k, v, out, B, S, H, KV, window, stream);
-    case 128: return launch_typed<T, 128>(q, k, v, out, B, S, H, KV, window, stream);
-    case 256: return launch_typed<T, 256>(q, k, v, out, B, S, H, KV, window, stream);
+    case 16: return launch_typed<T, 16>(q, k, v, out, B, S, H, KV, window, sc, stream);
+    case 32: return launch_typed<T, 32>(q, k, v, out, B, S, H, KV, window, sc, stream);
+    case 64: return launch_typed<T, 64>(q, k, v, out, B, S, H, KV, window, sc, stream);
+    case 80: return launch_typed<T, 80>(q, k, v, out, B, S, H, KV, window, sc, stream);
+    case 128: return launch_typed<T, 128>(q, k, v, out, B, S, H, KV, window, sc, stream);
+    case 224: return launch_typed<T, 224>(q, k, v, out, B, S, H, KV, window, sc, stream);
+    case 256: return launch_typed<T, 256>(q, k, v, out, B, S, H, KV, window, sc, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -556,13 +568,16 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, i
 }  // namespace
 }  // namespace repro_torch
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16.  scale: the softmax scale, or <= 0 for
+// D^-0.5.  Returns the cudaError_t of the launch.
 extern "C" int repro_swa_prefill(const void* q, const void* k, const void* v, void* out,
                                  int B, int S, int H, int KV, int D, int window,
-                                 int dtype, void* stream) {
+                                 double scale, int dtype, void* stream) {
   using namespace repro_torch;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(q, k, v, out, B, S, H, KV, D, window, st);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(q, k, v, out, B, S, H, KV, D, window, st);
+  if (dtype == 0) return dispatch_d<float>(q, k, v, out, B, S, H, KV, D, window, scale, st);
+  if (dtype == 1) {
+    return dispatch_d<__nv_bfloat16>(q, k, v, out, B, S, H, KV, D, window, scale, st);
+  }
   return cudaErrorInvalidValue;
 }

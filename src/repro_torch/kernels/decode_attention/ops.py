@@ -31,6 +31,7 @@ CPU; a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -41,20 +42,22 @@ from repro_torch.kernels import build
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+_HEAD_DIMS = (16, 32, 64, 80, 128, 224, 256)
 _MAX_G = 8
 _fn = None
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           lengths: torch.Tensor, return_lse: bool = False):
+                           lengths: torch.Tensor, return_lse: bool = False,
+                           scale: Optional[float] = None):
     """Dense masked decode attention (the reference's ``ref.py``).
     q: (B, KV, G, D); k, v: (B, S, KV, D); lengths: (B,).  Positions at
     or past ``lengths[b]`` get the finite score -1e30.  With
-    ``return_lse`` also the (B, KV, G) f32 log-sum-exp of the scores."""
+    ``return_lse`` also the (B, KV, G) f32 log-sum-exp of the scores.
+    ``scale``: the softmax scale, D^-0.5 when None."""
     b, kvh, g, d = q.shape
     s = k.shape[1]
-    qf = q.float() * (d ** -0.5)
+    qf = q.float() * (d ** -0.5 if scale is None else scale)
     scores = torch.einsum("bkgd,bskd->bkgs", qf, k.float())
     valid = torch.arange(s, device=q.device)[None, :] < lengths[:, None]
     scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
@@ -84,8 +87,8 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = build.load("decode_attention").repro_decode_attention
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                       + [ctypes.c_double, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -115,13 +118,16 @@ def _check(q, k, v, lengths):
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor, return_lse: bool = False):
+                     lengths: torch.Tensor, return_lse: bool = False,
+                     scale: Optional[float] = None):
     """Flash-decode GQA attention.  q: (B, KV, G, D); k/v: (B, S, KV, D);
     lengths: (B,) int32 valid cache lengths.  Returns (B, KV, G, D), and
-    with ``return_lse`` the pair ``(out, lse)``, lse (B, KV, G) f32."""
+    with ``return_lse`` the pair ``(out, lse)``, lse (B, KV, G) f32.
+    ``scale``: the softmax scale, D^-0.5 when None (the kernel computes
+    that one itself, as it always has)."""
     global launches
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, lengths, return_lse)
+        return decode_attention_plain(q, k, v, lengths, return_lse, scale)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check(q, k, v, lengths)
@@ -134,7 +140,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         lengths.data_ptr(), out.data_ptr(),
                         None if lse is None else lse.data_ptr(), b,
-                        k.shape[1], kvh, g, d, _DTYPES[q.dtype], stream)
+                        k.shape[1], kvh, g, d,
+                        0.0 if scale is None else float(scale),
+                        _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"CUDA error {err}")

@@ -27,18 +27,21 @@ from repro_torch.kernels import build
 # show that the serving path ran the kernel)
 launches = 0
 
-_KINDS = {"swiglu": 0, "geglu": 1}
+_KINDS = {"swiglu": 0, "geglu": 1, "geglu_erf": 2}
 _fn = None
 
 
 def glu_gate_plain(gate: torch.Tensor, up: torch.Tensor, kind: str
                    ) -> torch.Tensor:
-    """``act(gate) * up``, act SiLU (``swiglu``) or tanh-GELU
-    (``geglu``), each rounded to the inputs' dtype."""
+    """``act(gate) * up``, act SiLU (``swiglu``), tanh-GELU (``geglu``)
+    or the exact erf GELU (``geglu_erf``, Zamba2's), each rounded to the
+    inputs' dtype."""
     if kind == "swiglu":
         return F.silu(gate) * up
     if kind == "geglu":
         return F.gelu(gate, approximate="tanh") * up
+    if kind == "geglu_erf":
+        return F.gelu(gate) * up
     raise ValueError(kind)
 
 

@@ -2,6 +2,10 @@
 
     h_t = exp(-exp(a_log) dt_t) h_{t-1} + dt_t x_t B_t^T;   y_t = h_t C_t
 
+B and C come as (B, T, N), shared by every head, or grouped as (B, T,
+G, N): head h reads group ``h // (H / G)`` (Zamba2-7B's G 2).  G 1 is
+the shared case, with the same results bit for bit.
+
 Replaces the TPU kernel ``src/repro/kernels/ssd_scan/ssd_scan.py``
 ``ssd_scan_pallas`` and its wrapper ``ops.py`` ``ssd_scan`` with the
 hand-written Hopper kernel ``kernels/csrc/ssd_scan.cu``, which takes any
@@ -40,10 +44,15 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.utils import counters
 
 # kernel launches made by ssd_scan (chip_smoke.py resets and reads it to
-# show that the serving path ran the kernel)
+# show that the serving path ran the kernel), and the same launches by the
+# body that ran: the recurrence (decode steps) or the chunked form (prefill)
 launches = 0
+body_launches = {"recurrence": 0, "chunked": 0}
+for _body in body_launches:
+    counters.register(f"ssd_scan.{_body}", body_launches, _body)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
@@ -65,6 +74,37 @@ def _tree_sum_n(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
+def groups_of(b: torch.Tensor) -> int:
+    """G of a B or C operand: (B, T, N) is one group, (B, T, G, N) G."""
+    return 1 if b.dim() == 3 else b.shape[2]
+
+
+def _per_group(scan, x, dt, a_log, b, c, h0, h_out, y_dtype):
+    """``scan`` over each group's heads on their own (the heads of an SSD
+    are independent), with B and C of shape (B, T, N) as the group's;
+    (B, T, N) operands, or one group, go to ``scan`` as they are."""
+    g = groups_of(b)
+    if g == 1:
+        if b.dim() == 4:
+            b, c = b[:, :, 0], c[:, :, 0]
+        return scan(x, dt, a_log, b, c, h0, h_out, y_dtype)
+    bsz, _, h, p = x.shape
+    if h0 is None:
+        h0 = torch.zeros(bsz, h, p, b.shape[-1], dtype=torch.float32,
+                         device=x.device)
+    hg = h // g
+    ys, hs = [], []
+    for i in range(g):
+        heads = slice(i * hg, (i + 1) * hg)
+        y, hf = scan(x[:, :, heads], dt[:, :, heads], a_log[heads],
+                     b[:, :, i], c[:, :, i], h0[:, heads], None, y_dtype)
+        ys.append(y)
+        hs.append(hf)
+    h_final = torch.cat(hs, dim=1)
+    return torch.cat(ys, dim=2), (h_final if h_out is None
+                                  else h_out.copy_(h_final))
+
+
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                    b: torch.Tensor, c: torch.Tensor,
                    h0: Optional[torch.Tensor] = None,
@@ -76,7 +116,11 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
     Every product and sum is rounded on its own, and the sum over n
     behind y is a pairwise tree: the CUDA kernel takes the same steps in
-    the same order, so the two agree bit for bit."""
+    the same order, so the two agree bit for bit.  Grouped B and C run
+    per group (``_per_group``)."""
+    if b.dim() == 4:
+        return _per_group(ssd_scan_plain, x, dt, a_log, b, c, h0, h_out,
+                          y_dtype)
     bsz, t, h, p = x.shape
     if h0 is None:
         h0 = torch.zeros(bsz, h, p, b.shape[-1], dtype=torch.float32,
@@ -131,7 +175,11 @@ def ssd_scan_chunked_plain(x: torch.Tensor, dt: torch.Tensor,
     with ``hi``/``lo`` the :func:`bf16_split` halves: x, B and C enter
     the products as they are (exact in bf16), the f32 intermediates G',
     B' and h as two bf16 halves each.  The kernel sums the products in
-    another order, so the two agree to f32 rounding, not bit for bit."""
+    another order, so the two agree to f32 rounding, not bit for bit.
+    Grouped B and C run per group (``_per_group``)."""
+    if b.dim() == 4:
+        return _per_group(ssd_scan_chunked_plain, x, dt, a_log, b, c, h0,
+                          h_out, y_dtype)
     bsz, t, h, p = x.shape
     n = b.shape[-1]
     if h0 is None:
@@ -172,7 +220,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = build.load("ssd_scan").repro_ssd_scan
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
@@ -184,10 +232,12 @@ def _check(x, dt, a_log, b, c, h0, h_out, y_dtype) -> None:
         raise ValueError(f"x (B,T,H,P) and dt (B,T,H) expected, got "
                          f"{tuple(x.shape)}, {tuple(dt.shape)}")
     bsz, t, h, p = x.shape
-    if b.dim() != 3 or b.shape[:2] != (bsz, t) or c.shape != b.shape:
-        raise ValueError(f"b, c of shape ({bsz}, {t}, N) expected, got "
+    if b.dim() not in (3, 4) or b.shape[:2] != (bsz, t) \
+            or c.shape != b.shape or h % groups_of(b):
+        raise ValueError(f"b, c of shape ({bsz}, {t}, N) or ({bsz}, {t}, "
+                         f"G, N) with G dividing {h} expected, got "
                          f"{tuple(b.shape)}, {tuple(c.shape)}")
-    n = b.shape[2]
+    n = b.shape[-1]
     if t < 1 or p not in _HEAD_DIMS or n not in _STATE_DIMS:
         raise ValueError(f"T >= 1, head dim in {_HEAD_DIMS} and state dim "
                          f"in {_STATE_DIMS} expected, got T = {t}, P = {p}, "
@@ -221,8 +271,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
              y_dtype: Optional[torch.dtype] = None):
     """Mamba2 SSD scan.  x: (B, T, H, P) f32 or bf16; dt: (B, T, H)
     f32 after the softplus; a_log: (H,) f32 (A = -exp(a_log)); b, c:
-    (B, T, N) in x's dtype, shared by every head; h0: (B, H, P, N) f32
-    (zeros when None).
+    (B, T, N) in x's dtype, shared by every head, or (B, T, G, N), head
+    h reading group ``h // (H / G)``; h0: (B, H, P, N) f32 (zeros when
+    None).
 
     Returns ``(y (B, T, H, P) in y_dtype (x's when None), h_final (B, H,
     P, N) f32)``.  ``h_final`` is written into ``h_out`` when given,
@@ -245,15 +296,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if h_out is None:
         h_out = torch.empty_like(h0)
     _check(x, dt, a_log, b, c, h0, h_out, y_dtype)
+    body = "chunked" if takes_chunked_form(x) else "recurrence"
     y = torch.empty(x.shape, dtype=y_dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(),
                         b.data_ptr(), c.data_ptr(), h0.data_ptr(),
                         y.data_ptr(), h_out.data_ptr(), bsz, t, h, p,
-                        b.shape[2], _DTYPES[x.dtype], _DTYPES[y_dtype],
-                        stream)
+                        b.shape[-1], groups_of(b), _DTYPES[x.dtype],
+                        _DTYPES[y_dtype], stream)
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     launches += 1
+    body_launches[body] += 1
     return y, h_out

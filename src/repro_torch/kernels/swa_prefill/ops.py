@@ -30,6 +30,7 @@ the CPU; a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -40,21 +41,24 @@ from repro_torch.kernels import build
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+_HEAD_DIMS = (16, 32, 64, 80, 128, 224, 256)
 _fn = None
 
 
 def swa_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      window: int) -> torch.Tensor:
+                      window: int, scale: Optional[float] = None
+                      ) -> torch.Tensor:
     """Dense masked causal sliding-window attention (the reference's
     ``ref.py`` with the GQA repeat of its wrapper).  q: (B, S, H, D);
-    k, v: (B, S, KV, D).  Returns (B, S, H, D) in q's dtype."""
+    k, v: (B, S, KV, D).  Returns (B, S, H, D) in q's dtype.  ``scale``:
+    the softmax scale, D^-0.5 when None."""
     b, s, h, d = q.shape
     g = h // k.shape[2]
     if g > 1:
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (d ** -0.5)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (
+        d ** -0.5 if scale is None else scale)
     pos = torch.arange(s, device=q.device)
     rel = pos[:, None] - pos[None, :]
     mask = (rel >= 0) & (rel < window)
@@ -68,8 +72,8 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = build.load("swa_prefill").repro_swa_prefill
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_double, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -99,13 +103,15 @@ def _check(q, k, v, window):
 
 
 def swa_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          window: int) -> torch.Tensor:
+                          window: int, scale: Optional[float] = None
+                          ) -> torch.Tensor:
     """Causal SWA prefill.  q: (B, S, H, D); k, v: (B, S, KV, D) with
     H % KV == 0.  Returns (B, S, H, D).  Full causal attention is
-    ``window >= S``."""
+    ``window >= S``.  ``scale``: the softmax scale, D^-0.5 when None
+    (the kernel computes that one itself, as it always has)."""
     global launches
     if q.device.type == "cpu":
-        return swa_prefill_plain(q, k, v, window)
+        return swa_prefill_plain(q, k, v, window, scale)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check(q, k, v, window)
@@ -115,6 +121,7 @@ def swa_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), b, s, h, k.shape[2], d, int(window),
+                        0.0 if scale is None else float(scale),
                         _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"swa_prefill kernel launch failed: CUDA error {err}")

@@ -80,6 +80,7 @@ from repro_torch.models import mamba2 as m2
 from repro_torch.models import rwkv6 as rk
 from repro_torch.models import sharding as sh
 from repro_torch.models import transformer as tfm
+from repro_torch.models import zamba2 as z2
 from repro_torch.models.common import (dense_init, embed_init, linear,
                                        rms_norm, to_dtype)
 
@@ -141,9 +142,17 @@ def _check_supported(cfg: ModelConfig) -> None:
     rwkv = (kinds == {"rwkv6+rwkv_cm"} and cfg.rope_kind == "none"
             and not cfg.shared_attn_every and decoder_only)
     mamba = (kinds == {"mamba2+none"} and decoder_only
-             and (attention or not cfg.shared_attn_every))
+             and (attention or not cfg.shared_attn_every)
+             and not cfg.published_hybrid)
+    # published Zamba2: the shared blocks' exact-GELU gated MLP
+    zamba2 = (cfg.published_hybrid and kinds == {"mamba2+none"}
+              and decoder_only and not cfg.shared_attn_every
+              and cfg.rope_kind == "standard"
+              and cfg.mlp_kind in ("swiglu", "geglu", "geglu_erf")
+              and cfg.hybrid_layer_ids
+              and all(0 <= i < cfg.num_layers for i in cfg.hybrid_layer_ids))
     mtp = cfg.mtp_depth == 0 or (cfg.mtp_depth == 1 and (dense or grouped))
-    if (not (dense or grouped or vlm or audio or rwkv or mamba)
+    if (not (dense or grouped or vlm or audio or rwkv or mamba or zamba2)
             or cfg.logit_softcap or not mtp):
         raise NotImplementedError(
             f"{cfg.name}: only homogeneous stacks of dense attn+mlp or "
@@ -154,7 +163,8 @@ def _check_supported(cfg: ModelConfig) -> None:
             "patch prefix), whisper's attn+mlp encoder-decoder (learned "
             "positions, GELU), rwkv6+rwkv_cm blocks (no RoPE) or "
             "mamba2+none blocks (a shared attention block with standard "
-            "RoPE and SwiGLU or GeGLU) are ported yet")
+            "RoPE and SwiGLU or GeGLU, or published Zamba2's shared "
+            "blocks) are ported yet")
 
 
 @functools.lru_cache(maxsize=None)
@@ -198,6 +208,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
                    for kind in cfg.blocks]
     if cfg.shared_attn_every:
         p["shared_attn"] = tfm.init_shared_attn(gen, cfg, dtype, dev)
+    if cfg.published_hybrid:
+        z2.init_extra(gen, cfg, p, dtype, dev)
     if cfg.is_encoder_decoder:
         ecfg = _encoder_cfg(cfg)
         p["encoder"] = {
@@ -382,6 +394,10 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device,
         cache["shared"] = attn_mod.init_attention_cache(
             cfg, batch, cache_len, dtype, device, layers=_shared_apps(cfg),
             window=cfg.shared_attn_window or cache_len)
+    if cfg.published_hybrid:
+        cache["shared"] = attn_mod.init_attention_cache(
+            cfg, batch, cache_len, dtype, device,
+            layers=len(cfg.hybrid_layer_ids))
     if cfg.is_encoder_decoder:
         cache["cross"] = attn_mod.init_attention_cache(
             cfg, batch, cfg.encoder_seq_len, dtype, device,
@@ -487,6 +503,10 @@ def forward_hidden(params, batch: dict, cfg: ModelConfig, mesh=None):
         x, positions, enc_out, _ = _assemble_inputs(params, cfg, batch, mesh)
         shared, every = params.get("shared_attn"), cfg.shared_attn_every
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.published_hybrid:
+            return z2.forward_layers(
+                params, x, positions, cfg,
+                lambda fn, x: _run_layer(fn, x, cfg)), aux
         for i, p in enumerate(params["layers"]):
             def layer(x, p=p, i=i):
                 if shared is not None and i % every == 0:
@@ -561,14 +581,19 @@ def prefill(params, batch: dict, cfg: ModelConfig,
         else:
             _zero_cache(cache)
         shared, every = params.get("shared_attn"), cfg.shared_attn_every
-        for i, p in enumerate(params["layers"]):
-            if shared is not None and i % every == 0:
-                x = tfm.shared_attn_prefill(shared, x, positions, cfg,
-                                            _shared_cache(cache, i // every),
-                                            mesh)
-            x = tfm.block_prefill(p, x, positions, cfg.blocks[i], cfg,
-                                  _layer_cache(cache, i), enc_out=enc_out,
-                                  mesh=mesh)
+        if cfg.published_hybrid:
+            x = z2.prefill_layers(params, x, positions, cfg,
+                                  lambda i: _layer_cache(cache, i),
+                                  lambda j: _shared_cache(cache, j))
+        else:
+            for i, p in enumerate(params["layers"]):
+                if shared is not None and i % every == 0:
+                    x = tfm.shared_attn_prefill(
+                        shared, x, positions, cfg,
+                        _shared_cache(cache, i // every), mesh)
+                x = tfm.block_prefill(p, x, positions, cfg.blocks[i], cfg,
+                                      _layer_cache(cache, i),
+                                      enc_out=enc_out, mesh=mesh)
         x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
         logits = _head(params, cfg, x)
         cache["index"].fill_(s)
@@ -624,14 +649,20 @@ def decode_step(params, cache: dict, token, cfg: ModelConfig,
         lengths = _decode_lengths(cfg, cache, index, b, mesh)
         shared, every = params.get("shared_attn"), cfg.shared_attn_every
         y = None
-        for i, p in enumerate(params["layers"]):
-            if shared is not None and i % every == 0:
-                x, y = tfm.shared_attn_decode(
-                    shared, x, _shared_cache(cache, i // every), index,
-                    positions, cfg, mesh, y, fused, lengths.get("shared"))
-            x, y = tfm.block_decode(p, x, _layer_cache(cache, i), index,
-                                    positions, cfg.blocks[i], cfg, mesh, y,
-                                    fused, lengths.get("k"))
+        if cfg.published_hybrid:
+            x, y = z2.decode_layers(params, x, index, positions, cfg,
+                                    lambda i: _layer_cache(cache, i),
+                                    lambda j: _shared_cache(cache, j), fused,
+                                    lengths.get("shared"))
+        else:
+            for i, p in enumerate(params["layers"]):
+                if shared is not None and i % every == 0:
+                    x, y = tfm.shared_attn_decode(
+                        shared, x, _shared_cache(cache, i // every), index,
+                        positions, cfg, mesh, y, fused, lengths.get("shared"))
+                x, y = tfm.block_decode(p, x, _layer_cache(cache, i), index,
+                                        positions, cfg.blocks[i], cfg, mesh,
+                                        y, fused, lengths.get("k"))
         _, x = tfm.add_norm(x, y, params["final_norm"], cfg, fused)
         logits = _head(params, cfg, x)
         index.add_(1)
@@ -679,8 +710,12 @@ class Model:
 def build_model(cfg: ModelConfig, mesh=None, device=None) -> Model:
     """The model namespace of ``cfg``.  With ``mesh`` (a ``DeviceMesh``)
     its steps run sharded over it, on the mesh's device type unless
-    ``device`` names one; a ``cuda`` mesh never runs on the CPU."""
+    ``device`` names one; a ``cuda`` mesh never runs on the CPU
+    (published Zamba2 runs on one device only)."""
     _check_supported(cfg)
+    if mesh is not None and cfg.published_hybrid:
+        raise NotImplementedError(f"{cfg.name}: published Zamba2 runs "
+                                  "without a mesh")
     if device is None and mesh is not None:
         device = mesh.device_type
     return Model(cfg=cfg, device=resolve_device(device), mesh=mesh)

@@ -258,10 +258,12 @@ def attention_fwd(params, x: torch.Tensor, positions: torch.Tensor,
     bp_axes = (_bp_spec(mesh, b)
                if (mesh is not None and cfg.attn_batch_parallel) else None)
 
+    scale = d ** -0.5 if cfg.softmax_scale is None else cfg.softmax_scale
+
     def core(q, k, v, qp, kp):
         return blocked_attention(q, k, v, qp, kp,
                                  causal=causal and kv_x is None,
-                                 window=window, scale=d ** -0.5,
+                                 window=window, scale=scale,
                                  cap=cfg.logit_softcap)
 
     out = attention_core(core, mesh, q, k, v, qp, kp, bp_axes=bp_axes,
@@ -276,9 +278,11 @@ def _seq_sharded(cache_t) -> bool:
         isinstance(p, Shard) and p.dim == 1 for p in cache_t.placements)
 
 
-def _decode_plain(q, ck, cv, index, slot, window: int, cap: float):
+def _decode_plain(q, ck, cv, index, slot, window: int, cap: float,
+                  scale=None):
     """The reference's dense masked softmax of one query per head over
-    the cache.  q: (B, KV, G, D) unscaled; ck, cv: (B, S, KV, D)."""
+    the cache.  q: (B, KV, G, D) unscaled; ck, cv: (B, S, KV, D);
+    ``scale``: the softmax scale, D^-1/2 when None."""
     d = q.shape[-1]
     s_cache = ck.shape[1]
     j = torch.arange(s_cache, device=q.device)
@@ -287,7 +291,7 @@ def _decode_plain(q, ck, cv, index, slot, window: int, cap: float):
         valid = (slot - j) % s_cache <= index
     else:
         valid = j <= index
-    qf = (q * (d ** -0.5)).float()
+    qf = (q * (d ** -0.5 if scale is None else scale)).float()
     scores = torch.einsum("bkgd,bskd->bkgs", qf, ck.float())
     if cap > 0:
         scores = softcap(scores, cap)
@@ -383,14 +387,15 @@ def decode_core(q, ck, cv, index, cfg: ModelConfig, *, window: int,
         extra = lengths
 
         def fn(q, ck, cv, lengths):
-            return decode_attention(q, ck, cv, lengths.contiguous())
+            return decode_attention(q, ck, cv, lengths.contiguous(),
+                                    scale=cfg.softmax_scale)
     else:
         extra = index
 
         def fn(q, ck, cv, index):
             return _decode_plain(q, ck, cv, index, index % s_cache
                                  if window > 0 else index, window,
-                                 cfg.logit_softcap)
+                                 cfg.logit_softcap, cfg.softmax_scale)
     if mesh is None:
         return fn(q, ck, cv, extra)
     dp = tuple(a for a in sh.FSDP if a in axis_names(mesh))

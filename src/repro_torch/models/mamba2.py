@@ -21,6 +21,15 @@ once after it.
 When given ``out`` (a layer's views into the decode cache), the mixer
 writes its new conv windows and SSD state there in place; the SSD state
 is updated by the kernel itself (its output aliases its input state).
+
+Published Zamba2 (``cfg.published_hybrid``, zamba2-7b) reads B and C in
+``cfg.ssm_groups`` groups (head h reads group ``h // (H / G)``; ``w_bc``
+and the conv's B|C channels are ``[B_0 .. B_{G-1} | C_0 .. C_{G-1}]``),
+adds a bias after each depthwise conv, and takes its gated norm per
+group of ``d_inner / G`` channels.  One group is every other stack's
+form, computed as before.  A leaf the model keeps in f32 (``a_log``,
+``dt_bias``, ``d_skip``) may come in another type (the benchmark draws
+every leaf in bf16); it is widened to f32 where it is used.
 """
 from __future__ import annotations
 
@@ -38,28 +47,35 @@ from repro_torch.models.common import dense_init, keep_in, linear, rms_norm
 def init_mamba2(gen: torch.Generator, cfg: ModelConfig, dtype):
     d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state_dim
     h, w = cfg.ssm_num_heads, cfg.ssm_conv_width
+    gn = cfg.ssm_groups * n
     dev, f32 = gen.device, torch.float32
-    return {
+    p = {
         "w_zx": dense_init(gen, (d, 2 * di), dtype),
-        "w_bc": dense_init(gen, (d, 2 * n), dtype),
+        "w_bc": dense_init(gen, (d, 2 * gn), dtype),
         "w_dt": dense_init(gen, (d, h), dtype),
         "dt_bias": torch.zeros(h, dtype=f32, device=dev),
         "a_log": torch.zeros(h, dtype=f32, device=dev),      # A = -exp(a_log)
         "d_skip": torch.ones(h, dtype=f32, device=dev),
         "conv_x": dense_init(gen, (w, di), dtype, fan_in=w),
-        "conv_bc": dense_init(gen, (w, 2 * n), dtype, fan_in=w),
+        "conv_bc": dense_init(gen, (w, 2 * gn), dtype, fan_in=w),
         "norm": torch.zeros(di, dtype=dtype, device=dev),
         "w_out": dense_init(gen, (di, d), dtype, fan_in=di),
     }
+    if cfg.published_hybrid:
+        p["conv_x_bias"] = torch.zeros(di, dtype=dtype, device=dev)
+        p["conv_bc_bias"] = torch.zeros(2 * gn, dtype=dtype, device=dev)
+    return p
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 state: Optional[torch.Tensor] = None):
+                 state: Optional[torch.Tensor] = None,
+                 bias: Optional[torch.Tensor] = None):
     """Depthwise causal conv along time, then SiLU.  x: (B, S, C); w:
-    (W, C); state: the (B, W-1, C) inputs before x, zeros when None.
-    Returns ``(y, new_state)``, new_state the trailing W-1 inputs.  The
-    taps are summed as the reference's ``sum``: from 0, tap 0 first,
-    each product and sum in x's dtype."""
+    (W, C); state: the (B, W-1, C) inputs before x, zeros when None;
+    ``bias`` (C,) added after the taps (published Zamba2's).  Returns
+    ``(y, new_state)``, new_state the trailing W-1 inputs.  The taps are
+    summed as the reference's ``sum``: from 0, tap 0 first, each product
+    and sum in x's dtype."""
     width = w.shape[0]
     if state is None:
         state = x.new_zeros(x.shape[0], width - 1, x.shape[2])
@@ -68,6 +84,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     y = 0
     for i in range(width):
         y = y + xp[:, i:i + s] * w[i]
+    if bias is not None:
+        y = y + bias
     return F.silu(y), xp[:, -(width - 1):]
 
 
@@ -87,8 +105,20 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     the reference exponentiates every (i, j) and masks after: the values
     are the same, but above the diagonal the decay is positive and its
     exp overflows once a chunk's decay sums past ~88, which makes the
-    reference's gradient NaN there (0 * inf).
+    reference's gradient NaN there (0 * inf).  Grouped b, c (B, S, G,
+    N) run per group of heads.
     """
+    if b.dim() == 4:
+        g = b.shape[2]
+        hg = x.shape[2] // g
+        parts = [ssd_chunked(x[:, :, i * hg:(i + 1) * hg],
+                             dt[:, :, i * hg:(i + 1) * hg],
+                             a_log[i * hg:(i + 1) * hg], b[:, :, i], c[:, :, i],
+                             chunk, None if h0 is None
+                             else h0[:, i * hg:(i + 1) * hg])
+                 for i in range(g)]
+        return (torch.cat([y for y, _ in parts], dim=2),
+                torch.cat([hf for _, hf in parts], dim=1))
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     pad = (-s) % chunk
@@ -185,6 +215,37 @@ def ssd(x, dt, a_log, b, c, h0=None, *, kernel: bool = False, out=None,
     return y, h_final
 
 
+def _split_bc(bcc: torch.Tensor, cfg: ModelConfig):
+    """B and C of the conv's B|C output: (B, S, N) each for one group,
+    else (B, S, G, N)."""
+    n, g = cfg.ssm_state_dim, cfg.ssm_groups
+    if g == 1:
+        return bcc[..., :n], bcc[..., n:]
+    return (bcc[..., :g * n].unflatten(-1, (g, n)),
+            bcc[..., g * n:].unflatten(-1, (g, n)))
+
+
+def _convs(params, xin, bcin, state):
+    """The two depthwise convs (with their biases where the layer has
+    them): ``(xc, conv_x, bcc, conv_bc)``."""
+    xc, conv_x = _causal_conv(xin, params["conv_x"],
+                              state["conv_x"] if state else None,
+                              params.get("conv_x_bias"))
+    bcc, conv_bc = _causal_conv(bcin, params["conv_bc"],
+                                state["conv_bc"] if state else None,
+                                params.get("conv_bc_bias"))
+    return xc, conv_x, bcc, conv_bc
+
+
+def _gated_norm(y, z, params, cfg: ModelConfig):
+    """RMSNorm of ``y * silu(z)``, per group of ``d_inner / G`` channels."""
+    g = cfg.ssm_groups
+    if g == 1:
+        return rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+    v = (y * F.silu(z)).unflatten(-1, (g, -1))
+    return rms_norm(v, params["norm"].view(g, -1), cfg.norm_eps).flatten(-2)
+
+
 def _in_proj(params, x: torch.Tensor, cfg: ModelConfig):
     """z, x and the B|C input of the convs, and dt (f32, softplus)."""
     di = cfg.d_inner
@@ -205,30 +266,27 @@ def mamba2_fwd(params, x: torch.Tensor, cfg: ModelConfig,
     ``mesh``, as ``ssd``); otherwise through ``ssd`` (``kernel`` as
     there)."""
     b, s, _ = x.shape
-    n, h, p = cfg.ssm_state_dim, cfg.ssm_num_heads, cfg.ssm_head_dim
+    h, p = cfg.ssm_num_heads, cfg.ssm_head_dim
     z, xin, bcin, dt = _in_proj(params, x, cfg)
-    xc, conv_x = _causal_conv(xin, params["conv_x"],
-                              state["conv_x"] if state else None)
-    bcc, conv_bc = _causal_conv(bcin, params["conv_bc"],
-                                state["conv_bc"] if state else None)
+    xc, conv_x, bcc, conv_bc = _convs(params, xin, bcin, state)
+    bm, cm = _split_bc(bcc, cfg)
+    a_log = params["a_log"].float()
     xh = sh.split_last(xc, h, p)
     h0 = state["h"] if state else None
     if train_form and mesh is not None:
         y, h_final = _per_rank(
             lambda x, dt, a_log, b, c, h0: ssd_chunked(x, dt, a_log, b, c,
                                                        h0=h0),
-            mesh, xh, dt, params["a_log"], bcc[..., :n], bcc[..., n:], h0)
+            mesh, xh, dt, a_log, bm, cm, h0)
     elif train_form:
-        y, h_final = ssd_chunked(xh, dt, params["a_log"], bcc[..., :n],
-                                 bcc[..., n:], h0=h0)
+        y, h_final = ssd_chunked(xh, dt, a_log, bm, cm, h0=h0)
     else:
-        y, h_final = ssd(xh, dt, params["a_log"], bcc[..., :n],
-                         bcc[..., n:], h0, kernel=kernel,
+        y, h_final = ssd(xh, dt, a_log, bm, cm, h0, kernel=kernel,
                          out=None if out is None else out["h"], mesh=mesh)
     skip = params["d_skip"][None, None, :, None].to(y.dtype)
     y = y + xh.float().to(y.dtype) * skip
     y = y.reshape(b, s, cfg.d_inner)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+    y = _gated_norm(y, z, params, cfg)
     return linear(y, params["w_out"]), {
         "conv_x": keep_in(out, "conv_x", conv_x),
         "conv_bc": keep_in(out, "conv_bc", conv_bc), "h": h_final}
@@ -240,18 +298,18 @@ def mamba2_decode(params, x: torch.Tensor, cfg: ModelConfig, state: dict, *,
     """Single-token recurrent step.  x: (B, 1, d_model); state and
     ``out`` as in :func:`mamba2_fwd`."""
     b = x.shape[0]
-    n, h, p = cfg.ssm_state_dim, cfg.ssm_num_heads, cfg.ssm_head_dim
+    h, p = cfg.ssm_num_heads, cfg.ssm_head_dim
     z, xin, bcin, dt = _in_proj(params, x, cfg)
-    xc, conv_x = _causal_conv(xin, params["conv_x"], state["conv_x"])
-    bcc, conv_bc = _causal_conv(bcin, params["conv_bc"], state["conv_bc"])
-    y, h_new = ssd(sh.split_last(xc, h, p), dt, params["a_log"], bcc[..., :n],
-                   bcc[..., n:], state["h"], kernel=kernel,
+    xc, conv_x, bcc, conv_bc = _convs(params, xin, bcin, state)
+    bm, cm = _split_bc(bcc, cfg)
+    y, h_new = ssd(sh.split_last(xc, h, p), dt, params["a_log"].float(), bm,
+                   cm, state["h"], kernel=kernel,
                    out=None if out is None else out["h"],
                    y_dtype=torch.float32, mesh=mesh)
     xh = sh.split_last(xc[:, 0], h, p).float()
-    y = y[:, 0] + xh * params["d_skip"][None, :, None]
+    y = y[:, 0] + xh * params["d_skip"].float()[None, :, None]
     y = y.reshape(b, 1, cfg.d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+    y = _gated_norm(y, z, params, cfg)
     return linear(y, params["w_out"]), {
         "conv_x": keep_in(out, "conv_x", conv_x),
         "conv_bc": keep_in(out, "conv_bc", conv_bc), "h": h_new}
@@ -266,7 +324,8 @@ def init_mamba2_state(cfg: ModelConfig, batch: int, dtype, device,
     return {
         "conv_x": torch.zeros(layers, batch, w - 1, di, dtype=dtype,
                               device=device),
-        "conv_bc": torch.zeros(layers, batch, w - 1, 2 * n, dtype=dtype,
+        "conv_bc": torch.zeros(layers, batch, w - 1,
+                               2 * cfg.ssm_groups * n, dtype=dtype,
                                device=device),
         "h": torch.zeros(layers, batch, h, p, n, dtype=torch.float32,
                          device=device),

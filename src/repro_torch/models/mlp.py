@@ -1,8 +1,9 @@
 """Feed-forward block: SwiGLU, GeGLU and the plain GELU MLP (counterpart
-of ``repro.models.mlp``; GELU is the tanh approximation, as there).  The
-gate of SwiGLU and GeGLU is ``glu_gate_plain``, or under ``fused`` (the
-decode step's kernel route, ``transformer.fused_decode``) the
-``glu_gate`` kernel."""
+of ``repro.models.mlp``; GELU is the tanh approximation, as there), and
+``geglu_erf``, GeGLU with the exact erf GELU (published Zamba2's, which
+the reference does not have).  The gate of a gated kind is
+``glu_gate_plain``, or under ``fused`` (the decode step's kernel route,
+``transformer.fused_decode``) the ``glu_gate`` kernel."""
 from __future__ import annotations
 
 import torch
@@ -11,7 +12,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.glu_gate.ops import glu_gate, glu_gate_plain
 from repro_torch.models.common import dense_init, linear
 
-_KINDS = ("swiglu", "geglu", "gelu")
+_KINDS = ("swiglu", "geglu", "geglu_erf", "gelu")
 
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, kind: str, dtype):

@@ -162,8 +162,9 @@ def _attn_prefill(p, h, positions, cfg: ModelConfig, window: int,
                if (mesh is not None and cfg.attn_batch_parallel) else None)
     if cfg.use_pallas_prefill and cfg.logit_softcap == 0:
         out = attn.attention_core(
-            lambda q, k, v: swa_prefill_attention(q, k, v, window=w), mesh,
-            q, k, v, bp_axes=bp_axes)
+            lambda q, k, v: swa_prefill_attention(q, k, v, window=w,
+                                                  scale=cfg.softmax_scale),
+            mesh, q, k, v, bp_axes=bp_axes)
     elif cfg.rope_kind == "mrope":
         qp = attn.mask_positions(positions, cfg)
         out = attn.attention_core(
@@ -173,8 +174,9 @@ def _attn_prefill(p, h, positions, cfg: ModelConfig, window: int,
             mesh, q, k, v, qp, bp_axes=bp_axes, rest_specs=("pos",))
     else:
         out = attn.attention_core(
-            lambda q, k, v: swa_prefill_plain(q, k, v, window=w), mesh,
-            q, k, v, bp_axes=bp_axes)
+            lambda q, k, v: swa_prefill_plain(q, k, v, window=w,
+                                              scale=cfg.softmax_scale),
+            mesh, q, k, v, bp_axes=bp_axes)
     y = linear(out.reshape(b, s, hh * d), p["wo"])
     _write_kv_cache(k, v, cache, window)
     return y

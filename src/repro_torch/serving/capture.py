@@ -20,11 +20,15 @@ the captured run returned, in the graph's private memory pool: each
 replay writes them again, so a caller that keeps one past the next call
 copies it.
 
-The kernels' Python launch counters count calls of their wrappers, and
-a replay calls none.  The capture therefore records each counter's
-increase (the launches the graph holds), takes it back (the capture ran
-no kernel), and adds it again on every replay, so a count still says
-how many times the card ran the kernel.
+The step's counts (``utils/counters.py``: the kernels' launches, and
+the other counts modules register there, such as ``ssd_scan``'s
+launches by body and published Zamba2's shared-block applications) are
+kept by Python code, and a replay runs none.  The capture therefore
+records each count's increase (what the graph holds), takes it back (the
+capture ran nothing), and adds it again on every replay, so a count
+still says how many times the card ran it.  With a trace, each call
+marks what it added to the counts other than launches
+(``sponge.step_counts``).
 
 On the CPU there is nothing to capture: the step runs eagerly on every
 call, as it does on the card when the caller asks for ``capture=False``
@@ -45,11 +49,14 @@ from repro_torch.kernels.rwkv6_scan import ops as _wkv
 from repro_torch.kernels.ssd_scan import ops as _ssd
 from repro_torch.kernels.swa_prefill import ops as _pre
 from repro_torch.serving.trace import span
+from repro_torch.utils import counters
 
 # every kernel wrapper's module, by kernel name (each keeps ``launches``)
 KERNELS = {"swa_prefill": _pre, "decode_attention": _dec,
            "rwkv6_scan": _wkv, "ssd_scan": _ssd, "add_rms_norm": _norm,
            "rope_kv_write": _rope, "glu_gate": _gate}
+for _name, _mod in KERNELS.items():
+    counters.register(_name, vars(_mod), "launches")
 
 
 def launch_counts() -> Dict[str, int]:
@@ -57,9 +64,13 @@ def launch_counts() -> Dict[str, int]:
     return {name: mod.launches for name, mod in KERNELS.items()}
 
 
-def _add_launches(delta: Dict[str, int], sign: int = 1) -> None:
-    for name, n in delta.items():
-        KERNELS[name].launches += sign * n
+def _others(counts: Dict[str, int]) -> Dict[str, int]:
+    return {k: n for k, n in counts.items() if k not in KERNELS}
+
+
+def event_counts() -> Dict[str, int]:
+    """Every other registered count so far (``utils/counters.py``)."""
+    return _others(counters.read())
 
 
 class CapturedStep:
@@ -70,10 +81,13 @@ class CapturedStep:
     ``step(*args)`` copies each argument into its static input (an
     argument that is that static tensor itself is not copied), runs the
     step (the first call, eagerly) or replays its graph, and returns its
-    outputs.  ``replays`` counts the graph's replays and ``deltas`` holds
-    the kernel launches one replay makes.  With a ``trace``
-    (``serving/trace.py``) the copy of the arguments is the span
-    ``sponge.copy_in`` and each replay the span ``sponge.replay``.
+    outputs.  ``replays`` counts the graph's replays and ``counts``
+    holds what one replay adds to each count (``utils/counters.py``):
+    ``deltas`` its kernel launches, ``events`` the rest.  With a
+    ``trace`` (``serving/trace.py``) the copy of the arguments is the
+    span ``sponge.copy_in``, each replay the span ``sponge.replay``, and
+    each call that added to ``event_counts`` marks ``sponge.step_counts``
+    with what it added.
     """
 
     trace = None
@@ -90,20 +104,40 @@ class CapturedStep:
             raise ValueError(f"no CUDA graph on device {self.device}")
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Any = None
-        self.deltas: Dict[str, int] = {}
+        self.counts: Dict[str, int] = {}
         self.replays = 0
+
+    @property
+    def deltas(self) -> Dict[str, int]:
+        return {k: n for k, n in self.counts.items() if k in KERNELS}
+
+    @property
+    def events(self) -> Dict[str, int]:
+        return _others(self.counts)
 
     def _capture(self) -> None:
         """Record the step's launches into the graph (runs nothing)."""
         graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
+        before = counters.read()
         with torch.cuda.graph(graph):
             outputs = self.body()
-        after = launch_counts()
-        self.deltas = {k: after[k] - before[k] for k in after
-                       if after[k] != before[k]}
-        _add_launches(self.deltas, -1)          # the capture ran nothing
+        self.counts = counters.delta(counters.read(), before)
+        counters.add(self.counts, -1)           # the capture ran nothing
         self.graph, self.outputs = graph, outputs
+
+    def _eager(self) -> Any:
+        """One eager run of the step (marking its counts when traced)."""
+        if self.trace is None:
+            return self.body()
+        before = counters.read()
+        outputs = self.body()
+        self._mark(counters.delta(counters.read(), before))
+        return outputs
+
+    def _mark(self, counts: Dict[str, int]) -> None:
+        events = None if self.trace is None else _others(counts)
+        if events:
+            self.trace.mark("step_counts", **events)
 
     @torch.inference_mode()
     def __call__(self, *args) -> Any:
@@ -115,15 +149,16 @@ class CapturedStep:
                 if src is not dst:
                     dst.copy_(torch.as_tensor(src))
         if not self.capture:
-            return self.body()
+            return self._eager()
         if self.graph is None:
-            outputs = self.body()               # the warm-up, eagerly
+            outputs = self._eager()             # the warm-up, eagerly
             self._capture()
             return outputs
         with span(self.trace, "replay"):
             self.graph.replay()
         self.replays += 1
-        _add_launches(self.deltas)
+        counters.add(self.counts)
+        self._mark(self.counts)
         return self.outputs
 
 

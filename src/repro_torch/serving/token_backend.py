@@ -128,6 +128,7 @@ def build_token_step_fns(model, params, c_set: Sequence[int],
             return dec(tok), cache
 
         prefill_fn.step, decode_fn.step = pre, dec
+        prefill_fn.cache = decode_fn.cache = cache
         return prefill_fn, decode_fn
 
     prefill_fns, decode_fns = {}, {}
@@ -137,6 +138,29 @@ def build_token_step_fns(model, params, c_set: Sequence[int],
             prefill_fns[(c, b)] = pf
             decode_fns[(c, b)] = df
     return prefill_fns, decode_fns
+
+
+def state_bytes(cache: dict) -> Dict[str, int]:
+    """A gang cache's bytes by kind: ``ssd_state`` (Mamba2's f32 SSD
+    states), ``conv_window`` (its conv windows), ``shared_kv`` (the
+    shared blocks' K/V), ``other`` (every other state: K/V, latents,
+    RWKV-6's); the index is left out."""
+    out = {"ssd_state": 0, "conv_window": 0, "shared_kv": 0, "other": 0}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+            return
+        if path == ("index",):
+            return
+        kind = ("ssd_state" if path[-2:] == ("ssm", "h") else
+                "conv_window" if path[0] == "ssm" else
+                "shared_kv" if path[0] == "shared" else "other")
+        out[kind] += node.numel() * node.element_size()
+
+    walk(cache, ())
+    return out
 
 
 def pad_prompts(payloads: List[np.ndarray], b: int,
@@ -341,8 +365,10 @@ def make_token_live_server(arch="smollm-135m-reduced", *,
     :class:`TokenTorchBackend` behind the ``ScenarioRunner``.  Returns
     ``(runner, backend, cfg, cost)``.  With a ``trace``
     (``serving/trace.py``) every captured step, both tables, the backend
-    and the runner record into it, and the warm-up and the calibration
-    are its spans ``sponge.setup.capture`` and ``sponge.setup.calibrate``.
+    and the runner record into it, the warm-up and the calibration are
+    its spans ``sponge.setup.capture`` and ``sponge.setup.calibrate``,
+    and each ``b``'s gang cache is marked ``sponge.setup.state_bytes``
+    with its bytes by kind (:func:`state_bytes`).
     """
     base = arch if isinstance(arch, ModelConfig) else get_config(arch)
     cfg = dataclasses.replace(base, use_pallas_prefill=True,
@@ -357,6 +383,10 @@ def make_token_live_server(arch="smollm-135m-reduced", *,
             fn.step.trace = trace
     with span(trace, "setup.capture"):
         warmup_token_fns(prefill_fns, decode_fns, prompt_len)
+    if trace is not None:
+        for b in b_set:
+            trace.mark("setup.state_bytes", b=b,
+                       **state_bytes(prefill_fns[(c_set[0], b)].cache))
     if cost is None:
         with span(trace, "setup.calibrate"):
             cost = calibrate_token_fns(prefill_fns, decode_fns, prompt_len,

@@ -23,6 +23,10 @@ Every name starts with ``sponge.``:
                               that captures every ``b``'s two steps
 ``setup.calibrate``           ``make_token_live_server``: the timing of
                               every ``(c, b)`` entry for the cost model
+``setup.state_bytes`` (mark)  ``make_token_live_server``: a ``b``'s gang
+                              cache's bytes by kind (``b``,
+                              ``ssd_state``, ``conv_window``,
+                              ``shared_kv``, ``other``)
 ``admit`` (mark)              ``ExactSession.step_until``: a pending
                               request enters the runner's EDF queue
                               (``req``)
@@ -45,6 +49,12 @@ Every name starts with ``sponge.``:
 ``copy_in``, ``replay``       ``CapturedStep.__call__``: the inputs'
                               copy into the static tensors, the graph's
                               replay
+``step_counts`` (mark)        ``CapturedStep.__call__``: what the step
+                              added to ``capture.event_counts``
+                              (``ssd_scan.recurrence``,
+                              ``ssd_scan.chunked``: its ``ssd_scan``
+                              launches by body; ``shared_applications``:
+                              published Zamba2's shared blocks run)
 ============================  ==========================================
 
 A trace is written from one thread: spans nest as the calls do.

@@ -1189,3 +1189,110 @@ def test_train_state_checkpoint_round_trip_on_card(cuda_device, tmp_path):
     for a, b in zip(tree_leaves(out), tree_leaves(state)):
         assert a.device == b.device and a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# published Zamba2's kernel cases (zamba2-7b): grouped B and C, head_dim
+# 224 with a softmax scale, the erf GeGLU; ssd_scan's launches by body
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,t,y", [("float32", 40, "float32"),
+                                       ("bfloat16", 1, "float32"),
+                                       ("bfloat16", 5, "bfloat16"),
+                                       ("bfloat16", 77, "bfloat16"),
+                                       ("bfloat16", 130, "float32")])
+def test_grouped_ssd_scan_on_card(dtype, t, y, cuda_device):
+    """G 2 (head h reads group h // (H / 2)) against the plain versions:
+    the recurrence bit for bit, the chunked form as its plain version;
+    G 1 as (B, T, 1, N) equals the shared (B, T, N) call bit for bit."""
+    dt_, y_dtype = DTYPES[dtype], DTYPES[y]
+    x, dt, a_log, _, _, h0 = ssd_inputs(2, t, 4, 64, 64, dt_, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    bm, cm = (torch.randn(2, t, 2, 64, generator=g, device=cuda_device)
+              .to(dt_) for _ in range(2))
+    got = ssd.ssd_scan(x, dt, a_log, bm, cm, h0, y_dtype=y_dtype)
+    if ssd.takes_chunked_form(x):
+        want = ssd.ssd_scan_chunked_plain(x, dt, a_log, bm, cm, h0,
+                                          y_dtype=y_dtype)
+        np.testing.assert_allclose(as_np(got[0]), as_np(want[0]), atol=2e-2,
+                                   rtol=2e-2)
+        np.testing.assert_allclose(as_np(got[1]), as_np(want[1]), atol=2e-4,
+                                   rtol=2e-4)
+    else:
+        want = ssd.ssd_scan_plain(x, dt, a_log, bm, cm, h0, y_dtype=y_dtype)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    one = ssd.ssd_scan(x, dt, a_log, bm[:, :, :1].contiguous(),
+                       cm[:, :, :1].contiguous(), h0, y_dtype=y_dtype)
+    shared = ssd.ssd_scan(x, dt, a_log, bm[:, :, 0].contiguous(),
+                          cm[:, :, 0].contiguous(), h0, y_dtype=y_dtype)
+    assert torch.equal(one[0], shared[0]) and torch.equal(one[1], shared[1])
+
+
+@pytest.mark.cuda
+def test_ssd_scan_counts_its_bodies_on_card(cuda_device):
+    """A bf16 call of T >= CHUNKED_MIN_T counts as the chunked form, every
+    other call as the recurrence, beside the one ``launches`` count; a
+    captured step's replay adds the counts its capture held back."""
+    from repro_torch.serving.capture import CapturedStep, event_counts
+    x, dt, a_log, bm, cm, h0 = ssd_inputs(1, 32, 2, 64, 64, torch.bfloat16,
+                                          cuda_device)
+    before, n = dict(ssd.body_launches), ssd.launches
+    ssd.ssd_scan(x, dt, a_log, bm, cm, h0)
+    ssd.ssd_scan(x[:, :1].contiguous(), dt[:, :1].contiguous(), a_log,
+                 bm[:, :1].contiguous(), cm[:, :1].contiguous(), h0)
+    assert ssd.body_launches == {"recurrence": before["recurrence"] + 1,
+                                 "chunked": before["chunked"] + 1}
+    assert ssd.launches == n + 2
+    step = CapturedStep(lambda: ssd.ssd_scan(x, dt, a_log, bm, cm, h0)[0],
+                        (x,))
+    step(x)                                   # the warm-up: eager, captured
+    counts = event_counts()
+    step(x)
+    step(x)
+    assert step.events == {"ssd_scan.chunked": 1}
+    assert event_counts()["ssd_scan.chunked"] == counts["ssd_scan.chunked"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_224_with_a_scale_on_card(dtype, cuda_device):
+    """Both attention kernels at D 224 with the scale (224 / 2)^-1/2
+    against their plain versions; at the default scale each equals the
+    call that passes D^-1/2."""
+    dt_, scale = DTYPES[dtype], 112 ** -0.5
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device).to(dt_)
+
+    q, k, v = rand(2, 150, 4, 224), rand(2, 150, 2, 224), rand(2, 150, 2, 224)
+    for window in (150, 40):
+        got = pre.swa_prefill_attention(q, k, v, window, scale=scale)
+        want = pre.swa_prefill_plain(q, k, v, window, scale=scale)
+        np.testing.assert_allclose(as_np(got), as_np(want), **tol(dtype))
+    assert torch.equal(pre.swa_prefill_attention(q, k, v, 150),
+                       pre.swa_prefill_attention(q, k, v, 150, 224 ** -0.5))
+    qd = rand(3, 2, 2, 224)
+    lengths = torch.tensor([0, 7, 150], dtype=torch.int32, device=cuda_device)
+    got, lse = dec.decode_attention(qd, k[:1].expand(3, -1, -1, -1)
+                                    .contiguous(), v[:1].expand(3, -1, -1, -1)
+                                    .contiguous(), lengths, True, scale)
+    want, lse_p = dec.decode_attention_plain(
+        qd, k[:1].expand(3, -1, -1, -1), v[:1].expand(3, -1, -1, -1),
+        lengths, True, scale)
+    np.testing.assert_allclose(as_np(got), as_np(want), **tol(dtype))
+    np.testing.assert_allclose(as_np(lse), as_np(lse_p), atol=2e-2, rtol=2e-3)
+    kk, vv = k[:1].expand(3, -1, -1, -1).contiguous(), \
+        v[:1].expand(3, -1, -1, -1).contiguous()
+    assert torch.equal(dec.decode_attention(qd, kk, vv, lengths),
+                       dec.decode_attention(qd, kk, vv, lengths,
+                                            scale=224 ** -0.5))
+
+
+@pytest.mark.cuda
+def test_glu_gate_erf_on_card(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    gt, up = (torch.randn(16, 1, 14336, generator=g, device=cuda_device)
+              .bfloat16() * 2 for _ in range(2))
+    assert torch.equal(gate.glu_gate(gt, up, "geglu_erf"),
+                       gate.glu_gate_plain(gt, up, "geglu_erf"))
