@@ -54,7 +54,14 @@ code is non-zero:
    row exactly), the K/V rows in their slot and no other before and
    after a 16-slot ring wraps and up to a full cache's last slot, an f32
    CUDA tensor refused; each timed beside its plain version and its
-   byte bound (``<model>_b<B>_*`` keys, danube b 16 unprefixed);
+   byte bound (``<model>_b<B>_*`` keys, danube b 16 unprefixed).
+   The Mamba2 decode step's two fused kernels (``mamba2_conv_step``,
+   ``mamba2_gate_norm``; bf16 activations) at zamba2-7b's widths (G 2,
+   conv biases) and zamba2-2.7b's (G 1, none) (``MAMBA2_FUSED``) and b
+   1, 8, 16, the dt / A / D leaves in bf16 and f32: the conv step bit for
+   bit with its windows shifted in place, the gated norm at 1e-2, an f32
+   CUDA tensor refused; each timed beside its plain version and its byte
+   bound (zamba2-7b b 1 unprefixed);
 4. parity  -- full-width smollm-135m, rwkv6-1.6b, zamba2-2.7b,
    smollm-360m, gemma-2b and h2o-danube-1.8b, in float32: prefill (batch
    2, prompt 256) + 4 decode steps through the kernel routes match the
@@ -366,6 +373,13 @@ FUSED_SHAPES = {
 }
 FUSED_ROWS = (1, 8, 16)
 FUSED_TOL = 1e-2
+# the Mamba2 decode step's fused kernels at published Zamba2's widths (two
+# groups of B and C, conv biases) and zamba2-2.7b's (one group, none), at
+# FUSED_ROWS; timed at every B, the zamba2-7b B 1 row (the cell's gang)
+# unprefixed
+MAMBA2_FUSED = {"zamba2-7b": dict(di=7168, G=2, N=64, H=112, W=4, bias=True),
+                "zamba2-2.7b": dict(di=5120, G=1, N=64, H=80, W=4,
+                                    bias=False)}
 # published Zamba2 (zamba2-7b) at its widths: the SSD with two groups of B
 # and C (a decode step at B 16, a prefill of the chat bucket at B 4), the
 # shared blocks' attention (32 heads of 224, the softmax scale (224/2)^-1/2)
@@ -382,6 +396,9 @@ ZAMBA2 = dict(arch="zamba2-7b", ssd=((16, 1), (4, 512)), H=112, P=64, N=64,
 # one replay of h2o-danube-1.8b's served decode step at b 16, profiled:
 # its kernels per replay and per layer (chat's bucket of 512 tokens)
 DECODE_GRAPH = dict(arch="h2o-danube-1.8b", b=16, prompt=512, max_decode=128,
+                    replays=50)
+# the same for zamba2-7b's b 1 entry, the gang of its benchmark cell
+ZAMBA2_GRAPH = dict(arch="zamba2-7b", b=1, prompt=512, max_decode=128,
                     replays=50)
 # h2o-danube-1.8b past its 4096-token window
 WINDOW = dict(arch="h2o-danube-1.8b", prompt=4160, steps=16)
@@ -745,6 +762,7 @@ def kernel_phase(dev):
     rows["rwkv6_scan"] = wkv_kernel_phase(dev, gen)
     rows["ssd_scan"] = ssd_kernel_phase(dev, gen)
     rows.update(fused_kernel_phase(dev, gen))
+    rows.update(mamba2_kernel_phase(dev, gen))
     for r in rows.values():
         say("kernels", kernel=r["name"], ms=r["ms"], plain_ms=r["plain_ms"],
             library_ms=r["library_ms"], bound_ms=r["bound_ms"],
@@ -946,6 +964,126 @@ def fused_kernel_phase(dev, gen) -> dict:
             ("add_rms_norm", lambda: norm.add_rms_norm(
                 f32, None, torch.zeros(64, device=dev), 1e-5)),
             ("glu_gate", lambda: gate.glu_gate(f32, f32, "swiglu"))):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError(f"{name} took an f32 CUDA tensor")
+    return rows
+
+
+def mamba2_kernel_phase(dev, gen) -> dict:
+    """The Mamba2 decode step's two fused kernels against their plain
+    versions at each of ``MAMBA2_FUSED`` and ``FUSED_ROWS``, with the
+    ``dt_bias`` / ``a_log`` / ``d_skip`` leaves in bf16 (as the benchmark
+    draws them) and in f32 (the init's): ``mamba2_conv_step`` bit for bit,
+    its windows shifted in place; ``mamba2_gate_norm`` within
+    ``FUSED_TOL``; a CUDA tensor in f32 refused; then each timed beside
+    its plain version and its byte bound.  Returns their rows of the
+    kernels line."""
+    from repro_torch.kernels.mamba2_conv_step import ops as conv
+    from repro_torch.kernels.mamba2_gate_norm import ops as gnorm
+
+    bf = torch.bfloat16
+
+    def rand(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    where = "(src/repro/models/mamba2.py mamba2_decode)"
+    rows = {name: {"name": name, "route": "cuda",
+                   "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                   "replaces": f"none: the reference leaves {what} {where} "
+                               f"to XLA",
+                   "launches": None, "max_abs_err": 0.0, "library_ms": None}
+            for name, what in (
+                ("mamba2_conv_step", "the depthwise convs, dt's softplus "
+                 "and a_log's cast"),
+                ("mamba2_gate_norm", "the D-skip, y * silu(z) and the "
+                 "group norm"))}
+    for model, m in MAMBA2_FUSED.items():
+        di, g, n, h, w = (m[k] for k in ("di", "G", "N", "H", "W"))
+        cbc = 2 * g * n
+        for b in FUSED_ROWS:
+            tag = f"{model} B={b}"
+            for leaf in (bf, torch.float32):
+                p = {"conv_x": rand(w, di, scale=0.5),
+                     "conv_bc": rand(w, cbc, scale=0.5),
+                     "dt_bias": rand(h, dtype=leaf),
+                     "a_log": rand(h, scale=0.3, dtype=leaf),
+                     "d_skip": rand(h, dtype=leaf),
+                     "norm": rand(di, scale=0.1)}
+                if m["bias"]:
+                    p["conv_x_bias"] = rand(di, scale=0.1)
+                    p["conv_bc_bias"] = rand(cbc, scale=0.1)
+                zx, bcin = rand(b, 1, 2 * di, scale=2.0), rand(b, 1, cbc,
+                                                              scale=2.0)
+                dt_raw = rand(b, 1, h, scale=4.0)
+                state = {"conv_x": rand(b, w - 1, di),
+                         "conv_bc": rand(b, w - 1, cbc)}
+                ref = {k: v.clone() for k, v in state.items()}
+                got = conv.mamba2_conv_step(p, zx[..., di:], bcin, dt_raw,
+                                            state, g, state)
+                want = conv.mamba2_conv_step_plain(p, zx[..., di:], bcin,
+                                                   dt_raw, ref, g, ref)
+                if not all(torch.equal(u, v) for u, v in zip(got, want)) \
+                        or not all(torch.equal(state[k], ref[k])
+                                   for k in state):
+                    raise AssertionError(f"mamba2_conv_step {tag} leaves "
+                                         f"{leaf}: differs from its plain "
+                                         f"version")
+                y = rand(b, 1, h, di // h, dtype=torch.float32)
+                xh = got[0].unflatten(-1, (h, -1))
+                err = check_within(
+                    f"mamba2_gate_norm {tag} leaves {leaf}",
+                    gnorm.mamba2_gate_norm(y, xh, p["d_skip"], zx[..., :di],
+                                           p["norm"], g, 1e-5),
+                    gnorm.mamba2_gate_norm_plain(y, xh, p["d_skip"],
+                                                 zx[..., :di], p["norm"], g,
+                                                 1e-5), FUSED_TOL)
+                r = rows["mamba2_gate_norm"]
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+            # the last draw (f32 leaves) timed: the bytes each reads and writes
+            chans = di + cbc
+            times = {
+                "mamba2_conv_step": (
+                    lambda: conv.mamba2_conv_step(p, zx[..., di:], bcin,
+                                                  dt_raw, state, g, state),
+                    lambda: conv.mamba2_conv_step_plain(
+                        p, zx[..., di:], bcin, dt_raw, ref, g, ref),
+                    2 * (2 * b * (w - 1) * chans + 2 * b * chans
+                         + (w + m["bias"]) * chans + b * h)
+                    + 4 * (b * h + 3 * h)),
+                "mamba2_gate_norm": (
+                    lambda: gnorm.mamba2_gate_norm(
+                        y, xh, p["d_skip"], zx[..., :di], p["norm"], g, 1e-5),
+                    lambda: gnorm.mamba2_gate_norm_plain(
+                        y, xh, p["d_skip"], zx[..., :di], p["norm"], g, 1e-5),
+                    4 * b * di + 2 * (3 * b * di + di) + 4 * h)}
+            for name, (kern, plain, nbytes) in times.items():
+                bms, by = bound_ms(nbytes, 0.0, bf)
+                res = {"ms": median_ms(kern), "plain_ms": median_ms(plain),
+                       "bound_ms": bms, "bound_by": by}
+                rows[name].update({f"{model}_b{b}_{k_}": v_
+                                   for k_, v_ in res.items()})
+                if model == "zamba2-7b" and b == FUSED_ROWS[0]:
+                    rows[name].update(res, timed=f"bf16 {tag}")
+                say("kernels", kernel=name, model=model, B=b, G=g,
+                    bias=m["bias"], **res)
+    f32 = torch.zeros(1, 1, 64, device=dev)
+    leaves = {"conv_x": torch.zeros(4, 32, device=dev),
+              "conv_bc": torch.zeros(4, 32, device=dev),
+              "dt_bias": torch.zeros(2, device=dev),
+              "a_log": torch.zeros(2, device=dev)}
+    win = {"conv_x": torch.zeros(1, 3, 32, device=dev),
+           "conv_bc": torch.zeros(1, 3, 32, device=dev)}
+    for name, call in (
+            ("mamba2_conv_step", lambda: conv.mamba2_conv_step(
+                leaves, f32[..., 32:], f32[..., :32], f32[..., :2], win, 1)),
+            ("mamba2_gate_norm", lambda: gnorm.mamba2_gate_norm(
+                f32.view(1, 1, 8, 8), f32.view(1, 1, 8, 8),
+                torch.zeros(8, device=dev), f32, torch.zeros(64, device=dev),
+                1, 1e-5))):
         try:
             call()
         except ValueError:
@@ -1182,8 +1320,11 @@ def zamba2_phase(dev) -> None:
     its bound.  Then zamba2-7b served through the token backend in bf16
     with a trace: every served step a replay, per decode step 81 ssd_scan
     recurrences, 13 decode_attention, 13 shared-block applications and the
-    fused kernels' counts, per prefill 81 chunked ssd_scan and 13
-    swa_prefill, and the gang caches' bytes by kind."""
+    fused kernels' counts (81 ``mamba2_conv_step`` and 81
+    ``mamba2_gate_norm``), per prefill 81 chunked ssd_scan and 13
+    swa_prefill, and the gang caches' bytes by kind.  Last, one profiled
+    replay of its b 1 decode step (``ZAMBA2_GRAPH``): its kernels per
+    replay and by family."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.glu_gate import ops as gate
@@ -1358,6 +1499,9 @@ def zamba2_phase(dev) -> None:
             == (layers + 1 + 2 * apps) * n_dec
             and launches["rope_kv_write"] == apps * n_dec
             and launches["glu_gate"] == apps * n_dec,
+        "mamba2_conv_step and mamba2_gate_norm 81 a decode step":
+            launches["mamba2_conv_step"] == layers * n_dec
+            and launches["mamba2_gate_norm"] == layers * n_dec,
     }
     failed = [k_ for k_, ok in checks.items() if not ok]
     if failed:
@@ -1376,6 +1520,7 @@ def zamba2_phase(dev) -> None:
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     del runner, backend
     gc_cuda()
+    decode_graph_phase(dev, ZAMBA2_GRAPH)
 
 
 def parity_phase(dev, arch: str) -> None:
@@ -2083,7 +2228,8 @@ def capture_phase(dev, arch: str, model=None, params=None) -> None:
         ids="identical", max_abs_logit_diff=diff)
 
 
-FUSED = ("add_rms_norm", "rope_kv_write", "glu_gate")
+FUSED = ("add_rms_norm", "rope_kv_write", "glu_gate", "mamba2_conv_step",
+         "mamba2_gate_norm")
 
 
 def fused_per_step(cfg) -> dict:
@@ -2091,17 +2237,21 @@ def fused_per_step(cfg) -> dict:
     the card's kernel route (``transformer.fused_decode``): a norm
     before each mixer, cross-attention and feed-forward, and the final
     norm; the RoPE + KV write of each standard-RoPE attention; the gate
-    of each SwiGLU / GeGLU MLP; zamba2's shared block adds two norms,
-    its attention and its MLP per application."""
+    of each SwiGLU / GeGLU MLP; the conv step and the gated norm of each
+    Mamba2 mixer; zamba2's shared block adds two norms, its attention and
+    its MLP per application."""
     glu = cfg.mlp_kind in ("swiglu", "geglu")
     rope = cfg.rope_kind == "standard"
-    n = {"add_rms_norm": 1, "rope_kv_write": 0, "glu_gate": 0}
+    n = {"add_rms_norm": 1, "rope_kv_write": 0, "glu_gate": 0,
+         "mamba2_conv_step": 0, "mamba2_gate_norm": 0}
     for kind in cfg.blocks:
         mixer, ffn = kind.split("+")
         n["add_rms_norm"] += (1 + (ffn != "none")
                               + int(cfg.is_encoder_decoder))
         n["rope_kv_write"] += int(rope and mixer in ("attn", "swa"))
         n["glu_gate"] += int(glu and ffn == "mlp")
+        n["mamba2_conv_step"] += int(mixer == "mamba2")
+        n["mamba2_gate_norm"] += int(mixer == "mamba2")
     if cfg.shared_attn_every:
         apps = -(-cfg.num_layers // cfg.shared_attn_every)
         n["add_rms_norm"] += 2 * apps
@@ -4097,7 +4247,8 @@ def kernel_family(name: str) -> str:
     """The family of a device kernel by its profiler name: a hand-written
     kernel by its name, cuBLAS's GEMMs, or PyTorch's own kernels."""
     for k in ("decode_attention", "swa_prefill", "add_rms_norm",
-              "rope_kv_write", "glu_gate", "rwkv6_scan", "ssd_scan"):
+              "rope_kv_write", "glu_gate", "rwkv6_scan", "ssd_scan",
+              "mamba2_conv_step", "mamba2_gate_norm"):
         if k in name:
             return k
     if any(t in name for t in ("nvjet", "gemm", "Kernel2", "splitK")):
@@ -4105,19 +4256,19 @@ def kernel_family(name: str) -> str:
     return "pytorch"
 
 
-def decode_graph_phase(dev) -> dict:
-    """One replay of ``DECODE_GRAPH``'s served decode step (bf16, the
-    kernel route, its captured graph at b 16 after a prompt of the chat
-    bucket): the device time of a replay (CUDA events, median of
-    ``replays``), then one replay under ``torch.profiler``: its kernels
-    per replay and per layer, by family, and its device busy time."""
+def decode_graph_phase(dev, g=DECODE_GRAPH) -> dict:
+    """One replay of ``g``'s served decode step (bf16, the kernel route,
+    its captured graph at ``g["b"]`` after a prompt of the chat bucket;
+    ``DECODE_GRAPH`` or ``ZAMBA2_GRAPH``): the device time of a replay
+    (CUDA events, median of ``replays``), then one replay under
+    ``torch.profiler``: its kernels per replay and per layer, by family,
+    and its device busy time."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serving.token_backend import (build_token_step_fns,
                                                    warmup_token_fns)
     from torch.profiler import ProfilerActivity, profile
 
-    g = DECODE_GRAPH
     cfg = dataclasses.replace(get_config(g["arch"]), use_pallas_prefill=True,
                               use_pallas_decode=True)
     model = build_model(cfg, device=dev)
@@ -4295,6 +4446,7 @@ def main() -> int:
         libraries=json.dumps({k: str(v.relative_to(ROOT)) for k, v in libs.items()}))
     ptxas_report(ptxas)
     if args.only == "zamba2":
+        mamba2_kernel_phase(dev, torch.Generator(device=dev).manual_seed(0))
         zamba2_phase(dev)
         say("done", seconds=time.perf_counter() - t_start)
         return 0

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``) for the serving hot
-spots: the counterparts of the reference's Pallas TPU kernels, and three
+spots: the counterparts of the reference's Pallas TPU kernels, and five
 that fuse the decode step's elementwise chains (``add_rms_norm``,
-``rope_kv_write``, ``glu_gate``), which the reference leaves to XLA.
+``rope_kv_write``, ``glu_gate``, and a Mamba2 mixer's
+``mamba2_conv_step`` and ``mamba2_gate_norm``), which the reference
+leaves to XLA.
 
 Each kernel has its source under ``csrc/`` and an ``ops.py`` with the
 public wrapper, its plain PyTorch version (which the wrapper takes for
@@ -12,6 +14,8 @@ builds nothing.
 from repro_torch.kernels.add_rms_norm.ops import add_rms_norm
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.glu_gate.ops import glu_gate
+from repro_torch.kernels.mamba2_conv_step.ops import mamba2_conv_step
+from repro_torch.kernels.mamba2_gate_norm.ops import mamba2_gate_norm
 from repro_torch.kernels.rope_kv_write.ops import rope_kv_write
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
 from repro_torch.kernels.ssd_scan.ops import ssd_scan

@@ -22,7 +22,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("swa_prefill", "decode_attention", "rwkv6_scan", "ssd_scan",
-           "add_rms_norm", "rope_kv_write", "glu_gate")
+           "add_rms_norm", "rope_kv_write", "glu_gate", "mamba2_conv_step",
+           "mamba2_gate_norm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -22,6 +22,16 @@ When given ``out`` (a layer's views into the decode cache), the mixer
 writes its new conv windows and SSD state there in place; the SSD state
 is updated by the kernel itself (its output aliases its input state).
 
+A decode step on ``transformer.fused_decode``'s route (bf16 on the card,
+the kernel route, no mesh) runs the chains around the scan as two
+hand-written kernels: ``mamba2_conv_step`` (both depthwise convs over
+their windows, the windows' shift in place, B and C in the scan's
+layout, dt's softplus and ``a_log`` in f32) before ``ssd_scan``, and
+``mamba2_gate_norm`` (the D-skip, the cast back, ``y * silu(z)`` and the
+group norm) after it.  Every other step, the prefill and the forward run
+their plain versions (``causal_conv``, ``split_bc`` and ``gated_norm``
+live beside them in ``kernels/``).
+
 Published Zamba2 (``cfg.published_hybrid``, zamba2-7b) reads B and C in
 ``cfg.ssm_groups`` groups (head h reads group ``h // (H / G)``; ``w_bc``
 and the conv's B|C channels are ``[B_0 .. B_{G-1} | C_0 .. C_{G-1}]``),
@@ -39,9 +49,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.mamba2_conv_step.ops import (
+    causal_conv, mamba2_conv_step, mamba2_conv_step_plain, split_bc)
+from repro_torch.kernels.mamba2_gate_norm.ops import (
+    gated_norm, mamba2_gate_norm, mamba2_gate_norm_plain)
 from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
 from repro_torch.models import sharding as sh
-from repro_torch.models.common import dense_init, keep_in, linear, rms_norm
+from repro_torch.models.common import dense_init, keep_in, linear
 
 
 def init_mamba2(gen: torch.Generator, cfg: ModelConfig, dtype):
@@ -65,28 +79,6 @@ def init_mamba2(gen: torch.Generator, cfg: ModelConfig, dtype):
         p["conv_x_bias"] = torch.zeros(di, dtype=dtype, device=dev)
         p["conv_bc_bias"] = torch.zeros(2 * gn, dtype=dtype, device=dev)
     return p
-
-
-def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 state: Optional[torch.Tensor] = None,
-                 bias: Optional[torch.Tensor] = None):
-    """Depthwise causal conv along time, then SiLU.  x: (B, S, C); w:
-    (W, C); state: the (B, W-1, C) inputs before x, zeros when None;
-    ``bias`` (C,) added after the taps (published Zamba2's).  Returns
-    ``(y, new_state)``, new_state the trailing W-1 inputs.  The taps are
-    summed as the reference's ``sum``: from 0, tap 0 first, each product
-    and sum in x's dtype."""
-    width = w.shape[0]
-    if state is None:
-        state = x.new_zeros(x.shape[0], width - 1, x.shape[2])
-    xp = torch.cat([state, x], dim=1)
-    s = x.shape[1]
-    y = 0
-    for i in range(width):
-        y = y + xp[:, i:i + s] * w[i]
-    if bias is not None:
-        y = y + bias
-    return F.silu(y), xp[:, -(width - 1):]
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -215,35 +207,16 @@ def ssd(x, dt, a_log, b, c, h0=None, *, kernel: bool = False, out=None,
     return y, h_final
 
 
-def _split_bc(bcc: torch.Tensor, cfg: ModelConfig):
-    """B and C of the conv's B|C output: (B, S, N) each for one group,
-    else (B, S, G, N)."""
-    n, g = cfg.ssm_state_dim, cfg.ssm_groups
-    if g == 1:
-        return bcc[..., :n], bcc[..., n:]
-    return (bcc[..., :g * n].unflatten(-1, (g, n)),
-            bcc[..., g * n:].unflatten(-1, (g, n)))
-
-
 def _convs(params, xin, bcin, state):
     """The two depthwise convs (with their biases where the layer has
     them): ``(xc, conv_x, bcc, conv_bc)``."""
-    xc, conv_x = _causal_conv(xin, params["conv_x"],
-                              state["conv_x"] if state else None,
-                              params.get("conv_x_bias"))
-    bcc, conv_bc = _causal_conv(bcin, params["conv_bc"],
-                                state["conv_bc"] if state else None,
-                                params.get("conv_bc_bias"))
+    xc, conv_x = causal_conv(xin, params["conv_x"],
+                             state["conv_x"] if state else None,
+                             params.get("conv_x_bias"))
+    bcc, conv_bc = causal_conv(bcin, params["conv_bc"],
+                               state["conv_bc"] if state else None,
+                               params.get("conv_bc_bias"))
     return xc, conv_x, bcc, conv_bc
-
-
-def _gated_norm(y, z, params, cfg: ModelConfig):
-    """RMSNorm of ``y * silu(z)``, per group of ``d_inner / G`` channels."""
-    g = cfg.ssm_groups
-    if g == 1:
-        return rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    v = (y * F.silu(z)).unflatten(-1, (g, -1))
-    return rms_norm(v, params["norm"].view(g, -1), cfg.norm_eps).flatten(-2)
 
 
 def _in_proj(params, x: torch.Tensor, cfg: ModelConfig):
@@ -269,7 +242,7 @@ def mamba2_fwd(params, x: torch.Tensor, cfg: ModelConfig,
     h, p = cfg.ssm_num_heads, cfg.ssm_head_dim
     z, xin, bcin, dt = _in_proj(params, x, cfg)
     xc, conv_x, bcc, conv_bc = _convs(params, xin, bcin, state)
-    bm, cm = _split_bc(bcc, cfg)
+    bm, cm = split_bc(bcc, cfg.ssm_groups)
     a_log = params["a_log"].float()
     xh = sh.split_last(xc, h, p)
     h0 = state["h"] if state else None
@@ -286,7 +259,7 @@ def mamba2_fwd(params, x: torch.Tensor, cfg: ModelConfig,
     skip = params["d_skip"][None, None, :, None].to(y.dtype)
     y = y + xh.float().to(y.dtype) * skip
     y = y.reshape(b, s, cfg.d_inner)
-    y = _gated_norm(y, z, params, cfg)
+    y = gated_norm(y, z, params["norm"], cfg.ssm_groups, cfg.norm_eps)
     return linear(y, params["w_out"]), {
         "conv_x": keep_in(out, "conv_x", conv_x),
         "conv_bc": keep_in(out, "conv_bc", conv_bc), "h": h_final}
@@ -294,25 +267,28 @@ def mamba2_fwd(params, x: torch.Tensor, cfg: ModelConfig,
 
 def mamba2_decode(params, x: torch.Tensor, cfg: ModelConfig, state: dict, *,
                   kernel: bool = False, out: Optional[dict] = None,
-                  mesh=None):
+                  mesh=None, fused: bool = False):
     """Single-token recurrent step.  x: (B, 1, d_model); state and
-    ``out`` as in :func:`mamba2_fwd`."""
-    b = x.shape[0]
-    h, p = cfg.ssm_num_heads, cfg.ssm_head_dim
-    z, xin, bcin, dt = _in_proj(params, x, cfg)
-    xc, conv_x, bcc, conv_bc = _convs(params, xin, bcin, state)
-    bm, cm = _split_bc(bcc, cfg)
-    y, h_new = ssd(sh.split_last(xc, h, p), dt, params["a_log"].float(), bm,
-                   cm, state["h"], kernel=kernel,
+    ``out`` as in :func:`mamba2_fwd`.  ``fused``
+    (``transformer.fused_decode``'s route) runs the chains around the
+    scan as the ``mamba2_conv_step`` and ``mamba2_gate_norm`` kernels,
+    else as their plain versions."""
+    h, p, di = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.d_inner
+    zx = linear(x, params["w_zx"])
+    dt_raw = linear(x, params["w_dt"])
+    bcin = linear(x, params["w_bc"])
+    conv = mamba2_conv_step if fused else mamba2_conv_step_plain
+    xc, bm, cm, dt, a_log, conv_x, conv_bc = conv(
+        params, zx[..., di:], bcin, dt_raw, state, cfg.ssm_groups, out)
+    xh = sh.split_last(xc, h, p)
+    y, h_new = ssd(xh, dt, a_log, bm, cm, state["h"], kernel=kernel,
                    out=None if out is None else out["h"],
                    y_dtype=torch.float32, mesh=mesh)
-    xh = sh.split_last(xc[:, 0], h, p).float()
-    y = y[:, 0] + xh * params["d_skip"].float()[None, :, None]
-    y = y.reshape(b, 1, cfg.d_inner).to(x.dtype)
-    y = _gated_norm(y, z, params, cfg)
-    return linear(y, params["w_out"]), {
-        "conv_x": keep_in(out, "conv_x", conv_x),
-        "conv_bc": keep_in(out, "conv_bc", conv_bc), "h": h_new}
+    gate = mamba2_gate_norm if fused else mamba2_gate_norm_plain
+    y = gate(y, xh, params["d_skip"], zx[..., :di], params["norm"],
+             cfg.ssm_groups, cfg.norm_eps)
+    return linear(y, params["w_out"]), {"conv_x": conv_x, "conv_bc": conv_bc,
+                                        "h": h_new}
 
 
 def init_mamba2_state(cfg: ModelConfig, batch: int, dtype, device,

@@ -50,8 +50,10 @@ output to the residual: it returns ``(x, y)`` and the next block's
 first norm (or the final norm) adds them, so that each add is one pass
 with its norm.  bf16 decode on the card without a mesh
 (``fused_decode``) runs those norms as the ``add_rms_norm`` kernel,
-standard RoPE with the K/V write as ``rope_kv_write`` and a SwiGLU /
-GeGLU gate as ``glu_gate``; every other step runs their plain chains.
+standard RoPE with the K/V write as ``rope_kv_write``, a SwiGLU /
+GeGLU gate as ``glu_gate`` and a Mamba2 mixer's chains around its scan
+as ``mamba2_conv_step`` and ``mamba2_gate_norm``; every other step runs
+their plain chains.
 Every block function takes ``mesh``: the attention cores (the kernels
 too), the scans and the cache writes then run per rank on DTensor
 inputs (``attention.attention_core`` / ``decode_core``,
@@ -323,9 +325,11 @@ def fused_decode(cfg: ModelConfig, x: torch.Tensor, mesh=None) -> bool:
     """Whether a decode step over the residual ``x`` takes the fused
     kernels (``add_rms_norm`` for its norms, ``rope_kv_write`` for
     standard RoPE and the KV write, ``glu_gate`` for a SwiGLU / GeGLU
-    gate): on the kernel route (``cfg.use_pallas_decode``), bf16 on a
-    CUDA device, no mesh (no DTensor).  Everything else (the CPU, f32,
-    a mesh, prefill, the forward) runs the plain chains."""
+    gate, and a Mamba2 mixer's ``mamba2_conv_step`` before its scan and
+    ``mamba2_gate_norm`` after it): on the kernel route
+    (``cfg.use_pallas_decode``), bf16 on a CUDA device, no mesh (no
+    DTensor).  Everything else (the CPU, f32, a mesh, prefill, the
+    forward) runs the plain chains."""
     return (cfg.use_pallas_decode and mesh is None
             and x.device.type == "cuda" and x.dtype == torch.bfloat16)
 
@@ -358,7 +362,7 @@ def block_decode(p, x, cache: dict, index: torch.Tensor, positions,
     elif mixer == "mamba2":
         y, _ = m2.mamba2_decode(p["mamba"], h, cfg, cache["ssm"],
                                 kernel=cfg.use_pallas_decode,
-                                out=cache["ssm"], mesh=mesh)
+                                out=cache["ssm"], mesh=mesh, fused=fused)
     else:
         y, _ = rk.rwkv6_tmix_fwd(p["tmix"], h, cfg, cache["tmix"],
                                  kernel=cfg.use_pallas_decode,

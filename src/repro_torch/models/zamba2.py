@@ -30,7 +30,8 @@ The prefill runs attention on ``swa_prefill`` (window = prompt) and the
 SSD on ``ssd_scan`` under ``cfg.use_pallas_prefill``; a decode step
 ``decode_attention`` and the T = 1 ``ssd_scan`` under
 ``cfg.use_pallas_decode``, and in bf16 on the card the fused
-``add_rms_norm``, ``rope_kv_write`` and ``glu_gate`` kernels
+``add_rms_norm``, ``rope_kv_write`` and ``glu_gate`` kernels and each
+Mamba2 layer's ``mamba2_conv_step`` and ``mamba2_gate_norm``
 (``transformer.fused_decode``).  No mesh: a mesh is refused.
 
 ``counts["applications"]`` counts the shared-block applications run,
@@ -196,5 +197,6 @@ def decode_layers(params, x, index, positions, cfg: ModelConfig,
         _, h = tfm.add_norm(x, t, p["norm1"], cfg, fused)
         state = layer_cache(i)["ssm"]
         y, _ = m2.mamba2_decode(p["mamba"], h, cfg, state,
-                                kernel=cfg.use_pallas_decode, out=state)
+                                kernel=cfg.use_pallas_decode, out=state,
+                                fused=fused)
     return x, y

@@ -44,6 +44,8 @@ import torch
 from repro_torch.kernels.add_rms_norm import ops as _norm
 from repro_torch.kernels.decode_attention import ops as _dec
 from repro_torch.kernels.glu_gate import ops as _gate
+from repro_torch.kernels.mamba2_conv_step import ops as _conv
+from repro_torch.kernels.mamba2_gate_norm import ops as _gnorm
 from repro_torch.kernels.rope_kv_write import ops as _rope
 from repro_torch.kernels.rwkv6_scan import ops as _wkv
 from repro_torch.kernels.ssd_scan import ops as _ssd
@@ -54,7 +56,8 @@ from repro_torch.utils import counters
 # every kernel wrapper's module, by kernel name (each keeps ``launches``)
 KERNELS = {"swa_prefill": _pre, "decode_attention": _dec,
            "rwkv6_scan": _wkv, "ssd_scan": _ssd, "add_rms_norm": _norm,
-           "rope_kv_write": _rope, "glu_gate": _gate}
+           "rope_kv_write": _rope, "glu_gate": _gate,
+           "mamba2_conv_step": _conv, "mamba2_gate_norm": _gnorm}
 for _name, _mod in KERNELS.items():
     counters.register(_name, vars(_mod), "launches")
 

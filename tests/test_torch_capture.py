@@ -239,7 +239,8 @@ def test_captured_step_runs_eagerly_on_the_cpu():
         CapturedStep(lambda: x, (x,), capture=True)
     assert set(launch_counts()) == {"swa_prefill", "decode_attention",
                                     "rwkv6_scan", "ssd_scan", "add_rms_norm",
-                                    "rope_kv_write", "glu_gate"}
+                                    "rope_kv_write", "glu_gate",
+                                    "mamba2_conv_step", "mamba2_gate_norm"}
 
 
 def test_token_backend_warmup_runs_every_entry():

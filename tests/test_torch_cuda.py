@@ -16,6 +16,8 @@ import torch
 from repro_torch.kernels.add_rms_norm import ops as norm
 from repro_torch.kernels.decode_attention import ops as dec
 from repro_torch.kernels.glu_gate import ops as gate
+from repro_torch.kernels.mamba2_conv_step import ops as conv_step
+from repro_torch.kernels.mamba2_gate_norm import ops as gate_norm
 from repro_torch.kernels.rope_kv_write import ops as rope
 from repro_torch.kernels.rwkv6_scan import ops as wkv
 from repro_torch.kernels.ssd_scan import ops as ssd
@@ -1296,3 +1298,153 @@ def test_glu_gate_erf_on_card(cuda_device):
               .bfloat16() * 2 for _ in range(2))
     assert torch.equal(gate.glu_gate(gt, up, "geglu_erf"),
                        gate.glu_gate_plain(gt, up, "geglu_erf"))
+
+
+# --------------------------------------------------------------------------
+# the Mamba2 decode step's fused kernels: Zamba2-7B's shapes (d_inner 7168,
+# G 2, N 64, conv biases) and zamba2-2.7b's (d_inner 5120, G 1, no biases)
+# --------------------------------------------------------------------------
+MAMBA2_FORMS = {"zamba2-7b": dict(di=7168, g=2, n=64, h=112, bias=True),
+                "zamba2-2.7b": dict(di=5120, g=1, n=64, h=80, bias=False)}
+
+
+def mamba2_operands(gen, form, rows, leaf):
+    """One layer's leaves (``dt_bias``, ``a_log``, ``d_skip`` in ``leaf``,
+    the rest bf16) and a decode step's in-projection outputs and state."""
+    f = MAMBA2_FORMS[form]
+    di, cbc, h = f["di"], 2 * f["g"] * f["n"], f["h"]
+    p = {"conv_x": bf16_randn(gen, 4, di, scale=0.5),
+         "conv_bc": bf16_randn(gen, 4, cbc, scale=0.5),
+         "dt_bias": bf16_randn(gen, h).to(leaf),
+         "a_log": bf16_randn(gen, h, scale=0.3).to(leaf),
+         "d_skip": bf16_randn(gen, h).to(leaf),
+         "norm": bf16_randn(gen, di, scale=0.1)}
+    if f["bias"]:
+        p["conv_x_bias"] = bf16_randn(gen, di, scale=0.1)
+        p["conv_bc_bias"] = bf16_randn(gen, cbc, scale=0.1)
+    zx = bf16_randn(gen, rows, 1, 2 * di, scale=2.0)
+    bcin = bf16_randn(gen, rows, 1, cbc, scale=2.0)
+    dt_raw = bf16_randn(gen, rows, 1, h, scale=4.0)
+    state = {"conv_x": bf16_randn(gen, rows, 3, di),
+             "conv_bc": bf16_randn(gen, rows, 3, cbc)}
+    return f, p, zx, bcin, dt_raw, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(MAMBA2_FORMS))
+@pytest.mark.parametrize("rows", [1, 8, 16])
+@pytest.mark.parametrize("leaf", ["float32", "bfloat16"])
+def test_mamba2_conv_step_kernel_equals_plain_on_card(form, rows, leaf,
+                                                      cuda_device):
+    """xc, B, C, dt, a_log and both windows bit for bit, the windows
+    shifted in place in the state and into new tensors without ``out``."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    f, p, zx, bcin, dt_raw, state = mamba2_operands(gen, form, rows,
+                                                    DTYPES[leaf])
+    di = f["di"]
+    plain_state = {k: v.clone() for k, v in state.items()}
+    before = {k: v.clone() for k, v in state.items()}
+    n = conv_step.launches
+    got = conv_step.mamba2_conv_step(p, zx[..., di:], bcin, dt_raw, state,
+                                     f["g"], state)
+    torch.cuda.synchronize()
+    assert conv_step.launches == n + 1
+    want = conv_step.mamba2_conv_step_plain(p, zx[..., di:], bcin, dt_raw,
+                                            plain_state, f["g"], plain_state)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    assert got[1].is_contiguous() and got[2].is_contiguous()
+    assert all(torch.equal(state[k], plain_state[k]) for k in state)
+    fresh = conv_step.mamba2_conv_step(p, zx[..., di:], bcin, dt_raw, before,
+                                       f["g"])
+    assert torch.equal(fresh[5], state["conv_x"])
+    assert torch.equal(fresh[6], state["conv_bc"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(MAMBA2_FORMS))
+@pytest.mark.parametrize("rows", [1, 8, 16])
+@pytest.mark.parametrize("leaf", ["float32", "bfloat16"])
+def test_mamba2_gate_norm_kernel_matches_plain_on_card(form, rows, leaf,
+                                                       cuda_device):
+    """Within add_rms_norm's tolerance (the norm's sum runs in another
+    order)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    f, p, zx, _, _, _ = mamba2_operands(gen, form, rows, DTYPES[leaf])
+    di, h = f["di"], f["h"]
+    y = torch.randn(rows, 1, h, di // h, generator=gen, device=cuda_device)
+    xh = bf16_randn(gen, rows, 1, h, di // h)
+    n = gate_norm.launches
+    got = gate_norm.mamba2_gate_norm(y, xh, p["d_skip"], zx[..., :di],
+                                     p["norm"], f["g"], 1e-5)
+    torch.cuda.synchronize()
+    assert gate_norm.launches == n + 1
+    want = gate_norm.mamba2_gate_norm_plain(y, xh, p["d_skip"], zx[..., :di],
+                                            p["norm"], f["g"], 1e-5)
+    assert got.shape == want.shape == (rows, 1, di)
+    np.testing.assert_allclose(as_np(got), as_np(want), **FUSED_TOL)
+
+
+@pytest.mark.cuda
+def test_mamba2_fused_kernels_refuse_f32_on_card(cuda_device):
+    """A CUDA tensor never falls back to the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    f, p, zx, bcin, dt_raw, state = mamba2_operands(gen, "zamba2-2.7b", 1,
+                                                    torch.float32)
+    di, h = f["di"], f["h"]
+    with pytest.raises(ValueError, match="bfloat16"):
+        conv_step.mamba2_conv_step(p, zx[..., di:].float(), bcin, dt_raw,
+                                   state, 1)
+    y = torch.zeros(1, 1, h, di // h, device=cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        gate_norm.mamba2_gate_norm(y, y, p["d_skip"], zx[..., :di].float(),
+                                   p["norm"], 1, 1e-5)
+
+
+@pytest.mark.cuda
+def test_zamba2_7b_replay_counts_81_of_each_mamba2_kernel_on_card(
+        cuda_device):
+    """Published Zamba2 at its widths in bf16, b 1: the captured decode
+    entry holds 81 ``mamba2_conv_step`` and 81 ``mamba2_gate_norm``
+    launches (one a Mamba2 layer), every replay adds them, and its ids
+    equal the eager entry's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import token_backend as tb
+    from repro_torch.serving.capture import launch_counts
+
+    cfg = dataclasses.replace(get_config("zamba2-7b"),
+                              use_pallas_prefill=True, use_pallas_decode=True)
+    model = build_model(cfg, device=cuda_device)
+    params = model.init(model.generator(0))
+    b, pl, steps = 1, 32, 4
+    want = {"mamba2_conv_step": cfg.num_layers,
+            "mamba2_gate_norm": cfg.num_layers}
+    assert want["mamba2_conv_step"] == 81
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, pl)).astype(np.int32)
+    ids = {}
+    for capture in (True, False):
+        pre_fns, dec_fns = tb.build_token_step_fns(
+            model, params, (1,), (b,), pl, max_decode=steps, capture=capture)
+        tb.warmup_token_fns(pre_fns, dec_fns, pl)
+        if capture:
+            deltas = dec_fns[(1, b)].step.deltas
+            assert {k: deltas.get(k) for k in want} == want
+            before = launch_counts()
+        tok, cache = pre_fns[(1, b)](prompt)
+        out = [tok.clone()]
+        for _ in range(steps):
+            tok, cache = dec_fns[(1, b)](cache, tok)
+            out.append(tok.clone())
+        torch.cuda.synchronize()
+        if capture:
+            after = launch_counts()
+            assert {k: after[k] - before[k] for k in want} == \
+                {k: n * steps for k, n in want.items()}
+        ids[capture] = torch.stack(out)
+        del pre_fns, dec_fns, cache
+    assert torch.equal(ids[True], ids[False])

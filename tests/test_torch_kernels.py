@@ -339,8 +339,9 @@ def test_build_targets_name_each_source_by_content():
     targets = {n: build._target(n) for n in build.SOURCES}
     assert set(targets) == {"swa_prefill", "decode_attention", "rwkv6_scan",
                             "ssd_scan", "add_rms_norm", "rope_kv_write",
-                            "glu_gate"}
-    assert len({t.name for t in targets.values()}) == 7
+                            "glu_gate", "mamba2_conv_step",
+                            "mamba2_gate_norm"}
+    assert len({t.name for t in targets.values()}) == 9
     for name, t in targets.items():
         assert t.parent == build.BUILD_DIR
         assert t.name.startswith(f"lib{name}-") and t.suffix == ".so"

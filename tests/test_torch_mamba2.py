@@ -26,6 +26,7 @@ from repro.kernels.ssd_scan.ref import ssd_scan_ref
 from repro.models import build_model as jax_build
 from repro.models import mamba2 as jm2
 from repro_torch.configs import get_config
+from repro_torch.kernels.mamba2_conv_step.ops import causal_conv
 from repro_torch.kernels.ssd_scan import ops
 from repro_torch.models import build_model, params_from_jax
 from repro_torch.models import mamba2 as tm2
@@ -403,9 +404,9 @@ def test_causal_conv_matches_reference():
     for state in (None, st):
         jy, js = jm2._causal_conv(jnp.asarray(x), jnp.asarray(w),
                                   None if state is None else jnp.asarray(state))
-        ty, ts = tm2._causal_conv(torch.from_numpy(x), torch.from_numpy(w),
-                                  None if state is None
-                                  else torch.from_numpy(state))
+        ty, ts = causal_conv(torch.from_numpy(x), torch.from_numpy(w),
+                             None if state is None
+                             else torch.from_numpy(state))
         np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-6)
         np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
