@@ -603,10 +603,10 @@ def set_peaks() -> None:
 
 
 def reset_launches() -> None:
-    """Every kernel's launch count set to 0."""
-    from repro_torch.serving.capture import KERNELS
-    for mod in KERNELS.values():
-        mod.launches = 0
+    """Every count of ``utils/counters.py`` set to 0 (each kernel's
+    launches among them)."""
+    from repro_torch.utils import counters
+    counters.reset()
 
 
 def say(phase: str, **fields) -> None:
@@ -665,31 +665,6 @@ def check_close(name: str, out: torch.Tensor, ref: torch.Tensor,
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
-
-def prefill_bound(b, s, h, kv, d, window, dtype):
-    """Least time for one causal (sliding-window) prefill call: q, k, v
-    read once and out written once, against the QK^T and PV products over
-    the (query, key) pairs the mask keeps."""
-    elt = torch.tensor([], dtype=dtype).element_size()
-    nbytes = elt * (2 * b * s * h * d + 2 * b * s * kv * d)
-    pairs = sum(min(p + 1, window) for p in range(s))
-    flops = 4.0 * b * h * d * pairs
-    return nbytes, flops
-
-
-def decode_bound(b, s, kv, g, d, lengths, dtype):
-    """Least time for one decode call on this data: a length L > 0 needs
-    L cache rows of K and V; a length of 0 gives the mean of all S rows
-    of V (no K)."""
-    elt = torch.tensor([], dtype=dtype).element_size()
-    row = kv * d * elt
-    nbytes = 2 * b * kv * g * d * elt + 4 * b
-    flops = 0.0
-    for n in lengths:
-        nbytes += 2 * n * row if n > 0 else s * row
-        flops += 4.0 * kv * g * d * n if n > 0 else 1.0 * kv * g * d * s
-    return nbytes, flops
-
 
 def wkv_bound(b, t, h, d, dtype):
     """Least time for one WKV6 call: r/k/v read and y written in their
@@ -782,6 +757,7 @@ def attn_shape_phase(dev, gen, rows, key, prefill=None, decode=None) -> None:
     and bf16 and timed in bf16 at (B, S) beside the plain version, one
     SDPA call and the bound, under ``<key>_*`` keys of the kernels'
     rows (unprefixed for ``key`` "")."""
+    from perfbench.counts import kernels as kc
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.swa_prefill import ops as pre
     import torch.nn.functional as F
@@ -808,7 +784,8 @@ def attn_shape_phase(dev, gen, rows, key, prefill=None, decode=None) -> None:
                     B=b, S=s, H=h, KV=kv, D=d, window=w, max_abs_err=err)
         b, s, w = timed                     # q, k, v: the last, bf16 draw
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        bms, by = bound_ms(*prefill_bound(b, s, h, kv, d, w, dtype), dtype)
+        bms, by = bound_ms(*kc.prefill_bound(b, s, h, kv, d, w,
+                                             str(dtype)[6:])[:2], dtype)
         r.update({
             f"{pre_}ms": median_ms(
                 lambda: pre.swa_prefill_attention(q, k, v, window=w)),
@@ -843,8 +820,8 @@ def attn_shape_phase(dev, gen, rows, key, prefill=None, decode=None) -> None:
         valid = torch.arange(s, device=dev)[None, :] < lengths[:, None].long()
         mask = torch.zeros(b, 1, 1, s, device=dev, dtype=dtype).masked_fill(
             ~valid[:, None, None, :], -1e30)
-        bms, by = bound_ms(*decode_bound(b, s, kv, g, d, decode["lengths"],
-                                         dtype), dtype)
+        bms, by = bound_ms(*kc.decode_bound(b, s, kv, g, d, decode["lengths"],
+                                            str(dtype)[6:])[:2], dtype)
         r.update({
             f"{pre_}ms": median_ms(
                 lambda: dec.decode_attention(q, k, v, lengths)),
@@ -1325,6 +1302,7 @@ def zamba2_phase(dev) -> None:
     swa_prefill, and the gang caches' bytes by kind.  Last, one profiled
     replay of its b 1 decode step (``ZAMBA2_GRAPH``): its kernels per
     replay and by family."""
+    from perfbench.counts import kernels as kc
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.glu_gate import ops as gate
@@ -1383,7 +1361,8 @@ def zamba2_phase(dev) -> None:
                                             scale=224 ** -0.5)):
         raise AssertionError("decode_attention: the default scale differs "
                              "from D^-1/2 passed")
-    nbytes, flops = decode_bound(b, s_, kv, gq, d, lengths.tolist(), bf)
+    nbytes, flops, _ = kc.decode_bound(b, s_, kv, gq, d, lengths.tolist(),
+                                       "bfloat16")
     bms, by = bound_ms(nbytes, flops, bf)
     say("zamba2", kernel="decode_attention", B=b, S=s_, KV=kv, G=gq, D=d,
         max_abs_err=err, bound_ms=bms, bound_by=by,
@@ -1409,7 +1388,8 @@ def zamba2_phase(dev) -> None:
                                                   scale=scale),
                         pre.swa_prefill_plain(q32, k32, v32, 77,
                                               scale=scale), torch.float32)
-    bms, by = bound_ms(*prefill_bound(b, s_, hq, kv, d, s_, bf), bf)
+    bms, by = bound_ms(*kc.prefill_bound(b, s_, hq, kv, d, s_,
+                                         "bfloat16")[:2], bf)
     say("zamba2", kernel="swa_prefill", B=b, S=s_, H=hq, KV=kv, D=d,
         max_abs_err=err, f32_max_abs_err=err32, bound_ms=bms, bound_by=by,
         ms=median_ms(lambda: pre.swa_prefill_attention(q, k, v, s_,
@@ -3254,12 +3234,12 @@ def scale_out_legs(perf) -> None:
 # ---------------------------------------------------------------------------
 
 def train_launches(leg: str) -> None:
-    """The four kernels' launch counts since the last reset, printed; the
+    """Every kernel's launch count since the last reset, printed; the
     training path runs no kernel (the reference's reaches no Pallas
     call), so each must be 0."""
-    from repro_torch.serving.capture import KERNELS
+    from repro_torch.serving.capture import launch_counts
 
-    counts = {name: mod.launches for name, mod in KERNELS.items()}
+    counts = launch_counts()
     say("train", leg=leg, launches=json.dumps(counts))
     if any(counts.values()):
         raise AssertionError(f"train leg {leg}: kernel launches {counts}")
@@ -3761,7 +3741,7 @@ def dist_serve_leg(dev, mesh) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models import sharding as sh
-    from repro_torch.serving.capture import KERNELS
+    from repro_torch.serving.capture import launch_counts
 
     cfg = dataclasses.replace(get_config(DIST["arch"]),
                               use_pallas_prefill=True,
@@ -3793,7 +3773,7 @@ def dist_serve_leg(dev, mesh) -> dict:
         walls[name] = time.perf_counter() - t0
         ids[name] = torch.stack(out, 1).cpu()
         if m is not None:
-            launches = {k: mod.launches for k, mod in KERNELS.items()}
+            launches = launch_counts()
             dtensor = sh.is_dtensor(cache["k"])
         del model, params, cache, lg
         gc_cuda()

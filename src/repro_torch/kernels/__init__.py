@@ -6,10 +6,11 @@ that fuse the decode step's elementwise chains (``add_rms_norm``,
 leaves to XLA.
 
 Each kernel has its source under ``csrc/`` and an ``ops.py`` with the
-public wrapper, its plain PyTorch version (which the wrapper takes for
-tensors on the CPU) and a launch counter.  ``build.py`` compiles a
-source with ``nvcc`` at its first launch; importing this package
-builds nothing.
+public wrapper and its plain PyTorch version (which the wrapper takes
+for tensors on the CPU).  ``build.py`` owns the rest: a source's
+launcher (``build.kernel``), which compiles it with ``nvcc`` at its
+first launch and counts every launch in ``utils/counters.py``;
+importing this package builds nothing.
 """
 from repro_torch.kernels.add_rms_norm.ops import add_rms_norm
 from repro_torch.kernels.decode_attention.ops import decode_attention

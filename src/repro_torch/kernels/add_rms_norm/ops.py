@@ -1,4 +1,4 @@
-"""Residual add + RMSNorm: CUDA kernel, plain version, launch count.
+"""Residual add + RMSNorm: CUDA kernel and plain version.
 
 Replaces no TPU kernel: the reference leaves the residual add and
 ``rms_norm`` to XLA, which fuses them.  In PyTorch the pair is about ten
@@ -24,12 +24,9 @@ import torch
 
 from repro_torch.kernels import build
 
-# kernel launches made by add_rms_norm (chip_smoke.py resets and reads it
-# to show that the serving path ran the kernel)
-launches = 0
-
 _MAX_D = 8 * 4 * 1024
-_fn = None
+_launch = build.kernel("add_rms_norm", [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 2 + [ctypes.c_float])
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -47,17 +44,6 @@ def add_rms_norm_plain(x: torch.Tensor, y, scale: torch.Tensor, eps: float):
     if y is not None:
         x = x + y
     return x, rms_norm(x, scale, eps)
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("add_rms_norm").repro_add_rms_norm
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
 
 
 def _check(x, y, scale):
@@ -84,7 +70,6 @@ def _check(x, y, scale):
 def add_rms_norm(x: torch.Tensor, y, scale: torch.Tensor, eps: float):
     """``(x_new, h)``: ``x_new = x + y`` (``x`` itself when ``y`` is None)
     and ``h = rms_norm(x_new, scale, eps)``, both in x's shape (..., d)."""
-    global launches
     if x.device.type == "cpu":
         return add_rms_norm_plain(x, y, scale, eps)
     if x.device.type != "cuda":
@@ -93,14 +78,7 @@ def add_rms_norm(x: torch.Tensor, y, scale: torch.Tensor, eps: float):
     d = x.shape[-1]
     x_new = x if y is None else torch.empty_like(x)
     h = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(x.data_ptr(), None if y is None else y.data_ptr(),
-                        scale.data_ptr(),
-                        None if y is None else x_new.data_ptr(),
-                        h.data_ptr(), x.numel() // d, d, eps, stream)
-    if err:
-        raise RuntimeError(f"add_rms_norm kernel launch failed: CUDA error "
-                           f"{err}")
-    launches += 1
+    _launch(x.device, x.data_ptr(), None if y is None else y.data_ptr(),
+            scale.data_ptr(), None if y is None else x_new.data_ptr(),
+            h.data_ptr(), x.numel() // d, d, eps)
     return x_new, h

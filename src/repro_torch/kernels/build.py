@@ -8,6 +8,10 @@ Each source under ``kernels/csrc`` is compiled by ``nvcc`` for Hopper
 shared ``*.cuh`` header, so a changed source or header is rebuilt and an
 unchanged one is loaded as it is.  Nothing is built or loaded at
 import: the first launch (or ``build()``) does it.
+
+Every source exports one C entry point ``int repro_<name>(..., cudaStream_t)``
+that returns a CUDA error code; ``kernel`` makes its launcher, which
+counts each launch under ``name`` in ``utils/counters.py``.
 """
 from __future__ import annotations
 
@@ -17,13 +21,15 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence
+
+import torch
+
+from repro_torch.utils import counters
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("swa_prefill", "decode_attention", "rwkv6_scan", "ssd_scan",
-           "add_rms_norm", "rope_kv_write", "glu_gate", "mamba2_conv_step",
-           "mamba2_gate_norm")
+SOURCES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -88,3 +94,29 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         _loaded[name] = lib
     return lib
+
+
+def kernel(name: str, argtypes: Sequence) -> Callable[..., None]:
+    """The launcher of ``repro_<name>``: ``launch(device, *args)`` calls
+    it with ``args`` (of the C types ``argtypes``) and the current stream
+    of ``device`` (read at every call: a CUDA graph's capture runs on its
+    own stream), raises on a nonzero return, and otherwise counts one
+    launch of ``name``.  The library is loaded (built if need be) at the
+    first call."""
+    fn = None
+    counters.bump(name, 0)
+
+    def launch(device, *args) -> None:
+        nonlocal fn
+        if fn is None:
+            fn = getattr(load(name), f"repro_{name}")
+            fn.argtypes = [*argtypes, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                               f"{err}")
+        counters.bump(name)
+
+    return launch

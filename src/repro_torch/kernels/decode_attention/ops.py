@@ -1,4 +1,4 @@
-"""Flash-decode GQA attention: CUDA kernel, plain version, launch count.
+"""Flash-decode GQA attention: CUDA kernel and plain version.
 
 Replaces the TPU kernel
 ``src/repro/kernels/decode_attention/decode_attention.py``
@@ -37,14 +37,12 @@ import torch
 
 from repro_torch.kernels import build
 
-# kernel launches made by decode_attention (chip_smoke.py resets and
-# reads it to show that the serving path ran the kernel)
-launches = 0
-
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 80, 128, 224, 256)
 _MAX_G = 8
-_fn = None
+_launch = build.kernel(
+    "decode_attention", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    + [ctypes.c_double, ctypes.c_int])
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -83,17 +81,6 @@ def merge_by_lse(parts):
     return num / den[..., None]
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("decode_attention").repro_decode_attention
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                       + [ctypes.c_double, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
 def _check(q, k, v, lengths):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q (B,KV,G,D) and k, v (B,S,KV,D) expected, got "
@@ -125,7 +112,6 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with ``return_lse`` the pair ``(out, lse)``, lse (B, KV, G) f32.
     ``scale``: the softmax scale, D^-0.5 when None (the kernel computes
     that one itself, as it always has)."""
-    global launches
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths, return_lse, scale)
     if q.device.type != "cuda":
@@ -135,16 +121,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lse = (torch.empty((b, kvh, g), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        lengths.data_ptr(), out.data_ptr(),
-                        None if lse is None else lse.data_ptr(), b,
-                        k.shape[1], kvh, g, d,
-                        0.0 if scale is None else float(scale),
-                        _DTYPES[q.dtype], stream)
-    if err:
-        raise RuntimeError(f"decode_attention kernel launch failed: "
-                           f"CUDA error {err}")
-    launches += 1
+    _launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, k.shape[1], kvh, g,
+            d, 0.0 if scale is None else float(scale), _DTYPES[q.dtype])
     return (out, lse) if return_lse else out

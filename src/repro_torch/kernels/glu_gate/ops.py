@@ -1,4 +1,4 @@
-"""The SwiGLU / GeGLU gate: CUDA kernel, plain version, launch count.
+"""The SwiGLU / GeGLU gate: CUDA kernel and plain version.
 
 Replaces no TPU kernel: the reference leaves the gate of its MLP to XLA,
 which fuses it.  In PyTorch it is an activation kernel and a product
@@ -23,12 +23,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
-# kernel launches made by glu_gate (chip_smoke.py resets and reads it to
-# show that the serving path ran the kernel)
-launches = 0
-
 _KINDS = {"swiglu": 0, "geglu": 1, "geglu_erf": 2}
-_fn = None
+_launch = build.kernel("glu_gate", [ctypes.c_void_p] * 3
+                       + [ctypes.c_longlong, ctypes.c_int])
 
 
 def glu_gate_plain(gate: torch.Tensor, up: torch.Tensor, kind: str
@@ -43,17 +40,6 @@ def glu_gate_plain(gate: torch.Tensor, up: torch.Tensor, kind: str
     if kind == "geglu_erf":
         return F.gelu(gate) * up
     raise ValueError(kind)
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("glu_gate").repro_glu_gate
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
-                                               ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
 
 
 def _check(gate, up, kind):
@@ -75,18 +61,12 @@ def _check(gate, up, kind):
 def glu_gate(gate: torch.Tensor, up: torch.Tensor, kind: str
              ) -> torch.Tensor:
     """``act(gate) * up`` in gate's shape and dtype (``glu_gate_plain``)."""
-    global launches
     if gate.device.type == "cpu":
         return glu_gate_plain(gate, up, kind)
     if gate.device.type != "cuda":
         raise ValueError(f"no kernel for device {gate.device}")
     _check(gate, up, kind)
     act = torch.empty_like(gate)
-    with torch.cuda.device(gate.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(gate.data_ptr(), up.data_ptr(), act.data_ptr(),
-                        gate.numel(), _KINDS[kind], stream)
-    if err:
-        raise RuntimeError(f"glu_gate kernel launch failed: CUDA error {err}")
-    launches += 1
+    _launch(gate.device, gate.data_ptr(), up.data_ptr(), act.data_ptr(),
+            gate.numel(), _KINDS[kind])
     return act

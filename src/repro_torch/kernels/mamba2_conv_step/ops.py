@@ -1,5 +1,5 @@
-"""The Mamba2 decode step's conv window: CUDA kernel, plain version,
-launch count.
+"""The Mamba2 decode step's conv window: CUDA kernel and plain
+version.
 
 Replaces no TPU kernel: the reference leaves a decode step's two
 depthwise causal convs (with their biases where the layer has them, and
@@ -32,13 +32,12 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
-# kernel launches made by mamba2_conv_step (chip_smoke.py resets and reads
-# it to show that the serving path ran the kernel)
-launches = 0
-
 _WIDTH = 4                 # Mamba2's conv width, every configuration's
 _LEAF_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+_launch = build.kernel(
+    "mamba2_conv_step", [ctypes.c_void_p, ctypes.c_longlong]
+    + [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+    + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5)
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -95,21 +94,6 @@ def mamba2_conv_step_plain(params: dict, xin: torch.Tensor,
     return xc, bm, cm, dt, params["a_log"].float(), conv_x, conv_bc
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("mamba2_conv_step").repro_mamba2_conv_step
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
-                       + [ctypes.c_void_p] * 11 + [ctypes.c_int,
-                                                   ctypes.c_void_p,
-                                                   ctypes.c_int]
-                       + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
 def _check(xin, bcin, dt_raw, w_x, w_bc, b_x, b_bc, dt_bias, a_log, wins,
            groups):
     if xin.dim() != 3 or xin.shape[1] != 1 or bcin.shape[:2] != xin.shape[:2] \
@@ -164,7 +148,6 @@ def mamba2_conv_step(params: dict, xin: torch.Tensor, bcin: torch.Tensor,
     tensors when None); each thread reads its channels' whole window
     before it writes, so ``out`` may be ``state``.  B and C come back
     contiguous."""
-    global launches
     if xin.device.type == "cpu":
         return mamba2_conv_step_plain(params, xin, bcin, dt_raw, state,
                                       groups, out)
@@ -186,20 +169,14 @@ def mamba2_conv_step(params: dict, xin: torch.Tensor, bcin: torch.Tensor,
     cm = torch.empty_like(bm)
     dt = torch.empty(dt_raw.shape, dtype=torch.float32, device=xin.device)
     a_out = torch.empty(heads, dtype=torch.float32, device=xin.device)
-    with torch.cuda.device(xin.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(
-            xin.data_ptr(), xin.stride(0), bcin.data_ptr(), win_x.data_ptr(),
-            win_bc.data_ptr(), new_x.data_ptr(), new_bc.data_ptr(),
-            w_x.data_ptr(), w_bc.data_ptr(),
-            None if b_x is None else b_x.data_ptr(),
-            None if b_bc is None else b_bc.data_ptr(), dt_raw.data_ptr(),
-            dt_bias.data_ptr(), _LEAF_DTYPES[dt_bias.dtype], a_log.data_ptr(),
-            _LEAF_DTYPES[a_log.dtype], xc.data_ptr(), bm.data_ptr(),
-            cm.data_ptr(), dt.data_ptr(), a_out.data_ptr(), bsz, di, gn,
-            heads, w_x.shape[0], stream)
-    if err:
-        raise RuntimeError(f"mamba2_conv_step kernel launch failed: CUDA "
-                           f"error {err}")
-    launches += 1
+    _launch(
+        xin.device, xin.data_ptr(), xin.stride(0), bcin.data_ptr(),
+        win_x.data_ptr(), win_bc.data_ptr(), new_x.data_ptr(), new_bc.data_ptr(),
+        w_x.data_ptr(), w_bc.data_ptr(),
+        None if b_x is None else b_x.data_ptr(),
+        None if b_bc is None else b_bc.data_ptr(), dt_raw.data_ptr(),
+        dt_bias.data_ptr(), _LEAF_DTYPES[dt_bias.dtype], a_log.data_ptr(),
+        _LEAF_DTYPES[a_log.dtype], xc.data_ptr(), bm.data_ptr(),
+        cm.data_ptr(), dt.data_ptr(), a_out.data_ptr(), bsz, di, gn,
+        heads, w_x.shape[0])
     return xc, bm, cm, dt, a_out, new_x, new_bc

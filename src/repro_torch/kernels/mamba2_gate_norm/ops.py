@@ -1,5 +1,5 @@
-"""The Mamba2 decode step's D-skip and gated group norm: CUDA kernel,
-plain version, launch count.
+"""The Mamba2 decode step's D-skip and gated group norm: CUDA kernel and
+plain version.
 
 Replaces no TPU kernel: the reference leaves the D-skip after a decode
 step's SSD scan, the cast back, the gate ``y * silu(z)`` and the RMSNorm
@@ -31,13 +31,12 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 from repro_torch.kernels.add_rms_norm.ops import rms_norm
 
-# kernel launches made by mamba2_gate_norm (chip_smoke.py resets and reads
-# it to show that the serving path ran the kernel)
-launches = 0
-
 _MAX_GROUP = 8 * 4 * 1024
 _LEAF_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+_launch = build.kernel(
+    "mamba2_gate_norm", [ctypes.c_void_p] * 3
+    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float])
 
 
 def gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
@@ -61,19 +60,6 @@ def mamba2_gate_norm_plain(y: torch.Tensor, xh: torch.Tensor,
     y = y[:, 0] + xh[:, 0].float() * d_skip.float()[None, :, None]
     y = y.reshape(b, 1, h * p).to(z.dtype)
     return gated_norm(y, z, scale, groups, eps)
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("mamba2_gate_norm").repro_mamba2_gate_norm
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
-                                                ctypes.c_longlong]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
 
 
 def _check(y, xh, d_skip, z, scale, groups):
@@ -114,7 +100,6 @@ def mamba2_gate_norm(y: torch.Tensor, xh: torch.Tensor, d_skip: torch.Tensor,
                      eps: float) -> torch.Tensor:
     """``mamba2_gate_norm_plain`` in one launch: (B, 1, H P) in z's
     dtype."""
-    global launches
     if y.device.type == "cpu":
         return mamba2_gate_norm_plain(y, xh, d_skip, z, scale, groups, eps)
     if y.device.type != "cuda":
@@ -122,14 +107,7 @@ def mamba2_gate_norm(y: torch.Tensor, xh: torch.Tensor, d_skip: torch.Tensor,
     _check(y, xh, d_skip, z, scale, groups)
     b, _, h, p = y.shape
     out = torch.empty((b, 1, h * p), dtype=z.dtype, device=y.device)
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(y.data_ptr(), xh.data_ptr(), d_skip.data_ptr(),
-                        _LEAF_DTYPES[d_skip.dtype], z.data_ptr(), z.stride(0),
-                        scale.data_ptr(), out.data_ptr(), b, h * p, groups, p,
-                        eps, stream)
-    if err:
-        raise RuntimeError(f"mamba2_gate_norm kernel launch failed: CUDA "
-                           f"error {err}")
-    launches += 1
+    _launch(y.device, y.data_ptr(), xh.data_ptr(), d_skip.data_ptr(),
+            _LEAF_DTYPES[d_skip.dtype], z.data_ptr(), z.stride(0),
+            scale.data_ptr(), out.data_ptr(), b, h * p, groups, p, eps)
     return out

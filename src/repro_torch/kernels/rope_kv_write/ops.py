@@ -1,5 +1,5 @@
 """RoPE of q and k and the KV-cache write of one decode token: CUDA
-kernel, plain version, launch count.
+kernel and plain version.
 
 Replaces no TPU kernel: the reference leaves RoPE and the cache update
 of ``attention_decode`` to XLA.  In PyTorch they are about 13 small
@@ -27,11 +27,8 @@ import torch
 
 from repro_torch.kernels import build
 
-# kernel launches made by rope_kv_write (chip_smoke.py resets and reads it
-# to show that the serving path ran the kernel)
-launches = 0
-
-_fn = None
+_launch = build.kernel(
+    "rope_kv_write", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6)
 _FREQS: dict = {}
 
 
@@ -81,17 +78,6 @@ def rope_kv_write_plain(q, k, v, index, ck, cv, theta: float, window: int
     return q.reshape(b, kvh, h // kvh, d)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("rope_kv_write").repro_rope_kv_write
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
 def _check(q, k, v, index, ck, cv):
     if q.dim() != 4 or q.shape[1] != 1 or k.shape != v.shape \
             or ck.dim() != 4 or ck.shape != cv.shape:
@@ -121,7 +107,6 @@ def rope_kv_write(q, k, v, index, ck, cv, theta: float, window: int
     """``rope_kv_write_plain`` in one launch: RoPE on q and k, k and v
     into their cache slot, read from ``index`` (0-dim int32) on the
     device.  Returns the rotated q as (B, KV, G, D)."""
-    global launches
     if q.device.type == "cpu":
         return rope_kv_write_plain(q, k, v, index, ck, cv, theta, window)
     if q.device.type != "cuda":
@@ -132,14 +117,7 @@ def rope_kv_write(q, k, v, index, ck, cv, theta: float, window: int
     freqs = freqs_on(d, theta, q.device)
     q_out = torch.empty((b, kvh, h // kvh, d), dtype=q.dtype,
                         device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        index.data_ptr(), freqs.data_ptr(), q_out.data_ptr(),
-                        ck.data_ptr(), cv.data_ptr(), b, h, kvh, d, s,
-                        window, stream)
-    if err:
-        raise RuntimeError(f"rope_kv_write kernel launch failed: CUDA error "
-                           f"{err}")
-    launches += 1
+    _launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            index.data_ptr(), freqs.data_ptr(), q_out.data_ptr(),
+            ck.data_ptr(), cv.data_ptr(), b, h, kvh, d, s, window)
     return q_out

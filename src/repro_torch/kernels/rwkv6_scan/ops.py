@@ -1,4 +1,4 @@
-"""WKV6 recurrence (RWKV-6 time mix): CUDA kernel, plain version, launch count.
+"""WKV6 recurrence (RWKV-6 time mix): CUDA kernel and plain version.
 
     y_t = r_t^T (S_{t-1} + u k_t v_t^T);   S_t = diag(w_t) S_{t-1} + k_t v_t^T
 
@@ -36,13 +36,10 @@ import torch
 
 from repro_torch.kernels import build
 
-# kernel launches made by rwkv6_scan (chip_smoke.py resets and reads it
-# to show that the serving path ran the kernel)
-launches = 0
-
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
-_fn = None
+_launch = build.kernel(
+    "rwkv6_scan", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5)
 
 
 def _tree_sum_i(x: torch.Tensor) -> torch.Tensor:
@@ -79,17 +76,6 @@ def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         state = state * wt[..., None] + kv
     y = torch.stack(ys, dim=1).to(r.dtype)
     return y, (state if s_out is None else s_out.copy_(state))
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("rwkv6_scan").repro_rwkv6_scan
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
 
 
 def _check(r, k, v, w, u, s0, s_out) -> None:
@@ -134,7 +120,6 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``s_final`` is written into ``s_out`` when given, which may be ``s0``
     itself: the kernel reads each (b, h) state before it writes it, so a
     decode step updates a cache's state in place."""
-    global launches
     b, t, h, d = r.shape
     if w.dtype == torch.bfloat16:
         w = w.float()
@@ -148,14 +133,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s_out = torch.empty_like(s0)
     _check(r, k, v, w, u, s0, s_out)
     y = torch.empty_like(r)
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        w.data_ptr(), u.data_ptr(), s0.data_ptr(),
-                        y.data_ptr(), s_out.data_ptr(), b, t, h, d,
-                        _DTYPES[r.dtype], stream)
-    if err:
-        raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA error "
-                           f"{err}")
-    launches += 1
+    _launch(r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+            w.data_ptr(), u.data_ptr(), s0.data_ptr(), y.data_ptr(),
+            s_out.data_ptr(), b, t, h, d, _DTYPES[r.dtype])
     return y, s_out

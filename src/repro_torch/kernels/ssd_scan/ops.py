@@ -1,4 +1,4 @@
-"""Mamba2 SSD scan: CUDA kernel, plain versions, launch count.
+"""Mamba2 SSD scan: CUDA kernel and plain versions.
 
     h_t = exp(-exp(a_log) dt_t) h_{t-1} + dt_t x_t B_t^T;   y_t = h_t C_t
 
@@ -46,13 +46,10 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.utils import counters
 
-# kernel launches made by ssd_scan (chip_smoke.py resets and reads it to
-# show that the serving path ran the kernel), and the same launches by the
-# body that ran: the recurrence (decode steps) or the chunked form (prefill)
-launches = 0
-body_launches = {"recurrence": 0, "chunked": 0}
-for _body in body_launches:
-    counters.register(f"ssd_scan.{_body}", body_launches, _body)
+# the launches by the body that ran, ``ssd_scan.recurrence`` (decode
+# steps) and ``ssd_scan.chunked`` (prefill), beside the launcher's count
+for _body in ("recurrence", "chunked"):
+    counters.bump(f"ssd_scan.{_body}", 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
@@ -61,7 +58,8 @@ _STATE_DIMS = (16, 64)
 # number as kChunkedMinT in ssd_scan.cu), in chunks of CHUNK steps
 CHUNKED_MIN_T = 16
 CHUNK = 64
-_fn = None
+_launch = build.kernel(
+    "ssd_scan", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8)
 
 
 def _tree_sum_n(x: torch.Tensor) -> torch.Tensor:
@@ -216,17 +214,6 @@ def ssd_scan_chunked_plain(x: torch.Tensor, dt: torch.Tensor,
     return y, (state if h_out is None else h_out.copy_(state))
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("ssd_scan").repro_ssd_scan
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
 def _check(x, dt, a_log, b, c, h0, h_out, y_dtype) -> None:
     if x.dim() != 4 or dt.shape != x.shape[:3]:
         raise ValueError(f"x (B,T,H,P) and dt (B,T,H) expected, got "
@@ -283,7 +270,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     through its D-skip.  bf16 inputs with ``T >= CHUNKED_MIN_T`` run the
     chunked form (:func:`ssd_scan_chunked_plain`'s roundings), all
     others the recurrence (:func:`ssd_scan_plain`'s, bit for bit)."""
-    global launches
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a_log, b, c, h0, h_out, y_dtype)
     if x.device.type != "cuda":
@@ -298,15 +284,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     _check(x, dt, a_log, b, c, h0, h_out, y_dtype)
     body = "chunked" if takes_chunked_form(x) else "recurrence"
     y = torch.empty(x.shape, dtype=y_dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(),
-                        b.data_ptr(), c.data_ptr(), h0.data_ptr(),
-                        y.data_ptr(), h_out.data_ptr(), bsz, t, h, p,
-                        b.shape[-1], groups_of(b), _DTYPES[x.dtype],
-                        _DTYPES[y_dtype], stream)
-    if err:
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
-    launches += 1
-    body_launches[body] += 1
+    _launch(x.device, x.data_ptr(), dt.data_ptr(), a_log.data_ptr(),
+            b.data_ptr(), c.data_ptr(), h0.data_ptr(), y.data_ptr(),
+            h_out.data_ptr(), bsz, t, h, p, b.shape[-1], groups_of(b),
+            _DTYPES[x.dtype], _DTYPES[y_dtype])
+    counters.bump(f"ssd_scan.{body}")
     return y, h_out

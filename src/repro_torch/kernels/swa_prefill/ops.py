@@ -1,4 +1,4 @@
-"""Causal sliding-window prefill attention: CUDA kernel, plain version, count.
+"""Causal sliding-window prefill attention: CUDA kernel and plain version.
 
 Replaces the TPU kernel ``src/repro/kernels/swa_prefill/swa_prefill.py``
 ``swa_prefill_pallas`` and its wrapper ``ops.py`` ``swa_prefill_attention``
@@ -36,13 +36,11 @@ import torch
 
 from repro_torch.kernels import build
 
-# kernel launches made by swa_prefill_attention (chip_smoke.py resets and
-# reads it to show that the serving path ran the kernel)
-launches = 0
-
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 80, 128, 224, 256)
-_fn = None
+_launch = build.kernel(
+    "swa_prefill", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    + [ctypes.c_double, ctypes.c_int])
 
 
 def swa_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -66,17 +64,6 @@ def swa_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return out.to(q.dtype)
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("swa_prefill").repro_swa_prefill
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_double, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
 
 
 def _check(q, k, v, window):
@@ -109,7 +96,6 @@ def swa_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     H % KV == 0.  Returns (B, S, H, D).  Full causal attention is
     ``window >= S``.  ``scale``: the softmax scale, D^-0.5 when None
     (the kernel computes that one itself, as it always has)."""
-    global launches
     if q.device.type == "cpu":
         return swa_prefill_plain(q, k, v, window, scale)
     if q.device.type != "cuda":
@@ -117,13 +103,7 @@ def swa_prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, window)
     b, s, h, d = q.shape
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), b, s, h, k.shape[2], d, int(window),
-                        0.0 if scale is None else float(scale),
-                        _DTYPES[q.dtype], stream)
-    if err:
-        raise RuntimeError(f"swa_prefill kernel launch failed: CUDA error {err}")
-    launches += 1
+    _launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, s, h, k.shape[2], d, int(window),
+            0.0 if scale is None else float(scale), _DTYPES[q.dtype])
     return out

@@ -538,10 +538,6 @@ def pmax(x, mesh, axes):
                                    group_of(mesh, axes)))
 
 
-def pmean(x, mesh, axes):
-    return psum(x, mesh, axes) / axis_size(mesh, axes)
-
-
 def all_gather(x, mesh, axes, dim: int):
     """``lax.all_gather(..., axis=dim, tiled=True)`` over ``axes``."""
     if axis_size(mesh, axes) == 1:

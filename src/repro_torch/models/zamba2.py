@@ -34,9 +34,9 @@ SSD on ``ssd_scan`` under ``cfg.use_pallas_prefill``; a decode step
 Mamba2 layer's ``mamba2_conv_step`` and ``mamba2_gate_norm``
 (``transformer.fused_decode``).  No mesh: a mesh is refused.
 
-``counts["applications"]`` counts the shared-block applications run,
-registered as ``shared_applications`` in ``utils/counters.py``'s table
-(``serving/capture.py`` adds a captured step's on each replay).
+The shared-block applications run are counted as ``shared_applications``
+in ``utils/counters.py``'s table (``serving/capture.py`` adds a captured
+step's on each replay).
 """
 from __future__ import annotations
 
@@ -51,8 +51,7 @@ from repro_torch.models.common import dense_init, linear, rms_norm
 from repro_torch.models.mlp import init_mlp
 from repro_torch.utils import counters
 
-counts = {"applications": 0}
-counters.register("shared_applications", counts, "applications")
+counters.bump("shared_applications", 0)
 
 
 def applications(cfg: ModelConfig) -> dict:
@@ -103,7 +102,7 @@ def _mlp(p, hyb, h, cfg: ModelConfig, fused: bool = False):
 
 
 def _block_of(params, cfg: ModelConfig, j: int):
-    counts["applications"] += 1
+    counters.bump("shared_applications")
     return params["shared_blocks"][j % cfg.num_mem_blocks]
 
 

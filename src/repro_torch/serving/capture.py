@@ -20,13 +20,13 @@ the captured run returned, in the graph's private memory pool: each
 replay writes them again, so a caller that keeps one past the next call
 copies it.
 
-The step's counts (``utils/counters.py``: the kernels' launches, and
-the other counts modules register there, such as ``ssd_scan``'s
-launches by body and published Zamba2's shared-block applications) are
-kept by Python code, and a replay runs none.  The capture therefore
-records each count's increase (what the graph holds), takes it back (the
-capture ran nothing), and adds it again on every replay, so a count
-still says how many times the card ran it.  With a trace, each call
+The step's counts (``utils/counters.py``: the kernels' launches,
+counted by their launcher in ``kernels/build.py``, and the other counts,
+such as ``ssd_scan``'s launches by body and published Zamba2's
+shared-block applications) are kept by Python code, and a replay runs
+none.  The capture therefore records each count's increase (what the
+graph holds), takes it back (the capture ran nothing), and adds it again
+on every replay, so a count still says how many times the card ran it.  With a trace, each call
 marks what it added to the counts other than launches
 (``sponge.step_counts``).
 
@@ -41,38 +41,26 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
-from repro_torch.kernels.add_rms_norm import ops as _norm
-from repro_torch.kernels.decode_attention import ops as _dec
-from repro_torch.kernels.glu_gate import ops as _gate
-from repro_torch.kernels.mamba2_conv_step import ops as _conv
-from repro_torch.kernels.mamba2_gate_norm import ops as _gnorm
-from repro_torch.kernels.rope_kv_write import ops as _rope
-from repro_torch.kernels.rwkv6_scan import ops as _wkv
-from repro_torch.kernels.ssd_scan import ops as _ssd
-from repro_torch.kernels.swa_prefill import ops as _pre
+from repro_torch.kernels.build import SOURCES
 from repro_torch.serving.trace import span
 from repro_torch.utils import counters
 
-# every kernel wrapper's module, by kernel name (each keeps ``launches``)
-KERNELS = {"swa_prefill": _pre, "decode_attention": _dec,
-           "rwkv6_scan": _wkv, "ssd_scan": _ssd, "add_rms_norm": _norm,
-           "rope_kv_write": _rope, "glu_gate": _gate,
-           "mamba2_conv_step": _conv, "mamba2_gate_norm": _gnorm}
-for _name, _mod in KERNELS.items():
-    counters.register(_name, vars(_mod), "launches")
+
+def _launches(counts: Dict[str, int]) -> Dict[str, int]:
+    return {k: n for k, n in counts.items() if k in SOURCES}
+
+
+def _others(counts: Dict[str, int]) -> Dict[str, int]:
+    return {k: n for k, n in counts.items() if k not in SOURCES}
 
 
 def launch_counts() -> Dict[str, int]:
     """Each kernel's launch count so far."""
-    return {name: mod.launches for name, mod in KERNELS.items()}
-
-
-def _others(counts: Dict[str, int]) -> Dict[str, int]:
-    return {k: n for k, n in counts.items() if k not in KERNELS}
+    return _launches(counters.read())
 
 
 def event_counts() -> Dict[str, int]:
-    """Every other registered count so far (``utils/counters.py``)."""
+    """Every other count so far (``utils/counters.py``)."""
     return _others(counters.read())
 
 
@@ -112,7 +100,7 @@ class CapturedStep:
 
     @property
     def deltas(self) -> Dict[str, int]:
-        return {k: n for k, n in self.counts.items() if k in KERNELS}
+        return _launches(self.counts)
 
     @property
     def events(self) -> Dict[str, int]:

@@ -1,39 +1,45 @@
-"""The counts a step makes, in one table: ``COUNTERS``.
+"""The counts a step makes, in one table: ``COUNTS``.
 
-Each module keeps its counts where it increments them (a kernel wrapper
-its module-level ``launches``, ``ssd_scan`` its launches by body,
-published Zamba2 its shared-block applications) and registers each one
-here by name as ``(the dict that holds it, its key)``; a module's own
-attribute is held by ``vars(module)``.  ``read`` returns every count and
-``add`` moves them, which is how ``serving/capture.py`` takes back what a
-CUDA graph's capture counted and adds it again on every replay.
+Every count lives here by name: each hand-written kernel's launches
+(counted by its launcher, ``kernels/build.py`` ``kernel``, under the
+kernel's name), ``ssd_scan``'s launches by body (``ssd_scan.recurrence``,
+``ssd_scan.chunked``) and published Zamba2's shared-block applications
+(``shared_applications``).  A module bumps its counts by 0 at import, so
+the table names them before their first run.  ``read`` returns every
+count and ``add`` moves them, which is how ``serving/capture.py`` takes
+back what a CUDA graph's capture counted and adds it again on every
+replay.
 """
 from __future__ import annotations
 
-from typing import Dict, MutableMapping, Tuple
+from typing import Dict
 
-# name -> (the dict that holds the count, its key)
-COUNTERS: Dict[str, Tuple[MutableMapping, str]] = {}
+COUNTS: Dict[str, int] = {}
 
 
-def register(name: str, held: MutableMapping, key: str) -> None:
-    """Add the count ``held[key]`` to the table under ``name``."""
-    COUNTERS[name] = (held, key)
+def bump(name: str, n: int = 1) -> None:
+    """Add ``n`` to the count ``name`` (a new name starts at 0)."""
+    COUNTS[name] = COUNTS.get(name, 0) + n
 
 
 def read() -> Dict[str, int]:
-    """Every registered count so far."""
-    return {name: held[key] for name, (held, key) in COUNTERS.items()}
+    """Every count so far."""
+    return dict(COUNTS)
 
 
 def add(delta: Dict[str, int], sign: int = 1) -> None:
-    """Add ``sign`` times each count of ``delta`` to its counter."""
+    """Add ``sign`` times each count of ``delta`` to its count."""
     for name, n in delta.items():
-        held, key = COUNTERS[name]
-        held[key] += sign * n
+        bump(name, sign * n)
 
 
 def delta(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
     """The counts that moved from ``before`` to ``after``, by how much."""
     return {k: after[k] - before.get(k, 0) for k in after
             if after[k] != before.get(k, 0)}
+
+
+def reset() -> None:
+    """Every count set to 0."""
+    for name in COUNTS:
+        COUNTS[name] = 0

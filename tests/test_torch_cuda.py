@@ -22,6 +22,7 @@ from repro_torch.kernels.rope_kv_write import ops as rope
 from repro_torch.kernels.rwkv6_scan import ops as wkv
 from repro_torch.kernels.ssd_scan import ops as ssd
 from repro_torch.kernels.swa_prefill import ops as pre
+from repro_torch.utils import counters
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -33,6 +34,14 @@ def tol(name):
 
 def as_np(x):
     return x.float().cpu().numpy()
+
+
+def attention_launches(before):
+    """The ``swa_prefill`` and ``decode_attention`` launches since the
+    counts ``before`` (``counters.read()``)."""
+    now = counters.read()
+    return tuple(now[k] - before[k] for k in ("swa_prefill",
+                                               "decode_attention"))
 
 
 # the reference's SSD bf16 tolerance (tests/test_kernels.py), which the
@@ -82,10 +91,10 @@ def test_swa_prefill_kernel_matches_plain_on_card(b, s, h, kv, d, w, dtype,
     q = torch.randn(b, s, h, d, generator=g, device=cuda_device).to(tdt)
     k = torch.randn(b, s, kv, d, generator=g, device=cuda_device).to(tdt)
     v = torch.randn(b, s, kv, d, generator=g, device=cuda_device).to(tdt)
-    before = pre.launches
+    before = counters.read()["swa_prefill"]
     out = pre.swa_prefill_attention(q, k, v, window=w)
     torch.cuda.synchronize()
-    assert pre.launches == before + 1
+    assert counters.read()["swa_prefill"] == before + 1
     ref = pre.swa_prefill_plain(q, k, v, window=w)
     np.testing.assert_allclose(as_np(out), as_np(ref), **tol(dtype))
 
@@ -108,10 +117,10 @@ def test_decode_attention_kernel_matches_plain_on_card(b, kv, g, d, s, lens,
     k = torch.randn(b, s, kv, d, generator=gen, device=cuda_device).to(tdt)
     v = torch.randn(b, s, kv, d, generator=gen, device=cuda_device).to(tdt)
     ln = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
-    before = dec.launches
+    before = counters.read()["decode_attention"]
     out = dec.decode_attention(q, k, v, ln)
     torch.cuda.synchronize()
-    assert dec.launches == before + 1
+    assert counters.read()["decode_attention"] == before + 1
     ref = dec.decode_attention_plain(q, k, v, ln)
     np.testing.assert_allclose(as_np(out), as_np(ref), **tol(dtype))
 
@@ -134,10 +143,10 @@ def test_swa_prefill_bf16_tiling_edges_on_card(s, w, d, g, cuda_device):
                     device=cuda_device).to(torch.bfloat16)
     v = torch.randn(b, s, kv, d, generator=gen,
                     device=cuda_device).to(torch.bfloat16)
-    before = pre.launches
+    before = counters.read()["swa_prefill"]
     out = pre.swa_prefill_attention(q, k, v, window=w)
     torch.cuda.synchronize()
-    assert pre.launches == before + 1
+    assert counters.read()["swa_prefill"] == before + 1
     ref = pre.swa_prefill_plain(q, k, v, window=w)
     np.testing.assert_allclose(as_np(out), as_np(ref), **tol("bfloat16"))
 
@@ -160,10 +169,10 @@ def test_decode_attention_bf16_split_edges_on_card(s, g, d, cuda_device):
     v = torch.randn(b, s, kv, d, generator=gen,
                     device=cuda_device).to(torch.bfloat16)
     ln = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
-    before = dec.launches
+    before = counters.read()["decode_attention"]
     out = dec.decode_attention(q, k, v, ln)
     torch.cuda.synchronize()
-    assert dec.launches == before + 1
+    assert counters.read()["decode_attention"] == before + 1
     ref = dec.decode_attention_plain(q, k, v, ln)
     np.testing.assert_allclose(as_np(out), as_np(ref), **tol("bfloat16"))
 
@@ -196,10 +205,10 @@ def test_decode_attention_lse_and_its_merge_on_card(b, kv, g, d, s, lens,
     k = torch.randn(b, s, kv, d, generator=gen, device=cuda_device).to(tdt)
     v = torch.randn(b, s, kv, d, generator=gen, device=cuda_device).to(tdt)
     ln = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
-    before = dec.launches
+    before = counters.read()["decode_attention"]
     out, lse = dec.decode_attention(q, k, v, ln, return_lse=True)
     torch.cuda.synchronize()
-    assert dec.launches == before + 1
+    assert counters.read()["decode_attention"] == before + 1
     ref, ref_lse = dec.decode_attention_plain(q, k, v, ln, return_lse=True)
     np.testing.assert_allclose(as_np(out), as_np(ref), **tol(dtype))
     assert_lse_close(lse, ref_lse, dtype)
@@ -237,10 +246,10 @@ def test_rwkv6_scan_kernel_matches_plain_on_card(b, t, h, d, dtype,
     w = torch.rand(b, t, h, d, generator=g, device=cuda_device) * 0.199 + 0.8
     u = torch.randn(h, d, generator=g, device=cuda_device) * 0.5
     s0 = torch.randn(b, h, d, d, generator=g, device=cuda_device) * 0.1
-    before = wkv.launches
+    before = counters.read()["rwkv6_scan"]
     y, s = wkv.rwkv6_scan(r, k, v, w, u, s0)
     torch.cuda.synchronize()
-    assert wkv.launches == before + 1
+    assert counters.read()["rwkv6_scan"] == before + 1
     y_ref, s_ref = wkv.rwkv6_scan_plain(r, k, v, w, u, s0)
     np.testing.assert_allclose(as_np(y), as_np(y_ref), **tol(dtype))
     np.testing.assert_allclose(as_np(s), as_np(s_ref), **tol(dtype))
@@ -289,10 +298,10 @@ def test_ssd_scan_kernel_matches_plain_on_card(b, t, h, p, n, dtype,
     tdt = DTYPES[dtype[:8] if dtype != "float32" else dtype]
     y_dtype = torch.float32 if dtype == "bfloat16-y32" else tdt
     x, dt, a_log, bm, cm, h0 = ssd_inputs(b, t, h, p, n, tdt, cuda_device)
-    before = ssd.launches
+    before = counters.read()["ssd_scan"]
     y, hf = ssd.ssd_scan(x, dt, a_log, bm, cm, h0, y_dtype=y_dtype)
     torch.cuda.synchronize()
-    assert ssd.launches == before + 1 and y.dtype == y_dtype
+    assert counters.read()["ssd_scan"] == before + 1 and y.dtype == y_dtype
     y_ref, h_ref = ssd.ssd_scan_plain(x, dt, a_log, bm, cm, h0,
                                       y_dtype=y_dtype)
     if ssd.takes_chunked_form(x):
@@ -407,7 +416,7 @@ def test_window_ring_wrap_on_card(dtype, cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(1)
     tokens = torch.randint(0, vocab, (1, s), generator=g, device=cuda_device,
                            dtype=torch.int32)
-    before = (pre.launches, dec.launches)
+    before = counters.read()
     with torch.inference_mode():
         lk, ck = kern.prefill(params, {"tokens": tokens}, cache_len=s + 9)
         lp, cp = plain.prefill(params, {"tokens": tokens}, cache_len=s + 9)
@@ -420,7 +429,7 @@ def test_window_ring_wrap_on_card(dtype, cuda_device):
             got.append(lk.float())
             ref.append(lp.float())
     torch.cuda.synchronize()
-    assert (pre.launches - before[0], dec.launches - before[1]) == \
+    assert attention_launches(before) == \
         (2, 2 * steps)
     got, ref = torch.stack(got), torch.stack(ref)
     assert torch.isfinite(got).all()
@@ -454,10 +463,10 @@ def test_add_rms_norm_kernel_matches_plain_on_card(rows, d, with_y,
     x, y = bf16_randn(gen, rows, 1, d), bf16_randn(gen, rows, 1, d)
     scale = bf16_randn(gen, d, scale=0.1)
     y = y if with_y else None
-    before = norm.launches
+    before = counters.read()["add_rms_norm"]
     x_new, h = norm.add_rms_norm(x, y, scale, 1e-5)
     torch.cuda.synchronize()
-    assert norm.launches == before + 1
+    assert counters.read()["add_rms_norm"] == before + 1
     ref_x, ref_h = norm.add_rms_norm_plain(x, y, scale, 1e-5)
     assert torch.equal(x_new, ref_x)
     np.testing.assert_allclose(as_np(h), as_np(ref_h), **FUSED_TOL)
@@ -470,10 +479,10 @@ def test_add_rms_norm_kernel_matches_plain_on_card(rows, d, with_y,
 def test_glu_gate_kernel_matches_plain_on_card(rows, ff, kind, cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     g, u = bf16_randn(gen, rows, 1, ff, scale=3.0), bf16_randn(gen, rows, 1, ff)
-    before = gate.launches
+    before = counters.read()["glu_gate"]
     out = gate.glu_gate(g, u, kind)
     torch.cuda.synchronize()
-    assert gate.launches == before + 1
+    assert counters.read()["glu_gate"] == before + 1
     np.testing.assert_allclose(as_np(out), as_np(gate.glu_gate_plain(g, u, kind)),
                                **FUSED_TOL)
 
@@ -495,10 +504,10 @@ def test_rope_kv_write_kernel_matches_plain_on_card(b, h, kv, d, window, s,
     ck0, cv0 = bf16_randn(gen, b, s, kv, d), bf16_randn(gen, b, s, kv, d)
     idx = torch.tensor(index, dtype=torch.int32, device=cuda_device)
     ck, cv, pk, pv = (t.clone() for t in (ck0, cv0, ck0, cv0))
-    before = rope.launches
+    before = counters.read()["rope_kv_write"]
     out = rope.rope_kv_write(q, k, v, idx, ck, cv, 1e4, window)
     torch.cuda.synchronize()
-    assert rope.launches == before + 1
+    assert counters.read()["rope_kv_write"] == before + 1
     ref = rope.rope_kv_write_plain(q, k, v, idx, pk, pv, 1e4, window)
     assert out.shape == (b, kv, h // kv, d)
     np.testing.assert_allclose(as_np(out), as_np(ref), **FUSED_TOL)
@@ -622,11 +631,11 @@ def test_fixed_work_entry_on_card(arch, b, prompt, fixed_routes):
                             GEN_TOKENS, capture=False)[(1, b)]
     fk(torch.zeros_like(tokens))                 # capture
     assert fk.step.graph is not None and fp.step.graph is None
-    before = (pre.launches, dec.launches)
+    before = counters.read()
     ids_k, ids_p = fk(tokens), fp(tokens)
     torch.cuda.synchronize()
     layers = kern.cfg.num_layers
-    assert (pre.launches - before[0], dec.launches - before[1]) == \
+    assert attention_launches(before) == \
         (layers, layers * GEN_TOKENS)
     assert ids_k.dtype == torch.int32 and ids_k.shape == (b, GEN_TOKENS)
     assert torch.equal(ids_k, ids_p)
@@ -854,7 +863,7 @@ def test_live_session_modelled_clock_equals_exact_engine_on_card(
                           prior_rps=meta["expected_rps"])
     sess = server.session()
     rng = np.random.default_rng(0)
-    before = (pre.launches, dec.launches)
+    before = counters.read()
     handles = [sess.submit(r, payload=rng.integers(
         0, cfg.vocab_size, 16).astype(np.int32)) for r in batch.to_requests()]
     applied = drive_session_events(
@@ -876,7 +885,7 @@ def test_live_session_modelled_clock_equals_exact_engine_on_card(
     assert applied == stats["session"]
     entries, layers = len(backend.measured), cfg.num_layers
     assert entries == len(rep.buckets) > 0
-    assert (pre.launches - before[0], dec.launches - before[1]) == \
+    assert attention_launches(before) == \
         (layers * entries, layers * GEN_TOKENS * entries)
     ids = np.stack([it.result for it in backend.results])
     assert ids.shape == (rep.n_requests, GEN_TOKENS)
@@ -989,11 +998,11 @@ def test_cross_decode_routes_agree_on_card(dtype, cuda_device):
                             device=cuda_device).to(tdt) for n in ("k", "v")}
     outs = {}
     for on in (True, False):
-        before = dec.launches
+        before = counters.read()["decode_attention"]
         outs[on] = tfm._cross_decode(
             p, x, cache, dataclasses.replace(base, use_pallas_decode=on))
         torch.cuda.synchronize()
-        assert dec.launches == before + int(on)
+        assert counters.read()["decode_attention"] == before + int(on)
     np.testing.assert_allclose(as_np(outs[True]), as_np(outs[False]),
                                **tol(dtype))
 
@@ -1238,13 +1247,15 @@ def test_ssd_scan_counts_its_bodies_on_card(cuda_device):
     from repro_torch.serving.capture import CapturedStep, event_counts
     x, dt, a_log, bm, cm, h0 = ssd_inputs(1, 32, 2, 64, 64, torch.bfloat16,
                                           cuda_device)
-    before, n = dict(ssd.body_launches), ssd.launches
+    before = counters.read()
     ssd.ssd_scan(x, dt, a_log, bm, cm, h0)
     ssd.ssd_scan(x[:, :1].contiguous(), dt[:, :1].contiguous(), a_log,
                  bm[:, :1].contiguous(), cm[:, :1].contiguous(), h0)
-    assert ssd.body_launches == {"recurrence": before["recurrence"] + 1,
-                                 "chunked": before["chunked"] + 1}
-    assert ssd.launches == n + 2
+    after = counters.read()
+    assert {k: after[k] - before[k] for k in ("ssd_scan.recurrence",
+                                              "ssd_scan.chunked")} == \
+        {"ssd_scan.recurrence": 1, "ssd_scan.chunked": 1}
+    assert after["ssd_scan"] == before["ssd_scan"] + 2
     step = CapturedStep(lambda: ssd.ssd_scan(x, dt, a_log, bm, cm, h0)[0],
                         (x,))
     step(x)                                   # the warm-up: eager, captured
@@ -1344,11 +1355,11 @@ def test_mamba2_conv_step_kernel_equals_plain_on_card(form, rows, leaf,
     di = f["di"]
     plain_state = {k: v.clone() for k, v in state.items()}
     before = {k: v.clone() for k, v in state.items()}
-    n = conv_step.launches
+    n = counters.read()["mamba2_conv_step"]
     got = conv_step.mamba2_conv_step(p, zx[..., di:], bcin, dt_raw, state,
                                      f["g"], state)
     torch.cuda.synchronize()
-    assert conv_step.launches == n + 1
+    assert counters.read()["mamba2_conv_step"] == n + 1
     want = conv_step.mamba2_conv_step_plain(p, zx[..., di:], bcin, dt_raw,
                                             plain_state, f["g"], plain_state)
     for a, b in zip(got, want):
@@ -1375,11 +1386,11 @@ def test_mamba2_gate_norm_kernel_matches_plain_on_card(form, rows, leaf,
     di, h = f["di"], f["h"]
     y = torch.randn(rows, 1, h, di // h, generator=gen, device=cuda_device)
     xh = bf16_randn(gen, rows, 1, h, di // h)
-    n = gate_norm.launches
+    n = counters.read()["mamba2_gate_norm"]
     got = gate_norm.mamba2_gate_norm(y, xh, p["d_skip"], zx[..., :di],
                                      p["norm"], f["g"], 1e-5)
     torch.cuda.synchronize()
-    assert gate_norm.launches == n + 1
+    assert counters.read()["mamba2_gate_norm"] == n + 1
     want = gate_norm.mamba2_gate_norm_plain(y, xh, p["d_skip"], zx[..., :di],
                                             p["norm"], f["g"], 1e-5)
     assert got.shape == want.shape == (rows, 1, di)

@@ -26,6 +26,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import apply_rope
+from repro_torch.utils import counters
 
 DTYPES = (torch.bfloat16, torch.float32)
 
@@ -55,10 +56,10 @@ def test_add_rms_norm_plain_is_the_add_then_the_norm(dtype, with_y):
     assert torch.equal(x_new, want_x) and x_new.dtype == dtype
     assert torch.equal(h, rms_norm_chain(want_x, scale, 1e-5))
     # the wrapper takes the plain version on the CPU and counts nothing
-    before = norm_ops.launches
+    before = counters.read()["add_rms_norm"]
     x2, h2 = norm_ops.add_rms_norm(x, y if with_y else None, scale, 1e-5)
     assert torch.equal(x2, x_new) and torch.equal(h2, h)
-    assert norm_ops.launches == before
+    assert counters.read()["add_rms_norm"] == before
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -69,9 +70,9 @@ def test_glu_gate_plain_is_the_activation_then_the_product(dtype, kind):
         F.gelu(gate, approximate="tanh")
     out = gate_ops.glu_gate_plain(gate, up, kind)
     assert torch.equal(out, act * up) and out.dtype == dtype
-    before = gate_ops.launches
+    before = counters.read()["glu_gate"]
     assert torch.equal(gate_ops.glu_gate(gate, up, kind), out)
-    assert gate_ops.launches == before
+    assert counters.read()["glu_gate"] == before
     with pytest.raises(ValueError):
         gate_ops.glu_gate_plain(gate, up, "gelu")
 
@@ -96,12 +97,12 @@ def test_rope_kv_write_plain_is_rope_then_the_two_writes(dtype, window,
     assert torch.equal(q_out, apply_rope(q, pos, 1e4).reshape(b, kvh,
                                                                h // kvh, d))
     assert torch.equal(ck, want_ck) and torch.equal(cv, want_cv)
-    before = rope_ops.launches
+    before = counters.read()["rope_kv_write"]
     ck2, cv2 = ck0.clone(), cv0.clone()
     assert torch.equal(rope_ops.rope_kv_write(q, k, v, idx, ck2, cv2, 1e4,
                                               window), q_out)
     assert torch.equal(ck2, ck) and torch.equal(cv2, cv)
-    assert rope_ops.launches == before
+    assert counters.read()["rope_kv_write"] == before
 
 
 def test_wrappers_raise_off_the_cpu_and_the_card():

@@ -8,7 +8,10 @@ there); the JAX side runs its Pallas kernels in interpret mode, as
 ``tests/test_kernels.py`` does.  Tolerances are the repo's: f32 2e-5,
 bf16 2e-2 (absolute and relative).
 """
+import contextlib
+import ctypes
 import shutil
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +23,7 @@ from repro.kernels.swa_prefill.ops import swa_prefill_attention as jax_prefill
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import ops as dec
 from repro_torch.kernels.swa_prefill import ops as pre
+from repro_torch.utils import counters
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -74,9 +78,10 @@ def _prefill_case(b, s, h, kv, d, w, blk, dtype, seed):
     v = rng.standard_normal((b, s, kv, d))
     (jq, tq), (jk, tk), (jv, tv) = both(q, dtype), both(k, dtype), both(v, dtype)
     ref = jax_prefill(jq, jk, jv, window=w, block=blk)
-    before = pre.launches
+    before = counters.read()["swa_prefill"]
     out = pre.swa_prefill_attention(tq, tk, tv, window=w)
-    assert pre.launches == before          # the CPU never counts a launch
+    # the CPU never counts a launch
+    assert counters.read()["swa_prefill"] == before
     assert out.shape == (b, s, h, d) and out.dtype == tq.dtype
     np.testing.assert_allclose(as_np(out), as_np(ref), **tol(dtype))
 
@@ -133,9 +138,9 @@ def test_decode_attention_plain_matches_pallas(b, kv, g, d, s, block_s, lens,
                       np.int32)
     (jq, tq), (jk, tk), (jv, tv) = both(q, dtype), both(k, dtype), both(v, dtype)
     ref = jax_decode(jq, jk, jv, jnp.asarray(lens), block_s=block_s)
-    before = dec.launches
+    before = counters.read()["decode_attention"]
     out = dec.decode_attention(tq, tk, tv, torch.from_numpy(lens))
-    assert dec.launches == before
+    assert counters.read()["decode_attention"] == before
     assert out.shape == (b, kv, g, d) and out.dtype == tq.dtype
     np.testing.assert_allclose(as_np(out), as_np(ref), **tol(dtype))
 
@@ -333,15 +338,16 @@ def test_checks_take_head_dim_256_and_refuse_others():
 
 
 def test_build_targets_name_each_source_by_content():
-    """Each kernel source builds into its own library, named by a hash
-    of its source, the shared header and the flags, under the ignored
-    build directory; nothing is built at import."""
+    """The sources are every ``csrc/*.cu``; each builds into its own
+    library, named by a hash of its source, the shared header and the
+    flags, under the ignored build directory; nothing is built at
+    import."""
+    assert build.SOURCES == ("add_rms_norm", "decode_attention", "glu_gate",
+                             "mamba2_conv_step", "mamba2_gate_norm",
+                             "rope_kv_write", "rwkv6_scan", "ssd_scan",
+                             "swa_prefill")
     targets = {n: build._target(n) for n in build.SOURCES}
-    assert set(targets) == {"swa_prefill", "decode_attention", "rwkv6_scan",
-                            "ssd_scan", "add_rms_norm", "rope_kv_write",
-                            "glu_gate", "mamba2_conv_step",
-                            "mamba2_gate_norm"}
-    assert len({t.name for t in targets.values()}) == 9
+    assert len({t.name for t in targets.values()}) == len(build.SOURCES)
     for name, t in targets.items():
         assert t.parent == build.BUILD_DIR
         assert t.name.startswith(f"lib{name}-") and t.suffix == ".so"
@@ -369,3 +375,46 @@ def test_build_targets_change_with_every_shared_header(header, tmp_path,
     after = {n: build._target(n) for n in build.SOURCES}
     assert all(after[n] != before[n] for n in build.SOURCES)
     assert len({t.name for t in after.values()}) == len(build.SOURCES)
+
+
+@pytest.mark.parametrize("err", [0, 7])
+def test_launcher_counts_a_launch_or_raises(err, monkeypatch):
+    """``build.kernel``'s launcher loads ``repro_<name>`` at its first
+    call, sets its C types, and calls it with the arguments and the
+    device's current stream, read again at every call; a return of 0
+    counts one launch under the kernel's name, a CUDA error raises with
+    the name and counts nothing."""
+    calls, loads, devices = [], [], []
+
+    class Entry:
+        def __call__(self, *args):
+            calls.append(args)
+            return err
+
+    lib = types.SimpleNamespace(repro_glu_gate=Entry())
+    stream = types.SimpleNamespace(cuda_stream=99)
+    monkeypatch.setattr(build, "load", lambda name: loads.append(name) or lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: (
+        devices.append(device) or contextlib.nullcontext()))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: stream)
+    monkeypatch.setitem(counters.COUNTS, "glu_gate",
+                        counters.read()["glu_gate"])
+    launch = build.kernel("glu_gate", [ctypes.c_void_p, ctypes.c_int])
+    assert loads == []                  # nothing loaded before a launch
+    before = counters.read()
+    if err:
+        with pytest.raises(RuntimeError, match="glu_gate kernel launch "
+                                               "failed: CUDA error 7"):
+            launch("cuda:1", 1, 2)
+        assert counters.read() == before
+    else:
+        launch("cuda:1", 1, 2)
+        stream.cuda_stream = 100        # a capture's own stream
+        launch("cuda:1", 3, 4)
+        assert counters.delta(counters.read(), before) == {"glu_gate": 2}
+        assert calls[1:] == [(3, 4, 100)]
+    assert loads == ["glu_gate"] and devices[0] == "cuda:1"
+    assert calls[0] == (1, 2, 99)
+    assert lib.repro_glu_gate.argtypes == [ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_void_p]
+    assert lib.repro_glu_gate.restype is ctypes.c_int

@@ -30,6 +30,7 @@ from repro_torch.kernels.mamba2_conv_step.ops import causal_conv
 from repro_torch.kernels.ssd_scan import ops
 from repro_torch.models import build_model, params_from_jax
 from repro_torch.models import mamba2 as tm2
+from repro_torch.utils import counters
 
 ATOL = 1e-4
 ARCH = "zamba2-2.7b-reduced"
@@ -88,9 +89,10 @@ def test_ssd_scan_plain_matches_pallas(b, t, h, p, n, chunk, dtype):
     (jdt, tdt), (ja, ta), (jh, th) = both(dt), both(a_log), both(h0)
     y1, hf1 = jax_scan(jx, jdt, ja, jb, jc, jh, chunk=chunk)
     y2, hf2 = ssd_scan_ref(jx, jdt, ja, jb, jc, jh)
-    before = ops.launches
+    before = counters.read()["ssd_scan"]
     y, hf = ops.ssd_scan(tx, tdt, ta, tb, tc, th)
-    assert ops.launches == before          # the CPU never counts a launch
+    # the CPU never counts a launch
+    assert counters.read()["ssd_scan"] == before
     assert y.shape == (b, t, h, p) and y.dtype == tx.dtype
     assert hf.shape == (b, h, p, n) and hf.dtype == torch.float32
     for ref_y, ref_h in ((y1, hf1), (y2, hf2)):

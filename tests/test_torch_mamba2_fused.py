@@ -26,6 +26,7 @@ from repro_torch.models import build_model
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import linear
+from repro_torch.utils import counters
 
 DTYPES = (torch.bfloat16, torch.float32)
 # (groups, conv biases): zamba2-2.7b's form and published Zamba2's
@@ -131,12 +132,12 @@ def test_conv_step_plain_is_the_chain_it_replaced(dtype, form, in_place):
     else:
         assert all(torch.equal(state[k], before[k]) for k in state)
     # the wrapper takes the plain version on the CPU and counts nothing
-    n = conv_ops.launches
+    n = counters.read()["mamba2_conv_step"]
     again = conv_ops.mamba2_conv_step(p, zx[..., DI:], bcin, dt_raw, before,
                                       groups)
     assert all(torch.equal(a, b) for a, b in zip(again, (
         want_xc, bm, cm, dt, a_log, want_cx, want_cbc)))
-    assert conv_ops.launches == n
+    assert counters.read()["mamba2_conv_step"] == n
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -153,10 +154,10 @@ def test_gate_norm_plain_is_the_chain_it_replaced(dtype, form):
     want = old_gate_norm(y, xc, p, zx[..., :DI], groups, 1e-5)
     assert got.shape == (B, 1, DI) and got.dtype == dtype
     assert torch.equal(got, want)
-    n = gate_ops.launches
+    n = counters.read()["mamba2_gate_norm"]
     assert torch.equal(gate_ops.mamba2_gate_norm(
         y, xh, p["d_skip"], zx[..., :DI], p["norm"], groups, 1e-5), want)
-    assert gate_ops.launches == n
+    assert counters.read()["mamba2_gate_norm"] == n
 
 
 def test_wrappers_raise_off_the_cpu_and_the_card():

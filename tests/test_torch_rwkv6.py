@@ -26,6 +26,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.rwkv6_scan import ops
 from repro_torch.models import build_model, params_from_jax
 from repro_torch.models import rwkv6 as trk
+from repro_torch.utils import counters
 
 ATOL = 1e-4
 ARCH = "rwkv6-1.6b-reduced"
@@ -85,9 +86,10 @@ def test_rwkv6_scan_plain_matches_pallas(b, t, h, d, block_t, dtype):
     (ju, tu), (js, ts) = both(u), both(s0)
     y1, sf1 = jax_scan(jr, jk, jv, jw, ju, js, block_t=block_t)
     y2, sf2 = rwkv6_scan_ref(jr, jk, jv, jw, ju, js)
-    before = ops.launches
+    before = counters.read()["rwkv6_scan"]
     y, sf = ops.rwkv6_scan(tr, tk, tv, tw, tu, ts)
-    assert ops.launches == before          # the CPU never counts a launch
+    # the CPU never counts a launch
+    assert counters.read()["rwkv6_scan"] == before
     assert y.shape == (b, t, h, d) and y.dtype == tr.dtype
     assert sf.shape == (b, h, d, d) and sf.dtype == torch.float32
     for ref_y, ref_s in ((y1, sf1), (y2, sf2)):
