@@ -91,7 +91,8 @@ code is non-zero:
    cross-attention); bf16 teacher-forced under the rule above.  Then the
    main path, bf16 on the kernel route, counts reset before and read
    after (they must be exactly those per prefill and step, and the
-   fused kernels ``fused_per_step`` times a step): the prefill
+   fused kernels and ``decode_gemm`` ``fused_per_step`` times a step):
+   the prefill
    wall at b 4 (whisper's encoder also alone) and a 64-step greedy
    generation at b 1, 2 and 4, eager and through one captured decode
    graph (ids equal), with host wall per step and tokens per wall
@@ -144,7 +145,8 @@ code is non-zero:
    (``add_rms_norm`` 2 L + 1, ``rope_kv_write`` and ``glu_gate`` once
    per standard-RoPE attention and SwiGLU / GeGLU MLP; zamba2's shared
    block two norms, one of each per application; whisper a third norm
-   a layer).  Every served step must be a graph replay.  Then ``llm-mixed-len`` (chat prompts beside
+   a layer; ``decode_gemm`` ``decode_gemm_per_step``: 7 L + 1 a dense
+   SwiGLU stack, the dense layer's 3 and the head under MLA).  Every served step must be a graph replay.  Then ``llm-mixed-len`` (chat prompts beside
    long documents, per-request TTFT and TBT SLOs) on smollm-135m with
    ``b_set = c_set = (1, 2, 4, 8)``, under the same checks.
 
@@ -163,8 +165,8 @@ code is non-zero:
    the same requests served on the measured clock each get a result,
    with ``swa_prefill`` launched 30 times (once per layer) and
    ``decode_attention`` 240 times (per layer per step) for every entry
-   the serve ran, warm-up excluded, the fused kernels ``fused_per_step``
-   times a step, and neither scan.  Its launches join
+   the serve ran, warm-up excluded, the fused kernels and
+   ``decode_gemm`` ``fused_per_step`` times a step, and neither scan.  Its launches join
    the kernel rows;
    scenarios -- the dynamic-SLO scenarios on full-width smollm-135m, bf16:
    ``llm-heavy-tail`` and ``retrieve-then-generate`` (decode lengths from
@@ -265,7 +267,8 @@ code is non-zero:
    of one rank and a 1 x 1 ``("data", "model")`` mesh.  Leg 1, a main
    path: full-width smollm-135m in bf16 with both kernel routes, its
    parameters and cache DTensors, a prefill (b 4, prompt 256) and 16
-   eager greedy steps: the ids must equal the unsharded run's, and the
+   eager greedy steps: the ids must equal the unsharded run's on the
+   mesh's decode route (plain chains, cuBLAS's products), and the
    counts, reset before the sharded run and read after it, must be 30
    ``swa_prefill`` (one per layer) and 480 ``decode_attention`` (one per
    layer and step), and no fused kernel (a mesh keeps the decode step's
@@ -345,6 +348,7 @@ PEAK_FLOPS = None
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 N_TIMED = 60
 SLEEP_CYCLES = 1_000_000                  # ~0.5 ms at the H100's clocks
+RUN_CALLS = 20                            # run_ms: calls back to back
 
 # smollm-135m's attention widths, timed at B 4, S 256 (full causal)
 PREFILL = dict(B=4, S=256, H=9, KV=3, D=64,
@@ -393,6 +397,26 @@ ZAMBA2 = dict(arch="zamba2-7b", ssd=((16, 1), (4, 512)), H=112, P=64, N=64,
               rows=(1, 8, 16), serve=dict(requests=24, prompt_len=512,
                                           max_decode=32, seed=0),
               sets=(1, 4, 16))
+# the decode steps' weight products (decode_gemm): zamba2-7b's (the merged
+# in-projection, the Mamba2 out-projection, the shared block's products,
+# its adapter pair and L_j, the tied head read as the (N, K) embedding) and
+# h2o-danube-1.8b's, (K, (N, ...), transposed)
+DECODE_GEMM = {
+    "zamba2_in_proj": (3584, (14336, 256, 112), False),
+    "zamba2_w_out": (7168, (3584,), False),
+    "zamba2_qkv": (7168, (7168,), False),
+    "zamba2_gate_up": (3584, (14336,), False),
+    "zamba2_down": (14336, (3584,), False),
+    "zamba2_hybrid_out": (3584, (3584,), False),
+    "zamba2_adapter_a": (3584, (128,), False),
+    "zamba2_adapter_b": (128, (28672,), False),
+    "zamba2_head": (3584, (32000,), True),
+    "danube_q_o": (2560, (2560,), False),
+    "danube_kv": (2560, (640,), False),
+    "danube_gate_up": (2560, (6912,), False),
+    "danube_down": (6912, (2560,), False),
+    "danube_head": (2560, (32000,), False),
+}
 # one replay of h2o-danube-1.8b's served decode step at b 16, profiled:
 # its kernels per replay and per layer (chat's bucket of 512 tokens)
 DECODE_GRAPH = dict(arch="h2o-danube-1.8b", b=16, prompt=512, max_decode=128,
@@ -640,6 +664,33 @@ def median_ms(fn) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in ev]))
 
 
+def run_ms(fn, calls: int = None) -> float:
+    """Device time a call of ``fn`` over ``calls`` (``RUN_CALLS``) calls
+    back to back, as a decode step issues them: the run captured as one
+    CUDA graph (so the host's enqueue is not timed), its replays timed
+    by CUDA events, median of 10, each queued behind a device sleep as
+    ``median_ms``'s calls."""
+    calls = calls or RUN_CALLS
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(10):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(start.elapsed_time(end) / calls)
+    return float(np.median(walls))
+
+
 def check_within(name: str, out: torch.Tensor, ref: torch.Tensor,
                  tol: float) -> float:
     """Max |out - ref|; raises unless out is finite and |out - ref| <=
@@ -738,6 +789,7 @@ def kernel_phase(dev):
     rows["ssd_scan"] = ssd_kernel_phase(dev, gen)
     rows.update(fused_kernel_phase(dev, gen))
     rows.update(mamba2_kernel_phase(dev, gen))
+    rows["decode_gemm"] = decode_gemm_phase(dev, gen)
     for r in rows.values():
         say("kernels", kernel=r["name"], ms=r["ms"], plain_ms=r["plain_ms"],
             library_ms=r["library_ms"], bound_ms=r["bound_ms"],
@@ -1069,6 +1121,81 @@ def mamba2_kernel_phase(dev, gen) -> dict:
     return rows
 
 
+def decode_gemm_phase(dev, gen) -> dict:
+    """``decode_gemm`` against its plain version (cuBLAS's products) at
+    every weight product of zamba2-7b's and h2o-danube-1.8b's decode
+    steps (``DECODE_GEMM``) at ``FUSED_ROWS``, within bf16's tolerance;
+    then each timed beside its byte bound, the plain version (one
+    ``torch.matmul`` a weight) and, as ``library_ms``, one
+    ``torch.matmul`` over the weights side by side (never called by the
+    port); ``run_ms`` and ``library_run_ms`` are the kernel's and that
+    call's time a call in a captured run of ``RUN_CALLS`` back to back,
+    as a decode step's graph issues them (each kernel's first stages
+    stream in while the one before finishes).  Every timed
+    call reads weights that are not in the L2 cache: the calls rotate
+    over enough copies to pass 150 MB.  Returns its row of the kernels
+    line."""
+    from repro_torch.kernels.decode_gemm import ops as dg
+
+    bf = torch.bfloat16
+    row = {"name": "decode_gemm", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/decode_gemm.cu",
+           "replaces": "none: the reference leaves its weight products to "
+                       "XLA's dot (src/repro/models/common.py linear)",
+           "launches": None, "max_abs_err": 0.0, "library_ms": None}
+    for shape, (k, ns, transposed) in DECODE_GEMM.items():
+        nbytes_w = 2 * k * sum(ns)
+        copies = max(1, min(64, -(-150_000_000 // nbytes_w)))
+        sets = [[(torch.randn(n, k, generator=gen, device=dev) * k ** -0.5)
+                 .to(bf).T if transposed else
+                 (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5)
+                 .to(bf) for n in ns] for _ in range(copies)]
+        cats = [torch.cat(ws, dim=1) if len(ws) > 1 else ws[0]
+                for ws in sets]
+        for b in FUSED_ROWS:
+            x = torch.randn(b, 1, k, generator=gen, device=dev).to(bf)
+            err = 0.0
+            for y, ref in zip(dg.decode_gemm(x, sets[0]),
+                              dg.decode_gemm_plain(x, sets[0])):
+                err = max(err, check_close(f"decode_gemm {shape} B={b}", y,
+                                           ref, bf))
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            turn = [0]
+
+            def rotate(fn):
+                def call():
+                    turn[0] = (turn[0] + 1) % copies
+                    return fn(turn[0])
+                return call
+            bms, by = bound_ms(nbytes_w + 2 * b * (k + sum(ns)),
+                               2.0 * b * k * sum(ns), bf)
+            res = {"ms": median_ms(rotate(lambda i: dg.decode_gemm(
+                       x, sets[i]))),
+                   "run_ms": run_ms(rotate(lambda i: dg.decode_gemm(
+                       x, sets[i]))),
+                   "plain_ms": median_ms(rotate(lambda i: dg.decode_gemm_plain(
+                       x, sets[i]))),
+                   "library_ms": median_ms(rotate(lambda i: torch.matmul(
+                       x, cats[i]))),
+                   "library_run_ms": run_ms(rotate(lambda i: torch.matmul(
+                       x, cats[i]))),
+                   "bound_ms": bms, "bound_by": by}
+            res["of_bound"] = res["ms"] / bms
+            res["run_of_bound"] = res["run_ms"] / bms
+            row.update({f"{shape}_b{b}_{k_}": v_ for k_, v_ in res.items()})
+            if shape == "zamba2_in_proj" and b == 1:
+                row.update(res, timed=f"bf16 {shape} B=1")
+            tile = dg.TILE_N[transposed]
+            say("kernels", kernel="decode_gemm", shape=shape, K=k,
+                N=json.dumps(list(ns)), transposed=transposed, B=b,
+                split=dg.split_for(k, dg.tiles_of(ns, tile),
+                                   dg._sms(dev.index or 0), tile),
+                max_abs_err=err, **res)
+        del sets, cats
+    torch.cuda.empty_cache()
+    return row
+
+
 def wkv_inputs(gen, dev, b, t, h, d, dtype):
     """r, k, v in ``dtype``; the decay w in f32 within [0.8, 0.999), as
     the reference's kernel tests draw it; u and s0 in f32."""
@@ -1301,7 +1428,8 @@ def zamba2_phase(dev) -> None:
     ``mamba2_gate_norm``), per prefill 81 chunked ssd_scan and 13
     swa_prefill, and the gang caches' bytes by kind.  Last, one profiled
     replay of its b 1 decode step (``ZAMBA2_GRAPH``): its kernels per
-    replay and by family."""
+    replay and by family, and no cuBLAS split-K reduction among them
+    (every weight product a ``decode_gemm`` launch, 293 a step)."""
     from perfbench.counts import kernels as kc
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import ops as dec
@@ -1482,6 +1610,8 @@ def zamba2_phase(dev) -> None:
         "mamba2_conv_step and mamba2_gate_norm 81 a decode step":
             launches["mamba2_conv_step"] == layers * n_dec
             and launches["mamba2_gate_norm"] == layers * n_dec,
+        "decode_gemm 2 a Mamba2 layer, 10 an application and the head":
+            launches["decode_gemm"] == decode_gemm_per_step(cfg) * n_dec,
     }
     failed = [k_ for k_, ok in checks.items() if not ok]
     if failed:
@@ -1500,7 +1630,12 @@ def zamba2_phase(dev) -> None:
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     del runner, backend
     gc_cuda()
-    decode_graph_phase(dev, ZAMBA2_GRAPH)
+    graph = decode_graph_phase(dev, ZAMBA2_GRAPH)
+    if graph["split_k_reductions"]:
+        raise AssertionError(f"zamba2-7b's b 1 replay ran "
+                             f"{graph['split_k_reductions']} split-K "
+                             f"reductions: a weight product left the "
+                             f"decode_gemm route")
 
 
 def parity_phase(dev, arch: str) -> None:
@@ -2209,21 +2344,45 @@ def capture_phase(dev, arch: str, model=None, params=None) -> None:
 
 
 FUSED = ("add_rms_norm", "rope_kv_write", "glu_gate", "mamba2_conv_step",
-         "mamba2_gate_norm")
+         "mamba2_gate_norm", "decode_gemm")
+
+
+def decode_gemm_per_step(cfg) -> int:
+    """``decode_gemm``'s launches in one bf16 decode step of ``cfg`` on
+    the card's kernel route (``models.common.decode_linear``): q, k, v
+    and o of each GQA attention, a Mamba2 mixer's in-projections (one
+    launch) and ``w_out``, an MLP's gate, up and down (up and down of a
+    GELU one), the products of each zamba2 shared-block application (10
+    in published Zamba2: its attention, the adapter pair, the MLP and
+    ``L_j``), and the head.  MLA, the MoE experts, RWKV-6's mixers and
+    cross-attention keep cuBLAS."""
+    mlp = 3 if cfg.mlp_kind in ("swiglu", "geglu", "geglu_erf") else 2
+    n = 1
+    for kind in cfg.blocks:
+        mixer, ffn = kind.split("+")
+        n += {"attn": 4, "swa": 4, "mamba2": 2}.get(mixer, 0)
+        n += mlp if ffn == "mlp" else 0
+    if cfg.published_hybrid:
+        n += 10 * len(cfg.hybrid_layer_ids)
+    elif cfg.shared_attn_every:
+        n += (4 + mlp) * -(-cfg.num_layers // cfg.shared_attn_every)
+    return n
 
 
 def fused_per_step(cfg) -> dict:
-    """The fused kernels' launches in one bf16 decode step of ``cfg`` on
-    the card's kernel route (``transformer.fused_decode``): a norm
-    before each mixer, cross-attention and feed-forward, and the final
-    norm; the RoPE + KV write of each standard-RoPE attention; the gate
-    of each SwiGLU / GeGLU MLP; the conv step and the gated norm of each
-    Mamba2 mixer; zamba2's shared block adds two norms, its attention and
-    its MLP per application."""
+    """The decode-route kernels' launches in one bf16 decode step of
+    ``cfg`` on the card's kernel route (``transformer.fused_decode``): a
+    norm before each mixer, cross-attention and feed-forward, and the
+    final norm; the RoPE + KV write of each standard-RoPE attention; the
+    gate of each SwiGLU / GeGLU MLP; the conv step and the gated norm of
+    each Mamba2 mixer; zamba2's shared block adds two norms, its
+    attention and its MLP per application; ``decode_gemm_per_step``
+    weight products."""
     glu = cfg.mlp_kind in ("swiglu", "geglu")
     rope = cfg.rope_kind == "standard"
     n = {"add_rms_norm": 1, "rope_kv_write": 0, "glu_gate": 0,
-         "mamba2_conv_step": 0, "mamba2_gate_norm": 0}
+         "mamba2_conv_step": 0, "mamba2_gate_norm": 0,
+         "decode_gemm": decode_gemm_per_step(cfg)}
     for kind in cfg.blocks:
         mixer, ffn = kind.split("+")
         n["add_rms_norm"] += (1 + (ffn != "none")
@@ -3736,11 +3895,16 @@ def dist_serve_leg(dev, mesh) -> dict:
     the 1 x 1 mesh (parameters and cache DTensors), counted: the ids must
     be equal and every layer's attention must have run its kernel
     through ``local_map`` (one ``swa_prefill`` per layer and prefill, one
-    ``decode_attention`` per layer and step).  Returns the mesh run's
+    ``decode_attention`` per layer and step).  The unsharded run takes
+    the decode step's route a mesh takes (``transformer.fused_decode``
+    off: the plain chains and cuBLAS's products), so the two differ only
+    by the sharding: ``decode_gemm`` sums in another order than cuBLAS,
+    and bf16 greedy ids may part on a near tie.  Returns the mesh run's
     launches."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models import sharding as sh
+    from repro_torch.models import transformer as tfm
     from repro_torch.serving.capture import launch_counts
 
     cfg = dataclasses.replace(get_config(DIST["arch"]),
@@ -3751,7 +3915,10 @@ def dist_serve_leg(dev, mesh) -> dict:
                            generator=torch.Generator(device=dev)
                            .manual_seed(5))
     ids, walls = {}, {}
+    fused_decode = tfm.fused_decode
     for name, m in (("unsharded", None), ("mesh", mesh)):
+        tfm.fused_decode = (fused_decode if m is not None
+                            else lambda cfg, x, mesh=None: False)
         model = build_model(cfg, mesh=m, device=dev)
         params = model.init(model.generator(0))
         if m is not None:
@@ -3777,8 +3944,10 @@ def dist_serve_leg(dev, mesh) -> dict:
             dtensor = sh.is_dtensor(cache["k"])
         del model, params, cache, lg
         gc_cuda()
+    tfm.fused_decode = fused_decode
     layers = cfg.num_layers
-    # under the mesh the decode step keeps its plain chains
+    # under the mesh the decode step keeps its plain chains and its
+    # products on cuBLAS
     want = {"swa_prefill": layers, "decode_attention": layers * steps,
             **dict.fromkeys(FUSED, 0)}
     same = torch.equal(ids["mesh"], ids["unsharded"])
@@ -4228,7 +4397,7 @@ def kernel_family(name: str) -> str:
     kernel by its name, cuBLAS's GEMMs, or PyTorch's own kernels."""
     for k in ("decode_attention", "swa_prefill", "add_rms_norm",
               "rope_kv_write", "glu_gate", "rwkv6_scan", "ssd_scan",
-              "mamba2_conv_step", "mamba2_gate_norm"):
+              "mamba2_conv_step", "mamba2_gate_norm", "decode_gemm"):
         if k in name:
             return k
     if any(t in name for t in ("nvjet", "gemm", "Kernel2", "splitK")):
@@ -4288,6 +4457,8 @@ def decode_graph_phase(dev, g=DECODE_GRAPH) -> dict:
     out = {"arch": cfg.name, "batch": b, "prompt": pl,
            "decode_step_device_ms": step_ms,
            "kernels_per_replay": count,
+           "split_k_reductions": sum(n for _, n, name in kernels
+                                     if "splitKreduce" in name),
            "kernels_per_layer": count / cfg.num_layers,
            "busy_ms": sum(t for t, _, _ in kernels) / 1e3,
            "by_family": {k: {"kernels": n, "device_ms": ms}
@@ -4426,7 +4597,9 @@ def main() -> int:
         libraries=json.dumps({k: str(v.relative_to(ROOT)) for k, v in libs.items()}))
     ptxas_report(ptxas)
     if args.only == "zamba2":
-        mamba2_kernel_phase(dev, torch.Generator(device=dev).manual_seed(0))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        mamba2_kernel_phase(dev, gen)
+        decode_gemm_phase(dev, gen)
         zamba2_phase(dev)
         say("done", seconds=time.perf_counter() - t_start)
         return 0

@@ -40,6 +40,7 @@ __global__ void __launch_bounds__(1024)
                         __nv_bfloat16* __restrict__ x_new, __nv_bfloat16* __restrict__ h,
                         int d, float inv_d, float eps) {
   __shared__ float part[32];
+  allow_next_grid();                         // common.cuh
   const size_t base = static_cast<size_t>(blockIdx.x) * d;
   const int runs = d / 8;
   float v[kMaxRuns][8];

@@ -62,6 +62,24 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
+// Programmatic dependent launch (PDL).  decode_gemm is launched with the
+// attribute: it may start once every block of the kernel before it in the
+// stream has called allow_next_grid() (or exited), requests its first weight
+// stages, which no kernel writes, and reads and writes nothing else before
+// wait_for_prior_grid() returns, which is when the kernel before it has
+// completed and its writes are visible.  The decode step's small fused
+// kernels call allow_next_grid() first thing and are launched without the
+// attribute, so each one's profiled time is its own.  allow_next_grid()
+// does nothing where the next kernel lacks the attribute, and
+// wait_for_prior_grid() nothing in a kernel launched without it.
+__device__ __forceinline__ void allow_next_grid() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
+}
+
+__device__ __forceinline__ void wait_for_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));

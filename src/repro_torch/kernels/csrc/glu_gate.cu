@@ -47,6 +47,7 @@ template <int kKind>
 __global__ void __launch_bounds__(kThreads)
     glu_gate_kernel(const __nv_bfloat16* __restrict__ gate, const __nv_bfloat16* __restrict__ up,
                     __nv_bfloat16* __restrict__ act, long long runs) {
+  allow_next_grid();                         // common.cuh
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= runs) return;
   float g[8], u[8], o[8];

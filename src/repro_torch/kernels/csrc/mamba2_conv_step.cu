@@ -66,6 +66,7 @@ __global__ void __launch_bounds__(kThreads)
                             __nv_bfloat16* __restrict__ xc, __nv_bfloat16* __restrict__ b_out,
                             __nv_bfloat16* __restrict__ c_out, float* __restrict__ dt,
                             float* __restrict__ a_log_out, int d_inner, int gn, int heads) {
+  allow_next_grid();                         // common.cuh
   const int row = blockIdx.y;
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const int runs_x = d_inner / 8, runs = runs_x + gn / 4;

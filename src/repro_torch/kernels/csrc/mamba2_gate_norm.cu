@@ -46,6 +46,7 @@ __global__ void __launch_bounds__(1024)
                             __nv_bfloat16* __restrict__ out, int d_inner, int group,
                             int head_dim, float inv_group, float eps) {
   __shared__ float part[32];
+  allow_next_grid();                         // common.cuh
   const int row = blockIdx.y;
   const int first = blockIdx.x * group;
   const size_t base = static_cast<size_t>(row) * d_inner;

@@ -46,6 +46,13 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
                : "r"(smem_addr(p)));
 }
 
+// two 8 x 8 b16 matrices, addressed by lanes 0..15 as ldmatrix_x4's first two
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
 // the same, each matrix transposed: the lane receives column gid, rows
 // 2 tig and 2 tig + 1 of the rows whose addresses were given
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {

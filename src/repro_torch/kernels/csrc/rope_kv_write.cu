@@ -45,6 +45,7 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ freqs, __nv_bfloat16* __restrict__ q_out,
                          __nv_bfloat16* __restrict__ ck, __nv_bfloat16* __restrict__ cv, int H,
                          int KV, int D, int S, int window) {
+  allow_next_grid();                         // common.cuh
   const int half = D / 2;
   const int nq = H * half, nk = KV * half;
   const int pair = blockIdx.x * kThreads + threadIdx.x;

@@ -81,8 +81,8 @@ from repro_torch.models import rwkv6 as rk
 from repro_torch.models import sharding as sh
 from repro_torch.models import transformer as tfm
 from repro_torch.models import zamba2 as z2
-from repro_torch.models.common import (dense_init, embed_init, linear,
-                                       rms_norm, to_dtype)
+from repro_torch.models.common import (decode_linear, dense_init,
+                                       embed_init, linear, rms_norm, to_dtype)
 
 MAX_LEARNED_POS = 32768
 
@@ -327,10 +327,12 @@ def _embed(params, cfg: ModelConfig, tokens, positions=None, mesh=None):
     return x
 
 
-def _head(params, cfg: ModelConfig, x):
-    if cfg.tie_embeddings:
-        return linear(x, params["embed"].T)
-    return linear(x, params["head"])
+def _head(params, cfg: ModelConfig, x, fused: bool = False):
+    """The logits; under ``fused`` (a decode step on
+    ``transformer.fused_decode``'s route) ``decode_linear``'s
+    ``decode_gemm``, which reads a tied embedding in place."""
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return decode_linear(x, w, fused=fused)
 
 
 def _dp_axes(mesh) -> tuple:
@@ -664,7 +666,7 @@ def decode_step(params, cache: dict, token, cfg: ModelConfig,
                                         positions, cfg.blocks[i], cfg, mesh,
                                         y, fused, lengths.get("k"))
         _, x = tfm.add_norm(x, y, params["final_norm"], cfg, fused)
-        logits = _head(params, cfg, x)
+        logits = _head(params, cfg, x, fused)
         index.add_(1)
     return logits[:, 0], cache
 

@@ -64,8 +64,9 @@ from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.rope_kv_write.ops import rope_kv_write
 from repro_torch.launch.mesh import axis_names, axis_sizes
 from repro_torch.models import sharding as sh
-from repro_torch.models.common import (apply_mrope, apply_rope, dense_init,
-                                       linear, rms_norm, softcap)
+from repro_torch.models.common import (apply_mrope, apply_rope,
+                                       decode_linear, dense_init, linear,
+                                       rms_norm, softcap)
 
 NEG_INF = -1e30
 
@@ -418,15 +419,16 @@ def attention_decode(params, x: torch.Tensor, cache: dict, cache_index,
     0`` the cache is a ring buffer and the token goes to slot
     ``cache_index % S``.  Under ``fused`` (``transformer.fused_decode``)
     standard RoPE and the cache write are the ``rope_kv_write`` kernel,
-    which reads the position from the index on the device.  ``lengths``:
+    which reads the position from the index on the device, and the
+    weight products are ``decode_linear``'s ``decode_gemm``.  ``lengths``:
     the kernel's valid rows, when the caller has them (``decode_core``).
     Under ``mesh`` the cache is a DTensor: each rank writes the rows of
     its own shard and the attention runs per rank (``decode_core``)."""
     h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     b = x.shape[0]
-    q = sh.split_last(linear(x, params["wq"]), h, d)
-    k = sh.split_last(linear(x, params["wk"]), kvh, d)
-    v = sh.split_last(linear(x, params["wv"]), kvh, d)
+    q = sh.split_last(decode_linear(x, params["wq"], fused=fused), h, d)
+    k = sh.split_last(decode_linear(x, params["wk"], fused=fused), kvh, d)
+    v = sh.split_last(decode_linear(x, params["wv"], fused=fused), kvh, d)
     ck, cv = cache["k"], cache["v"]
     if fused and cfg.rope_kind == "standard":
         index = torch.as_tensor(cache_index, dtype=torch.int32,
@@ -442,7 +444,7 @@ def attention_decode(params, x: torch.Tensor, cache: dict, cache_index,
     out = decode_core(q, ck, cv, index, cfg, window=window, mesh=mesh,
                       lengths=lengths)
     out = out.reshape(b, 1, h * d).to(x.dtype)
-    return linear(out, params["wo"]), cache
+    return decode_linear(out, params["wo"], fused=fused), cache
 
 
 def init_attention_cache(cfg: ModelConfig, batch: int, seq: int, dtype,

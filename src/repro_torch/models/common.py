@@ -13,6 +13,7 @@ import torch
 
 # the plain halves of the decode step's fused kernels, which live there
 from repro_torch.kernels.add_rms_norm.ops import rms_norm  # noqa: F401
+from repro_torch.kernels.decode_gemm.ops import decode_gemm, takes_kernel
 from repro_torch.kernels.rope_kv_write.ops import (apply_rope,  # noqa: F401
                                                    freqs_on, rope_freqs)
 
@@ -65,6 +66,21 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``preferred_element_type=f32`` then cast: f32 inputs stay f32, and
     bf16 products accumulate in f32 in PyTorch's CPU and cuBLAS GEMMs."""
     return torch.matmul(x, w)
+
+
+def decode_linear(x: torch.Tensor, *ws: torch.Tensor, fused: bool = False):
+    """``linear(x, w)`` for each weight of ``ws`` at a decode step.  On
+    ``transformer.fused_decode``'s route (``fused``: bf16 on the card, no
+    mesh) a product of at most 16 rows that the kernel takes
+    (``decode_gemm.ops.takes_kernel``) is the ``decode_gemm`` kernel,
+    every weight of ``ws`` in one launch (they read the same ``x``);
+    everything else is ``linear``.  Returns the one output, or a tuple of
+    one a weight."""
+    if fused and takes_kernel(x, ws):
+        ys = decode_gemm(x, ws)
+    else:
+        ys = [linear(x, w) for w in ws]
+    return ys[0] if len(ws) == 1 else tuple(ys)
 
 
 def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:

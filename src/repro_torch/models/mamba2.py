@@ -55,7 +55,8 @@ from repro_torch.kernels.mamba2_gate_norm.ops import (
     gated_norm, mamba2_gate_norm, mamba2_gate_norm_plain)
 from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
 from repro_torch.models import sharding as sh
-from repro_torch.models.common import dense_init, keep_in, linear
+from repro_torch.models.common import (decode_linear, dense_init, keep_in,
+                                       linear)
 
 
 def init_mamba2(gen: torch.Generator, cfg: ModelConfig, dtype):
@@ -272,11 +273,12 @@ def mamba2_decode(params, x: torch.Tensor, cfg: ModelConfig, state: dict, *,
     ``out`` as in :func:`mamba2_fwd`.  ``fused``
     (``transformer.fused_decode``'s route) runs the chains around the
     scan as the ``mamba2_conv_step`` and ``mamba2_gate_norm`` kernels,
-    else as their plain versions."""
+    else as their plain versions, and the weight products as
+    ``decode_linear``'s: the three in-projections one ``decode_gemm``
+    launch, ``w_out`` another."""
     h, p, di = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.d_inner
-    zx = linear(x, params["w_zx"])
-    dt_raw = linear(x, params["w_dt"])
-    bcin = linear(x, params["w_bc"])
+    zx, bcin, dt_raw = decode_linear(x, params["w_zx"], params["w_bc"],
+                                     params["w_dt"], fused=fused)
     conv = mamba2_conv_step if fused else mamba2_conv_step_plain
     xc, bm, cm, dt, a_log, conv_x, conv_bc = conv(
         params, zx[..., di:], bcin, dt_raw, state, cfg.ssm_groups, out)
@@ -287,8 +289,8 @@ def mamba2_decode(params, x: torch.Tensor, cfg: ModelConfig, state: dict, *,
     gate = mamba2_gate_norm if fused else mamba2_gate_norm_plain
     y = gate(y, xh, params["d_skip"], zx[..., :di], params["norm"],
              cfg.ssm_groups, cfg.norm_eps)
-    return linear(y, params["w_out"]), {"conv_x": conv_x, "conv_bc": conv_bc,
-                                        "h": h_new}
+    return decode_linear(y, params["w_out"], fused=fused), {
+        "conv_x": conv_x, "conv_bc": conv_bc, "h": h_new}
 
 
 def init_mamba2_state(cfg: ModelConfig, batch: int, dtype, device,

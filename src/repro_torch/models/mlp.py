@@ -3,14 +3,15 @@ of ``repro.models.mlp``; GELU is the tanh approximation, as there), and
 ``geglu_erf``, GeGLU with the exact erf GELU (published Zamba2's, which
 the reference does not have).  The gate of a gated kind is
 ``glu_gate_plain``, or under ``fused`` (the decode step's kernel route,
-``transformer.fused_decode``) the ``glu_gate`` kernel."""
+``transformer.fused_decode``) the ``glu_gate`` kernel, and the weight
+products there ``decode_linear``'s ``decode_gemm``."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.glu_gate.ops import glu_gate, glu_gate_plain
-from repro_torch.models.common import dense_init, linear
+from repro_torch.models.common import decode_linear, dense_init
 
 _KINDS = ("swiglu", "geglu", "geglu_erf", "gelu")
 
@@ -28,12 +29,12 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, kind: str, dtype):
 
 def mlp_fwd(params, x: torch.Tensor, kind: str, fused: bool = False
             ) -> torch.Tensor:
-    up = linear(x, params["w_up"])
+    up = decode_linear(x, params["w_up"], fused=fused)
     if kind == "gelu":
         act = F.gelu(up, approximate="tanh")
     elif kind in _KINDS:
         gate = glu_gate if fused else glu_gate_plain
-        act = gate(linear(x, params["w_gate"]), up, kind)
+        act = gate(decode_linear(x, params["w_gate"], fused=fused), up, kind)
     else:
         raise ValueError(kind)
-    return linear(act, params["w_down"])
+    return decode_linear(act, params["w_down"], fused=fused)

@@ -30,8 +30,9 @@ The prefill runs attention on ``swa_prefill`` (window = prompt) and the
 SSD on ``ssd_scan`` under ``cfg.use_pallas_prefill``; a decode step
 ``decode_attention`` and the T = 1 ``ssd_scan`` under
 ``cfg.use_pallas_decode``, and in bf16 on the card the fused
-``add_rms_norm``, ``rope_kv_write`` and ``glu_gate`` kernels and each
-Mamba2 layer's ``mamba2_conv_step`` and ``mamba2_gate_norm``
+``add_rms_norm``, ``rope_kv_write`` and ``glu_gate`` kernels, each
+Mamba2 layer's ``mamba2_conv_step`` and ``mamba2_gate_norm``, and every
+weight product of the step on ``decode_gemm``
 (``transformer.fused_decode``).  No mesh: a mesh is refused.
 
 The shared-block applications run are counted as ``shared_applications``
@@ -47,7 +48,8 @@ from repro_torch.kernels.glu_gate.ops import glu_gate, glu_gate_plain
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import dense_init, linear, rms_norm
+from repro_torch.models.common import (decode_linear, dense_init, linear,
+                                       rms_norm)
 from repro_torch.models.mlp import init_mlp
 from repro_torch.utils import counters
 
@@ -90,15 +92,18 @@ def init_extra(gen: torch.Generator, cfg: ModelConfig, params: dict, dtype,
 
 
 def _mlp(p, hyb, h, cfg: ModelConfig, fused: bool = False):
-    """``down(act(g) * u)``, ``[g | u] = W_gu h + B_j(A_j h)``."""
-    ab = linear(linear(h, hyb["adapter_a"]), hyb["adapter_b"])
+    """``down(act(g) * u)``, ``[g | u] = W_gu h + B_j(A_j h)``; under
+    ``fused`` each product is ``decode_linear``'s ``decode_gemm``."""
+    def mm(x, w):
+        return decode_linear(x, w, fused=fused)
+    ab = mm(mm(h, hyb["adapter_a"]), hyb["adapter_b"])
     f = cfg.d_ff
-    gate = linear(h, p["w_gate"]) + ab[..., :f]
-    up = linear(h, p["w_up"]) + ab[..., f:]
+    gate = mm(h, p["w_gate"]) + ab[..., :f]
+    up = mm(h, p["w_up"]) + ab[..., f:]
     act = (glu_gate if fused else glu_gate_plain)(gate.contiguous(),
                                                   up.contiguous(),
                                                   cfg.mlp_kind)
-    return linear(act, p["w_down"])
+    return mm(act, p["w_down"])
 
 
 def _block_of(params, cfg: ModelConfig, j: int):
@@ -134,7 +139,8 @@ def shared_decode(params, hyb, j: int, x, e0, cache: dict, index, positions,
     a, _ = attn.attention_decode(p["attn"], h, cache, index, positions, cfg,
                                  window=0, fused=fused, lengths=lengths)
     _, h = tfm.add_norm(a, None, p["norm2"], cfg, fused)
-    return linear(_mlp(p["mlp"], hyb, h, cfg, fused), hyb["w_out"])
+    return decode_linear(_mlp(p["mlp"], hyb, h, cfg, fused), hyb["w_out"],
+                         fused=fused)
 
 
 def forward_layers(params, x, positions, cfg: ModelConfig, run_layer):

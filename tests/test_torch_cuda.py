@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels.add_rms_norm import ops as norm
 from repro_torch.kernels.decode_attention import ops as dec
+from repro_torch.kernels.decode_gemm import ops as dgemm
 from repro_torch.kernels.glu_gate import ops as gate
 from repro_torch.kernels.mamba2_conv_step import ops as conv_step
 from repro_torch.kernels.mamba2_gate_norm import ops as gate_norm
@@ -538,7 +539,8 @@ def test_fused_kernels_refuse_f32_on_card(cuda_device):
 def test_bf16_decode_replay_counts_the_fused_kernels_on_card(cuda_device):
     """h2o-danube-1.8b's stack cut to 2 layers in bf16: the captured
     decode entry holds 2 L + 1 ``add_rms_norm``, L ``rope_kv_write``,
-    L ``glu_gate`` and L ``decode_attention`` launches, every replay adds
+    L ``glu_gate``, L ``decode_attention`` and 7 L + 1 ``decode_gemm``
+    (q, k, v, o, gate, up, down and the head) launches, every replay adds
     them, and its ids equal the eager entry's."""
     import dataclasses
 
@@ -554,7 +556,8 @@ def test_bf16_decode_replay_counts_the_fused_kernels_on_card(cuda_device):
     params = model.init(model.generator(0))
     layers, b, pl, steps = 2, 4, 32, 6
     want = {"decode_attention": layers, "add_rms_norm": 2 * layers + 1,
-            "rope_kv_write": layers, "glu_gate": layers}
+            "rope_kv_write": layers, "glu_gate": layers,
+            "decode_gemm": 7 * layers + 1}
     prompt = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (b, pl)).astype(np.int32)
     ids = {}
@@ -1418,8 +1421,9 @@ def test_zamba2_7b_replay_counts_81_of_each_mamba2_kernel_on_card(
         cuda_device):
     """Published Zamba2 at its widths in bf16, b 1: the captured decode
     entry holds 81 ``mamba2_conv_step`` and 81 ``mamba2_gate_norm``
-    launches (one a Mamba2 layer), every replay adds them, and its ids
-    equal the eager entry's."""
+    launches (one a Mamba2 layer) and 293 ``decode_gemm`` (two a Mamba2
+    layer, ten a shared application, the head), every replay adds them,
+    and its ids equal the eager entry's."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1433,8 +1437,10 @@ def test_zamba2_7b_replay_counts_81_of_each_mamba2_kernel_on_card(
     params = model.init(model.generator(0))
     b, pl, steps = 1, 32, 4
     want = {"mamba2_conv_step": cfg.num_layers,
-            "mamba2_gate_norm": cfg.num_layers}
-    assert want["mamba2_conv_step"] == 81
+            "mamba2_gate_norm": cfg.num_layers,
+            "decode_gemm": 2 * cfg.num_layers
+            + 10 * len(cfg.hybrid_layer_ids) + 1}
+    assert want["mamba2_conv_step"] == 81 and want["decode_gemm"] == 293
     prompt = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (b, pl)).astype(np.int32)
     ids = {}
@@ -1459,3 +1465,77 @@ def test_zamba2_7b_replay_counts_81_of_each_mamba2_kernel_on_card(
         ids[capture] = torch.stack(out)
         del pre_fns, dec_fns, cache
     assert torch.equal(ids[True], ids[False])
+
+
+# --------------------------------------------------------------------------
+# the decode step's weight products (decode_gemm): every product shape of
+# zamba2-7b's and h2o-danube-1.8b's decode steps, (K, (N, ...)), the tied
+# head as an (N, K) embedding read in place, and ragged edges
+# --------------------------------------------------------------------------
+DECODE_GEMM_SHAPES = {
+    "zamba2_in_proj": (3584, (14336, 256, 112), False),
+    "zamba2_w_out": (7168, (3584,), False),
+    "zamba2_qkv": (7168, (7168,), False),
+    "zamba2_gate_up": (3584, (14336,), False),
+    "zamba2_down": (14336, (3584,), False),
+    "zamba2_hybrid_out": (3584, (3584,), False),
+    "zamba2_adapter_a": (3584, (128,), False),
+    "zamba2_adapter_b": (128, (28672,), False),
+    "zamba2_head": (3584, (32000,), True),
+    "danube_q_o": (2560, (2560,), False),
+    "danube_kv": (2560, (640,), False),
+    "danube_gate_up": (2560, (6912,), False),
+    "danube_down": (6912, (2560,), False),
+    "danube_head": (2560, (32000,), False),
+    "ragged": (136, (8, 72, 200), False),
+    "ragged_split": (1032, (24,), False),
+    "ragged_head": (264, (40,), True),
+}
+
+
+def decode_gemm_operands(gen, k, ns, transposed, rows):
+    """x (rows, 1, K) and the weights at the dense init's scale; a
+    transposed weight is the (K, N) view of an (N, K) tensor."""
+    x = bf16_randn(gen, rows, 1, k)
+    ws = [bf16_randn(gen, n, k, scale=k ** -0.5).T if transposed
+          else bf16_randn(gen, k, n, scale=k ** -0.5) for n in ns]
+    return x, ws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(DECODE_GEMM_SHAPES))
+@pytest.mark.parametrize("rows", [1, 8, 16, 3])
+def test_decode_gemm_kernel_matches_plain_on_card(shape, rows, cuda_device):
+    """Each output within bf16's tolerance of the plain version (cuBLAS's
+    product), one launch for all the weights, the same bits on a second
+    call (the cluster's partial sums meet in rank order)."""
+    k, ns, transposed = DECODE_GEMM_SHAPES[shape]
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    x, ws = decode_gemm_operands(gen, k, ns, transposed, rows)
+    assert dgemm.takes_kernel(x, ws)
+    n = counters.read()["decode_gemm"]
+    got = dgemm.decode_gemm(x, ws)
+    torch.cuda.synchronize()
+    assert counters.read()["decode_gemm"] == n + 1
+    want = dgemm.decode_gemm_plain(x, ws)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.bfloat16
+        np.testing.assert_allclose(as_np(a), as_np(b), **tol("bfloat16"))
+    again = dgemm.decode_gemm(x, ws)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_decode_gemm_refuses_what_it_does_not_take_on_card(cuda_device):
+    """A CUDA tensor never falls back to the plain version: f32, 17 rows,
+    an N that is not a multiple of 8 and a transposed weight beside
+    another are refused."""
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    x, (w,) = decode_gemm_operands(gen, 256, (64,), False, 1)
+    for xx, ws in ((x.float(), [w.float()]),
+                   (bf16_randn(gen, 17, 1, 256), [w]),
+                   (x, [w[:, :60]]),
+                   (x, [w, bf16_randn(gen, 64, 256).T])):
+        with pytest.raises(ValueError, match="decode_gemm takes"):
+            dgemm.decode_gemm(xx, ws)

@@ -342,7 +342,8 @@ def test_build_targets_name_each_source_by_content():
     library, named by a hash of its source, the shared header and the
     flags, under the ignored build directory; nothing is built at
     import."""
-    assert build.SOURCES == ("add_rms_norm", "decode_attention", "glu_gate",
+    assert build.SOURCES == ("add_rms_norm", "decode_attention",
+                             "decode_gemm", "glu_gate",
                              "mamba2_conv_step", "mamba2_gate_norm",
                              "rope_kv_write", "rwkv6_scan", "ssd_scan",
                              "swa_prefill")

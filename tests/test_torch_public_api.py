@@ -60,9 +60,11 @@ NETWORK_EXPORTS = {"BandwidthTrace", "synth_4g_trace", "comm_latency"}
 KERNEL_EXPORTS = {
     "kernels": {"decode_attention", "rwkv6_scan", "ssd_scan",
                 "swa_prefill_attention", "add_rms_norm", "rope_kv_write",
-                "glu_gate", "mamba2_conv_step", "mamba2_gate_norm"},
+                "glu_gate", "mamba2_conv_step", "mamba2_gate_norm",
+                "decode_gemm"},
     "kernels.add_rms_norm": {"add_rms_norm"},
     "kernels.decode_attention": {"decode_attention"},
+    "kernels.decode_gemm": {"decode_gemm"},
     "kernels.glu_gate": {"glu_gate"},
     "kernels.mamba2_conv_step": {"mamba2_conv_step"},
     "kernels.mamba2_gate_norm": {"mamba2_gate_norm"},
